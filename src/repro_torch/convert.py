@@ -1,0 +1,47 @@
+"""Moving uint32 host arrays onto a device, and the reference's state
+across into the port.
+
+The lane rule: residues and the full-word constants are stored as
+``torch.int32`` tensors that hold the uint32 bit pattern
+(``np.uint32 -> .view(np.int32)``).  Residues are below 2^31, so their
+int32 value is the residue itself; constants such as Shoup companions
+and Barrett mu may use the top bit, and the kernels read them back as
+``uint32_t`` (the plain versions widen them with ``& 0xFFFFFFFF``).
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+
+def u32_to_tensor(a, device) -> torch.Tensor:
+    """uint32 array (or any array convertible to one) -> int32 bit-pattern
+    tensor on ``device``.  Accepts anything ``np.asarray`` reads, so the
+    reference's device arrays convert without importing their framework."""
+    arr = np.asarray(a)
+    if arr.dtype != np.uint32:
+        if arr.dtype.kind not in "iu":
+            raise TypeError(f"u32_to_tensor: integer array expected, got {arr.dtype}")
+        if arr.size and (arr.min() < 0 or arr.max() > 0xFFFFFFFF):
+            raise ValueError("u32_to_tensor: values outside the uint32 range")
+        arr = arr.astype(np.uint32)
+    return torch.from_numpy(np.ascontiguousarray(arr).view(np.int32).copy()).to(device)
+
+
+def tensor_to_u32(t: torch.Tensor) -> np.ndarray:
+    """int32 bit-pattern tensor -> uint32 numpy array on the host."""
+    if t.dtype != torch.int32:
+        raise TypeError(f"tensor_to_u32: int32 tensor expected, got {t.dtype}")
+    return t.detach().cpu().contiguous().numpy().view(np.uint32)
+
+
+def from_reference(tree, device):
+    """The reference's state, carried across: a TablePack / FourStepPack /
+    scalar-pack dict, stacked key digits, or ciphertext residue stacks —
+    any nest of dicts, lists and tuples of uint32 arrays — becomes the
+    same nest of int32 bit-pattern tensors on ``device``."""
+    if isinstance(tree, dict):
+        return {k: from_reference(v, device) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(from_reference(v, device) for v in tree)
+    return u32_to_tensor(tree, device)

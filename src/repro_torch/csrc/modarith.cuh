@@ -1,0 +1,68 @@
+// Exact u32 modular arithmetic shared by every kernel of the port.
+//
+// Same op sequence and quotient formulas as the plain versions in
+// repro_torch/core/modmath.py (and the JAX reference's u32 datapath), so a
+// kernel and its plain version agree on every representative, including
+// the lazy [0, 2q) band.  Every RNS prime is below 2^30, so 2q < 2^31 and
+// the worst intermediate a + (2q - b) stays below 4q < 2^32.
+//
+// __umulhi gives the high word of the 32x32 product in one instruction;
+// it equals the 16-bit-limb mulhi the TPU needed.
+#pragma once
+#include <cstdint>
+
+namespace modarith {
+
+// Shoup product without the final subtract: [0, 2q), == x*w mod q.
+// w < q, wp = floor(w * 2^32 / q); x may be any u32.
+__device__ __forceinline__ uint32_t shoup_lazy(uint32_t x, uint32_t w,
+                                               uint32_t wp, uint32_t q) {
+  return x * w - __umulhi(x, wp) * q;
+}
+
+__device__ __forceinline__ uint32_t shoup(uint32_t x, uint32_t w, uint32_t wp,
+                                          uint32_t q) {
+  uint32_t r = shoup_lazy(x, w, wp, q);
+  return r >= q ? r - q : r;
+}
+
+// Barrett product reduced to [0, 2q): P = a*b < 2^60, approx = P >> 29,
+// qhat = (approx * mu) >> 31 assembled from its hi/lo halves, mu =
+// floor(2^60 / q).  a, b in [0, q).
+__device__ __forceinline__ uint32_t barrett_lazy(uint32_t a, uint32_t b,
+                                                 uint32_t q, uint32_t mu) {
+  uint32_t hi = __umulhi(a, b);
+  uint32_t lo = a * b;
+  uint32_t approx = (hi << 3) | (lo >> 29);
+  uint32_t qhat = (__umulhi(approx, mu) << 1) | ((approx * mu) >> 31);
+  uint32_t r = lo - qhat * q;  // wraps; < 3q
+  uint32_t q2 = q << 1;
+  return r >= q2 ? r - q2 : r;
+}
+
+__device__ __forceinline__ uint32_t barrett(uint32_t a, uint32_t b, uint32_t q,
+                                            uint32_t mu) {
+  uint32_t r = barrett_lazy(a, b, q, mu);
+  return r >= q ? r - q : r;
+}
+
+__device__ __forceinline__ uint32_t add_mod(uint32_t a, uint32_t b, uint32_t q) {
+  uint32_t s = a + b;
+  return s >= q ? s - q : s;
+}
+
+__device__ __forceinline__ uint32_t sub_mod(uint32_t a, uint32_t b, uint32_t q) {
+  return a >= b ? a - b : a + (q - b);
+}
+
+// [0, 2q) band add/sub: q2 = 2q.
+__device__ __forceinline__ uint32_t lazy_add(uint32_t a, uint32_t b, uint32_t q2) {
+  uint32_t s = a + b;
+  return s >= q2 ? s - q2 : s;
+}
+
+__device__ __forceinline__ uint32_t lazy_sub(uint32_t a, uint32_t b, uint32_t q2) {
+  return a >= b ? a - b : a + (q2 - b);
+}
+
+}  // namespace modarith

@@ -1,0 +1,144 @@
+"""Wrappers of the NTT-bank kernels (``csrc/ntt_banks.cu``).
+
+``ntt_fwd_banks`` / ``ntt_inv_banks`` / ``twiddle_mul_banks`` replace the
+TPU kernels ``ntt_fwd_banks_pallas`` / ``ntt_inv_banks_pallas`` /
+``twiddle_mul_banks_pallas`` of the reference's ``kernels/ntt_kernel.py``.
+A CPU tensor goes to the plain version in ``kernels.ref``; a CUDA tensor
+launches the kernel on the current stream or raises.  Each wrapper checks
+device, dtype, shape and contiguity, allocates its output with
+``torch.empty`` and counts its launches in ``kernels.COUNTS``.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels import COUNTS, build, ref
+
+MAX_N = 4096          # one row pair fills the block's 32 KB ping-pong tile
+
+
+def check_tensors(where: str, device: torch.device, **tensors) -> None:
+    """Every tensor int32, contiguous and on ``device`` (a CUDA device)."""
+    if device.type != "cuda":
+        raise ValueError(f"{where}: CUDA tensors expected, got device {device}")
+    for name, t in tensors.items():
+        if t.device != device:
+            raise ValueError(f"{where}: {name} is on {t.device}, expected {device}")
+        if t.dtype != torch.int32:
+            raise ValueError(f"{where}: {name} must be int32 (uint32 bit "
+                             f"patterns), got {t.dtype}")
+        if not t.is_contiguous():
+            raise ValueError(f"{where}: {name} must be contiguous")
+
+
+def check_shape(where: str, name: str, t: torch.Tensor, shape: tuple) -> None:
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{where}: {name} has shape {tuple(t.shape)}, "
+                         f"expected {tuple(shape)}")
+
+
+def _check_geometry(where: str, x: torch.Tensor, stages: int) -> tuple[int, int, int]:
+    if x.ndim != 3:
+        raise ValueError(f"{where}: x must be (k, B, n), got {tuple(x.shape)}")
+    k, b, n = x.shape
+    if n < 2 or n > MAX_N or n & (n - 1):
+        raise ValueError(f"{where}: n={n} must be a power of two in [2, {MAX_N}]")
+    if not 0 <= stages <= n.bit_length() - 1:
+        raise ValueError(f"{where}: {stages} stages for n={n}")
+    return k, b, n
+
+
+def raise_on(where: str, rc: int) -> None:
+    if rc != 0:
+        raise RuntimeError(f"{where}: kernel launch failed with CUDA error {rc}")
+
+
+def stream() -> int:
+    return torch.cuda.current_stream().cuda_stream
+
+
+def ntt_fwd_banks(x, qs, tw, twp, psi, psip, *, negacyclic: bool,
+                  lazy: bool, reduce_out: bool):
+    """x: (k, B, n) int32, row p reduced mod qs[p]; tw/twp (k, s, n/2);
+    psi/psip (k, n).  Returns the forward transform, bitrev order."""
+    if x.device.type == "cpu":
+        return ref.ntt_fwd_banks_ref(x, qs, tw, twp, psi, psip, negacyclic,
+                                     lazy=lazy, reduce_out=reduce_out)
+    lib = build.load("ntt_banks")
+    where = "ntt_fwd_banks"
+    stages = tw.shape[1] if tw.ndim == 3 else -1
+    k, b, n = _check_geometry(where, x, stages)
+    check_tensors(where, x.device, x=x, qs=qs, tw=tw, twp=twp, psi=psi, psip=psip)
+    check_shape(where, "qs", qs, (k,))
+    for name, t in (("tw", tw), ("twp", twp)):
+        check_shape(where, name, t, (k, stages, n // 2))
+    for name, t in (("psi", psi), ("psip", psip)):
+        check_shape(where, name, t, (k, n))
+    out = torch.empty_like(x)
+    if x.numel() == 0:
+        return out
+    rc = lib.ntt_fwd_banks(x.data_ptr(), out.data_ptr(), qs.data_ptr(),
+                           tw.data_ptr(), twp.data_ptr(), psi.data_ptr(),
+                           psip.data_ptr(), k, b, n, stages, int(negacyclic),
+                           int(lazy), int(reduce_out), stream())
+    raise_on(where, rc)
+    COUNTS["ntt_fwd_banks"].launches += 1
+    return out
+
+
+def ntt_inv_banks(x, qs, ninv, ninv_p, itw, itwp, post, postp, *,
+                  negacyclic: bool, lazy: bool, reduce_out: bool):
+    """x: (k, B, n) int32 in bitrev order; itw/itwp (k, s, n/2); ninv,
+    ninv_p (k,); post/postp (k, n) psi^-i * n^-1 rows."""
+    if x.device.type == "cpu":
+        return ref.ntt_inv_banks_ref(x, qs, ninv, ninv_p, itw, itwp, post,
+                                     postp, negacyclic, lazy=lazy,
+                                     reduce_out=reduce_out)
+    lib = build.load("ntt_banks")
+    where = "ntt_inv_banks"
+    stages = itw.shape[1] if itw.ndim == 3 else -1
+    k, b, n = _check_geometry(where, x, stages)
+    check_tensors(where, x.device, x=x, qs=qs, ninv=ninv, ninv_p=ninv_p,
+                  itw=itw, itwp=itwp, post=post, postp=postp)
+    for name, t in (("qs", qs), ("ninv", ninv), ("ninv_p", ninv_p)):
+        check_shape(where, name, t, (k,))
+    for name, t in (("itw", itw), ("itwp", itwp)):
+        check_shape(where, name, t, (k, stages, n // 2))
+    for name, t in (("post", post), ("postp", postp)):
+        check_shape(where, name, t, (k, n))
+    out = torch.empty_like(x)
+    if x.numel() == 0:
+        return out
+    rc = lib.ntt_inv_banks(x.data_ptr(), out.data_ptr(), qs.data_ptr(),
+                           ninv.data_ptr(), ninv_p.data_ptr(), itw.data_ptr(),
+                           itwp.data_ptr(), post.data_ptr(), postp.data_ptr(),
+                           k, b, n, stages, int(negacyclic), int(lazy),
+                           int(reduce_out), stream())
+    raise_on(where, rc)
+    COUNTS["ntt_inv_banks"].launches += 1
+    return out
+
+
+def twiddle_mul_banks(x, qs, w, wp, *, lazy: bool):
+    """x: (k, B, n) int32 (any u32 representative); w/wp (k, n) weight
+    rows + Shoup companions; qs (k,).  out = x * w mod q per prime row."""
+    if x.device.type == "cpu":
+        return ref.twiddle_mul_banks_ref(x, qs, w, wp, lazy=lazy)
+    lib = build.load("ntt_banks")
+    where = "twiddle_mul_banks"
+    if x.ndim != 3:
+        raise ValueError(f"{where}: x must be (k, B, n), got {tuple(x.shape)}")
+    k, b, n = x.shape
+    check_tensors(where, x.device, x=x, qs=qs, w=w, wp=wp)
+    check_shape(where, "qs", qs, (k,))
+    check_shape(where, "w", w, (k, n))
+    check_shape(where, "wp", wp, (k, n))
+    out = torch.empty_like(x)
+    if x.numel() == 0:
+        return out
+    rc = lib.twiddle_mul_banks(x.data_ptr(), out.data_ptr(), qs.data_ptr(),
+                               w.data_ptr(), wp.data_ptr(), k, b, n,
+                               int(lazy), stream())
+    raise_on(where, rc)
+    COUNTS["twiddle_mul_banks"].launches += 1
+    return out
