@@ -119,6 +119,34 @@ def fourstep_split(n: int) -> tuple[int, int]:
     return n1, n // n1
 
 
+@functools.lru_cache(maxsize=None)
+def galois_coeff_tables(g: int, n: int) -> tuple[np.ndarray, np.ndarray]:
+    """Gather form of the coefficient-domain automorphism sigma_g
+    (X^t -> X^(g t mod 2n), X^n = -1): out[j] = +c[src[j]] where pos[j],
+    else -c[src[j]].  The one t reaching output j has g*t = j or j + n
+    (mod 2n): t1 = g^-1 * j mod 2n is below n on the + branch and
+    t1 - n (sign flip from X^n = -1) otherwise."""
+    ginv = pow(g, -1, 2 * n)
+    t1 = (ginv * np.arange(n, dtype=np.int64)) % (2 * n)
+    return t1 % n, t1 < n
+
+
+@functools.lru_cache(maxsize=None)
+def galois_eval_perm(g: int, n: int, natural: bool) -> np.ndarray:
+    """NTT-domain automorphism as a pure slot permutation: out = in[perm].
+
+    Slot j of a negacyclic NTT row holds the evaluation at
+    psi^(1 + 2*ord(j)), ord(j) = bitrev(j) for the single-kernel rows and
+    ord(j) = j for the ``natural`` four-step rows.  sigma_g maps the
+    evaluation at root r to the one at r^g, so perm[j] is the slot that
+    holds psi^(g*(1 + 2*ord(j)) mod 2n).  No sign corrections: in the
+    evaluation domain the automorphism is a bijection on roots, the same
+    for every prime, so the device op is one gather."""
+    order = np.arange(n, dtype=np.int64) if natural else bitrev_perm(n)
+    m = ((g * (1 + 2 * order)) % (2 * n) - 1) // 2
+    return order[m]
+
+
 def cg_twiddle_exponents(n: int) -> np.ndarray:
     """(log2 n, n/2) exponents of the Pease CG-DIT network: stage t uses
     w_t[j] = omega ** (bitrev(j mod 2^t, t) * n/2^(t+1))."""

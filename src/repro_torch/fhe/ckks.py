@@ -8,19 +8,24 @@ reference's order, so with the same seed keys and ciphertexts are the
 same integers.
 
 Supported here: encode/decode, public-key encryption, decryption,
-add/sub, multiply with relinearization, rescale, and the batched
-``multiply_many`` / ``rescale_many``.
+add/sub, multiply with relinearization, rescale, slot rotation and
+conjugation through Galois automorphisms, and the batched
+``multiply_many`` / ``rescale_many`` / ``rotate_many`` /
+``conjugate_many`` and hoisted ``rotate_hoisted``.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
+from repro_torch.core.modmath import submod
+from repro_torch.core.params import galois_coeff_tables
 from repro_torch.fhe import rns
 from repro_torch.fhe.evalplan import Ciphertext, EvalPlan, check_same_basis
 from repro_torch.fhe.rns import RnsPoly
 
-__all__ = ["Ciphertext", "CkksContext", "resolve_device"]
+__all__ = ["Ciphertext", "CkksContext", "galois_int_coeffs", "galois_poly",
+           "resolve_device"]
 
 
 def resolve_device(device=None) -> torch.device:
@@ -58,6 +63,7 @@ class CkksContext:
         s = self._secret_poly(full)
         self.pk = (e.sub(a.mul(s)), a)                    # (b, a) = (-as + e, a)
         self._relin: dict = {}
+        self._galois: dict = {}
         self._plan: EvalPlan | None = None
 
     def plan(self) -> EvalPlan:
@@ -102,6 +108,16 @@ class CkksContext:
             s = self._secret_poly(primes + (self.special,))
             self._relin[primes] = self._make_ksk(s.mul(s), primes)
         return self._relin[primes]
+
+    def galois_keys(self, g: int, primes: tuple[int, ...]):
+        """Key-switch digits from sigma_g(s) to s for a basis, drawn from
+        the context's generator once per (g, basis)."""
+        if (g, primes) not in self._galois:
+            full = primes + (self.special,)
+            sg = self._secret_poly(
+                full, coeffs=galois_int_coeffs(self._s_coeffs, g, self.n))
+            self._galois[(g, primes)] = self._make_ksk(sg, primes)
+        return self._galois[(g, primes)]
 
     # -------------------------------------------------- encode / decode
 
@@ -178,3 +194,54 @@ class CkksContext:
 
     def rescale_many(self, cts) -> list[Ciphertext]:
         return self.plan().rescale_many(cts)
+
+    def rotate(self, a: Ciphertext, r: int) -> Ciphertext:
+        """Rotate slots left by r (Galois automorphism X -> X^(5^r)), as an
+        NTT-domain gather and one key switch."""
+        return self.plan().rotate(a, r)
+
+    def conjugate(self, a: Ciphertext) -> Ciphertext:
+        return self.plan().conjugate(a)
+
+    def rotate_many(self, cts, rs) -> list[Ciphertext]:
+        """Rotate B ciphertexts by per-ciphertext amounts in one pass of
+        every kernel; the batch may mix amounts."""
+        return self.plan().rotate_many(cts, rs)
+
+    def conjugate_many(self, cts) -> list[Ciphertext]:
+        return self.plan().conjugate_many(cts)
+
+    def rotate_hoisted(self, a: Ciphertext, rs) -> list[Ciphertext]:
+        """R rotations of one ciphertext with the key-switch digit
+        decomposition paid once; bit-identical to
+        ``[self.rotate(a, r) for r in rs]``."""
+        return self.plan().rotate_hoisted(a, rs)
+
+
+# ------------------------------------------------- Galois automorphism
+#
+# Coefficient-domain forms: keygen applies galois_int_coeffs to the
+# ternary secret, and galois_poly is the oracle the NTT-domain gather is
+# held against.  No request runs them.
+
+def galois_int_coeffs(coeffs: np.ndarray, g: int, n: int) -> np.ndarray:
+    """sigma_g on integer coefficient vectors: X^t -> X^(g t mod 2n) with
+    X^n = -1 folding, as one gather and sign flip."""
+    src, pos = galois_coeff_tables(g, n)
+    c = np.asarray(coeffs)
+    return np.where(pos, c[src], -c[src])
+
+
+def galois_poly(p: RnsPoly, g: int) -> RnsPoly:
+    """sigma_g applied per residue row in the coefficient domain (one
+    gather and a modular negate over the stack), back in NTT form if the
+    input was."""
+    was_ntt = p.is_ntt
+    if was_ntt:
+        p = p.to_coeff()
+    src, pos = galois_coeff_tables(g, p.n)
+    rows = p.data[:, torch.from_numpy(src).to(p.device)].long()
+    neg = submod(torch.zeros_like(rows), rows, p._q)
+    keep = torch.from_numpy(pos).to(p.device)
+    res = RnsPoly(torch.where(keep, rows, neg).int(), p.primes, False)
+    return res.to_ntt() if was_ntt else res

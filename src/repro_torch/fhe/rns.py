@@ -148,6 +148,14 @@ class RnsPoly:
         t = basis_pack(self.primes, self.n, self.device)
         return self._like(ops.intt_banks(self.data, t), False)
 
+    def automorphism(self, idx) -> "RnsPoly":
+        """NTT-domain Galois automorphism: one gather over the stack
+        (``ops.galois_banks``); idx from ``core.params.galois_eval_perm``
+        for this ring's frequency order."""
+        if not self.is_ntt:
+            raise ValueError("RnsPoly.automorphism: NTT form expected")
+        return self._like(ops.galois_banks(self.data, idx))
+
     def drop_last(self) -> "RnsPoly":
         return RnsPoly(self.data[:-1], self.primes[:-1], self.is_ntt)
 

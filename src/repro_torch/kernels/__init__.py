@@ -14,7 +14,8 @@ from __future__ import annotations
 import dataclasses
 
 KERNELS = ("ntt_fwd_banks", "ntt_inv_banks", "twiddle_mul_banks",
-           "dyadic_inner_banks")
+           "dyadic_inner_banks", "galois_banks", "galois_banks_multi",
+           "galois_digits")
 
 
 @dataclasses.dataclass

@@ -25,7 +25,7 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
-SOURCES = ("ntt_banks", "dyadic_inner")
+SOURCES = ("ntt_banks", "dyadic_inner", "galois")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -41,6 +41,11 @@ SIGNATURES = {
     },
     "dyadic_inner": {
         "dyadic_inner_banks": [_P] * 5 + [_I, _I, _L, _I, _I, _I, _P],
+    },
+    "galois": {
+        "galois_banks": [_P] * 3 + [_I] * 3 + [_P],
+        "galois_banks_multi": [_P] * 3 + [_I] * 3 + [_P],
+        "galois_digits": [_P] * 3 + [_I] * 5 + [_P],
     },
 }
 

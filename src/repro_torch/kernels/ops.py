@@ -1,4 +1,5 @@
-"""Entry points of the NTT/dyadic compute layer over multi-prime banks.
+"""Entry points of the NTT/dyadic/Galois compute layer over multi-prime
+banks.
 
 Every function takes a TablePack / FourStepPack dict of int32 tensors
 (see ``fhe.batched``) whose per-prime rows are stacked on axis 0 — the
@@ -22,11 +23,12 @@ they sit outside the kernels in the reference too.
 from __future__ import annotations
 
 import functools
+import math
 
 import torch
 
 from repro_torch.core.params import bitrev_perm
-from repro_torch.kernels import dyadic_kernel, ntt_kernel
+from repro_torch.kernels import dyadic_kernel, galois_kernel, ntt_kernel
 
 FOURSTEP_MIN_N = 1 << 13
 
@@ -89,6 +91,49 @@ def twiddle_mul_banks(x, w, wp, qs, *, lazy: bool = False):
     input representative; ``lazy`` emits the [0, 2q) one."""
     out = ntt_kernel.twiddle_mul_banks(_as3(x), qs, w, wp, lazy=lazy)
     return out.reshape(x.shape)
+
+
+@_ct_batch_axis
+def galois_banks(x, idx):
+    """Galois automorphism in the NTT domain: out[..., j] = x[..., idx[j]].
+
+    x: (k, ..., n) int32 NTT-form residue rows; idx: (n,) int32 slot
+    permutation from ``core.params.galois_eval_perm``, the same row for
+    every prime.  This replaces the iNTT -> permute -> NTT round trip of
+    rotate/conjugate with one gather kernel.
+
+    A (B, n) ``idx`` applies gather row b to batch row b (B must equal the
+    product of x's middle dims), so one launch can mix rotation amounts
+    across a ciphertext batch; ``batch_leading=True`` reads x as a
+    (b, k, ..., n) ciphertext-batch stack as in ``ntt_banks``."""
+    if idx.ndim == 2:
+        if idx.shape != (math.prod(x.shape[1:-1]), x.shape[-1]):
+            raise ValueError(f"galois_banks: per-batch idx {tuple(idx.shape)} "
+                             f"for x {tuple(x.shape)}")
+        out = galois_kernel.galois_banks_multi(_as3(x), idx)
+    else:
+        out = galois_kernel.galois_banks(_as3(x), idx)
+    return out.reshape(x.shape)
+
+
+def galois_digits_banks(ext, idx):
+    """Galois gather over key-switch digit extensions — the hoisted-
+    rotation move: per-batch gather rows applied to a shared digit
+    decomposition instead of re-decomposing per rotation.
+
+    ext: (d, k, B, n) int32 NTT-domain digit extensions (the
+    ``fhe.batched.decompose_banks`` layout); idx: (B, n) int32 gather
+    rows, row b applied to batch column b of every digit and prime row.
+    A (d, k, 1, n) ext against a (B, n) idx with B > 1 runs in shared
+    mode: every gather row reads the one digit stack, which is never
+    replicated B-fold in device memory.  Returns (d, k, B, n)."""
+    d, k, b, n = ext.shape
+    bi = idx.shape[0]
+    shared = b == 1 and bi != 1
+    if idx.shape != (bi, n) or not (shared or bi == b):
+        raise ValueError(f"galois_digits_banks: idx {tuple(idx.shape)} for "
+                         f"ext {tuple(ext.shape)}")
+    return galois_kernel.galois_digits(ext.contiguous(), idx, shared=shared)
 
 
 _BREV: dict = {}

@@ -1,4 +1,4 @@
-"""Plain PyTorch versions of the four kernels (the ``ref.py`` contract).
+"""Plain PyTorch versions of the kernels (the ``ref.py`` contract).
 
 Same op sequence as the CUDA kernels and as the JAX reference's
 ``kernels/ref.py``, on int64 tensors that hold u32 values, so even the
@@ -108,3 +108,29 @@ def dyadic_inner_banks_ref(ext, evk, qs, mus, lazy: bool = False):
     for i in range(1, e.shape[0]):
         acc = addmod(acc, mulmod_barrett(e[i], key[i], q, mu), q)
     return acc.int()
+
+
+def galois_banks_ref(x, idx):
+    """NTT-domain Galois automorphism: a gather along the lane axis, the
+    same for every prime row.  x: (k, ..., n); idx: (n,) int32 shared by
+    every row, or (B, n) per-batch rows aligned with x's (k, B, n)
+    middle axis."""
+    if idx.ndim == 2:
+        COUNTS["galois_banks_multi"].plain_calls += 1
+        return torch.gather(x, -1, idx[None].expand(x.shape))
+    COUNTS["galois_banks"].plain_calls += 1
+    return torch.index_select(x, -1, idx)
+
+
+def galois_digits_banks_ref(x, idx):
+    """Digit-extension gather (the hoisted-rotation move): x (d, k, B, n),
+    idx (B, n) per-batch rows shared by every digit and prime row:
+    out[d, p, b, j] = x[d, p, b, idx[b, j]].  A (d, k, 1, n) x against a
+    (B, n) idx with B > 1 fans the one shared digit stack out to every
+    gather row: out[d, p, b, j] = x[d, p, 0, idx[b, j]]."""
+    COUNTS["galois_digits"].plain_calls += 1
+    if x.shape[2] == 1 and idx.shape[0] != 1:
+        d, k, _, n = x.shape
+        out = torch.index_select(x.reshape(d, k, n), -1, idx.reshape(-1))
+        return out.reshape(d, k, idx.shape[0], n)
+    return torch.gather(x, -1, idx[None, None].expand(x.shape))

@@ -1,6 +1,7 @@
 """The port's CUDA kernels against their plain PyTorch versions on the
 card, for every ring size the NTT kernels take (2^4 .. 2^12), both key
-layouts of the digit MAC, and ragged batches.  Marked ``gpu``: they
+layouts of the digit MAC, ragged batches, and the Galois gathers in both
+bit orders (shared and per-batch rows, digits shared and not).  Marked ``gpu``: they
 skip where no CUDA device is present.  On a GPU machine:
 
     PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_gpu.py
@@ -12,7 +13,8 @@ import torch
 from repro_torch import kernels as K
 from repro_torch.fhe import batched as TB
 from repro_torch.fhe import rns
-from repro_torch.kernels import dyadic_kernel, ntt_kernel, ref
+from repro_torch.core.params import galois_eval_perm
+from repro_torch.kernels import dyadic_kernel, galois_kernel, ntt_kernel, ref
 
 pytestmark = pytest.mark.gpu
 
@@ -87,3 +89,49 @@ def test_wrong_device_table_is_refused(cuda):
     x = _residues(1, primes, (2, n))
     with pytest.raises(ValueError, match="is on cpu"):
         ntt_kernel.twiddle_mul_banks(x, t["qs"].cpu(), t["psi"], t["psip"], lazy=False)
+
+
+@pytest.mark.parametrize("logn,natural", [(4, False), (10, False), (10, True),
+                                          (14, True)])
+def test_galois_banks_kernels_equal_plain(cuda, logn, natural):
+    n = 1 << logn
+    primes = rns.make_primes(n, 3)
+    gs = [pow(5, r, 2 * n) for r in (1, 2, 3)] + [2 * n - 1, 1]
+    rows = torch.from_numpy(np.stack([galois_eval_perm(g, n, natural)
+                                      for g in gs]).astype(np.int32)).cuda()
+    x = _residues(logn, primes, (len(gs), n))
+    K.reset_counts()
+    for r in range(len(gs)):
+        assert torch.equal(galois_kernel.galois_banks(x, rows[r]),
+                           ref.galois_banks_ref(x, rows[r])), ("shared", r)
+    assert torch.equal(galois_kernel.galois_banks_multi(x, rows),
+                       ref.galois_banks_ref(x, rows))
+    assert K.COUNTS["galois_banks"].launches == len(gs)
+    assert K.COUNTS["galois_banks_multi"].launches == 1
+
+
+@pytest.mark.parametrize("logn,natural", [(10, False), (14, True)])
+@pytest.mark.parametrize("R", [1, 3, 8])
+def test_galois_digits_kernel_equal_plain(cuda, logn, natural, R):
+    n = 1 << logn
+    primes = rns.make_primes(n, 4)
+    rows = torch.from_numpy(np.stack([galois_eval_perm(pow(5, r, 2 * n), n, natural)
+                                      for r in range(1, R + 1)]).astype(np.int32)).cuda()
+    x = torch.stack([_residues(10 * d + R, primes, (R, n)) for d in range(3)])
+    got = galois_kernel.galois_digits(x, rows, shared=False)
+    assert torch.equal(got, ref.galois_digits_banks_ref(x, rows))
+    one = x[:, :, :1].contiguous()
+    shared = R != 1
+    got = galois_kernel.galois_digits(one, rows, shared=shared)
+    assert got.shape == (3, len(primes), R, n)
+    assert torch.equal(got, ref.galois_digits_banks_ref(one, rows))
+    # the c0 call of the hoisted program: one "digit"
+    assert torch.equal(galois_kernel.galois_digits(one[:1], rows, shared=shared),
+                       ref.galois_digits_banks_ref(one[:1], rows))
+
+
+def test_oversized_gather_row_is_refused(cuda):
+    n = 1 << 16
+    x = torch.zeros((1, 1, n), dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="shared memory"):
+        galois_kernel.galois_banks(x, torch.zeros(n, dtype=torch.int32, device=cuda))

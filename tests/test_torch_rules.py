@@ -13,7 +13,7 @@ from repro_torch import kernels as K
 from repro_torch.fhe import batched as TB
 from repro_torch.fhe import rns
 from repro_torch.fhe.ckks import CkksContext
-from repro_torch.kernels import build, dyadic_kernel, ntt_kernel
+from repro_torch.kernels import build, dyadic_kernel, galois_kernel, ntt_kernel
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
@@ -69,6 +69,8 @@ def _wrapper_calls(device):
     x = torch.zeros((k, 2, N), dtype=torch.int32, device=device)
     ext = torch.zeros((2, k, 2, N), dtype=torch.int32, device=device)
     evk = torch.zeros((2, k, N), dtype=torch.int32, device=device)
+    row = torch.arange(N, dtype=torch.int32, device=device)
+    rows = torch.stack([row, row.flip(0)])
     flags = dict(negacyclic=True, lazy=True, reduce_out=True)
     return [
         ("ntt_fwd_banks", lambda: ntt_kernel.ntt_fwd_banks(
@@ -80,10 +82,17 @@ def _wrapper_calls(device):
             x, t["qs"], t["psi"], t["psip"], lazy=True)),
         ("dyadic_inner_banks", lambda: dyadic_kernel.dyadic_inner_banks(
             ext, evk, t["qs"], t["mu"], lazy=True)),
+        ("galois_banks", lambda: galois_kernel.galois_banks(x, row)),
+        ("galois_banks_multi", lambda: galois_kernel.galois_banks_multi(x, rows)),
+        ("galois_digits", lambda: galois_kernel.galois_digits(
+            ext[:, :, :1].contiguous(), rows, shared=True)),
     ]
 
 
-@pytest.mark.parametrize("i", range(4))
+WRAPPERS = range(len(_wrapper_calls("cpu")))
+
+
+@pytest.mark.parametrize("i", WRAPPERS)
 def test_cpu_tensor_takes_the_plain_version(i):
     name, call = _wrapper_calls("cpu")[i]
     K.reset_counts()
@@ -100,7 +109,7 @@ def no_nvcc(monkeypatch, tmp_path):
     monkeypatch.setattr(build, "_libs", {})
 
 
-@pytest.mark.parametrize("i", range(4))
+@pytest.mark.parametrize("i", WRAPPERS)
 def test_launch_without_nvcc_raises(no_nvcc, i):
     name, call = _wrapper_calls("meta")[i]
     K.reset_counts()
@@ -116,7 +125,7 @@ class _NoLaunch:
         raise AssertionError(f"{fn} reached on a tensor the kernel does not take")
 
 
-@pytest.mark.parametrize("i", range(4))
+@pytest.mark.parametrize("i", WRAPPERS)
 def test_non_cuda_tensor_is_refused_not_computed(monkeypatch, i):
     monkeypatch.setattr(build, "load", lambda name: _NoLaunch())
     name, call = _wrapper_calls("meta")[i]
@@ -135,6 +144,25 @@ def test_oversized_transform_is_refused(monkeypatch):
     with pytest.raises(ValueError, match="power of two"):
         ntt_kernel.ntt_fwd_banks(x, row[:, 0], tw, tw, row, row, negacyclic=True,
                                  lazy=True, reduce_out=True)
+
+
+@pytest.mark.parametrize("which", ["galois_banks", "galois_banks_multi",
+                                   "galois_digits"])
+def test_oversized_gather_row_is_refused(monkeypatch, which):
+    """A row longer than one block's shared memory holds is refused, never
+    computed another way."""
+    monkeypatch.setattr(build, "load", lambda name: _NoLaunch())
+    n = galois_kernel.MAX_ROW + 4
+    x = torch.zeros((1, 2, n), dtype=torch.int32, device="meta")
+    rows = torch.zeros((2, n), dtype=torch.int32, device="meta")
+    call = {"galois_banks": lambda: galois_kernel.galois_banks(x, rows[0]),
+            "galois_banks_multi": lambda: galois_kernel.galois_banks_multi(x, rows),
+            "galois_digits": lambda: galois_kernel.galois_digits(x[None], rows,
+                                                                 shared=False)}[which]
+    K.reset_counts()
+    with pytest.raises(ValueError, match="shared memory"):
+        call()
+    assert K.snapshot()[which] == {"launches": 0, "plain_calls": 0}
 
 
 def test_library_is_keyed_by_its_sources():
