@@ -29,6 +29,27 @@ Q = PRIMES[0]
 RNG = np.random.default_rng(2026)
 
 
+def _warm_reference_u16_helpers(q: int = 3329) -> None:
+    """Run the reference's 16-bit lane helpers once on uint16 scalars.
+
+    Every test process imports this module while it collects, before it
+    runs any test. JAX compiles each eager op on its first call in a
+    process, and the reference suite's u16 hypothesis sweep counts that
+    compile (about 300 ms on a CPU) against its 200 ms per-example
+    deadline, so whether it passed hung on which file its process ran
+    before it. Compiling here makes that sweep time only the arithmetic.
+    """
+    u16 = jnp.uint16
+    mu = rm.barrett_precompute(q, bits=16)
+    for x, w in ((0, 0), (2 * q - 1, q - 1)):
+        wp = rm.shoup_precompute(w, q, bits=16)
+        int(np.asarray(rm.mulmod_shoup(u16(x), u16(w), u16(wp), u16(q))))
+        int(np.asarray(rm.mulmod_barrett_lazy(u16(x), u16(w), u16(q), u16(mu))))
+
+
+_warm_reference_u16_helpers()
+
+
 def _t(a):
     """uint32 numpy -> int64 torch holding the u32 values."""
     return torch.from_numpy(np.asarray(a, dtype=np.uint32).astype(np.int64))
