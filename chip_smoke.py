@@ -29,8 +29,10 @@ Phases (any mismatch raises, so the exit code is non-zero):
   4. times     per kernel (CUDA events around a CUDA-graph replay, so the
                device time) beside its memory bound, its eager call, its
                plain version and, for the gathers, the one PyTorch call that
-               computes the same function; request latencies of both paths,
-               and a torch.profiler breakdown of one request's device time
+               computes the same function; request latencies of both paths
+               (interleaved rounds: median, quartiles, ratio to a rotate of
+               the same round), and a torch.profiler breakdown of one
+               request's device time
 
 The last line of standard output is the result:
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}};
@@ -59,6 +61,7 @@ BATCH = 8
 SLOT_TOL = 1e-2
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM memory rate (NVIDIA data sheet)
 REPS = 25                        # timing repetitions, median reported
+LAT_ROUNDS = 20                  # interleaved rounds of the request latencies
 
 ROT_AMOUNTS = tuple(range(1, BATCH + 1))
 MV_DIM = 64                      # bsgs_split(64) = (8, 8)
@@ -162,17 +165,22 @@ def graph_ms(fn, reps=REPS, inner=10) -> float:
     return statistics.median(times)
 
 
-def host_ms(fn, reps=20) -> float:
-    """Median host-clock time of ``fn`` ending in a device synchronize."""
-    fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(reps):
-        t0 = time.perf_counter()
+def interleaved_host_ms(fns: dict, rounds: int) -> dict:
+    """Host-clock times of each request ending in a device synchronize,
+    taken in turns: each round runs every request once, in order, so a
+    change of the host's speed during the run lands on all of them alike.
+    Returns {label: [ms of round 0, round 1, ...]}."""
+    for fn in fns.values():
         fn()
-        torch.cuda.synchronize()
-        times.append((time.perf_counter() - t0) * 1e3)
-    return statistics.median(times)
+    torch.cuda.synchronize()
+    times = {label: [] for label in fns}
+    for _ in range(rounds):
+        for label, fn in fns.items():
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            times[label].append((time.perf_counter() - t0) * 1e3)
+    return times
 
 
 # ------------------------------------------------------------ phase 1
@@ -607,11 +615,19 @@ def phase_times(ctx, cts, fs_pack, ks_pack, per_op, counts, errs, rot) -> list:
         (f"matvec {MV_DIM}x{MV_DIM}", lambda: linalg.matvec(rctx.plan(), M, rcts[-1]),
          len(M.baby_set) - 1 + len(M.giant_set)),
     ]
+    samples = interleaved_host_ms({label: req for label, req, _ in requests},
+                                  LAT_ROUNDS)
+    base = "rotate, B=1"
     latency = {}
     for label, req, ks in requests:
-        latency[label] = host_ms(req, reps=10)
-        log(f"[times] {label}: {latency[label]:.3f} ms, "
-            f"{ks * 1e3 / latency[label]:.1f} key switches per second")
+        t = samples[label]
+        latency[label] = med = statistics.median(t)
+        q1, _, q3 = statistics.quantiles(t, n=4)
+        ratio = statistics.median(a / b for a, b in zip(t, samples[base]))
+        log(f"[times] {label}: median {med:.3f} ms over {len(t)} interleaved "
+            f"runs (min {min(t):.3f}, quartiles {q1:.3f}-{q3:.3f}, max "
+            f"{max(t):.3f}), {ks * 1e3 / med:.1f} key switches per second, "
+            f"{ratio:.3f}x a rotate of the same round (median)")
     # profiled after every latency is taken: a profiler session leaves
     # per-launch overhead behind that would slow later timings
     for label, req, _ in requests:

@@ -23,7 +23,8 @@
 // block stages its n-word row in dynamic shared memory with coalesced
 // 16-byte loads, then writes out[j] = s[idx[j]] with coalesced 16-byte
 // index reads and output writes; the random access stays inside shared
-// memory.  In the shared (hoisted) mode the block stages its (digit,
+// memory.  Rows therefore move only as uint4/int4: n must be a multiple
+// of 4 and every pointer 16-byte aligned, else the launch is refused.  In the shared (hoisted) mode the block stages its (digit,
 // prime) row once and writes all B gathered rows from it, so the shared
 // decomposition is never replicated B-fold in device memory.  An index
 // outside [0, n) is a caller error; the kernel writes 0xFFFFFFFF there
@@ -46,24 +47,17 @@ __device__ __forceinline__ uint32_t pick(const uint32_t* s, int32_t i, int n) {
 
 __device__ __forceinline__ void gather_row(const uint32_t* s,
                                            const int32_t* __restrict__ idx,
-                                           uint32_t* __restrict__ dst, int n,
-                                           bool vec) {
-  if (vec) {
-    const int4* idx4 = reinterpret_cast<const int4*>(idx);
-    uint4* dst4 = reinterpret_cast<uint4*>(dst);
-    for (int j = threadIdx.x; j < n / 4; j += blockDim.x) {
-      const int4 i = idx4[j];
-      dst4[j] = make_uint4(pick(s, i.x, n), pick(s, i.y, n), pick(s, i.z, n),
-                           pick(s, i.w, n));
-    }
-  } else {
-    for (int j = threadIdx.x; j < n; j += blockDim.x) dst[j] = pick(s, idx[j], n);
+                                           uint32_t* __restrict__ dst, int n) {
+  const int4* idx4 = reinterpret_cast<const int4*>(idx);
+  uint4* dst4 = reinterpret_cast<uint4*>(dst);
+  for (int j = threadIdx.x; j < n / 4; j += blockDim.x) {
+    const int4 i = idx4[j];
+    dst4[j] = make_uint4(pick(s, i.x, n), pick(s, i.y, n), pick(s, i.z, n),
+                         pick(s, i.w, n));
   }
 }
 
 // grid.x = number of source rows.  Source row r is x[r*n .. r*n + n).
-// ``vec``: n is a multiple of 4 and every pointer 16-byte aligned, so
-// rows move as uint4/int4.
 //   kSharedIdx: out row r, idx row 0
 //   kPerRowIdx: out row r, idx row (r % batch)
 //   kFanOut:    out rows r*batch + b for every b < batch, idx row b
@@ -71,25 +65,19 @@ template <int kMode>
 __global__ void __launch_bounds__(kThreads)
 galois_gather_kernel(const uint32_t* __restrict__ x,
                      const int32_t* __restrict__ idx,
-                     uint32_t* __restrict__ out, int n, int batch, bool vec) {
+                     uint32_t* __restrict__ out, int n, int batch) {
   extern __shared__ uint4 smem[];
   uint32_t* s = reinterpret_cast<uint32_t*>(smem);
   const long long r = blockIdx.x;
-  const uint32_t* src = x + r * n;
-  if (vec) {
-    const uint4* src4 = reinterpret_cast<const uint4*>(src);
-    uint4* s4 = reinterpret_cast<uint4*>(s);
-    for (int j = threadIdx.x; j < n / 4; j += blockDim.x) s4[j] = src4[j];
-  } else {
-    for (int j = threadIdx.x; j < n; j += blockDim.x) s[j] = src[j];
-  }
+  const uint4* src4 = reinterpret_cast<const uint4*>(x + r * n);
+  for (int j = threadIdx.x; j < n / 4; j += blockDim.x) smem[j] = src4[j];
   __syncthreads();
   if (kMode == kFanOut) {
     for (int b = 0; b < batch; ++b)
-      gather_row(s, idx + (long long)b * n, out + (r * batch + b) * n, n, vec);
+      gather_row(s, idx + (long long)b * n, out + (r * batch + b) * n, n);
   } else {
     const long long irow = kMode == kPerRowIdx ? r % batch : 0;
-    gather_row(s, idx + irow * n, out + r * n, n, vec);
+    gather_row(s, idx + irow * n, out + r * n, n);
   }
 }
 
@@ -97,6 +85,11 @@ template <int kMode>
 int launch(const void* x, const void* idx, void* out, long long rows, int n,
            int batch, void* stream) {
   if (rows <= 0 || n <= 0) return (int)cudaGetLastError();
+  auto aligned = [](const void* p) {
+    return reinterpret_cast<uintptr_t>(p) % 16 == 0;
+  };
+  if (n % 4 != 0 || !aligned(x) || !aligned(idx) || !aligned(out))
+    return (int)cudaErrorInvalidValue;
   const int smem = n * (int)sizeof(uint32_t);
   if (smem > kMaxSmemBytes) return (int)cudaErrorInvalidValue;
   if (smem > 48 * 1024) {
@@ -106,22 +99,19 @@ int launch(const void* x, const void* idx, void* out, long long rows, int n,
         smem);
     if (e != cudaSuccess) return (int)e;
   }
-  auto aligned = [](const void* p) {
-    return reinterpret_cast<uintptr_t>(p) % 16 == 0;
-  };
-  const bool vec = n % 4 == 0 && aligned(x) && aligned(idx) && aligned(out);
   galois_gather_kernel<kMode><<<(unsigned)rows, kThreads, smem,
                                 static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint32_t*>(x), static_cast<const int32_t*>(idx),
-      static_cast<uint32_t*>(out), n, batch, vec);
+      static_cast<uint32_t*>(out), n, batch);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
 // Shapes are checked by the Python wrappers: every tensor contiguous,
-// words uint32 (int32 bit patterns), idx int32, n * 4 bytes within one
-// block's shared memory.  Every launcher returns cudaGetLastError() of
+// words uint32 (int32 bit patterns), idx int32, n a multiple of 4 with
+// n * 4 bytes within one block's shared memory, every pointer 16-byte
+// aligned.  Every launcher returns cudaGetLastError() of
 // its launch (or the error of configuring the kernel); the wrapper raises
 // on a non-zero code.
 

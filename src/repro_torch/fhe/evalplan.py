@@ -340,8 +340,7 @@ class EvalPlan:
         return pow(5, r, 2 * self.n)
 
     def prepare(self, basis: tuple[int, ...] | None = None, rotations=(),
-                conjugate: bool = False, relin: bool = True, hoisted_sets=(),
-                matvecs=()):
+                conjugate: bool = False, hoisted_sets=(), matvecs=()):
         """Build every table, key and gather row a serving loop will need,
         so no request pays keygen or table construction.  ``rotations``
         and ``conjugate`` name the single and batched rotations to key,
@@ -353,8 +352,7 @@ class EvalPlan:
         basis = tuple(basis if basis is not None else self.ctx.qs)
         self.keyswitch_tables(basis)
         self.rescale_tables(basis)
-        if relin:
-            self.relin_key(basis)
+        self.relin_key(basis)
         gs = [g for g in (self.rotation_group_element(r) for r in rotations)
               if g != 1]
         if conjugate:

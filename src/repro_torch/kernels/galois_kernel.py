@@ -7,8 +7,10 @@ the NTT-domain automorphism as a lane gather, with one shared index row,
 one per batch element, or one per batch element applied to every digit
 of a key-switch decomposition.  A CPU tensor goes to the plain version in
 ``kernels.ref``; a CUDA tensor launches the kernel or raises.  The block
-stages one source row in shared memory, so a row longer than a block's
-shared memory holds is refused with ``ValueError``.
+stages one source row in shared memory and moves rows as 16-byte
+vectors, so a row longer than a block's shared memory holds, a row
+length that is not a multiple of 4 and a tensor not 16-byte aligned are
+refused with ``ValueError``.
 """
 from __future__ import annotations
 
@@ -25,56 +27,54 @@ def _check_row(where: str, n: int, rows: int) -> None:
     if n > MAX_ROW:
         raise ValueError(f"{where}: a row of n={n} words exceeds the {MAX_ROW} "
                          "words one block's shared memory holds")
+    if n % 4:
+        raise ValueError(f"{where}: rows move as 16-byte vectors, so n={n} "
+                         "must be a multiple of 4")
     if rows >= 1 << 31:
         raise ValueError(f"{where}: {rows} rows exceed one launch's grid")
 
 
-def _check_3d(where: str, x) -> tuple[int, int, int]:
+def check_aligned(where: str, **tensors) -> None:
+    """Every tensor's data starts on a 16-byte boundary (the kernel moves
+    rows as uint4/int4)."""
+    for name, t in tensors.items():
+        if t.data_ptr() % 16:
+            raise ValueError(f"{where}: {name} must start on a 16-byte boundary")
+
+
+def _banks(where: str, x, idx, idx_shape):
+    """The gather of ``galois_banks`` / ``galois_banks_multi``: launcher
+    ``where`` on x (k, B, n) with an idx of ``idx_shape(b, n)``."""
+    if x.device.type == "cpu":
+        return ref.galois_banks_ref(x, idx)
+    lib = build.load("galois")
     if x.ndim != 3:
         raise ValueError(f"{where}: x must be (k, B, n), got {tuple(x.shape)}")
-    return tuple(x.shape)
+    k, b, n = x.shape
+    _check_row(where, n, k * b)
+    check_tensors(where, x.device, x=x, idx=idx)
+    check_shape(where, "idx", idx, idx_shape(b, n))
+    check_aligned(where, x=x, idx=idx)
+    out = torch.empty_like(x)
+    if x.numel() == 0:
+        return out
+    rc = getattr(lib, where)(x.data_ptr(), idx.data_ptr(), out.data_ptr(), k, b,
+                             n, stream())
+    raise_on(where, rc)
+    COUNTS[where].launches += 1
+    return out
 
 
 def galois_banks(x, idx):
     """x: (k, B, n) int32; idx: (n,) int32 gather row shared by every
     (prime, batch) row.  out[p, b, j] = x[p, b, idx[j]]."""
-    if x.device.type == "cpu":
-        return ref.galois_banks_ref(x, idx)
-    lib = build.load("galois")
-    where = "galois_banks"
-    k, b, n = _check_3d(where, x)
-    _check_row(where, n, k * b)
-    check_tensors(where, x.device, x=x, idx=idx)
-    check_shape(where, "idx", idx, (n,))
-    out = torch.empty_like(x)
-    if x.numel() == 0:
-        return out
-    rc = lib.galois_banks(x.data_ptr(), idx.data_ptr(), out.data_ptr(), k, b, n,
-                          stream())
-    raise_on(where, rc)
-    COUNTS["galois_banks"].launches += 1
-    return out
+    return _banks("galois_banks", x, idx, lambda b, n: (n,))
 
 
 def galois_banks_multi(x, idx):
     """x: (k, B, n) int32; idx: (B, n) int32, row b applied to batch row b
     of every prime.  out[p, b, j] = x[p, b, idx[b, j]]."""
-    if x.device.type == "cpu":
-        return ref.galois_banks_ref(x, idx)
-    lib = build.load("galois")
-    where = "galois_banks_multi"
-    k, b, n = _check_3d(where, x)
-    _check_row(where, n, k * b)
-    check_tensors(where, x.device, x=x, idx=idx)
-    check_shape(where, "idx", idx, (b, n))
-    out = torch.empty_like(x)
-    if x.numel() == 0:
-        return out
-    rc = lib.galois_banks_multi(x.data_ptr(), idx.data_ptr(), out.data_ptr(), k,
-                                b, n, stream())
-    raise_on(where, rc)
-    COUNTS["galois_banks_multi"].launches += 1
-    return out
+    return _banks("galois_banks_multi", x, idx, lambda b, n: (b, n))
 
 
 def galois_digits(x, idx, *, shared: bool):
@@ -96,6 +96,7 @@ def galois_digits(x, idx, *, shared: bool):
     check_tensors(where, x.device, x=x, idx=idx)
     check_shape(where, "x", x, (d, k, 1 if shared else bi, n))
     check_shape(where, "idx", idx, (bi, n))
+    check_aligned(where, x=x, idx=idx)
     out = torch.empty((d, k, bi, n), dtype=torch.int32, device=x.device)
     if out.numel() == 0:
         return out

@@ -135,3 +135,11 @@ def test_oversized_gather_row_is_refused(cuda):
     x = torch.zeros((1, 1, n), dtype=torch.int32, device=cuda)
     with pytest.raises(ValueError, match="shared memory"):
         galois_kernel.galois_banks(x, torch.zeros(n, dtype=torch.int32, device=cuda))
+
+
+def test_unaligned_gather_row_is_refused(cuda):
+    n = 64
+    words = torch.zeros(2 * n + 1, dtype=torch.int32, device=cuda)
+    x = words[1:n + 1].view(1, 1, n)
+    with pytest.raises(ValueError, match="16-byte boundary"):
+        galois_kernel.galois_banks(x, torch.arange(n, dtype=torch.int32, device=cuda))

@@ -146,23 +146,46 @@ def test_oversized_transform_is_refused(monkeypatch):
                                  lazy=True, reduce_out=True)
 
 
-@pytest.mark.parametrize("which", ["galois_banks", "galois_banks_multi",
-                                   "galois_digits"])
+GATHERS = ["galois_banks", "galois_banks_multi", "galois_digits"]
+
+
+def _gather_call(which, n):
+    x = torch.zeros((1, 2, n), dtype=torch.int32, device="meta")
+    rows = torch.zeros((2, n), dtype=torch.int32, device="meta")
+    return {"galois_banks": lambda: galois_kernel.galois_banks(x, rows[0]),
+            "galois_banks_multi": lambda: galois_kernel.galois_banks_multi(x, rows),
+            "galois_digits": lambda: galois_kernel.galois_digits(x[None], rows,
+                                                                 shared=False)}[which]
+
+
+@pytest.mark.parametrize("which", GATHERS)
 def test_oversized_gather_row_is_refused(monkeypatch, which):
     """A row longer than one block's shared memory holds is refused, never
     computed another way."""
     monkeypatch.setattr(build, "load", lambda name: _NoLaunch())
-    n = galois_kernel.MAX_ROW + 4
-    x = torch.zeros((1, 2, n), dtype=torch.int32, device="meta")
-    rows = torch.zeros((2, n), dtype=torch.int32, device="meta")
-    call = {"galois_banks": lambda: galois_kernel.galois_banks(x, rows[0]),
-            "galois_banks_multi": lambda: galois_kernel.galois_banks_multi(x, rows),
-            "galois_digits": lambda: galois_kernel.galois_digits(x[None], rows,
-                                                                 shared=False)}[which]
+    call = _gather_call(which, galois_kernel.MAX_ROW + 4)
     K.reset_counts()
     with pytest.raises(ValueError, match="shared memory"):
         call()
     assert K.snapshot()[which] == {"launches": 0, "plain_calls": 0}
+
+
+@pytest.mark.parametrize("which", GATHERS)
+def test_gather_row_not_a_multiple_of_4_is_refused(monkeypatch, which):
+    """The kernel moves rows only as 16-byte vectors."""
+    monkeypatch.setattr(build, "load", lambda name: _NoLaunch())
+    call = _gather_call(which, 18)
+    K.reset_counts()
+    with pytest.raises(ValueError, match="multiple of 4"):
+        call()
+    assert K.snapshot()[which] == {"launches": 0, "plain_calls": 0}
+
+
+def test_unaligned_gather_tensor_is_refused():
+    words = torch.zeros(20, dtype=torch.int32)
+    galois_kernel.check_aligned("w", x=words[4:])
+    with pytest.raises(ValueError, match="16-byte boundary"):
+        galois_kernel.check_aligned("w", x=words[4:], idx=words[1:17])
 
 
 def test_library_is_keyed_by_its_sources():
