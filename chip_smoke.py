@@ -26,13 +26,27 @@ Phases (any mismatch raises, so the exit code is non-zero):
                sliding sum), bit-identity with the same traffic on the CPU,
                and that every kernel of the path launched and no plain
                version ran
+  3c. mlkem    ML-KEM-768 (FIPS 203) on the u16 lane: the two u16 NTT
+               instantiations and the basecase product held bit for bit
+               against their plain versions at every shape of the b = 1 and
+               b = 256 paths and at an odd batch; the 4 in-repo KAT vectors
+               (ek, dk, ct, K, implicit rejection) on the card; a b = 256
+               keygen -> encaps -> decaps round from the seed with equal
+               shared keys and the rejection key for tampered ciphertexts;
+               every byte equal to the same requests on device="cpu"; each
+               of the three kernels launched, no plain version ran, and the
+               launches per entry point are the module's
   4. times     per kernel (CUDA events around a CUDA-graph replay, so the
                device time) beside its memory bound, its eager call, its
                plain version and, for the gathers, the one PyTorch call that
-               computes the same function; request latencies of both paths
-               (interleaved rounds: median, quartiles, ratio to a rotate of
-               the same round), and a torch.profiler breakdown of one
-               request's device time
+               computes the same function; request latencies of the CKKS
+               paths (interleaved rounds: median, quartiles, ratio to a
+               rotate of the same round) and of keygen, encaps and decaps at
+               b = 1 and b = 256 (interleaved rounds, handshakes per
+               second), and a torch.profiler breakdown of one request's
+               device time (one decaps at b = 256 among them)
+
+    python3 chip_smoke.py --seed N     # another seed for every phase
 
 The last line of standard output is the result:
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}};
@@ -41,6 +55,8 @@ the port only.
 """
 from __future__ import annotations
 
+import argparse
+import hashlib
 import json
 import os
 import statistics
@@ -66,6 +82,10 @@ LAT_ROUNDS = 20                  # interleaved rounds of the request latencies
 ROT_AMOUNTS = tuple(range(1, BATCH + 1))
 MV_DIM = 64                      # bsgs_split(64) = (8, 8)
 
+MLKEM_B = 256                    # a batch of handshakes (b = 1 for latency)
+MLKEM_ODD_B = 5
+KAT_PATH = os.path.join(ROOT, "tests", "vectors", "mlkem768_kat.json")
+
 REPLACES = {
     "ntt_fwd_banks": "src/repro/kernels/ntt_kernel.py:306",
     "ntt_inv_banks": "src/repro/kernels/ntt_kernel.py:320",
@@ -74,6 +94,9 @@ REPLACES = {
     "galois_banks": "src/repro/kernels/galois_kernel.py:50",
     "galois_banks_multi": "src/repro/kernels/galois_kernel.py:73",
     "galois_digits": "src/repro/kernels/galois_kernel.py:110",
+    "ntt_fwd_banks_u16": "src/repro/kernels/ntt_kernel.py:306",
+    "ntt_inv_banks_u16": "src/repro/kernels/ntt_kernel.py:320",
+    "dyadic_basemul_banks": "src/repro/kernels/dyadic_kernel.py:251",
 }
 SOURCE = {
     "ntt_fwd_banks": "src/repro_torch/csrc/ntt_banks.cu",
@@ -83,18 +106,29 @@ SOURCE = {
     "galois_banks": "src/repro_torch/csrc/galois.cu",
     "galois_banks_multi": "src/repro_torch/csrc/galois.cu",
     "galois_digits": "src/repro_torch/csrc/galois.cu",
+    "ntt_fwd_banks_u16": "src/repro_torch/csrc/ntt_banks.cu",
+    "ntt_inv_banks_u16": "src/repro_torch/csrc/ntt_banks.cu",
+    "dyadic_basemul_banks": "src/repro_torch/csrc/dyadic_basemul.cu",
 }
+MLKEM_KERNELS = ("ntt_fwd_banks_u16", "ntt_inv_banks_u16", "dyadic_basemul_banks")
 # the kernels each path must launch: multiply -> rescale runs the key
-# switch; the rotation path runs the key switch and all three gathers
+# switch; the rotation path runs the key switch and all three gathers;
+# ML-KEM runs the u16 transforms and the basecase product
 PATH_KERNELS = {
     "multiply": ("ntt_fwd_banks", "ntt_inv_banks", "twiddle_mul_banks",
                  "dyadic_inner_banks"),
-    "rotation": tuple(SOURCE),
+    "rotation": ("ntt_fwd_banks", "ntt_inv_banks", "twiddle_mul_banks",
+                 "dyadic_inner_banks", "galois_banks", "galois_banks_multi",
+                 "galois_digits"),
+    "mlkem": MLKEM_KERNELS,
 }
+# launches per ML-KEM entry point at any batch: (u16 forward NTTs, u16
+# inverse NTTs, basecase products), as pq/mlkem.py issues them
+MLKEM_LAUNCHES = {"keygen": (1, 0, 1), "encaps": (1, 2, 2), "decaps": (2, 3, 3)}
 # device function names of the port's kernels, as the profiler sees them
 DEVICE_FUNCTIONS = ("ntt_fwd_banks_kernel", "ntt_inv_banks_kernel",
                     "twiddle_mul_banks_kernel", "dyadic_inner_banks_kernel",
-                    "galois_gather_kernel")
+                    "galois_gather_kernel", "dyadic_basemul_banks_kernel")
 
 
 def log(msg: str) -> None:
@@ -506,6 +540,249 @@ def phase_rotation_cpu_parity(cuda_cts, cuda_ans) -> None:
         f"{len(ans)} answers ({time.perf_counter() - t0:.1f} s on the CPU)")
 
 
+# ----------------------------------------------------------- phase 3c
+
+def mlkem_pack():
+    from repro_torch.pq import mlkem
+    return mlkem._pack(torch.device("cuda"))
+
+
+def mlkem_path_rows(b: int) -> dict:
+    """Rows (the B of (1, B, 256)) each ML-KEM kernel sees at batch b:
+    keygen's 6b-row forward NTT and 9b-row basecase product, the 3b-row
+    transforms and products of encrypt/decrypt, the b-row inverse of v."""
+    return {"ntt_fwd_banks_u16": (6 * b, 3 * b),
+            "ntt_inv_banks_u16": (3 * b, b),
+            "dyadic_basemul_banks": (9 * b, 3 * b)}
+
+
+def ring_rows(rng, rows: int, band: int = 1) -> torch.Tensor:
+    from repro_torch.pq import mlkem
+    x = rng.integers(0, band * mlkem.Q, (1, rows, mlkem.N), dtype=np.int64)
+    return torch.from_numpy(x.astype(np.int16)).cuda()
+
+
+def phase_mlkem_kernels() -> dict:
+    """The u16 transforms (lazy and eager, reduce_out both ways) and the
+    basecase product (lazy and eager) against their plain versions at
+    every shape of the b = 1 and b = 256 paths and at an odd batch."""
+    from repro_torch.kernels import dyadic_kernel, ntt_kernel, ref
+    rng = np.random.default_rng(SEED + 5)
+    t = mlkem_pack()
+    fargs = (t["qs"], t["tw"], t["twp"], t["psi"], t["psip"])
+    iargs = (t["qs"], t["ninv"], t["ninv_p"], t["itw"], t["itwp"], t["ipsin"], t["ipsinp"])
+    gargs = (t["qs"], t["mu"], t["gamma"], t["gammap"])
+    err = {}
+
+    def check(name, got, want, what):
+        torch.cuda.synchronize()
+        e = max_abs_err(got, want)
+        err[name] = max(err.get(name, 0), e)
+        if not torch.equal(got, want):
+            raise AssertionError(f"{name} {what}: kernel != plain version "
+                                 f"(max abs err {e})")
+
+    shapes = {name: sorted(set(mlkem_path_rows(1)[name] + mlkem_path_rows(MLKEM_B)[name]
+                               + (MLKEM_ODD_B,)))
+              for name in MLKEM_KERNELS}
+    for lazy in (False, True):
+        for rows in shapes["ntt_fwd_banks_u16"]:
+            x = ring_rows(rng, rows)
+            for reduce_out in (False, True):
+                kw = dict(negacyclic=False, lazy=lazy, reduce_out=reduce_out)
+                check("ntt_fwd_banks_u16", ntt_kernel.ntt_fwd_banks(x, *fargs, **kw),
+                      ref.ntt_fwd_banks_ref(x, *fargs, **kw), f"B={rows} {kw}")
+        for rows in shapes["ntt_inv_banks_u16"]:
+            x = ring_rows(rng, rows, band=2 if lazy else 1)
+            for reduce_out in (False, True):
+                kw = dict(negacyclic=False, lazy=lazy, reduce_out=reduce_out)
+                check("ntt_inv_banks_u16", ntt_kernel.ntt_inv_banks(x, *iargs, **kw),
+                      ref.ntt_inv_banks_ref(x, *iargs, **kw), f"B={rows} {kw}")
+        for rows in shapes["dyadic_basemul_banks"]:
+            a, b = ring_rows(rng, rows), ring_rows(rng, rows)
+            check("dyadic_basemul_banks",
+                  dyadic_kernel.dyadic_basemul_banks(a, b, *gargs, lazy=lazy),
+                  ref.dyadic_basemul_banks_ref(a, b, *gargs, lazy=lazy),
+                  f"B={rows} lazy={lazy}")
+    for name, e in err.items():
+        log(f"[mlkem kernels] {name} at B in {shapes[name]}: bit-identical to its "
+            f"plain version (max abs err {e})")
+    return err
+
+
+def kat_vectors() -> dict:
+    with open(KAT_PATH) as f:
+        vs = json.load(f)["vectors"]
+    return {key: np.stack([np.frombuffer(bytes.fromhex(v[key]), np.uint8) for v in vs])
+            for key in vs[0]}
+
+
+def rejection_keys(dk: np.ndarray, ct: np.ndarray) -> np.ndarray:
+    """FIPS 203's implicit-rejection key J(z || ct), from hashlib alone."""
+    return np.stack([np.frombuffer(hashlib.shake_256(
+        dk[i, -32:].tobytes() + ct[i].tobytes()).digest(32), np.uint8)
+        for i in range(len(dk))])
+
+
+def mlkem_inputs(b: int):
+    """Seeds d, z and message randomness m, (b, 32) bytes each."""
+    rng = np.random.default_rng(SEED + 6 + b)
+    d, z, m = (rng.integers(0, 256, (b, 32), dtype=np.uint8) for _ in range(3))
+    return d, z, m
+
+
+def run_mlkem_round(d, z, m, device=None) -> dict:
+    """keygen -> encaps -> decaps at batch b, and decaps of a tampered
+    copy of every ciphertext (byte 17, bit 0 flipped)."""
+    from repro_torch.pq import mlkem
+    ek, dk = mlkem.keygen_batch(d, z, device=device)
+    key, ct = mlkem.encaps_batch(ek, m, device=device)
+    back = mlkem.decaps_batch(dk, ct, device=device)
+    bad = ct.copy()
+    bad[:, 17] ^= 0x01
+    rej = mlkem.decaps_batch(dk, bad, device=device)
+    return {"ek": ek, "dk": dk, "K": key, "ct": ct, "decaps": back, "bad": bad,
+            "reject": rej}
+
+
+def phase_mlkem() -> tuple:
+    from repro_torch import kernels as K
+    from repro_torch.pq import mlkem
+    kat = kat_vectors()
+    ek, dk = mlkem.keygen_batch(kat["d"], kat["z"])
+    key, ct = mlkem.encaps_batch(kat["ek"], kat["m"])
+    back = mlkem.decaps_batch(kat["dk"], kat["ct"])
+    bad = kat["ct"].copy()
+    bad[:, 17] ^= 0x01
+    rej = mlkem.decaps_batch(kat["dk"], bad)
+    for what, got, want in (("ek", ek, kat["ek"]), ("dk", dk, kat["dk"]),
+                            ("K", key, kat["K"]), ("ct", ct, kat["ct"]),
+                            ("decaps K", back, kat["K"]),
+                            ("rejection K", rej, kat["K_reject_flip_ct_byte17_bit0"])):
+        if not np.array_equal(got, want):
+            raise AssertionError(f"ML-KEM KAT: {what} differs on the card")
+    log(f"[mlkem] {len(kat['d'])} KAT vectors on the card: ek, dk, ct, K and the "
+        "implicit-rejection key byte for byte")
+
+    d, z, m = mlkem_inputs(MLKEM_B)
+    K.reset_counts()
+    t0 = time.perf_counter()
+    out = run_mlkem_round(d, z, m)
+    torch.cuda.synchronize()
+    counts = K.snapshot()
+    log(f"[mlkem] cuda round at b={MLKEM_B}: {time.perf_counter() - t0:.2f} s, counts "
+        f"{ {k: v for k, v in counts.items() if v['launches'] or v['plain_calls']} }")
+    check_counts("mlkem", counts)
+    shapes = {"ek": (MLKEM_B, mlkem.EK_BYTES), "dk": (MLKEM_B, mlkem.DK_BYTES),
+              "K": (MLKEM_B, 32), "ct": (MLKEM_B, mlkem.CT_BYTES)}
+    for name, shape in shapes.items():
+        if out[name].shape != shape or out[name].dtype != np.uint8:
+            raise AssertionError(f"ML-KEM {name}: {out[name].dtype} {out[name].shape}, "
+                                 f"expected uint8 {shape}")
+    if not np.array_equal(out["decaps"], out["K"]):
+        raise AssertionError("ML-KEM: decaps key != encaps key")
+    want = rejection_keys(out["dk"], out["bad"])
+    if not np.array_equal(out["reject"], want) or np.array_equal(want, out["K"]):
+        raise AssertionError("ML-KEM: a tampered ciphertext did not give J(z || ct)")
+    log(f"[mlkem] {MLKEM_B} handshakes: decaps == encaps keys, {MLKEM_B} tampered "
+        "ciphertexts gave the rejection key J(z || ct)")
+
+    per_op = {}
+    for op, run in (("keygen", lambda: mlkem.keygen_batch(d, z)),
+                    ("encaps", lambda: mlkem.encaps_batch(out["ek"], m)),
+                    ("decaps", lambda: mlkem.decaps_batch(out["dk"], out["ct"]))):
+        K.reset_counts()
+        run()
+        torch.cuda.synchronize()
+        c = K.snapshot()
+        per_op[op] = {k: v["launches"] for k, v in c.items() if v["launches"]}
+        got = tuple(c[k]["launches"] for k in MLKEM_KERNELS)
+        if got != MLKEM_LAUNCHES[op] or any(v["plain_calls"] for v in c.values()):
+            raise AssertionError(f"ML-KEM {op}: launches {got}, expected "
+                                 f"{MLKEM_LAUNCHES[op]}, and no plain call")
+        log(f"[mlkem] launches per {op}: {per_op[op]}")
+    return (d, z, m), out, counts, per_op
+
+
+def phase_mlkem_cpu_parity(inputs, cuda_out) -> None:
+    t0 = time.perf_counter()
+    out = run_mlkem_round(*inputs, device="cpu")
+    for name, want in out.items():
+        if not np.array_equal(cuda_out[name], want):
+            raise AssertionError(f"ML-KEM {name}: cuda run != cpu run")
+    log(f"[mlkem parity] cuda == cpu byte for byte: ek, dk, K, ct, decaps and "
+        f"rejection keys of {MLKEM_B} handshakes ({time.perf_counter() - t0:.1f} s "
+        "on the CPU)")
+
+
+def phase_mlkem_times(counts: dict, errs: dict) -> tuple:
+    """The three ML-KEM kernels at their largest b = 256 shapes, then
+    keygen, encaps and decaps latencies at b = 1 and b = 256."""
+    from repro_torch.kernels import dyadic_kernel, ntt_kernel, ref
+    from repro_torch.pq import mlkem
+    rng = np.random.default_rng(SEED + 7)
+    t = mlkem_pack()
+    rows = mlkem_path_rows(MLKEM_B)
+    x_f = ring_rows(rng, rows["ntt_fwd_banks_u16"][0])
+    x_i = ring_rows(rng, rows["ntt_inv_banks_u16"][0])
+    m_a = ring_rows(rng, rows["dyadic_basemul_banks"][0])
+    m_b = ring_rows(rng, rows["dyadic_basemul_banks"][0])
+    fargs = (t["qs"], t["tw"], t["twp"], t["psi"], t["psip"])
+    iargs = (t["qs"], t["ninv"], t["ninv_p"], t["itw"], t["itwp"], t["ipsin"], t["ipsinp"])
+    gargs = (t["qs"], t["mu"], t["gamma"], t["gammap"])
+    kw = dict(negacyclic=False, lazy=True, reduce_out=True)   # the path's flags
+    w = 2   # bytes per word
+    tables = 2 * t["tw"].numel() * w                          # tw + twp
+    cases = {
+        "ntt_fwd_banks_u16": (
+            lambda: ntt_kernel.ntt_fwd_banks(x_f, *fargs, **kw),
+            lambda: ref.ntt_fwd_banks_ref(x_f, *fargs, **kw),
+            None, tuple(x_f.shape), 2 * x_f.numel() * w + tables + w),
+        "ntt_inv_banks_u16": (
+            lambda: ntt_kernel.ntt_inv_banks(x_i, *iargs, **kw),
+            lambda: ref.ntt_inv_banks_ref(x_i, *iargs, **kw),
+            None, tuple(x_i.shape), 2 * x_i.numel() * w + tables + 3 * w),
+        "dyadic_basemul_banks": (
+            lambda: dyadic_kernel.dyadic_basemul_banks(m_a, m_b, *gargs, lazy=True),
+            lambda: ref.dyadic_basemul_banks_ref(m_a, m_b, *gargs, lazy=True),
+            None, tuple(m_a.shape),
+            3 * m_a.numel() * w + 2 * t["gamma"].numel() * w + 2 * w),
+    }
+    out = time_kernels(cases, counts, errs)
+    log("[times] library: none for the u16 transforms and the basecase "
+        "product, which no single PyTorch call computes")
+
+    d1, z1, m1 = mlkem_inputs(1)
+    dB, zB, mB = mlkem_inputs(MLKEM_B)
+    ek1, dk1 = mlkem.keygen_batch(d1, z1)
+    ekB, dkB = mlkem.keygen_batch(dB, zB)
+    ct1 = mlkem.encaps_batch(ek1, m1)[1]
+    ctB = mlkem.encaps_batch(ekB, mB)[1]
+    requests = {
+        "keygen, b=1": lambda: mlkem.keygen_batch(d1, z1),
+        "encaps, b=1": lambda: mlkem.encaps_batch(ek1, m1),
+        "decaps, b=1": lambda: mlkem.decaps_batch(dk1, ct1),
+        f"keygen, b={MLKEM_B}": lambda: mlkem.keygen_batch(dB, zB),
+        f"encaps, b={MLKEM_B}": lambda: mlkem.encaps_batch(ekB, mB),
+        f"decaps, b={MLKEM_B}": lambda: mlkem.decaps_batch(dkB, ctB),
+    }
+    samples = interleaved_host_ms(requests, LAT_ROUNDS)
+    latency = {}
+    for label, tms in samples.items():
+        latency[label] = med = statistics.median(tms)
+        q1, _, q3 = statistics.quantiles(tms, n=4)
+        b = int(label.split("b=")[1])
+        log(f"[times] mlkem {label}: median {med:.3f} ms over {len(tms)} interleaved "
+            f"runs (min {min(tms):.3f}, quartiles {q1:.3f}-{q3:.3f}, max {max(tms):.3f}), "
+            f"{b * 1e3 / med:.1f} requests per second")
+    for b in (1, MLKEM_B):
+        round_ms = sum(latency[f"{op}, b={b}"] for op in ("keygen", "encaps", "decaps"))
+        log(f"[times] mlkem handshakes (keygen + encaps + decaps) at b={b}: "
+            f"{round_ms:.3f} ms per batch, {b * 1e3 / round_ms:.1f} handshakes per second")
+    label = f"decaps, b={MLKEM_B}"
+    return out, [(requests[label], latency[label], f"mlkem {label}")]
+
+
 # ------------------------------------------------------------ phase 4
 
 def phase_times(ctx, cts, fs_pack, ks_pack, per_op, counts, errs, rot) -> list:
@@ -574,24 +851,7 @@ def phase_times(ctx, cts, fs_pack, ks_pack, per_op, counts, errs, rot) -> list:
         lambda: ref.galois_digits_banks_ref(dig, rows),
         lambda: torch.index_select(dig.view(k * kp1, N), 1, rows.view(-1)),
         tuple(dig.shape), ((1 + BATCH) * dig.numel() + rows.numel()) * w)
-    out = []
-    for name, (kern, plain, library, shape, nbytes) in cases.items():
-        ms = graph_ms(kern)
-        plain_ms = graph_ms(plain, inner=1)
-        wrapper_ms = eager_ms(kern)
-        library_ms = graph_ms(library) if library is not None else None
-        bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
-        by_path = {path: c[name]["launches"] for path, c in counts.items()}
-        lib = f"{library_ms:.4f} ms" if library is not None else "none"
-        log(f"[times] {name} {shape}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-            f"library {lib}, bound {bound_ms:.4f} ms ({nbytes} bytes), eager call "
-            f"{wrapper_ms:.4f} ms, launches by path {by_path}")
-        out.append({"name": name, "route": "cuda", "source": SOURCE[name],
-                    "replaces": REPLACES[name], "launches": sum(by_path.values()),
-                    "max_abs_err": errs[name], "ms": ms, "plain_ms": plain_ms,
-                    "bound_ms": bound_ms, "bound_by": "bytes",
-                    "library_ms": library_ms, "shape": list(shape),
-                    "eager_ms": wrapper_ms, "launches_by_path": by_path})
+    out = time_kernels(cases, counts, errs)
     log("[times] library: index_select / gather at the kernel's shape for the "
         "three gathers; none for the NTT banks, the Shoup weight-row multiply "
         "and the Barrett digit MAC, which no single PyTorch call computes")
@@ -628,11 +888,36 @@ def phase_times(ctx, cts, fs_pack, ks_pack, per_op, counts, errs, rot) -> list:
             f"runs (min {min(t):.3f}, quartiles {q1:.3f}-{q3:.3f}, max "
             f"{max(t):.3f}), {ks * 1e3 / med:.1f} key switches per second, "
             f"{ratio:.3f}x a rotate of the same round (median)")
-    # profiled after every latency is taken: a profiler session leaves
-    # per-launch overhead behind that would slow later timings
-    for label, req, _ in requests:
-        if label.startswith(("multiply", "rotate, ", "matvec")):
-            profile_request(req, latency[label], label)
+    # profiled after every latency is taken (the caller runs them): a
+    # profiler session leaves per-launch overhead behind that would slow
+    # later timings
+    profiles = [(req, latency[label], label) for label, req, _ in requests
+                if label.startswith(("multiply", "rotate, ", "matvec"))]
+    return out, profiles
+
+
+def time_kernels(cases: dict, counts: dict, errs: dict) -> list:
+    """The JSON record of each kernel: its CUDA-graph time, plain version,
+    library call (or None), byte bound and eager call at the case's
+    shape, and its launches on each path's counted run."""
+    out = []
+    for name, (kern, plain, library, shape, nbytes) in cases.items():
+        ms = graph_ms(kern)
+        plain_ms = graph_ms(plain, inner=1)
+        wrapper_ms = eager_ms(kern)
+        library_ms = graph_ms(library) if library is not None else None
+        bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        by_path = {path: c[name]["launches"] for path, c in counts.items()}
+        lib = f"{library_ms:.4f} ms" if library is not None else "none"
+        log(f"[times] {name} {shape}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+            f"library {lib}, bound {bound_ms:.4f} ms ({nbytes} bytes), eager call "
+            f"{wrapper_ms:.4f} ms, launches by path {by_path}")
+        out.append({"name": name, "route": "cuda", "source": SOURCE[name],
+                    "replaces": REPLACES[name], "launches": sum(by_path.values()),
+                    "max_abs_err": errs[name], "ms": ms, "plain_ms": plain_ms,
+                    "bound_ms": bound_ms, "bound_by": "bytes",
+                    "library_ms": library_ms, "shape": list(shape),
+                    "eager_ms": wrapper_ms, "launches_by_path": by_path})
     return out
 
 
@@ -671,6 +956,11 @@ def profile_request(req, lat_ms: float, label: str) -> None:
 
 
 def main() -> int:
+    global SEED
+    parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    parser.add_argument("--seed", type=int, default=SEED,
+                        help="seed of every phase's inputs (default %(default)s)")
+    SEED = parser.parse_args().seed
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on a GPU",
               file=sys.stderr)
@@ -698,13 +988,21 @@ def main() -> int:
     phase_cpu_parity(zs, cts, answers)
     rctx, M, rcts, rans, rcounts, rot_err, rot_per_op = phase_rotation()
     phase_rotation_cpu_parity(rcts, rans)
+    errs.update(phase_mlkem_kernels())
+    mlkem_in, mlkem_out, mcounts, mlkem_per_op = phase_mlkem()
+    phase_mlkem_cpu_parity(mlkem_in, mlkem_out)
     per_op = {"multiply + rescale": {k: v for k, v in per_op.items() if v},
-              **rot_per_op}
-    kernels = phase_times(ctx, cts, fs_pack, ks_pack, per_op,
-                          {"multiply": counts, "rotation": rcounts}, errs,
-                          {"ctx": rctx, "M": M, "cts": rcts})
+              **rot_per_op, **{f"mlkem {op}": c for op, c in mlkem_per_op.items()}}
+    counts = {"multiply": counts, "rotation": rcounts, "mlkem": mcounts}
+    kernels, profiles = phase_times(ctx, cts, fs_pack, ks_pack, per_op, counts,
+                                    errs, {"ctx": rctx, "M": M, "cts": rcts})
+    mlkem_kernels, mlkem_profiles = phase_mlkem_times(counts, errs)
+    kernels += mlkem_kernels
+    for req, lat_ms, label in profiles + mlkem_profiles:
+        profile_request(req, lat_ms, label)
     log(f"[done] {time.perf_counter() - t_start:.1f} s, slot error "
-        f"{slot_err:.3e} (multiply path), {rot_err:.3e} (rotation path)")
+        f"{slot_err:.3e} (multiply path), {rot_err:.3e} (rotation path); "
+        f"ML-KEM-768 KATs and {MLKEM_B} handshakes byte-exact")
     log(f"[gpu] {gpu_line()}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

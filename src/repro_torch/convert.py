@@ -1,5 +1,5 @@
-"""Moving uint32 host arrays onto a device, and the reference's state
-across into the port.
+"""Choosing the device an entry point runs on, moving uint32 and uint16
+host arrays onto it, and the reference's state across into the port.
 
 The lane rule: residues and the full-word constants are stored as
 ``torch.int32`` tensors that hold the uint32 bit pattern
@@ -7,11 +7,27 @@ The lane rule: residues and the full-word constants are stored as
 int32 value is the residue itself; constants such as Shoup companions
 and Barrett mu may use the top bit, and the kernels read them back as
 ``uint32_t`` (the plain versions widen them with ``& 0xFFFFFFFF``).
+The 16-bit lane of small rings (ML-KEM) follows the same rule one size
+down: ``np.uint16 -> torch.int16`` bit patterns, read back as
+``uint16_t`` by the kernels and with ``& 0xFFFF`` by the plain versions.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
+
+
+def resolve_device(device=None) -> torch.device:
+    """The device an entry point runs on: the card unless the caller asks
+    for another.  With no argument and no card this raises; it never
+    carries on on the CPU by itself."""
+    if device is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "no CUDA device: the port runs on the GPU by default; pass "
+                "device='cpu' to run the plain PyTorch path on the CPU")
+        return torch.device("cuda")
+    return torch.device(device)
 
 
 def u32_to_tensor(a, device) -> torch.Tensor:
@@ -35,13 +51,38 @@ def tensor_to_u32(t: torch.Tensor) -> np.ndarray:
     return t.detach().cpu().contiguous().numpy().view(np.uint32)
 
 
+def u16_to_tensor(a, device) -> torch.Tensor:
+    """uint16 array (or any integer array with values in the uint16
+    range) -> int16 bit-pattern tensor on ``device``."""
+    arr = np.asarray(a)
+    if arr.dtype != np.uint16:
+        if arr.dtype.kind not in "iu":
+            raise TypeError(f"u16_to_tensor: integer array expected, got {arr.dtype}")
+        if arr.size and (arr.min() < 0 or arr.max() > 0xFFFF):
+            raise ValueError("u16_to_tensor: values outside the uint16 range")
+        arr = arr.astype(np.uint16)
+    return torch.from_numpy(np.ascontiguousarray(arr).view(np.int16).copy()).to(device)
+
+
+def tensor_to_u16(t: torch.Tensor) -> np.ndarray:
+    """int16 bit-pattern tensor -> uint16 numpy array on the host."""
+    if t.dtype != torch.int16:
+        raise TypeError(f"tensor_to_u16: int16 tensor expected, got {t.dtype}")
+    return t.detach().cpu().contiguous().numpy().view(np.uint16)
+
+
 def from_reference(tree, device):
     """The reference's state, carried across: a TablePack / FourStepPack /
-    scalar-pack dict, stacked key digits, or ciphertext residue stacks —
-    any nest of dicts, lists and tuples of uint32 arrays — becomes the
-    same nest of int32 bit-pattern tensors on ``device``."""
+    scalar-pack / ring-pack dict, stacked key digits, or ciphertext
+    residue stacks — any nest of dicts, lists and tuples of uint32 or
+    uint16 arrays — becomes the same nest of bit-pattern tensors on
+    ``device``: int16 for a uint16 leaf (the small-ring lane), int32 for
+    any other."""
     if isinstance(tree, dict):
         return {k: from_reference(v, device) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
         return type(tree)(from_reference(v, device) for v in tree)
-    return u32_to_tensor(tree, device)
+    arr = np.asarray(tree)
+    if arr.dtype == np.uint16:
+        return u16_to_tensor(arr, device)
+    return u32_to_tensor(arr, device)

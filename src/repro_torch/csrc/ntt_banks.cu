@@ -6,6 +6,14 @@
 //   ntt_inv_banks      <- ntt_inv_banks_pallas     (_ntt_inv_banks_kernel)
 //   twiddle_mul_banks  <- twiddle_mul_banks_pallas (_twiddle_mul_banks_kernel)
 //
+// The two transforms are templated on the lane, as the TPU kernels follow
+// their element dtype: uint32_t storage with the 32-bit Shoup multiply
+// (the CKKS RNS primes; launchers ntt_fwd_banks / ntt_inv_banks), or
+// uint16_t storage with the 16-bit one (ML-KEM's q = 3329 ring, whose
+// incomplete transform runs 7 stages on n = 256; launchers
+// ntt_fwd_banks_u16 / ntt_inv_banks_u16).  Every stage covers all n/2
+// pairs, so any stage count up to log2 n works.
+//
 // What bounds them on an H100: device memory.  A transform reads each
 // word once and writes it once (8 bytes per word) and does ~log2(n)
 // butterflies on it in between; the weight-row multiply reads the word
@@ -42,17 +50,16 @@ constexpr int kThreads = 256;
 constexpr int kTileWords = 4096;     // words in each ping-pong buffer
 constexpr int kTwiddleWords = 4096;  // tw + twp words that may go to smem
 
-template <bool kLazy>
+template <typename T, bool kLazy>
 __global__ void __launch_bounds__(kThreads)
-ntt_fwd_banks_kernel(const uint32_t* __restrict__ x, uint32_t* __restrict__ out,
-                     const uint32_t* __restrict__ qs,
-                     const uint32_t* __restrict__ tw,
-                     const uint32_t* __restrict__ twp,
-                     const uint32_t* __restrict__ psi,
-                     const uint32_t* __restrict__ psip, int b, int n, int log_n,
+ntt_fwd_banks_kernel(const T* __restrict__ x, T* __restrict__ out,
+                     const T* __restrict__ qs, const T* __restrict__ tw,
+                     const T* __restrict__ twp, const T* __restrict__ psi,
+                     const T* __restrict__ psip, int b, int n, int log_n,
                      int stages, int rows, bool negacyclic, bool reduce_out,
                      bool tw_smem) {
-  extern __shared__ uint32_t smem[];
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* smem = reinterpret_cast<T*>(smem_raw);
   const int p = blockIdx.y;
   const int row0 = blockIdx.x * rows;
   const int nrows = min(rows, b - row0);
@@ -62,12 +69,12 @@ ntt_fwd_banks_kernel(const uint32_t* __restrict__ x, uint32_t* __restrict__ out,
   const uint32_t q = qs[p];
   const uint32_t q2 = q << 1;
 
-  uint32_t* a = smem;
-  uint32_t* c = smem + rows * n;
-  const uint32_t* tw_p = tw + (size_t)p * stages * h;
-  const uint32_t* twp_p = twp + (size_t)p * stages * h;
+  T* a = smem;
+  T* c = smem + rows * n;
+  const T* tw_p = tw + (size_t)p * stages * h;
+  const T* twp_p = twp + (size_t)p * stages * h;
   if (tw_smem) {
-    uint32_t* s_tw = smem + 2 * rows * n;
+    T* s_tw = smem + 2 * rows * n;
     for (int i = threadIdx.x; i < stages * h; i += blockDim.x) {
       s_tw[i] = tw_p[i];
       s_tw[stages * h + i] = twp_p[i];
@@ -76,23 +83,23 @@ ntt_fwd_banks_kernel(const uint32_t* __restrict__ x, uint32_t* __restrict__ out,
     twp_p = s_tw + stages * h;
   }
 
-  const uint32_t* src = x + ((size_t)p * b + row0) * n;
-  const uint32_t* psi_p = psi + (size_t)p * n;
-  const uint32_t* psip_p = psip + (size_t)p * n;
+  const T* src = x + ((size_t)p * b + row0) * n;
+  const T* psi_p = psi + (size_t)p * n;
+  const T* psip_p = psip + (size_t)p * n;
   for (int i = threadIdx.x; i < words; i += blockDim.x) {
     uint32_t v = src[i];
     if (negacyclic) {
       const int j = i & (n - 1);
-      v = kLazy ? shoup_lazy(v, psi_p[j], psip_p[j], q)
-                : shoup(v, psi_p[j], psip_p[j], q);
+      v = kLazy ? lane_shoup_lazy<T>(v, psi_p[j], psip_p[j], q)
+                : lane_shoup<T>(v, psi_p[j], psip_p[j], q);
     }
-    a[i] = v;
+    a[i] = (T)v;
   }
   __syncthreads();
 
   for (int t = 0; t < stages; ++t) {
-    const uint32_t* wrow = tw_p + t * h;
-    const uint32_t* wprow = twp_p + t * h;
+    const T* wrow = tw_p + t * h;
+    const T* wprow = twp_p + t * h;
     for (int i = threadIdx.x; i < half_words; i += blockDim.x) {
       const int r = i >> (log_n - 1);
       const int j = i & (h - 1);
@@ -102,44 +109,42 @@ ntt_fwd_banks_kernel(const uint32_t* __restrict__ x, uint32_t* __restrict__ out,
       const uint32_t wp = wprow[j];
       uint32_t u, v;
       if (kLazy) {
-        const uint32_t tt = shoup_lazy(hi, w, wp, q);
+        const uint32_t tt = lane_shoup_lazy<T>(hi, w, wp, q);
         u = lazy_add(lo, tt, q2);
         v = lazy_sub(lo, tt, q2);
       } else {
-        const uint32_t tt = shoup(hi, w, wp, q);
+        const uint32_t tt = lane_shoup<T>(hi, w, wp, q);
         u = add_mod(lo, tt, q);
         v = sub_mod(lo, tt, q);
       }
-      c[r * n + 2 * j] = u;
-      c[r * n + 2 * j + 1] = v;
+      c[r * n + 2 * j] = (T)u;
+      c[r * n + 2 * j + 1] = (T)v;
     }
     __syncthreads();
-    uint32_t* tmp = a;
+    T* tmp = a;
     a = c;
     c = tmp;
   }
 
-  uint32_t* dst = out + ((size_t)p * b + row0) * n;
+  T* dst = out + ((size_t)p * b + row0) * n;
   for (int i = threadIdx.x; i < words; i += blockDim.x) {
     uint32_t v = a[i];
     if (kLazy && reduce_out) v = v >= q ? v - q : v;
-    dst[i] = v;
+    dst[i] = (T)v;
   }
 }
 
-template <bool kLazy>
+template <typename T, bool kLazy>
 __global__ void __launch_bounds__(kThreads)
-ntt_inv_banks_kernel(const uint32_t* __restrict__ x, uint32_t* __restrict__ out,
-                     const uint32_t* __restrict__ qs,
-                     const uint32_t* __restrict__ ninv,
-                     const uint32_t* __restrict__ ninv_p,
-                     const uint32_t* __restrict__ itw,
-                     const uint32_t* __restrict__ itwp,
-                     const uint32_t* __restrict__ post,
-                     const uint32_t* __restrict__ postp, int b, int n, int log_n,
+ntt_inv_banks_kernel(const T* __restrict__ x, T* __restrict__ out,
+                     const T* __restrict__ qs, const T* __restrict__ ninv,
+                     const T* __restrict__ ninv_p, const T* __restrict__ itw,
+                     const T* __restrict__ itwp, const T* __restrict__ post,
+                     const T* __restrict__ postp, int b, int n, int log_n,
                      int stages, int rows, bool negacyclic, bool reduce_out,
                      bool tw_smem) {
-  extern __shared__ uint32_t smem[];
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* smem = reinterpret_cast<T*>(smem_raw);
   const int p = blockIdx.y;
   const int row0 = blockIdx.x * rows;
   const int nrows = min(rows, b - row0);
@@ -149,12 +154,12 @@ ntt_inv_banks_kernel(const uint32_t* __restrict__ x, uint32_t* __restrict__ out,
   const uint32_t q = qs[p];
   const uint32_t q2 = q << 1;
 
-  uint32_t* a = smem;
-  uint32_t* c = smem + rows * n;
-  const uint32_t* tw_p = itw + (size_t)p * stages * h;
-  const uint32_t* twp_p = itwp + (size_t)p * stages * h;
+  T* a = smem;
+  T* c = smem + rows * n;
+  const T* tw_p = itw + (size_t)p * stages * h;
+  const T* twp_p = itwp + (size_t)p * stages * h;
   if (tw_smem) {
-    uint32_t* s_tw = smem + 2 * rows * n;
+    T* s_tw = smem + 2 * rows * n;
     for (int i = threadIdx.x; i < stages * h; i += blockDim.x) {
       s_tw[i] = tw_p[i];
       s_tw[stages * h + i] = twp_p[i];
@@ -163,13 +168,13 @@ ntt_inv_banks_kernel(const uint32_t* __restrict__ x, uint32_t* __restrict__ out,
     twp_p = s_tw + stages * h;
   }
 
-  const uint32_t* src = x + ((size_t)p * b + row0) * n;
+  const T* src = x + ((size_t)p * b + row0) * n;
   for (int i = threadIdx.x; i < words; i += blockDim.x) a[i] = src[i];
   __syncthreads();
 
   for (int t = stages - 1; t >= 0; --t) {
-    const uint32_t* wrow = tw_p + t * h;
-    const uint32_t* wprow = twp_p + t * h;
+    const T* wrow = tw_p + t * h;
+    const T* wprow = twp_p + t * h;
     for (int i = threadIdx.x; i < half_words; i += blockDim.x) {
       const int r = i >> (log_n - 1);
       const int j = i & (h - 1);
@@ -180,33 +185,34 @@ ntt_inv_banks_kernel(const uint32_t* __restrict__ x, uint32_t* __restrict__ out,
       uint32_t u, v;
       if (kLazy) {
         u = lazy_add(e, o, q2);
-        v = shoup_lazy(lazy_sub(e, o, q2), w, wp, q);
+        v = lane_shoup_lazy<T>(lazy_sub(e, o, q2), w, wp, q);
       } else {
         u = add_mod(e, o, q);
-        v = shoup(sub_mod(e, o, q), w, wp, q);
+        v = lane_shoup<T>(sub_mod(e, o, q), w, wp, q);
       }
-      c[r * n + j] = u;
-      c[r * n + j + h] = v;
+      c[r * n + j] = (T)u;
+      c[r * n + j + h] = (T)v;
     }
     __syncthreads();
-    uint32_t* tmp = a;
+    T* tmp = a;
     a = c;
     c = tmp;
   }
 
-  // epilogue: psi^-i * n^-1 row (negacyclic) or the n^-1 scalar; the
-  // multiply reduces fully unless a lazy consumer asked for [0, 2q)
-  uint32_t* dst = out + ((size_t)p * b + row0) * n;
-  const uint32_t* post_p = post + (size_t)p * n;
-  const uint32_t* postp_p = postp + (size_t)p * n;
+  // epilogue: psi^-i * n^-1 row (negacyclic) or the ninv scalar (n^-1, or
+  // 2^-stages for an incomplete ring); the multiply reduces fully unless
+  // a lazy consumer asked for [0, 2q)
+  T* dst = out + ((size_t)p * b + row0) * n;
+  const T* post_p = post + (size_t)p * n;
+  const T* postp_p = postp + (size_t)p * n;
   const uint32_t nv = ninv[p];
   const uint32_t nvp = ninv_p[p];
   for (int i = threadIdx.x; i < words; i += blockDim.x) {
     const int j = i & (n - 1);
-    const uint32_t w = negacyclic ? post_p[j] : nv;
-    const uint32_t wp = negacyclic ? postp_p[j] : nvp;
-    dst[i] = (kLazy && !reduce_out) ? shoup_lazy(a[i], w, wp, q)
-                                    : shoup(a[i], w, wp, q);
+    const uint32_t w = negacyclic ? (uint32_t)post_p[j] : nv;
+    const uint32_t wp = negacyclic ? (uint32_t)postp_p[j] : nvp;
+    dst[i] = (T)((kLazy && !reduce_out) ? lane_shoup_lazy<T>(a[i], w, wp, q)
+                                        : lane_shoup<T>(a[i], w, wp, q));
   }
 }
 
@@ -240,15 +246,51 @@ struct Geometry {
   size_t smem_bytes;
 };
 
-Geometry geometry(int k, int b, int n, int stages) {
+Geometry geometry(int k, int b, int n, int stages, size_t word_bytes) {
   Geometry g;
   g.rows = kTileWords / n > 1 ? kTileWords / n : 1;
   if (g.rows > b) g.rows = b;
   const int tw_words = 2 * stages * (n / 2);
   g.tw_smem = tw_words <= kTwiddleWords;
-  g.smem_bytes = (size_t)(2 * g.rows * n + (g.tw_smem ? tw_words : 0)) * 4;
+  g.smem_bytes = (size_t)(2 * g.rows * n + (g.tw_smem ? tw_words : 0)) * word_bytes;
   g.grid = dim3((b + g.rows - 1) / g.rows, k);
   return g;
+}
+
+template <typename T>
+int launch_fwd(const void* x, void* out, const void* qs, const void* tw,
+               const void* twp, const void* psi, const void* psip, int k,
+               int b, int n, int stages, int negacyclic, int lazy,
+               int reduce_out, void* stream) {
+  if (k <= 0 || b <= 0) return (int)cudaGetLastError();
+  const Geometry g = geometry(k, b, n, stages, sizeof(T));
+  auto* s = static_cast<cudaStream_t>(stream);
+  auto kernel = lazy ? &ntt_fwd_banks_kernel<T, true> : &ntt_fwd_banks_kernel<T, false>;
+  kernel<<<g.grid, kThreads, g.smem_bytes, s>>>(
+      static_cast<const T*>(x), static_cast<T*>(out), static_cast<const T*>(qs),
+      static_cast<const T*>(tw), static_cast<const T*>(twp),
+      static_cast<const T*>(psi), static_cast<const T*>(psip), b, n, ilog2(n),
+      stages, g.rows, negacyclic != 0, reduce_out != 0, g.tw_smem);
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
+int launch_inv(const void* x, void* out, const void* qs, const void* ninv,
+               const void* ninv_p, const void* itw, const void* itwp,
+               const void* post, const void* postp, int k, int b, int n,
+               int stages, int negacyclic, int lazy, int reduce_out,
+               void* stream) {
+  if (k <= 0 || b <= 0) return (int)cudaGetLastError();
+  const Geometry g = geometry(k, b, n, stages, sizeof(T));
+  auto* s = static_cast<cudaStream_t>(stream);
+  auto kernel = lazy ? &ntt_inv_banks_kernel<T, true> : &ntt_inv_banks_kernel<T, false>;
+  kernel<<<g.grid, kThreads, g.smem_bytes, s>>>(
+      static_cast<const T*>(x), static_cast<T*>(out), static_cast<const T*>(qs),
+      static_cast<const T*>(ninv), static_cast<const T*>(ninv_p),
+      static_cast<const T*>(itw), static_cast<const T*>(itwp),
+      static_cast<const T*>(post), static_cast<const T*>(postp), b, n,
+      ilog2(n), stages, g.rows, negacyclic != 0, reduce_out != 0, g.tw_smem);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -256,33 +298,25 @@ Geometry geometry(int k, int b, int n, int stages) {
 // Every launcher returns cudaGetLastError() of its launch; the Python
 // wrapper raises on a non-zero code.  Shapes are checked by the wrapper:
 // x/out (k, b, n) with n a power of two in [2, 4096], tables as in the
-// TablePack layout, all uint32 (int32 bit patterns), contiguous.
+// TablePack layout, contiguous; uint32 (int32 bit patterns) for the
+// plain launchers, uint16 (int16 bit patterns) for the _u16 ones.
 
 extern "C" int ntt_fwd_banks(const void* x, void* out, const void* qs,
                              const void* tw, const void* twp, const void* psi,
                              const void* psip, int k, int b, int n, int stages,
                              int negacyclic, int lazy, int reduce_out,
                              void* stream) {
-  if (k <= 0 || b <= 0) return (int)cudaGetLastError();
-  const Geometry g = geometry(k, b, n, stages);
-  auto* s = static_cast<cudaStream_t>(stream);
-  const auto* a_x = static_cast<const uint32_t*>(x);
-  auto* a_out = static_cast<uint32_t*>(out);
-  const auto* a_qs = static_cast<const uint32_t*>(qs);
-  const auto* a_tw = static_cast<const uint32_t*>(tw);
-  const auto* a_twp = static_cast<const uint32_t*>(twp);
-  const auto* a_psi = static_cast<const uint32_t*>(psi);
-  const auto* a_psip = static_cast<const uint32_t*>(psip);
-  if (lazy) {
-    ntt_fwd_banks_kernel<true><<<g.grid, kThreads, g.smem_bytes, s>>>(
-        a_x, a_out, a_qs, a_tw, a_twp, a_psi, a_psip, b, n, ilog2(n),
-        stages, g.rows, negacyclic != 0, reduce_out != 0, g.tw_smem);
-  } else {
-    ntt_fwd_banks_kernel<false><<<g.grid, kThreads, g.smem_bytes, s>>>(
-        a_x, a_out, a_qs, a_tw, a_twp, a_psi, a_psip, b, n, ilog2(n),
-        stages, g.rows, negacyclic != 0, reduce_out != 0, g.tw_smem);
-  }
-  return (int)cudaGetLastError();
+  return launch_fwd<uint32_t>(x, out, qs, tw, twp, psi, psip, k, b, n, stages,
+                              negacyclic, lazy, reduce_out, stream);
+}
+
+extern "C" int ntt_fwd_banks_u16(const void* x, void* out, const void* qs,
+                                 const void* tw, const void* twp,
+                                 const void* psi, const void* psip, int k,
+                                 int b, int n, int stages, int negacyclic,
+                                 int lazy, int reduce_out, void* stream) {
+  return launch_fwd<uint16_t>(x, out, qs, tw, twp, psi, psip, k, b, n, stages,
+                              negacyclic, lazy, reduce_out, stream);
 }
 
 extern "C" int ntt_inv_banks(const void* x, void* out, const void* qs,
@@ -291,30 +325,20 @@ extern "C" int ntt_inv_banks(const void* x, void* out, const void* qs,
                              const void* postp, int k, int b, int n, int stages,
                              int negacyclic, int lazy, int reduce_out,
                              void* stream) {
-  if (k <= 0 || b <= 0) return (int)cudaGetLastError();
-  const Geometry g = geometry(k, b, n, stages);
-  auto* s = static_cast<cudaStream_t>(stream);
-  const auto* a_x = static_cast<const uint32_t*>(x);
-  auto* a_out = static_cast<uint32_t*>(out);
-  const auto* a_qs = static_cast<const uint32_t*>(qs);
-  const auto* a_ninv = static_cast<const uint32_t*>(ninv);
-  const auto* a_ninvp = static_cast<const uint32_t*>(ninv_p);
-  const auto* a_itw = static_cast<const uint32_t*>(itw);
-  const auto* a_itwp = static_cast<const uint32_t*>(itwp);
-  const auto* a_post = static_cast<const uint32_t*>(post);
-  const auto* a_postp = static_cast<const uint32_t*>(postp);
-  if (lazy) {
-    ntt_inv_banks_kernel<true><<<g.grid, kThreads, g.smem_bytes, s>>>(
-        a_x, a_out, a_qs, a_ninv, a_ninvp, a_itw, a_itwp, a_post, a_postp, b,
-        n, ilog2(n), stages, g.rows, negacyclic != 0, reduce_out != 0,
-        g.tw_smem);
-  } else {
-    ntt_inv_banks_kernel<false><<<g.grid, kThreads, g.smem_bytes, s>>>(
-        a_x, a_out, a_qs, a_ninv, a_ninvp, a_itw, a_itwp, a_post, a_postp, b,
-        n, ilog2(n), stages, g.rows, negacyclic != 0, reduce_out != 0,
-        g.tw_smem);
-  }
-  return (int)cudaGetLastError();
+  return launch_inv<uint32_t>(x, out, qs, ninv, ninv_p, itw, itwp, post, postp,
+                              k, b, n, stages, negacyclic, lazy, reduce_out,
+                              stream);
+}
+
+extern "C" int ntt_inv_banks_u16(const void* x, void* out, const void* qs,
+                                 const void* ninv, const void* ninv_p,
+                                 const void* itw, const void* itwp,
+                                 const void* post, const void* postp, int k,
+                                 int b, int n, int stages, int negacyclic,
+                                 int lazy, int reduce_out, void* stream) {
+  return launch_inv<uint16_t>(x, out, qs, ninv, ninv_p, itw, itwp, post, postp,
+                              k, b, n, stages, negacyclic, lazy, reduce_out,
+                              stream);
 }
 
 extern "C" int twiddle_mul_banks(const void* x, void* out, const void* qs,

@@ -18,6 +18,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from repro_torch.convert import resolve_device
 from repro_torch.core.modmath import submod
 from repro_torch.core.params import galois_coeff_tables
 from repro_torch.fhe import rns
@@ -26,19 +27,6 @@ from repro_torch.fhe.rns import RnsPoly
 
 __all__ = ["Ciphertext", "CkksContext", "galois_int_coeffs", "galois_poly",
            "resolve_device"]
-
-
-def resolve_device(device=None) -> torch.device:
-    """The device an entry point runs on: the card unless the caller asks
-    for another.  With no argument and no card this raises; it never
-    carries on on the CPU by itself."""
-    if device is None:
-        if not torch.cuda.is_available():
-            raise RuntimeError(
-                "no CUDA device: the port runs on the GPU by default; pass "
-                "device='cpu' to run the plain PyTorch path on the CPU")
-        return torch.device("cuda")
-    return torch.device(device)
 
 
 class CkksContext:

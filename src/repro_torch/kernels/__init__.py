@@ -7,7 +7,10 @@ a build or launch failure to fall back.
 
 ``COUNTS`` records, per kernel, how many times its wrapper launched it
 (``launches``) and how many times its plain version ran
-(``plain_calls``), so a run can show which path it took.
+(``plain_calls``), so a run can show which path it took.  The two NTT
+bank kernels count each lane apart (``ntt_fwd_banks`` for the int32 RNS
+lane, ``ntt_fwd_banks_u16`` for the int16 small-ring lane, likewise the
+inverse), so a run shows which instantiation it launched.
 """
 from __future__ import annotations
 
@@ -15,7 +18,8 @@ import dataclasses
 
 KERNELS = ("ntt_fwd_banks", "ntt_inv_banks", "twiddle_mul_banks",
            "dyadic_inner_banks", "galois_banks", "galois_banks_multi",
-           "galois_digits")
+           "galois_digits", "ntt_fwd_banks_u16", "ntt_inv_banks_u16",
+           "dyadic_basemul_banks")
 
 
 @dataclasses.dataclass

@@ -25,7 +25,7 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
-SOURCES = ("ntt_banks", "dyadic_inner", "galois")
+SOURCES = ("ntt_banks", "dyadic_inner", "galois", "dyadic_basemul")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -37,6 +37,8 @@ SIGNATURES = {
     "ntt_banks": {
         "ntt_fwd_banks": [_P] * 7 + [_I] * 7 + [_P],
         "ntt_inv_banks": [_P] * 9 + [_I] * 7 + [_P],
+        "ntt_fwd_banks_u16": [_P] * 7 + [_I] * 7 + [_P],
+        "ntt_inv_banks_u16": [_P] * 9 + [_I] * 7 + [_P],
         "twiddle_mul_banks": [_P] * 5 + [_I, _L, _I, _I, _P],
     },
     "dyadic_inner": {
@@ -46,6 +48,9 @@ SIGNATURES = {
         "galois_banks": [_P] * 3 + [_I] * 3 + [_P],
         "galois_banks_multi": [_P] * 3 + [_I] * 3 + [_P],
         "galois_digits": [_P] * 3 + [_I] * 5 + [_P],
+    },
+    "dyadic_basemul": {
+        "dyadic_basemul_banks": [_P] * 7 + [_I] * 4 + [_P],
     },
 }
 

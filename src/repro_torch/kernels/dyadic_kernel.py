@@ -1,18 +1,22 @@
-"""Wrapper of the key-switch digit MAC kernel (``csrc/dyadic_inner.cu``).
+"""Wrappers of the pointwise kernels: the key-switch digit MAC
+(``csrc/dyadic_inner.cu``) and the incomplete ring's basecase product
+(``csrc/dyadic_basemul.cu``).
 
 ``dyadic_inner_banks`` replaces the TPU kernel ``dyadic_inner_banks`` of
 the reference's ``kernels/dyadic_kernel.py``:
 out[p, b] = sum_d ext[d, p, b] * evk[d, p, (b)] mod q_p with 32-bit
-Barrett products.  A CPU tensor goes to the plain version; a CUDA tensor
-launches the kernel or raises.
+Barrett products.  ``dyadic_basemul_banks`` replaces the TPU kernel of
+the same name: ML-KEM's degree-1 products mod (X^2 - γ_j) on the int16
+lane.  A CPU tensor goes to the plain version; a CUDA tensor launches
+the kernel or raises.
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.kernels import COUNTS, build, ref
-from repro_torch.kernels.ntt_kernel import (check_shape, check_tensors,
-                                            raise_on, stream)
+from repro_torch.kernels.ntt_kernel import (check_lane, check_shape,
+                                            check_tensors, raise_on, stream)
 
 
 def dyadic_inner_banks(ext, evk, qs, mus, *, lazy: bool):
@@ -41,4 +45,40 @@ def dyadic_inner_banks(ext, evk, qs, mus, *, lazy: bool):
                                 int(per_batch), int(lazy), stream())
     raise_on(where, rc)
     COUNTS["dyadic_inner_banks"].launches += 1
+    return out
+
+
+def dyadic_basemul_banks(a, b, qs, mus, gamma, gammap, *, lazy: bool):
+    """a, b: (k, B, n) int16 canonical NTT-domain operands of an
+    incomplete ring, pair j = (x[j], x[j + n/2]); qs/mus (k,);
+    gamma/gammap (k, n/2) per-pair ζ factors and Shoup companions, all
+    int16 (uint16 bit patterns).  Returns (k, B, n) int16 in [0, q)."""
+    where = "dyadic_basemul_banks"
+    lane = check_lane(where, a=a, b=b, qs=qs, mus=mus, gamma=gamma, gammap=gammap)
+    if lane != torch.int16:
+        raise ValueError(f"{where}: the basecase product runs on the int16 "
+                         f"(uint16) lane only, got {lane}")
+    if a.device.type == "cpu":
+        return ref.dyadic_basemul_banks_ref(a, b, qs, mus, gamma, gammap, lazy=lazy)
+    lib = build.load("dyadic_basemul")
+    if a.ndim != 3:
+        raise ValueError(f"{where}: a must be (k, B, n), got {tuple(a.shape)}")
+    k, bb, n = a.shape
+    if n < 2 or n & (n - 1):
+        raise ValueError(f"{where}: n={n} must be a power of two >= 2")
+    check_tensors(where, a.device, dtype=lane, a=a, b=b, qs=qs, mus=mus,
+                  gamma=gamma, gammap=gammap)
+    check_shape(where, "b", b, (k, bb, n))
+    check_shape(where, "qs", qs, (k,))
+    check_shape(where, "mus", mus, (k,))
+    check_shape(where, "gamma", gamma, (k, n // 2))
+    check_shape(where, "gammap", gammap, (k, n // 2))
+    out = torch.empty_like(a)
+    if out.numel() == 0:
+        return out
+    rc = lib.dyadic_basemul_banks(a.data_ptr(), b.data_ptr(), out.data_ptr(),
+                                  qs.data_ptr(), mus.data_ptr(), gamma.data_ptr(),
+                                  gammap.data_ptr(), k, bb, n, int(lazy), stream())
+    raise_on(where, rc)
+    COUNTS[where].launches += 1
     return out

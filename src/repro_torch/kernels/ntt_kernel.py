@@ -7,6 +7,14 @@ A CPU tensor goes to the plain version in ``kernels.ref``; a CUDA tensor
 launches the kernel on the current stream or raises.  Each wrapper checks
 device, dtype, shape and contiguity, allocates its output with
 ``torch.empty`` and counts its launches in ``kernels.COUNTS``.
+
+The two transforms take either lane, chosen by the dtype as the
+reference chooses by uint32/uint16: int32 tensors run the RNS lane,
+int16 tensors (ML-KEM's q = 3329 ring, ``core.ringspec``) the 16-bit
+Shoup lane, launched as ``ntt_fwd_banks_u16`` / ``ntt_inv_banks_u16`` and
+counted apart.  Every tensor of one call must share the lane: a u16 pack
+run through the u32 formulas would give wrong numbers with no error, so
+a mix is refused with ``ValueError`` on every device.
 """
 from __future__ import annotations
 
@@ -17,18 +25,34 @@ from repro_torch.kernels import COUNTS, build, ref
 MAX_N = 4096          # one row pair fills the block's 32 KB ping-pong tile
 
 
-def check_tensors(where: str, device: torch.device, **tensors) -> None:
-    """Every tensor int32, contiguous and on ``device`` (a CUDA device)."""
+LANES = {torch.int32: "uint32", torch.int16: "uint16"}
+
+
+def check_tensors(where: str, device: torch.device, *,
+                  dtype: torch.dtype = torch.int32, **tensors) -> None:
+    """Every tensor of ``dtype`` (int32 or int16 bit patterns),
+    contiguous and on ``device`` (a CUDA device)."""
     if device.type != "cuda":
         raise ValueError(f"{where}: CUDA tensors expected, got device {device}")
     for name, t in tensors.items():
         if t.device != device:
             raise ValueError(f"{where}: {name} is on {t.device}, expected {device}")
-        if t.dtype != torch.int32:
-            raise ValueError(f"{where}: {name} must be int32 (uint32 bit "
-                             f"patterns), got {t.dtype}")
+        if t.dtype != dtype:
+            raise ValueError(f"{where}: {name} must be {dtype} ({LANES[dtype]} "
+                             f"bit patterns), got {t.dtype}")
         if not t.is_contiguous():
             raise ValueError(f"{where}: {name} must be contiguous")
+
+
+def check_lane(where: str, **tensors) -> torch.dtype:
+    """The one lane dtype (int32 or int16) every tensor of a call shares;
+    a mix, or any other dtype, is refused."""
+    dtypes = {name: t.dtype for name, t in tensors.items()}
+    lanes = set(dtypes.values())
+    if len(lanes) != 1 or not lanes <= set(LANES):
+        raise ValueError(f"{where}: every tensor must be int32 (the uint32 lane) "
+                         f"or every tensor int16 (the uint16 lane), got {dtypes}")
+    return lanes.pop()
 
 
 def check_shape(where: str, name: str, t: torch.Tensor, shape: tuple) -> None:
@@ -59,16 +83,20 @@ def stream() -> int:
 
 def ntt_fwd_banks(x, qs, tw, twp, psi, psip, *, negacyclic: bool,
                   lazy: bool, reduce_out: bool):
-    """x: (k, B, n) int32, row p reduced mod qs[p]; tw/twp (k, s, n/2);
-    psi/psip (k, n).  Returns the forward transform, bitrev order."""
+    """x: (k, B, n) int32 or int16, row p reduced mod qs[p]; tw/twp
+    (k, s, n/2) with s <= log2 n stages; psi/psip (k, n).  Returns the
+    forward transform, bitrev order."""
+    lane = check_lane("ntt_fwd_banks", x=x, qs=qs, tw=tw, twp=twp, psi=psi,
+                      psip=psip)
     if x.device.type == "cpu":
         return ref.ntt_fwd_banks_ref(x, qs, tw, twp, psi, psip, negacyclic,
                                      lazy=lazy, reduce_out=reduce_out)
     lib = build.load("ntt_banks")
-    where = "ntt_fwd_banks"
+    where = "ntt_fwd_banks" + ("_u16" if lane == torch.int16 else "")
     stages = tw.shape[1] if tw.ndim == 3 else -1
     k, b, n = _check_geometry(where, x, stages)
-    check_tensors(where, x.device, x=x, qs=qs, tw=tw, twp=twp, psi=psi, psip=psip)
+    check_tensors(where, x.device, dtype=lane, x=x, qs=qs, tw=tw, twp=twp,
+                  psi=psi, psip=psip)
     check_shape(where, "qs", qs, (k,))
     for name, t in (("tw", tw), ("twp", twp)):
         check_shape(where, name, t, (k, stages, n // 2))
@@ -77,29 +105,31 @@ def ntt_fwd_banks(x, qs, tw, twp, psi, psip, *, negacyclic: bool,
     out = torch.empty_like(x)
     if x.numel() == 0:
         return out
-    rc = lib.ntt_fwd_banks(x.data_ptr(), out.data_ptr(), qs.data_ptr(),
-                           tw.data_ptr(), twp.data_ptr(), psi.data_ptr(),
-                           psip.data_ptr(), k, b, n, stages, int(negacyclic),
-                           int(lazy), int(reduce_out), stream())
+    rc = getattr(lib, where)(x.data_ptr(), out.data_ptr(), qs.data_ptr(),
+                             tw.data_ptr(), twp.data_ptr(), psi.data_ptr(),
+                             psip.data_ptr(), k, b, n, stages, int(negacyclic),
+                             int(lazy), int(reduce_out), stream())
     raise_on(where, rc)
-    COUNTS["ntt_fwd_banks"].launches += 1
+    COUNTS[where].launches += 1
     return out
 
 
 def ntt_inv_banks(x, qs, ninv, ninv_p, itw, itwp, post, postp, *,
                   negacyclic: bool, lazy: bool, reduce_out: bool):
-    """x: (k, B, n) int32 in bitrev order; itw/itwp (k, s, n/2); ninv,
-    ninv_p (k,); post/postp (k, n) psi^-i * n^-1 rows."""
+    """x: (k, B, n) int32 or int16 in bitrev order; itw/itwp (k, s, n/2);
+    ninv, ninv_p (k,); post/postp (k, n) psi^-i * n^-1 rows."""
+    lane = check_lane("ntt_inv_banks", x=x, qs=qs, ninv=ninv, ninv_p=ninv_p,
+                      itw=itw, itwp=itwp, post=post, postp=postp)
     if x.device.type == "cpu":
         return ref.ntt_inv_banks_ref(x, qs, ninv, ninv_p, itw, itwp, post,
                                      postp, negacyclic, lazy=lazy,
                                      reduce_out=reduce_out)
     lib = build.load("ntt_banks")
-    where = "ntt_inv_banks"
+    where = "ntt_inv_banks" + ("_u16" if lane == torch.int16 else "")
     stages = itw.shape[1] if itw.ndim == 3 else -1
     k, b, n = _check_geometry(where, x, stages)
-    check_tensors(where, x.device, x=x, qs=qs, ninv=ninv, ninv_p=ninv_p,
-                  itw=itw, itwp=itwp, post=post, postp=postp)
+    check_tensors(where, x.device, dtype=lane, x=x, qs=qs, ninv=ninv,
+                  ninv_p=ninv_p, itw=itw, itwp=itwp, post=post, postp=postp)
     for name, t in (("qs", qs), ("ninv", ninv), ("ninv_p", ninv_p)):
         check_shape(where, name, t, (k,))
     for name, t in (("itw", itw), ("itwp", itwp)):
@@ -109,13 +139,13 @@ def ntt_inv_banks(x, qs, ninv, ninv_p, itw, itwp, post, postp, *,
     out = torch.empty_like(x)
     if x.numel() == 0:
         return out
-    rc = lib.ntt_inv_banks(x.data_ptr(), out.data_ptr(), qs.data_ptr(),
-                           ninv.data_ptr(), ninv_p.data_ptr(), itw.data_ptr(),
-                           itwp.data_ptr(), post.data_ptr(), postp.data_ptr(),
-                           k, b, n, stages, int(negacyclic), int(lazy),
-                           int(reduce_out), stream())
+    rc = getattr(lib, where)(x.data_ptr(), out.data_ptr(), qs.data_ptr(),
+                             ninv.data_ptr(), ninv_p.data_ptr(), itw.data_ptr(),
+                             itwp.data_ptr(), post.data_ptr(), postp.data_ptr(),
+                             k, b, n, stages, int(negacyclic), int(lazy),
+                             int(reduce_out), stream())
     raise_on(where, rc)
-    COUNTS["ntt_inv_banks"].launches += 1
+    COUNTS[where].launches += 1
     return out
 
 

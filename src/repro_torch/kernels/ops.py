@@ -5,7 +5,10 @@ Every function takes a TablePack / FourStepPack dict of int32 tensors
 (see ``fhe.batched``) whose per-prime rows are stacked on axis 0 — the
 paper's Fig 22 parallel NTT-bank array — and dispatches to a kernel
 wrapper, which launches the Hopper kernel for a CUDA tensor and runs the
-plain version for a CPU tensor.
+plain version for a CPU tensor.  ``ntt_banks``/``intt_banks`` take a
+``core.ringspec.ring_table_pack`` of int16 tensors unchanged (the
+small-ring lane, with ``negacyclic=False``), and
+``dyadic_basemul_banks`` is that ring's basecase product.
 
 Ciphertext-batch axis convention: the banks entry points also accept
 ``batch_leading=True``, meaning the input is a ``(b, k, ..., n)`` stack
@@ -236,3 +239,30 @@ def dyadic_inner_banks(ext, evk, t: dict, *, lazy: bool = True):
                          f"!= ext {tuple(ext.shape)}")
     return dyadic_kernel.dyadic_inner_banks(ext.contiguous(), evk.contiguous(),
                                             t["qs"], t["mu"], lazy=lazy)
+
+
+def dyadic_basemul_banks(a, b, t: dict, *, batch_leading: bool = False,
+                         lazy: bool = True):
+    """Degree-1 basecase multiplication of an INCOMPLETE ring (a
+    ``core.ringspec.RingSpec`` with block=2, e.g. ML-KEM): pair j of the
+    CG-ordered NTT domain is (x[j], x[j+n/2]) and
+
+        c0[j] = a0·b0 + γ_j·(a1·b1)      c1[j] = a0·b1 + a1·b0
+
+    with the per-pair ζ factors γ from the ring pack's ``gamma`` /
+    ``gammap`` rows.  a, b: (k, ..., n) canonical [0, q) int16 NTT-domain
+    operands over the pack's rings (or (b, k, ..., n) stacks with
+    ``batch_leading=True`` — both operands swap); t: a ring pack on the
+    operands' device.  A non-contiguous operand (a broadcast right-hand
+    side) is copied to a contiguous one first."""
+    if batch_leading:
+        return dyadic_basemul_banks(a.transpose(0, 1), b.transpose(0, 1), t,
+                                    lazy=lazy).transpose(0, 1)
+    if a.shape != b.shape:
+        raise ValueError(f"dyadic_basemul_banks: operand shapes {tuple(a.shape)} "
+                         f"!= {tuple(b.shape)}")
+    k = a.shape[0]
+    qs, mus, gamma, gammap = _rows(t, k, "qs", "mu", "gamma", "gammap")
+    out = dyadic_kernel.dyadic_basemul_banks(_as3(a), _as3(b), qs, mus, gamma,
+                                             gammap, lazy=lazy)
+    return out.reshape(a.shape)

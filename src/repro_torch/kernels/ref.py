@@ -1,56 +1,86 @@
 """Plain PyTorch versions of the kernels (the ``ref.py`` contract).
 
 Same op sequence as the CUDA kernels and as the JAX reference's
-``kernels/ref.py``, on int64 tensors that hold u32 values, so even the
-lazy [0, 2q) representatives match bit for bit.  Inputs and outputs are
-int32 (residues below 2^31; constants as uint32 bit patterns).  They run
-on any device; the wrappers take them only for CPU tensors, and the
-chip smoke test runs them on the card to hold each kernel against.
+``kernels/ref.py``, on int64 tensors that hold the lane's unsigned
+values, so even the lazy [0, 2q) representatives match bit for bit.
+The lane follows the dtype, as the reference's follows uint32/uint16:
+int32 inputs and outputs are the RNS lane (residues below 2^31,
+constants as uint32 bit patterns), int16 ones the small-ring lane of
+``core.ringspec`` (ML-KEM; constants as uint16 bit patterns, 16-bit
+Shoup and Barrett).  They run on any device; the wrappers take them
+only for CPU tensors, and the chip smoke test runs them on the card to
+hold each kernel against.
 """
 from __future__ import annotations
+
+import functools
 
 import torch
 
 from repro_torch.core.modmath import (addmod, lazy_addmod, lazy_submod,
                                       mulmod_barrett, mulmod_barrett_lazy,
                                       mulmod_shoup, mulmod_shoup_lazy, submod,
-                                      u32)
+                                      u16, u32)
 from repro_torch.kernels import COUNTS
 
 
+def lane_bits(x: torch.Tensor) -> int:
+    """16 for the int16 small-ring lane, 32 for the int32 RNS lane."""
+    return 16 if x.dtype == torch.int16 else 32
+
+
+def _widen(t: torch.Tensor) -> torch.Tensor:
+    """Bit-pattern tensor -> int64 holding the lane's unsigned value."""
+    return u16(t) if t.dtype == torch.int16 else u32(t)
+
+
+def _narrow(v: torch.Tensor, bits: int) -> torch.Tensor:
+    """int64 lane values -> the lane's storage dtype, bit pattern kept."""
+    return v.to(torch.int16) if bits == 16 else v.int()
+
+
 def _per_prime(t: torch.Tensor, ndim: int) -> torch.Tensor:
-    """(k, m) table rows (or (k,) scalars) -> (k, 1, ..., m) int64 u32
+    """(k, m) table rows (or (k,) scalars) -> (k, 1, ..., m) int64 lane
     values broadcasting against a (k, ..., n) stack of ``ndim`` dims."""
     k = t.shape[0]
     m = t.shape[1] if t.ndim > 1 else 1
-    return u32(t).reshape((k,) + (1,) * (ndim - 2) + (m,))
+    return _widen(t).reshape((k,) + (1,) * (ndim - 2) + (m,))
+
+
+def _shoup_pair(bits: int):
+    """(lazy, eager) Shoup multiplies of the lane."""
+    return (functools.partial(mulmod_shoup_lazy, bits=bits),
+            functools.partial(mulmod_shoup, bits=bits))
 
 
 def ntt_fwd_banks_ref(x, qs, tw, twp, pre, prep, negacyclic: bool,
                       lazy: bool = False, reduce_out: bool = True):
     """Multi-prime forward constant-geometry NTT.  x: (k, ..., n) with row
-    p reduced mod qs[p]; tw/twp: (k, s, n/2); pre/prep: (k, n)."""
-    COUNTS["ntt_fwd_banks"].plain_calls += 1
+    p reduced mod qs[p]; tw/twp: (k, s, n/2), s <= log2 n stages;
+    pre/prep: (k, n)."""
+    bits = lane_bits(x)
+    COUNTS["ntt_fwd_banks_u16" if bits == 16 else "ntt_fwd_banks"].plain_calls += 1
+    shoup_lazy, shoup = _shoup_pair(bits)
     nd = x.ndim
     q = _per_prime(qs, nd)
-    v = x.long()
+    v = _widen(x)
     if negacyclic:
-        mul = mulmod_shoup_lazy if lazy else mulmod_shoup
+        mul = shoup_lazy if lazy else shoup
         v = mul(v, _per_prime(pre, nd), _per_prime(prep, nd), q)
     h = x.shape[-1] // 2
     for t in range(tw.shape[1]):
         w, wp = _per_prime(tw[:, t], nd), _per_prime(twp[:, t], nd)
         lo, hi = v[..., :h], v[..., h:]
         if lazy:
-            tt = mulmod_shoup_lazy(hi, w, wp, q)
+            tt = shoup_lazy(hi, w, wp, q)
             u, d = lazy_addmod(lo, tt, q), lazy_submod(lo, tt, q)
         else:
-            tt = mulmod_shoup(hi, w, wp, q)
+            tt = shoup(hi, w, wp, q)
             u, d = addmod(lo, tt, q), submod(lo, tt, q)
         v = torch.stack([u, d], dim=-1).reshape(v.shape)
     if lazy and reduce_out:
         v = torch.where(v >= q, v - q, v)
-    return v.int()
+    return _narrow(v, bits)
 
 
 def ntt_inv_banks_ref(x, qs, ninv, ninv_p, itw, itwp, post, postp,
@@ -58,26 +88,28 @@ def ntt_inv_banks_ref(x, qs, ninv, ninv_p, itw, itwp, post, postp,
                       reduce_out: bool = True):
     """Multi-prime inverse (Gentleman-Sande) stages in descending order,
     then the epilogue multiply by the psi^-i * n^-1 row (negacyclic) or
-    the n^-1 scalar, which reduces fully unless ``lazy`` and not
-    ``reduce_out``."""
-    COUNTS["ntt_inv_banks"].plain_calls += 1
+    the ninv scalar (n^-1, or 2^-stages for an incomplete ring), which
+    reduces fully unless ``lazy`` and not ``reduce_out``."""
+    bits = lane_bits(x)
+    COUNTS["ntt_inv_banks_u16" if bits == 16 else "ntt_inv_banks"].plain_calls += 1
+    shoup_lazy, shoup = _shoup_pair(bits)
     nd = x.ndim
     q = _per_prime(qs, nd)
-    v = x.long()
+    v = _widen(x)
     for t in range(itw.shape[1] - 1, -1, -1):
         w, wp = _per_prime(itw[:, t], nd), _per_prime(itwp[:, t], nd)
         e, o = v[..., 0::2], v[..., 1::2]
         if lazy:
             u = lazy_addmod(e, o, q)
-            d = mulmod_shoup_lazy(lazy_submod(e, o, q), w, wp, q)
+            d = shoup_lazy(lazy_submod(e, o, q), w, wp, q)
         else:
             u = addmod(e, o, q)
-            d = mulmod_shoup(submod(e, o, q), w, wp, q)
+            d = shoup(submod(e, o, q), w, wp, q)
         v = torch.cat([u, d], dim=-1)
-    mul = mulmod_shoup_lazy if (lazy and not reduce_out) else mulmod_shoup
+    mul = shoup_lazy if (lazy and not reduce_out) else shoup
     if negacyclic:
-        return mul(v, _per_prime(post, nd), _per_prime(postp, nd), q).int()
-    return mul(v, _per_prime(ninv, nd), _per_prime(ninv_p, nd), q).int()
+        return _narrow(mul(v, _per_prime(post, nd), _per_prime(postp, nd), q), bits)
+    return _narrow(mul(v, _per_prime(ninv, nd), _per_prime(ninv_p, nd), q), bits)
 
 
 def twiddle_mul_banks_ref(x, qs, w, wp, lazy: bool = False):
@@ -134,3 +166,44 @@ def galois_digits_banks_ref(x, idx):
         out = torch.index_select(x.reshape(d, k, n), -1, idx.reshape(-1))
         return out.reshape(d, k, idx.shape[0], n)
     return torch.gather(x, -1, idx[None, None].expand(x.shape))
+
+
+def dyadic_basemul_banks_ref(a, b, qs, mus, gamma, gammap, lazy: bool = False):
+    """Degree-1 basecase multiplication of an incomplete ring (block=2)
+    on the int16 lane: a, b (k, ..., n) canonical NTT-domain operands,
+    pair j = (x[j], x[j + n/2]); gamma/gammap (k, n/2) per-pair ζ factors
+    and their Shoup companions; qs/mus (k,).
+
+        c0[j] = a0·b0 + γ_j·(a1·b1)      c1[j] = a0·b1 + a1·b0
+
+    The kernel's op sequence: Barrett for var×var, Shoup for γ, sums in
+    the [0, 2q) band when ``lazy``; the output is always in [0, q)."""
+    COUNTS["dyadic_basemul_banks"].plain_calls += 1
+    bits = 16
+    nd = a.ndim
+    h = a.shape[-1] // 2
+    q = _per_prime(qs, nd)
+    mu = _per_prime(mus, nd)
+    g = _per_prime(gamma, nd)
+    gp = _per_prime(gammap, nd)
+    av, bv = _widen(a), _widen(b)
+    a0, a1 = av[..., :h], av[..., h:]
+    b0, b1 = bv[..., :h], bv[..., h:]
+    if lazy:
+        bar = functools.partial(mulmod_barrett_lazy, q=q, mu=mu, bits=bits)
+        q2 = q + q
+        t = mulmod_shoup_lazy(bar(a1, b1), g, gp, q, bits=bits)
+        s0 = bar(a0, b0) + t
+        c0 = torch.where(s0 >= q2, s0 - q2, s0)
+        s1 = bar(a0, b1) + bar(a1, b0)
+        c1 = torch.where(s1 >= q2, s1 - q2, s1)
+        c0 = torch.where(c0 >= q, c0 - q, c0)
+        c1 = torch.where(c1 >= q, c1 - q, c1)
+    else:
+        bar = functools.partial(mulmod_barrett, q=q, mu=mu, bits=bits)
+        t = mulmod_shoup(bar(a1, b1), g, gp, q, bits=bits)
+        s0 = bar(a0, b0) + t
+        c0 = torch.where(s0 >= q, s0 - q, s0)
+        s1 = bar(a0, b1) + bar(a1, b0)
+        c1 = torch.where(s1 >= q, s1 - q, s1)
+    return _narrow(torch.cat([c0, c1], dim=-1), bits)

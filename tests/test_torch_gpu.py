@@ -1,8 +1,10 @@
 """The port's CUDA kernels against their plain PyTorch versions on the
 card, for every ring size the NTT kernels take (2^4 .. 2^12), both key
-layouts of the digit MAC, ragged batches, and the Galois gathers in both
-bit orders (shared and per-batch rows, digits shared and not).  Marked ``gpu``: they
-skip where no CUDA device is present.  On a GPU machine:
+layouts of the digit MAC, ragged batches, the Galois gathers in both
+bit orders (shared and per-batch rows, digits shared and not), and the
+u16 lane of ML-KEM's ring (the 7-stage transforms on n = 256 and the
+basecase product, at odd and ML-KEM-sized batches).  Marked ``gpu``:
+they skip where no CUDA device is present.  On a GPU machine:
 
     PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_gpu.py
 """
@@ -11,6 +13,8 @@ import pytest
 import torch
 
 from repro_torch import kernels as K
+from repro_torch.convert import from_reference
+from repro_torch.core.ringspec import MLKEM_RING, ring_table_pack
 from repro_torch.fhe import batched as TB
 from repro_torch.fhe import rns
 from repro_torch.core.params import galois_eval_perm
@@ -143,3 +147,35 @@ def test_unaligned_gather_row_is_refused(cuda):
     x = words[1:n + 1].view(1, 1, n)
     with pytest.raises(ValueError, match="16-byte boundary"):
         galois_kernel.galois_banks(x, torch.arange(n, dtype=torch.int32, device=cuda))
+
+
+def _ring_rows(seed, shape, band=1):
+    rng = np.random.default_rng(seed)
+    q = MLKEM_RING.q
+    return torch.from_numpy(rng.integers(0, band * q, shape).astype(np.int16)).cuda()
+
+
+@pytest.mark.parametrize("b", [1, 5, 3 * 256, 9 * 256])
+@pytest.mark.parametrize("lazy", [False, True])
+def test_u16_ntt_and_basemul_kernels_equal_plain(cuda, b, lazy):
+    r = from_reference(ring_table_pack(MLKEM_RING), cuda)
+    n = MLKEM_RING.n
+    fargs = (r["qs"], r["tw"], r["twp"], r["psi"], r["psip"])
+    iargs = (r["qs"], r["ninv"], r["ninv_p"], r["itw"], r["itwp"], r["ipsin"], r["ipsinp"])
+    x = _ring_rows(b, (1, b, n))
+    xi = _ring_rows(b + 1, (1, b, n), band=2 if lazy else 1)
+    K.reset_counts()
+    for reduce_out in (False, True):
+        kw = dict(negacyclic=False, lazy=lazy, reduce_out=reduce_out)
+        assert torch.equal(ntt_kernel.ntt_fwd_banks(x, *fargs, **kw),
+                           ref.ntt_fwd_banks_ref(x, *fargs, **kw)), ("fwd", reduce_out)
+        assert torch.equal(ntt_kernel.ntt_inv_banks(xi, *iargs, **kw),
+                           ref.ntt_inv_banks_ref(xi, *iargs, **kw)), ("inv", reduce_out)
+    a, c = _ring_rows(b + 2, (1, b, n)), _ring_rows(b + 3, (1, b, n))
+    gargs = (r["qs"], r["mu"], r["gamma"], r["gammap"])
+    assert torch.equal(dyadic_kernel.dyadic_basemul_banks(a, c, *gargs, lazy=lazy),
+                       ref.dyadic_basemul_banks_ref(a, c, *gargs, lazy=lazy))
+    c = K.snapshot()
+    assert c["ntt_fwd_banks_u16"]["launches"] == 2 and c["ntt_fwd_banks"]["launches"] == 0
+    assert c["ntt_inv_banks_u16"]["launches"] == 2 and c["ntt_inv_banks"]["launches"] == 0
+    assert c["dyadic_basemul_banks"]["launches"] == 1

@@ -5,11 +5,14 @@ plain version for a CPU tensor, the kernel or an exception otherwise,
 never a fallback."""
 import ast
 import pathlib
+import re
 
 import pytest
 import torch
 
 from repro_torch import kernels as K
+from repro_torch.convert import from_reference
+from repro_torch.core.ringspec import MLKEM_RING, ring_table_pack
 from repro_torch.fhe import batched as TB
 from repro_torch.fhe import rns
 from repro_torch.fhe.ckks import CkksContext
@@ -72,6 +75,9 @@ def _wrapper_calls(device):
     row = torch.arange(N, dtype=torch.int32, device=device)
     rows = torch.stack([row, row.flip(0)])
     flags = dict(negacyclic=True, lazy=True, reduce_out=True)
+    r = from_reference(ring_table_pack(MLKEM_RING), device)
+    x16 = torch.zeros((1, 3, MLKEM_RING.n), dtype=torch.int16, device=device)
+    rflags = dict(negacyclic=False, lazy=True, reduce_out=True)
     return [
         ("ntt_fwd_banks", lambda: ntt_kernel.ntt_fwd_banks(
             x, t["qs"], t["tw"], t["twp"], t["psi"], t["psip"], **flags)),
@@ -86,6 +92,13 @@ def _wrapper_calls(device):
         ("galois_banks_multi", lambda: galois_kernel.galois_banks_multi(x, rows)),
         ("galois_digits", lambda: galois_kernel.galois_digits(
             ext[:, :, :1].contiguous(), rows, shared=True)),
+        ("ntt_fwd_banks_u16", lambda: ntt_kernel.ntt_fwd_banks(
+            x16, r["qs"], r["tw"], r["twp"], r["psi"], r["psip"], **rflags)),
+        ("ntt_inv_banks_u16", lambda: ntt_kernel.ntt_inv_banks(
+            x16, r["qs"], r["ninv"], r["ninv_p"], r["itw"], r["itwp"],
+            r["ipsin"], r["ipsinp"], **rflags)),
+        ("dyadic_basemul_banks", lambda: dyadic_kernel.dyadic_basemul_banks(
+            x16, x16, r["qs"], r["mu"], r["gamma"], r["gammap"], lazy=True)),
     ]
 
 
@@ -97,7 +110,8 @@ def test_cpu_tensor_takes_the_plain_version(i):
     name, call = _wrapper_calls("cpu")[i]
     K.reset_counts()
     out = call()
-    assert out.device.type == "cpu" and out.dtype == torch.int32
+    lane = torch.int16 if name.endswith("_u16") or "basemul" in name else torch.int32
+    assert out.device.type == "cpu" and out.dtype == lane
     assert K.snapshot()[name] == {"launches": 0, "plain_calls": 1}
 
 
@@ -193,3 +207,52 @@ def test_library_is_keyed_by_its_sources():
     assert a.parent == build.BUILD_DIR and a.name != b.name
     assert a == build.library_path("ntt_banks")
     assert set(build.SIGNATURES) == set(build.SOURCES)
+
+
+@pytest.mark.parametrize("source", build.SOURCES)
+def test_every_signature_names_a_launcher_of_its_source(source):
+    """Each declared C signature is an ``extern "C"`` launcher of its own
+    source, and each launcher of the source is declared."""
+    text = (build.CSRC / f"{source}.cu").read_text()
+    launchers = set(re.findall(r'extern "C" int (\w+)\(', text))
+    assert launchers == set(build.SIGNATURES[source])
+
+
+def _mixed_calls(device):
+    """Each lane-generic wrapper given an int16 pack and an int32 tensor."""
+    r = from_reference(ring_table_pack(MLKEM_RING), device)
+    x32 = torch.zeros((1, 3, MLKEM_RING.n), dtype=torch.int32, device=device)
+    x16 = x32.to(torch.int16)
+    flags = dict(negacyclic=False, lazy=True, reduce_out=True)
+    return {
+        "ntt_fwd_banks": lambda: ntt_kernel.ntt_fwd_banks(
+            x32, r["qs"], r["tw"], r["twp"], r["psi"], r["psip"], **flags),
+        "ntt_inv_banks": lambda: ntt_kernel.ntt_inv_banks(
+            x32, r["qs"], r["ninv"], r["ninv_p"], r["itw"], r["itwp"],
+            r["ipsin"], r["ipsinp"], **flags),
+        "dyadic_basemul_banks": lambda: dyadic_kernel.dyadic_basemul_banks(
+            x16, x32, r["qs"], r["mu"], r["gamma"], r["gammap"], lazy=True),
+    }
+
+
+@pytest.mark.parametrize("which", ["ntt_fwd_banks", "ntt_inv_banks",
+                                   "dyadic_basemul_banks"])
+@pytest.mark.parametrize("device", ["cpu", "meta"])
+def test_mixed_lanes_are_refused(monkeypatch, which, device):
+    """A u16 pack run through the u32 formulas would give wrong numbers
+    with no error, so a call mixing int16 and int32 is refused on every
+    device, before any kernel or plain version runs."""
+    monkeypatch.setattr(build, "load", lambda name: _NoLaunch())
+    call = _mixed_calls(device)[which]
+    K.reset_counts()
+    with pytest.raises(ValueError, match="every tensor must be int32"):
+        call()
+    assert all(c == {"launches": 0, "plain_calls": 0} for c in K.snapshot().values())
+
+
+def test_basemul_refuses_the_u32_lane():
+    t = TB.build_table_pack(PRIMES, N, "cpu")
+    x = torch.zeros((len(PRIMES), 2, N), dtype=torch.int32)
+    g = t["psi"][:, : N // 2].contiguous()
+    with pytest.raises(ValueError, match="int16"):
+        dyadic_kernel.dyadic_basemul_banks(x, x, t["qs"], t["mu"], g, g, lazy=True)
