@@ -36,6 +36,21 @@ Phases (any mismatch raises, so the exit code is non-zero):
                every byte equal to the same requests on device="cpu"; each
                of the three kernels launched, no plain version ran, and the
                launches per entry point are the module's
+  3d. ntt128   the paper's single-prime NTT-128 unit on the card, through
+               ops.ntt / intt / dyadic_mul / dyadic_mac with 30-bit primes:
+               the four single-prime kernels held bit for bit against their
+               plain versions at every shape of the path and at n = 16, 8192
+               and 16384 (B = 13), lazy and eager; then 10^5 random NTT-128s
+               (paper §VII.C; a cyclic forward, the Table III transform, and
+               a negacyclic forward -> inverse round trip), negacyclic
+               products ntt -> dyadic_mul -> intt at n = 1024 and 4096 (64
+               pairs), and an 8-digit product sum (one dyadic_mul, seven
+               dyadic_mac, one intt) at n = 4096.  Checks every row against
+               the same calls on device="cpu", 512 rows against the
+               brute-force oracle, 3 against the SRM pipeline model, 4 rows of
+               each product against the schoolbook convolution, the product
+               sum against numpy, and that each kernel launched and no plain
+               version ran
   4. times     per kernel (CUDA events around a CUDA-graph replay, so the
                device time) beside its memory bound, its eager call, its
                plain version and, for the gathers, the one PyTorch call that
@@ -43,8 +58,10 @@ Phases (any mismatch raises, so the exit code is non-zero):
                paths (interleaved rounds: median, quartiles, ratio to a
                rotate of the same round) and of keygen, encaps and decaps at
                b = 1 and b = 256 (interleaved rounds, handshakes per
-               second), and a torch.profiler breakdown of one request's
-               device time (one decaps at b = 256 among them)
+               second), NTT-128s per second at B = 10^5 and the host-clock
+               latency of that request and of the n = 4096 product, and a
+               torch.profiler breakdown of one request's device time (one
+               decaps at b = 256 and one NTT-128 batch among them)
 
     python3 chip_smoke.py --seed N     # another seed for every phase
 
@@ -86,6 +103,18 @@ MLKEM_B = 256                    # a batch of handshakes (b = 1 for latency)
 MLKEM_ODD_B = 5
 KAT_PATH = os.path.join(ROOT, "tests", "vectors", "mlkem768_kat.json")
 
+NTT128_B = 100_000               # paper §VII.C: 10^5 random NTT-128s
+NTT128_BRUTE = 512               # rows held against the brute-force oracle
+NTT128_SRM = 3                   # polynomials held against the SRM model
+PRODUCT_NS = (1024, 4096)
+PRODUCT_B = 64                   # polynomial pairs per product request
+PRODUCT_ROWS = 4                 # rows held against the schoolbook product
+MAC_N = 4096
+MAC_DIGITS = 8                   # the MM -> MA chain: 1 dyadic_mul, 7 dyadic_mac
+EDGE_NS = (16, 8192, 16384)
+EDGE_B = 13
+NTT128_KERNELS = ("ntt_fwd", "ntt_inv", "dyadic_mul", "dyadic_mac")
+
 REPLACES = {
     "ntt_fwd_banks": "src/repro/kernels/ntt_kernel.py:306",
     "ntt_inv_banks": "src/repro/kernels/ntt_kernel.py:320",
@@ -97,6 +126,10 @@ REPLACES = {
     "ntt_fwd_banks_u16": "src/repro/kernels/ntt_kernel.py:306",
     "ntt_inv_banks_u16": "src/repro/kernels/ntt_kernel.py:320",
     "dyadic_basemul_banks": "src/repro/kernels/dyadic_kernel.py:251",
+    "ntt_fwd": "src/repro/kernels/ntt_kernel.py:216",
+    "ntt_inv": "src/repro/kernels/ntt_kernel.py:227",
+    "dyadic_mul": "src/repro/kernels/dyadic_kernel.py:129",
+    "dyadic_mac": "src/repro/kernels/dyadic_kernel.py:136",
 }
 SOURCE = {
     "ntt_fwd_banks": "src/repro_torch/csrc/ntt_banks.cu",
@@ -109,11 +142,16 @@ SOURCE = {
     "ntt_fwd_banks_u16": "src/repro_torch/csrc/ntt_banks.cu",
     "ntt_inv_banks_u16": "src/repro_torch/csrc/ntt_banks.cu",
     "dyadic_basemul_banks": "src/repro_torch/csrc/dyadic_basemul.cu",
+    "ntt_fwd": "src/repro_torch/csrc/ntt.cu",
+    "ntt_inv": "src/repro_torch/csrc/ntt.cu",
+    "dyadic_mul": "src/repro_torch/csrc/dyadic.cu",
+    "dyadic_mac": "src/repro_torch/csrc/dyadic.cu",
 }
 MLKEM_KERNELS = ("ntt_fwd_banks_u16", "ntt_inv_banks_u16", "dyadic_basemul_banks")
 # the kernels each path must launch: multiply -> rescale runs the key
 # switch; the rotation path runs the key switch and all three gathers;
-# ML-KEM runs the u16 transforms and the basecase product
+# ML-KEM runs the u16 transforms and the basecase product; the NTT-128
+# path the four single-prime kernels
 PATH_KERNELS = {
     "multiply": ("ntt_fwd_banks", "ntt_inv_banks", "twiddle_mul_banks",
                  "dyadic_inner_banks"),
@@ -121,6 +159,7 @@ PATH_KERNELS = {
                  "dyadic_inner_banks", "galois_banks", "galois_banks_multi",
                  "galois_digits"),
     "mlkem": MLKEM_KERNELS,
+    "ntt128": NTT128_KERNELS,
 }
 # launches per ML-KEM entry point at any batch: (u16 forward NTTs, u16
 # inverse NTTs, basecase products), as pq/mlkem.py issues them
@@ -128,7 +167,9 @@ MLKEM_LAUNCHES = {"keygen": (1, 0, 1), "encaps": (1, 2, 2), "decaps": (2, 3, 3)}
 # device function names of the port's kernels, as the profiler sees them
 DEVICE_FUNCTIONS = ("ntt_fwd_banks_kernel", "ntt_inv_banks_kernel",
                     "twiddle_mul_banks_kernel", "dyadic_inner_banks_kernel",
-                    "galois_gather_kernel", "dyadic_basemul_banks_kernel")
+                    "galois_gather_kernel", "dyadic_basemul_banks_kernel",
+                    "ntt_fwd_kernel", "ntt_inv_kernel", "dyadic_mul_kernel",
+                    "dyadic_mac_kernel")
 
 
 def log(msg: str) -> None:
@@ -783,6 +824,289 @@ def phase_mlkem_times(counts: dict, errs: dict) -> tuple:
     return out, [(requests[label], latency[label], f"mlkem {label}")]
 
 
+# ----------------------------------------------------------- phase 3d
+
+def ntt128_inputs():
+    """The slice's inputs from the seed, as uint32 arrays: 10^5 NTT-128
+    rows, the product pairs (2, 64, n) at n = 1024 and 4096, and the
+    product sum's digits (2, 8, 64, 4096)."""
+    from repro_torch.core.params import make_ntt_params
+    rng = np.random.default_rng(SEED + 8)
+    x = rng.integers(0, make_ntt_params(128).q, (NTT128_B, 128), dtype=np.uint32)
+    pairs = {n: rng.integers(0, make_ntt_params(n).q, (2, PRODUCT_B, n),
+                             dtype=np.uint32) for n in PRODUCT_NS}
+    digits = rng.integers(0, make_ntt_params(MAC_N).q,
+                          (2, MAC_DIGITS, PRODUCT_B, MAC_N), dtype=np.uint32)
+    return x, pairs, digits
+
+
+def product_request(a, b, p):
+    """A negacyclic product: ntt, ntt, dyadic_mul, intt."""
+    from repro_torch.kernels import ops
+    return ops.intt(ops.dyadic_mul(ops.ntt(a, p), ops.ntt(b, p), p), p)
+
+
+def run_ntt128(inputs, device=None) -> dict:
+    """The slice's traffic through the single-prime ops, its inputs moved
+    to ``device`` (None: the card).  Returns the named int32 results."""
+    from repro_torch.convert import resolve_device, u32_to_tensor
+    from repro_torch.core.params import make_ntt_params
+    from repro_torch.kernels import ops
+    dev = resolve_device(device)
+    x, pairs, digits = inputs
+    p = make_ntt_params(128)
+    xt = u32_to_tensor(x, dev)
+    out = {"NTT-128 cyclic": ops.ntt(xt, p, negacyclic=False)}
+    out["NTT-128 negacyclic"] = ops.ntt(xt, p)
+    out["NTT-128 round trip"] = ops.intt(out["NTT-128 negacyclic"], p)
+    for n, (a, b) in pairs.items():
+        out[f"product n={n}"] = product_request(u32_to_tensor(a, dev),
+                                                u32_to_tensor(b, dev),
+                                                make_ntt_params(n))
+    p = make_ntt_params(MAC_N)
+    # every digit of each operand in one launch: (8, 64, n) rows
+    A = out["digits A"] = ops.ntt(u32_to_tensor(digits[0], dev), p)
+    B = out["digits B"] = ops.ntt(u32_to_tensor(digits[1], dev), p)
+    acc = ops.dyadic_mul(A[0], B[0], p)
+    for d in range(1, MAC_DIGITS):
+        acc = ops.dyadic_mac(acc, A[d], B[d], p)
+    out["product sum, NTT domain"] = acc
+    out[f"product sum n={MAC_N}"] = ops.intt(acc, p)
+    return out
+
+
+def phase_ntt128_kernels() -> dict:
+    """The four single-prime kernels against their plain versions at every
+    shape of the path and at the edge ring sizes, lazy and eager, cyclic
+    and negacyclic; the inverse takes the [0, 2q) band when lazy."""
+    from repro_torch.core.params import make_ntt_params
+    from repro_torch.kernels import dyadic_kernel, ntt_kernel, ref
+    rng = np.random.default_rng(SEED + 9)
+    err = {}
+
+    def check(name, got, want, what):
+        torch.cuda.synchronize()
+        e = max_abs_err(got, want)
+        err[name] = max(err.get(name, 0), e)
+        if not torch.equal(got, want):
+            raise AssertionError(f"{name} {what}: kernel != plain version "
+                                 f"(max abs err {e})")
+
+    def rows(q, shape, band=1):
+        return torch.from_numpy(rng.integers(0, band * q, shape, dtype=np.int64)
+                                .astype(np.int32)).cuda()
+
+    ntt_shapes = ([(NTT128_B, 128)] + [(PRODUCT_B, n) for n in PRODUCT_NS]
+                  + [(MAC_DIGITS * PRODUCT_B, MAC_N)] + [(EDGE_B, n) for n in EDGE_NS])
+    mul_shapes = [(PRODUCT_B, n) for n in PRODUCT_NS] + [(EDGE_B, n) for n in EDGE_NS]
+    for lazy in (False, True):
+        for b, n in ntt_shapes:
+            p = make_ntt_params(n)
+            x, xi = rows(p.q, (b, n)), rows(p.q, (b, n), band=2 if lazy else 1)
+            for neg in (False, True):
+                what = f"(B, n)=({b}, {n}) lazy={lazy} negacyclic={neg}"
+                check("ntt_fwd", ntt_kernel.ntt_fwd(x, p, negacyclic=neg, lazy=lazy),
+                      ref.ntt_fwd_ref(x, p, neg, lazy=lazy), what)
+                check("ntt_inv", ntt_kernel.ntt_inv(xi, p, negacyclic=neg, lazy=lazy),
+                      ref.ntt_inv_ref(xi, p, neg, lazy=lazy), what)
+        for b, n in mul_shapes:
+            p = make_ntt_params(n)
+            acc, a, c = (rows(p.q, (b, n)) for _ in range(3))
+            kw = dict(q=p.q, mu=p.barrett_mu, lazy=lazy)
+            what = f"(B, n)=({b}, {n}) lazy={lazy}"
+            check("dyadic_mul", dyadic_kernel.dyadic_mul(a, c, **kw),
+                  ref.dyadic_mul_ref(a, c, p.q, p.barrett_mu, lazy=lazy), what)
+            check("dyadic_mac", dyadic_kernel.dyadic_mac(acc, a, c, **kw),
+                  ref.dyadic_mac_ref(acc, a, c, p.q, p.barrett_mu, lazy=lazy), what)
+    for name, e in err.items():
+        log(f"[ntt128 kernels] {name}: bit-identical to its plain version at "
+            f"every shape (max abs err {e})")
+    return err
+
+
+def phase_ntt128() -> tuple:
+    from repro_torch import kernels as K
+    from repro_torch.convert import tensor_to_u32, u32_to_tensor
+    from repro_torch.core import srm_sim
+    from repro_torch.core.modmath import mulmod_np
+    from repro_torch.core.ntt import brute_ntt_bitrev_np, negacyclic_convolve_np
+    from repro_torch.core.params import make_ntt_params
+    from repro_torch.kernels import ops
+    inputs = ntt128_inputs()
+    x, pairs, digits = inputs
+    K.reset_counts()
+    t0 = time.perf_counter()
+    out = run_ntt128(inputs)
+    torch.cuda.synchronize()
+    counts = K.snapshot()
+    log(f"[ntt128] cuda run: {time.perf_counter() - t0:.2f} s, counts "
+        f"{ {k: v for k, v in counts.items() if v['launches'] or v['plain_calls']} }")
+    check_counts("ntt128", counts)
+    host = {k: tensor_to_u32(v) for k, v in out.items()}
+    p = make_ntt_params(128)
+    for k in ("NTT-128 cyclic", "NTT-128 negacyclic", "NTT-128 round trip"):
+        if host[k].shape != x.shape or host[k].max() >= p.q:
+            raise AssertionError(f"{k}: {host[k].shape}, expected {x.shape} in [0, q)")
+    if not np.array_equal(host["NTT-128 round trip"], x):
+        raise AssertionError("NTT-128: intt(ntt(x)) != x")
+    brute = brute_ntt_bitrev_np(x[:NTT128_BRUTE], p.omega, p.q)
+    if not np.array_equal(host["NTT-128 cyclic"][:NTT128_BRUTE], brute):
+        raise AssertionError("NTT-128 != the brute-force oracle")
+    srm_out, srm_stats = srm_sim.NTT128Pipeline(p).run(x[:NTT128_SRM])
+    if not np.array_equal(host["NTT-128 cyclic"][:NTT128_SRM], srm_out):
+        raise AssertionError("NTT-128 != the SRM pipeline model")
+    log(f"[ntt128] {NTT128_B} NTT-128s (cyclic and negacyclic) on the card: the "
+        f"round trip gives x back, {NTT128_BRUTE} rows equal the brute-force oracle, "
+        f"{NTT128_SRM} equal the SRM pipeline model ({srm_stats})")
+    for n, (a, b) in pairs.items():
+        q = make_ntt_params(n).q
+        got = host[f"product n={n}"]
+        for i in range(PRODUCT_ROWS):
+            if not np.array_equal(got[i], negacyclic_convolve_np(a[i], b[i], q)):
+                raise AssertionError(f"product n={n} row {i} != the schoolbook product")
+    q = make_ntt_params(MAC_N).q
+    want = np.zeros(host["product sum, NTT domain"].shape, dtype=np.uint64)
+    for d in range(MAC_DIGITS):
+        want = (want + mulmod_np(host["digits A"][d], host["digits B"][d], q)) % q
+    if not np.array_equal(host["product sum, NTT domain"], want.astype(np.uint32)):
+        raise AssertionError("product sum (NTT domain) != numpy's exact sum")
+    for i in range(PRODUCT_ROWS):
+        conv = np.zeros(MAC_N, dtype=np.uint64)
+        for d in range(MAC_DIGITS):
+            conv = (conv + negacyclic_convolve_np(digits[0, d, i], digits[1, d, i], q)) % q
+        if not np.array_equal(host[f"product sum n={MAC_N}"][i], conv.astype(np.uint32)):
+            raise AssertionError(f"product sum row {i} != the schoolbook sum")
+    log(f"[ntt128] products at n in {PRODUCT_NS} ({PRODUCT_B} pairs): {PRODUCT_ROWS} rows "
+        f"each equal the schoolbook product; the {MAC_DIGITS}-digit product sum at "
+        f"n={MAC_N} equals numpy on all {PRODUCT_B} rows in the NTT domain and the "
+        f"schoolbook sum on {PRODUCT_ROWS}")
+    dev = out["NTT-128 round trip"].device
+    a, b = (u32_to_tensor(v, dev) for v in pairs[MAC_N])
+    per_op = {}
+    for what, req in (("NTT-128 batch", lambda: ops.ntt(out["NTT-128 round trip"], p,
+                                                        negacyclic=False)),
+                      (f"product n={MAC_N}",
+                       lambda: product_request(a, b, make_ntt_params(MAC_N)))):
+        K.reset_counts()
+        req()
+        torch.cuda.synchronize()
+        per_op[what] = {k: v["launches"] for k, v in K.snapshot().items() if v["launches"]}
+        log(f"[ntt128] launches per {what}: {per_op[what]}")
+    return inputs, host, counts, per_op
+
+
+def phase_ntt128_cpu_parity(inputs, cuda_host) -> None:
+    from repro_torch.convert import tensor_to_u32
+    t0 = time.perf_counter()
+    out = run_ntt128(inputs, device="cpu")
+    for name, v in out.items():
+        if not np.array_equal(tensor_to_u32(v), cuda_host[name]):
+            raise AssertionError(f"{name}: cuda run != cpu run")
+    log(f"[ntt128 parity] cuda == cpu bit for bit: {', '.join(out)} "
+        f"({time.perf_counter() - t0:.1f} s on the CPU)")
+
+
+def phase_ntt128_times(counts: dict, errs: dict) -> tuple:
+    """The four kernels at the NTT-128 request's (10^5, 128) shape (the
+    Barrett pair too, as a bandwidth probe), NTT-128s per second, the
+    kernels at the products' shapes, and host-clock latencies of the
+    NTT-128 request and the n = 4096 product."""
+    from repro_torch.convert import tensor_to_u32, u32_to_tensor
+    from repro_torch.core.params import make_ntt_params
+    from repro_torch.kernels import dyadic_kernel, ntt_kernel, ops, ref
+    rng = np.random.default_rng(SEED + 10)
+    p = make_ntt_params(128)
+    x, a, b, c = (torch.from_numpy(rng.integers(0, p.q, (NTT128_B, 128), dtype=np.int64)
+                                   .astype(np.int32)).cuda() for _ in range(4))
+    w = 4   # bytes per word
+    tables = 2 * p.tw.size * w                      # tw + twp (or itw + itwp)
+    mk = dict(q=p.q, mu=p.barrett_mu, lazy=True)
+    cases = {
+        "ntt_fwd": (
+            lambda: ntt_kernel.ntt_fwd(x, p, negacyclic=False, lazy=True),
+            lambda: ref.ntt_fwd_ref(x, p, False, lazy=True),
+            None, tuple(x.shape), 2 * x.numel() * w + tables),
+        "ntt_inv": (
+            lambda: ntt_kernel.ntt_inv(x, p, negacyclic=True, lazy=True),
+            lambda: ref.ntt_inv_ref(x, p, True, lazy=True),
+            None, tuple(x.shape), 2 * x.numel() * w + tables + 2 * p.n * w),
+        "dyadic_mul": (
+            lambda: dyadic_kernel.dyadic_mul(a, b, **mk),
+            lambda: ref.dyadic_mul_ref(a, b, p.q, p.barrett_mu, lazy=True),
+            None, tuple(a.shape), 3 * a.numel() * w),
+        "dyadic_mac": (
+            lambda: dyadic_kernel.dyadic_mac(c, a, b, **mk),
+            lambda: ref.dyadic_mac_ref(c, a, b, p.q, p.barrett_mu, lazy=True),
+            None, tuple(a.shape), 4 * a.numel() * w),
+    }
+    out = time_kernels(cases, counts, errs)
+    log("[times] library: none for the single-prime NTT and the Barrett "
+        "product and MAC, which no single PyTorch call computes")
+    fwd = next(r for r in out if r["name"] == "ntt_fwd")
+    log(f"[times] NTT-128 at B={NTT128_B}: {NTT128_B / fwd['ms'] / 1e3:.1f} M NTT/s "
+        f"(kernel {fwd['ms']:.4f} ms; byte bound {NTT128_B / fwd['bound_ms'] / 1e3:.1f} "
+        "M NTT/s)")
+
+    # the kernels at the product requests' shapes
+    p4 = make_ntt_params(MAC_N)
+    y, z, v = (torch.from_numpy(rng.integers(0, p4.q, (PRODUCT_B, MAC_N), dtype=np.int64)
+                                .astype(np.int32)).cuda() for _ in range(3))
+    y8 = torch.from_numpy(rng.integers(0, p4.q, (MAC_DIGITS * PRODUCT_B, MAC_N),
+                                       dtype=np.int64).astype(np.int32)).cuda()
+    k4 = dict(q=p4.q, mu=p4.barrett_mu, lazy=True)
+    t4 = 2 * p4.tw.size * w
+    for name, fn, nbytes, shape in (
+            ("ntt_fwd", lambda: ntt_kernel.ntt_fwd(y8, p4, negacyclic=True, lazy=True),
+             2 * y8.numel() * w + t4 + 2 * MAC_N * w, tuple(y8.shape)),
+            ("ntt_inv", lambda: ntt_kernel.ntt_inv(y, p4, negacyclic=True, lazy=True),
+             2 * y.numel() * w + t4 + 2 * MAC_N * w, tuple(y.shape)),
+            ("dyadic_mul", lambda: dyadic_kernel.dyadic_mul(y, z, **k4),
+             3 * y.numel() * w, tuple(y.shape)),
+            ("dyadic_mac", lambda: dyadic_kernel.dyadic_mac(v, y, z, **k4),
+             4 * y.numel() * w, tuple(y.shape))):
+        log(f"[times] {name} {shape} (product path): kernel {graph_ms(fn):.4f} ms, "
+            f"bound {nbytes / HBM_BYTES_PER_S * 1e3:.4f} ms ({nbytes} bytes), "
+            f"eager call {eager_ms(fn):.4f} ms")
+    # one row per block from n = 8192: at B = 13 the grid holds 13 blocks,
+    # at B = 132 one for each SM
+    for n in EDGE_NS[1:]:
+        pn = make_ntt_params(n)
+        for rows in (EDGE_B, 132):
+            e = torch.from_numpy(rng.integers(0, pn.q, (rows, n), dtype=np.int64)
+                                 .astype(np.int32)).cuda()
+            nbytes = 2 * e.numel() * w + 2 * pn.tw.size * w + 2 * n * w
+            for name, kern in (("ntt_fwd", ntt_kernel.ntt_fwd), ("ntt_inv", ntt_kernel.ntt_inv)):
+                ms = graph_ms(lambda: kern(e, pn, negacyclic=True, lazy=True))
+                log(f"[times] {name} ({rows}, {n}) (one row per block): kernel {ms:.4f} ms, "
+                    f"bound {nbytes / HBM_BYTES_PER_S * 1e3:.4f} ms ({nbytes} bytes), "
+                    f"{ms * 1e3 / rows:.2f} us per row")
+
+    xh = rng.integers(0, p.q, (NTT128_B, 128), dtype=np.uint32)
+    ab = rng.integers(0, p4.q, (2, PRODUCT_B, MAC_N), dtype=np.uint32)
+    ya, yb = (u32_to_tensor(t, x.device) for t in ab)
+    requests = {
+        f"NTT-128 batch, B={NTT128_B}, on the card":
+            lambda: ops.ntt(x, p, negacyclic=False),
+        f"NTT-128 batch, B={NTT128_B}, from and to host memory":
+            lambda: tensor_to_u32(ops.ntt(u32_to_tensor(xh, x.device), p,
+                                          negacyclic=False)),
+        f"product n={MAC_N}, B={PRODUCT_B}, on the card":
+            lambda: product_request(ya, yb, p4),
+    }
+    samples = interleaved_host_ms(requests, LAT_ROUNDS)
+    latency = {}
+    for label, tms in samples.items():
+        latency[label] = med = statistics.median(tms)
+        q1, _, q3 = statistics.quantiles(tms, n=4)
+        rate = (f"{NTT128_B / med / 1e3:.3f} M NTT/s" if label.startswith("NTT")
+                else f"{PRODUCT_B * 1e3 / med:.1f} products per second")
+        log(f"[times] {label}: median {med:.3f} ms over {len(tms)} interleaved runs "
+            f"(min {min(tms):.3f}, quartiles {q1:.3f}-{q3:.3f}, max {max(tms):.3f}), {rate}")
+    profiles = [(requests[label], latency[label], label) for label in requests
+                if "on the card" in label]
+    return out, profiles
+
+
 # ------------------------------------------------------------ phase 4
 
 def phase_times(ctx, cts, fs_pack, ks_pack, per_op, counts, errs, rot) -> list:
@@ -991,18 +1315,25 @@ def main() -> int:
     errs.update(phase_mlkem_kernels())
     mlkem_in, mlkem_out, mcounts, mlkem_per_op = phase_mlkem()
     phase_mlkem_cpu_parity(mlkem_in, mlkem_out)
+    errs.update(phase_ntt128_kernels())
+    ntt_in, ntt_out, ncounts, ntt_per_op = phase_ntt128()
+    phase_ntt128_cpu_parity(ntt_in, ntt_out)
     per_op = {"multiply + rescale": {k: v for k, v in per_op.items() if v},
-              **rot_per_op, **{f"mlkem {op}": c for op, c in mlkem_per_op.items()}}
-    counts = {"multiply": counts, "rotation": rcounts, "mlkem": mcounts}
+              **rot_per_op, **{f"mlkem {op}": c for op, c in mlkem_per_op.items()},
+              **ntt_per_op}
+    counts = {"multiply": counts, "rotation": rcounts, "mlkem": mcounts,
+              "ntt128": ncounts}
     kernels, profiles = phase_times(ctx, cts, fs_pack, ks_pack, per_op, counts,
                                     errs, {"ctx": rctx, "M": M, "cts": rcts})
     mlkem_kernels, mlkem_profiles = phase_mlkem_times(counts, errs)
-    kernels += mlkem_kernels
-    for req, lat_ms, label in profiles + mlkem_profiles:
+    ntt_kernels, ntt_profiles = phase_ntt128_times(counts, errs)
+    kernels += mlkem_kernels + ntt_kernels
+    for req, lat_ms, label in profiles + mlkem_profiles + ntt_profiles:
         profile_request(req, lat_ms, label)
     log(f"[done] {time.perf_counter() - t_start:.1f} s, slot error "
         f"{slot_err:.3e} (multiply path), {rot_err:.3e} (rotation path); "
-        f"ML-KEM-768 KATs and {MLKEM_B} handshakes byte-exact")
+        f"ML-KEM-768 KATs and {MLKEM_B} handshakes byte-exact; {NTT128_B} "
+        "NTT-128s and the products exact")
     log(f"[gpu] {gpu_line()}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

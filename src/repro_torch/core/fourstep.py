@@ -9,8 +9,11 @@ units plus a data reorder between passes.  With N = N1*N2:
   4. NTT_N2 along rows (root w^N1)               -> D[k1, k2]
   and A_hat[k2*N1 + k1] = D[k1, k2].
 
-This module builds the host tables (numpy uint32); the pipeline itself
-is ``repro_torch.kernels.ops.ntt_fourstep_banks``.
+This module builds the host tables (numpy uint32) and the single-prime
+entry points over the pipeline ``repro_torch.kernels.ops.ntt_fourstep_banks``
+(``fourstep_ntt`` / ``fourstep_intt``, run as a k = 1 bank row on the
+input's device), its natural-order oracle ``ntt_natural`` and its static
+schedule.
 """
 from __future__ import annotations
 
@@ -18,10 +21,21 @@ import dataclasses
 import functools
 
 import numpy as np
+import torch
 
-from repro_torch.core.params import (NTTParams, gen_ntt_primes,
+from repro_torch.convert import from_reference
+from repro_torch.core.ntt import ntt_cyclic
+from repro_torch.core.params import (NTTParams, bitrev_perm, gen_ntt_primes,
                                      make_ntt_params, root_of_unity,
                                      shoup_table)
+from repro_torch.kernels import ops
+
+
+def ntt_natural(x, p: NTTParams):
+    """Cyclic CG-NTT permuted to natural frequency order (bitrev is an
+    involution, so the same gather converts either way)."""
+    perm = torch.from_numpy(bitrev_perm(p.n)).to(x.device)
+    return ntt_cyclic(x, p)[..., perm]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -86,3 +100,41 @@ def make_fourstep_params(n1: int, n2: int, q: int | None = None,
                           psi_mat=psi_mat.astype(u), psi_mat_p=shoup_table(psi_mat, q),
                           ipsi_mat=ipsi_mat.astype(u),
                           ipsi_mat_p=shoup_table(ipsi_mat, q))
+
+
+@functools.lru_cache(maxsize=None)
+def _banks_pack(n1: int, n2: int, q: int, device: str) -> dict:
+    """Single-prime (k = 1) FourStepPack on ``device`` for the banks
+    pipeline."""
+    # fhe.batched imports this module for make_fourstep_params
+    from repro_torch.fhe.batched import fourstep_pack_from_params
+    return from_reference(
+        fourstep_pack_from_params([make_fourstep_params(n1, n2, q)]), device)
+
+
+def fourstep_ntt(a, fsp: FourStepParams, negacyclic: bool = False):
+    """a: (..., n) int32 -> natural-order NTT via the four-step path, on
+    a's device: both passes and the step-3 twiddle run as one bank row
+    through ``ops.ntt_fourstep_banks``."""
+    fp = _banks_pack(fsp.n1, fsp.n2, fsp.q, str(a.device))
+    return ops.ntt_fourstep_banks(a[None], fp, negacyclic=negacyclic)[0]
+
+
+def fourstep_intt(A, fsp: FourStepParams, negacyclic: bool = False):
+    fp = _banks_pack(fsp.n1, fsp.n2, fsp.q, str(A.device))
+    return ops.intt_fourstep_banks(A[None], fp, negacyclic=negacyclic)[0]
+
+
+def fourstep_schedule(n1: int, n2: int) -> dict:
+    """Static structure of the §IX schedule — what runs in each pass, to
+    hold ``srm_sim.large_ntt_cycles`` (two passes of 128 NTT-128s through
+    128 units at 2^14) against the pipeline's shape."""
+    return {
+        "passes": 2,
+        # pass 1 runs one NTT-N1 per column, pass 2 one NTT-N2 per row
+        "transforms_per_pass": (n2, n1),
+        "transform_sizes": (n1, n2),
+        "butterfly_cycles_per_pass": (n2 * (n1 // 2), n1 * (n2 // 2)),
+        "reorders": 1,                  # the inter-pass transpose
+        "twiddle_muls": n1 * n2,        # fused step-3 correction
+    }

@@ -212,10 +212,26 @@ def mulmod_barrett(a, b, q, mu, bits: int = 32):
 # ----------------------------------------------------------- Montgomery
 
 def montgomery_precompute(q: int) -> tuple[int, int]:
-    """(qinv_neg, r2) with qinv_neg = -q^{-1} mod 2^32, r2 = 2^64 mod q
-    (only carried in ``NTTParams``; no port op uses Montgomery)."""
+    """(qinv_neg, r2) with qinv_neg = -q^{-1} mod 2^32, r2 = 2^64 mod q."""
     qinv = pow(int(q), -1, 1 << 32)
     return ((1 << 32) - qinv) & M32, (1 << 64) % int(q)
+
+
+def montmul(a, b, q, qinv_neg):
+    """Montgomery product a*b*2^-32 mod q (inputs < q, q < 2^31 odd):
+    the paper's Table II multiplier, the one it rejected for the BU."""
+    hi = mulhi_u32(a, b)
+    lo = mullo_u32(a, b)
+    m = mullo_u32(lo, qinv_neg)
+    t = hi + mulhi_u32(m, q) + (lo != 0).long()       # < 2q + 1 < 2^32
+    return torch.where(t >= q, t - q, t)
+
+
+def mulmod_montgomery(a, b, q, qinv_neg, r2):
+    """a*b mod q through the Montgomery domain and back: the conversion
+    overhead the paper cites as its reason to reject Montgomery."""
+    am = montmul(a, r2, q, qinv_neg)                  # to Montgomery domain
+    return montmul(am, b, q, qinv_neg)                # = a*b mod q (back out)
 
 
 # ------------------------------------------------------- numpy oracles

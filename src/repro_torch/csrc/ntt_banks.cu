@@ -20,35 +20,24 @@
 // and its two weights and writes one word.  The least time is those
 // bytes over the card's memory rate.
 //
-// What this simple design does about it: each block stages its rows in a
-// shared-memory ping-pong pair and runs every stage there, so a word
-// crosses device memory exactly twice however many stages the transform
-// has (the paper's SRM ping-pong banks).  Stage t's twiddle row
-// tw/twp[p, t, :] is copied to shared memory once per block when the
-// prime's whole table fits in 16 KB (n <= 256: 3.5 KB at n = 128);
-// larger tables are read from device memory (they stay in L1/L2, shared
-// by every block of the prime).  The TPU kernel kept all twiddle rows
+// What this simple design does about it: each block runs one prime's
+// rows through every stage in a shared-memory ping-pong pair, so a word
+// crosses device memory exactly twice (ntt_block.cuh, shared with the
+// single-prime kernels of ntt.cu).  The TPU kernel kept all twiddle rows
 // resident in VMEM, which does not fit a block's shared memory at
-// n = 4096.  Loads and stores of the row tiles are coalesced; the
-// interleaved (u, v) writes of the forward stage cost a 2-way bank
-// conflict, left for a later change.
-//
-// The constant-geometry layout is kept exactly: a forward stage reads
-// lo = x[:n/2], hi = x[n/2:] and writes interleaved (u, v) pairs; an
-// inverse stage reads interleaved pairs and writes [u | v].
+// n = 4096: only tables up to 16 KB (n <= 256) go to shared memory.
 #include <cuda_runtime.h>
 
 #include <cstdint>
 
 #include "modarith.cuh"
+#include "ntt_block.cuh"
 
 using namespace modarith;
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kTileWords = 4096;     // words in each ping-pong buffer
-constexpr int kTwiddleWords = 4096;  // tw + twp words that may go to smem
+using ntt_block::kThreads;
 
 template <typename T, bool kLazy>
 __global__ void __launch_bounds__(kThreads)
@@ -59,79 +48,13 @@ ntt_fwd_banks_kernel(const T* __restrict__ x, T* __restrict__ out,
                      int stages, int rows, bool negacyclic, bool reduce_out,
                      bool tw_smem) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* smem = reinterpret_cast<T*>(smem_raw);
   const int p = blockIdx.y;
-  const int row0 = blockIdx.x * rows;
-  const int nrows = min(rows, b - row0);
-  const int h = n >> 1;
-  const int words = nrows * n;
-  const int half_words = nrows * h;
-  const uint32_t q = qs[p];
-  const uint32_t q2 = q << 1;
-
-  T* a = smem;
-  T* c = smem + rows * n;
-  const T* tw_p = tw + (size_t)p * stages * h;
-  const T* twp_p = twp + (size_t)p * stages * h;
-  if (tw_smem) {
-    T* s_tw = smem + 2 * rows * n;
-    for (int i = threadIdx.x; i < stages * h; i += blockDim.x) {
-      s_tw[i] = tw_p[i];
-      s_tw[stages * h + i] = twp_p[i];
-    }
-    tw_p = s_tw;
-    twp_p = s_tw + stages * h;
-  }
-
-  const T* src = x + ((size_t)p * b + row0) * n;
-  const T* psi_p = psi + (size_t)p * n;
-  const T* psip_p = psip + (size_t)p * n;
-  for (int i = threadIdx.x; i < words; i += blockDim.x) {
-    uint32_t v = src[i];
-    if (negacyclic) {
-      const int j = i & (n - 1);
-      v = kLazy ? lane_shoup_lazy<T>(v, psi_p[j], psip_p[j], q)
-                : lane_shoup<T>(v, psi_p[j], psip_p[j], q);
-    }
-    a[i] = (T)v;
-  }
-  __syncthreads();
-
-  for (int t = 0; t < stages; ++t) {
-    const T* wrow = tw_p + t * h;
-    const T* wprow = twp_p + t * h;
-    for (int i = threadIdx.x; i < half_words; i += blockDim.x) {
-      const int r = i >> (log_n - 1);
-      const int j = i & (h - 1);
-      const uint32_t lo = a[r * n + j];
-      const uint32_t hi = a[r * n + j + h];
-      const uint32_t w = wrow[j];
-      const uint32_t wp = wprow[j];
-      uint32_t u, v;
-      if (kLazy) {
-        const uint32_t tt = lane_shoup_lazy<T>(hi, w, wp, q);
-        u = lazy_add(lo, tt, q2);
-        v = lazy_sub(lo, tt, q2);
-      } else {
-        const uint32_t tt = lane_shoup<T>(hi, w, wp, q);
-        u = add_mod(lo, tt, q);
-        v = sub_mod(lo, tt, q);
-      }
-      c[r * n + 2 * j] = (T)u;
-      c[r * n + 2 * j + 1] = (T)v;
-    }
-    __syncthreads();
-    T* tmp = a;
-    a = c;
-    c = tmp;
-  }
-
-  T* dst = out + ((size_t)p * b + row0) * n;
-  for (int i = threadIdx.x; i < words; i += blockDim.x) {
-    uint32_t v = a[i];
-    if (kLazy && reduce_out) v = v >= q ? v - q : v;
-    dst[i] = (T)v;
-  }
+  const size_t table = (size_t)p * stages * (n >> 1);
+  ntt_block::fwd_block<T, kLazy>(
+      reinterpret_cast<T*>(smem_raw), x + (size_t)p * b * n,
+      out + (size_t)p * b * n, qs[p], tw + table, twp + table,
+      psi + (size_t)p * n, psip + (size_t)p * n, b, n, log_n, stages, rows,
+      negacyclic, reduce_out, tw_smem);
 }
 
 template <typename T, bool kLazy>
@@ -144,76 +67,13 @@ ntt_inv_banks_kernel(const T* __restrict__ x, T* __restrict__ out,
                      int stages, int rows, bool negacyclic, bool reduce_out,
                      bool tw_smem) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* smem = reinterpret_cast<T*>(smem_raw);
   const int p = blockIdx.y;
-  const int row0 = blockIdx.x * rows;
-  const int nrows = min(rows, b - row0);
-  const int h = n >> 1;
-  const int words = nrows * n;
-  const int half_words = nrows * h;
-  const uint32_t q = qs[p];
-  const uint32_t q2 = q << 1;
-
-  T* a = smem;
-  T* c = smem + rows * n;
-  const T* tw_p = itw + (size_t)p * stages * h;
-  const T* twp_p = itwp + (size_t)p * stages * h;
-  if (tw_smem) {
-    T* s_tw = smem + 2 * rows * n;
-    for (int i = threadIdx.x; i < stages * h; i += blockDim.x) {
-      s_tw[i] = tw_p[i];
-      s_tw[stages * h + i] = twp_p[i];
-    }
-    tw_p = s_tw;
-    twp_p = s_tw + stages * h;
-  }
-
-  const T* src = x + ((size_t)p * b + row0) * n;
-  for (int i = threadIdx.x; i < words; i += blockDim.x) a[i] = src[i];
-  __syncthreads();
-
-  for (int t = stages - 1; t >= 0; --t) {
-    const T* wrow = tw_p + t * h;
-    const T* wprow = twp_p + t * h;
-    for (int i = threadIdx.x; i < half_words; i += blockDim.x) {
-      const int r = i >> (log_n - 1);
-      const int j = i & (h - 1);
-      const uint32_t e = a[r * n + 2 * j];
-      const uint32_t o = a[r * n + 2 * j + 1];
-      const uint32_t w = wrow[j];
-      const uint32_t wp = wprow[j];
-      uint32_t u, v;
-      if (kLazy) {
-        u = lazy_add(e, o, q2);
-        v = lane_shoup_lazy<T>(lazy_sub(e, o, q2), w, wp, q);
-      } else {
-        u = add_mod(e, o, q);
-        v = lane_shoup<T>(sub_mod(e, o, q), w, wp, q);
-      }
-      c[r * n + j] = (T)u;
-      c[r * n + j + h] = (T)v;
-    }
-    __syncthreads();
-    T* tmp = a;
-    a = c;
-    c = tmp;
-  }
-
-  // epilogue: psi^-i * n^-1 row (negacyclic) or the ninv scalar (n^-1, or
-  // 2^-stages for an incomplete ring); the multiply reduces fully unless
-  // a lazy consumer asked for [0, 2q)
-  T* dst = out + ((size_t)p * b + row0) * n;
-  const T* post_p = post + (size_t)p * n;
-  const T* postp_p = postp + (size_t)p * n;
-  const uint32_t nv = ninv[p];
-  const uint32_t nvp = ninv_p[p];
-  for (int i = threadIdx.x; i < words; i += blockDim.x) {
-    const int j = i & (n - 1);
-    const uint32_t w = negacyclic ? (uint32_t)post_p[j] : nv;
-    const uint32_t wp = negacyclic ? (uint32_t)postp_p[j] : nvp;
-    dst[i] = (T)((kLazy && !reduce_out) ? lane_shoup_lazy<T>(a[i], w, wp, q)
-                                        : lane_shoup<T>(a[i], w, wp, q));
-  }
+  const size_t table = (size_t)p * stages * (n >> 1);
+  ntt_block::inv_block<T, kLazy>(
+      reinterpret_cast<T*>(smem_raw), x + (size_t)p * b * n,
+      out + (size_t)p * b * n, qs[p], ninv[p], ninv_p[p], itw + table,
+      itwp + table, post + (size_t)p * n, postp + (size_t)p * n, b, n, log_n,
+      stages, rows, negacyclic, reduce_out, tw_smem);
 }
 
 template <bool kLazy>
@@ -233,29 +93,9 @@ twiddle_mul_banks_kernel(const uint32_t* __restrict__ x, uint32_t* __restrict__ 
   }
 }
 
-int ilog2(int n) {
-  int s = 0;
-  while ((1 << s) < n) ++s;
-  return s;
-}
-
-struct Geometry {
-  dim3 grid;
-  int rows;
-  bool tw_smem;
-  size_t smem_bytes;
-};
-
-Geometry geometry(int k, int b, int n, int stages, size_t word_bytes) {
-  Geometry g;
-  g.rows = kTileWords / n > 1 ? kTileWords / n : 1;
-  if (g.rows > b) g.rows = b;
-  const int tw_words = 2 * stages * (n / 2);
-  g.tw_smem = tw_words <= kTwiddleWords;
-  g.smem_bytes = (size_t)(2 * g.rows * n + (g.tw_smem ? tw_words : 0)) * word_bytes;
-  g.grid = dim3((b + g.rows - 1) / g.rows, k);
-  return g;
-}
+using ntt_block::Geometry;
+using ntt_block::geometry;
+using ntt_block::ilog2;
 
 template <typename T>
 int launch_fwd(const void* x, void* out, const void* qs, const void* tw,

@@ -10,7 +10,10 @@ a build or launch failure to fall back.
 (``plain_calls``), so a run can show which path it took.  The two NTT
 bank kernels count each lane apart (``ntt_fwd_banks`` for the int32 RNS
 lane, ``ntt_fwd_banks_u16`` for the int16 small-ring lane, likewise the
-inverse), so a run shows which instantiation it launched.
+inverse), so a run shows which instantiation it launched.  The
+single-prime kernels (``ntt_fwd``, ``ntt_inv``, ``dyadic_mul``,
+``dyadic_mac``: the paper's NTT-128 unit and its Barrett MM/MA) are
+counted apart from the banks kernels.
 """
 from __future__ import annotations
 
@@ -19,7 +22,8 @@ import dataclasses
 KERNELS = ("ntt_fwd_banks", "ntt_inv_banks", "twiddle_mul_banks",
            "dyadic_inner_banks", "galois_banks", "galois_banks_multi",
            "galois_digits", "ntt_fwd_banks_u16", "ntt_inv_banks_u16",
-           "dyadic_basemul_banks")
+           "dyadic_basemul_banks", "ntt_fwd", "ntt_inv", "dyadic_mul",
+           "dyadic_mac")
 
 
 @dataclasses.dataclass

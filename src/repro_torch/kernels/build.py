@@ -25,13 +25,15 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
-SOURCES = ("ntt_banks", "dyadic_inner", "galois", "dyadic_basemul")
+SOURCES = ("ntt_banks", "dyadic_inner", "galois", "dyadic_basemul", "ntt",
+           "dyadic")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_longlong
+_U = ctypes.c_uint          # a uint32 scalar: a modulus, mu, n^-1 or its companion
 # C signature of every launcher: (argtypes) -> cudaError_t as int
 SIGNATURES = {
     "ntt_banks": {
@@ -51,6 +53,14 @@ SIGNATURES = {
     },
     "dyadic_basemul": {
         "dyadic_basemul_banks": [_P] * 7 + [_I] * 4 + [_P],
+    },
+    "ntt": {
+        "ntt_fwd": [_P] * 6 + [_U] + [_I] * 4 + [_P],
+        "ntt_inv": [_P] * 6 + [_U] * 3 + [_I] * 4 + [_P],
+    },
+    "dyadic": {
+        "dyadic_mul": [_P] * 3 + [_U, _U, _L, _P],
+        "dyadic_mac": [_P] * 4 + [_U, _U, _L, _I, _P],
     },
 }
 

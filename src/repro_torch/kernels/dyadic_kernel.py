@@ -9,6 +9,14 @@ Barrett products.  ``dyadic_basemul_banks`` replaces the TPU kernel of
 the same name: ML-KEM's degree-1 products mod (X^2 - γ_j) on the int16
 lane.  A CPU tensor goes to the plain version; a CUDA tensor launches
 the kernel or raises.
+
+``dyadic_mul`` / ``dyadic_mac`` (``csrc/dyadic.cu``) replace the
+single-prime TPU kernels of the same names: a * b mod q and
+acc + a * b mod q with the u32 Barrett product, elementwise over
+operands of one shape.  They refuse, on every device, an int16 tensor
+(the single-prime lane is uint32 only), operands of different shapes,
+and mu = 0, which ``make_ntt_params`` leaves for a modulus outside the
+Barrett window (2^28, 2^30), where the product would be wrong.
 """
 from __future__ import annotations
 
@@ -16,7 +24,8 @@ import torch
 
 from repro_torch.kernels import COUNTS, build, ref
 from repro_torch.kernels.ntt_kernel import (check_lane, check_shape,
-                                            check_tensors, raise_on, stream)
+                                            check_tensors, check_u32, raise_on,
+                                            stream)
 
 
 def dyadic_inner_banks(ext, evk, qs, mus, *, lazy: bool):
@@ -79,6 +88,56 @@ def dyadic_basemul_banks(a, b, qs, mus, gamma, gammap, *, lazy: bool):
     rc = lib.dyadic_basemul_banks(a.data_ptr(), b.data_ptr(), out.data_ptr(),
                                   qs.data_ptr(), mus.data_ptr(), gamma.data_ptr(),
                                   gammap.data_ptr(), k, bb, n, int(lazy), stream())
+    raise_on(where, rc)
+    COUNTS[where].launches += 1
+    return out
+
+
+def _check_pointwise(where: str, mu: int, **tensors) -> None:
+    check_u32(where, **tensors)
+    shapes = {name: tuple(t.shape) for name, t in tensors.items()}
+    if len(set(shapes.values())) != 1:
+        raise ValueError(f"{where}: operand shapes differ: {shapes}")
+    if mu == 0:
+        raise ValueError(f"{where}: Barrett mu is 0: the modulus lies outside "
+                         "the u32 Barrett window (2^28, 2^30)")
+
+
+def dyadic_mul(a, b, *, q: int, mu: int, lazy: bool):
+    """a, b: int32 residues in [0, q) of one shape; mu = floor(2^60 / q).
+    Returns a * b mod q in [0, q).  The lazy and eager products are one
+    op sequence (the [0, 2q) Barrett band, then a subtract of q), so the
+    kernel takes no flag; ``lazy`` reaches the plain version only."""
+    where = "dyadic_mul"
+    _check_pointwise(where, mu, a=a, b=b)
+    if a.device.type == "cpu":
+        return ref.dyadic_mul_ref(a, b, q, mu, lazy=lazy)
+    lib = build.load("dyadic")
+    check_tensors(where, a.device, a=a, b=b)
+    out = torch.empty_like(a)
+    if out.numel() == 0:
+        return out
+    rc = lib.dyadic_mul(a.data_ptr(), b.data_ptr(), out.data_ptr(), q, mu,
+                        out.numel(), stream())
+    raise_on(where, rc)
+    COUNTS[where].launches += 1
+    return out
+
+
+def dyadic_mac(acc, a, b, *, q: int, mu: int, lazy: bool):
+    """acc, a, b: int32 residues in [0, q) of one shape.  Returns
+    acc + a * b mod q in [0, q)."""
+    where = "dyadic_mac"
+    _check_pointwise(where, mu, acc=acc, a=a, b=b)
+    if a.device.type == "cpu":
+        return ref.dyadic_mac_ref(acc, a, b, q, mu, lazy=lazy)
+    lib = build.load("dyadic")
+    check_tensors(where, a.device, acc=acc, a=a, b=b)
+    out = torch.empty_like(a)
+    if out.numel() == 0:
+        return out
+    rc = lib.dyadic_mac(acc.data_ptr(), a.data_ptr(), b.data_ptr(),
+                        out.data_ptr(), q, mu, out.numel(), int(lazy), stream())
     raise_on(where, rc)
     COUNTS[where].launches += 1
     return out

@@ -1,4 +1,5 @@
-"""Wrappers of the NTT-bank kernels (``csrc/ntt_banks.cu``).
+"""Wrappers of the NTT kernels: the multi-prime banks (``csrc/ntt_banks.cu``)
+and the single-prime transforms (``csrc/ntt.cu``).
 
 ``ntt_fwd_banks`` / ``ntt_inv_banks`` / ``twiddle_mul_banks`` replace the
 TPU kernels ``ntt_fwd_banks_pallas`` / ``ntt_inv_banks_pallas`` /
@@ -15,14 +16,23 @@ Shoup lane, launched as ``ntt_fwd_banks_u16`` / ``ntt_inv_banks_u16`` and
 counted apart.  Every tensor of one call must share the lane: a u16 pack
 run through the u32 formulas would give wrong numbers with no error, so
 a mix is refused with ``ValueError`` on every device.
+
+``ntt_fwd`` / ``ntt_inv`` replace the single-prime TPU kernels
+``ntt_fwd_pallas`` / ``ntt_inv_pallas``: one prime's ``NTTParams``, a
+(B, n) int32 batch, every log2(n) stage, n up to 2^14 (the banks stop at
+4096).  Their tables go to the tensor's device once per (n, q, psi,
+device) (``core.ntt.device_tables``).  The single-prime lane is uint32
+only, so an int16 tensor is refused on every device.
 """
 from __future__ import annotations
 
 import torch
 
+from repro_torch.core.ntt import device_tables
 from repro_torch.kernels import COUNTS, build, ref
 
 MAX_N = 4096          # one row pair fills the block's 32 KB ping-pong tile
+MAX_N_SINGLE = 1 << 14  # one row's ping-pong pair fills 128 KB of shared memory
 
 
 LANES = {torch.int32: "uint32", torch.int16: "uint16"}
@@ -171,4 +181,75 @@ def twiddle_mul_banks(x, qs, w, wp, *, lazy: bool):
                                int(lazy), stream())
     raise_on(where, rc)
     COUNTS["twiddle_mul_banks"].launches += 1
+    return out
+
+
+# ------------------------------------------------------ single prime
+
+def check_u32(where: str, **tensors) -> None:
+    """Every tensor int32 (uint32 bit patterns): the single-prime lane has
+    no other, on any device."""
+    for name, t in tensors.items():
+        if t.dtype != torch.int32:
+            raise ValueError(f"{where}: {name} must be int32 (uint32 bit "
+                             f"patterns), the single-prime lane, got {t.dtype}")
+
+
+def _check_single(where: str, x, p) -> tuple[int, int]:
+    if x.ndim != 2:
+        raise ValueError(f"{where}: x must be (B, n), got {tuple(x.shape)}")
+    b, n = x.shape
+    if n != p.n:
+        raise ValueError(f"{where}: rows of {n} for params of n={p.n}")
+    if n < 2 or n > MAX_N_SINGLE or n & (n - 1):
+        raise ValueError(f"{where}: n={n} must be a power of two in [2, "
+                         f"{MAX_N_SINGLE}]: a block holds one row's ping-pong "
+                         "pair in shared memory")
+    return b, n
+
+
+def ntt_fwd(x, p, *, negacyclic: bool, lazy: bool):
+    """x: (B, n) int32 in [0, p.q); p: the prime's ``NTTParams``.
+    Returns the forward transform in bitrev order, in [0, q) either way."""
+    where = "ntt_fwd"
+    check_u32(where, x=x)
+    if x.device.type == "cpu":
+        return ref.ntt_fwd_ref(x, p, negacyclic, lazy=lazy)
+    lib = build.load("ntt")
+    b, n = _check_single(where, x, p)
+    check_tensors(where, x.device, x=x)
+    t = device_tables(p, x.device)
+    out = torch.empty_like(x)
+    if out.numel() == 0:
+        return out
+    rc = lib.ntt_fwd(x.data_ptr(), out.data_ptr(), t["tw"].data_ptr(),
+                     t["twp"].data_ptr(), t["psi_pows"].data_ptr(),
+                     t["psi_pows_p"].data_ptr(), p.q, b, n, int(negacyclic),
+                     int(lazy), stream())
+    raise_on(where, rc)
+    COUNTS[where].launches += 1
+    return out
+
+
+def ntt_inv(x, p, *, negacyclic: bool, lazy: bool):
+    """x: (B, n) int32 in bitrev order, any representative below 2q.
+    Returns natural order in [0, q): the epilogue multiplies by
+    psi^-i * n^-1 (negacyclic) or n^-1 (cyclic) exactly."""
+    where = "ntt_inv"
+    check_u32(where, x=x)
+    if x.device.type == "cpu":
+        return ref.ntt_inv_ref(x, p, negacyclic, lazy=lazy)
+    lib = build.load("ntt")
+    b, n = _check_single(where, x, p)
+    check_tensors(where, x.device, x=x)
+    t = device_tables(p, x.device)
+    out = torch.empty_like(x)
+    if out.numel() == 0:
+        return out
+    rc = lib.ntt_inv(x.data_ptr(), out.data_ptr(), t["itw"].data_ptr(),
+                     t["itwp"].data_ptr(), t["ipsi_ninv"].data_ptr(),
+                     t["ipsi_ninv_p"].data_ptr(), p.q, p.ninv, p.ninv_p, b, n,
+                     int(negacyclic), int(lazy), stream())
+    raise_on(where, rc)
+    COUNTS[where].launches += 1
     return out

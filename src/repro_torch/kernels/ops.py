@@ -1,7 +1,11 @@
-"""Entry points of the NTT/dyadic/Galois compute layer over multi-prime
-banks.
+"""Entry points of the NTT/dyadic/Galois compute layer.
 
-Every function takes a TablePack / FourStepPack dict of int32 tensors
+Two families.  The single-prime ops (``ntt``/``intt``/``dyadic_mul``/
+``dyadic_mac``) take one prime's ``NTTParams`` and int32 residues of any
+leading shape (..., n), and run where the tensor lives: the paper's
+NTT-128 unit and its Barrett MM/MA.  The multi-prime banks ops follow.
+
+Every banks function takes a TablePack / FourStepPack dict of int32 tensors
 (see ``fhe.batched``) whose per-prime rows are stacked on axis 0 — the
 paper's Fig 22 parallel NTT-bank array — and dispatches to a kernel
 wrapper, which launches the Hopper kernel for a CUDA tensor and runs the
@@ -34,6 +38,49 @@ from repro_torch.core.params import bitrev_perm
 from repro_torch.kernels import dyadic_kernel, galois_kernel, ntt_kernel
 
 FOURSTEP_MIN_N = 1 << 13
+
+
+# ------------------------------------------------------ single prime
+
+def _single_rows(where: str, x, p) -> torch.Tensor:
+    """(..., n) -> contiguous (B, n) rows of ring p."""
+    if x.ndim == 0 or x.shape[-1] != p.n:
+        raise ValueError(f"{where}: rows of {tuple(x.shape)[-1:]} for params "
+                         f"of n={p.n}")
+    return x.reshape(-1, p.n).contiguous()
+
+
+def ntt(x, p, *, negacyclic: bool = True, lazy: bool = True):
+    """Batched single-prime forward NTT.  x: (..., n) int32 residues in
+    [0, p.q) -> (..., n) in bit-reversed order and [0, q), on x's device.
+    ``lazy`` selects the deferred-reduction butterflies; the epilogue
+    reduces either way, so outputs are bit-identical."""
+    out = ntt_kernel.ntt_fwd(_single_rows("ntt", x, p), p,
+                             negacyclic=negacyclic, lazy=lazy)
+    return out.reshape(x.shape)
+
+
+def intt(x, p, *, negacyclic: bool = True, lazy: bool = True):
+    """Inverse of ``ntt``: bit-reversed (..., n) in, natural order out."""
+    out = ntt_kernel.ntt_inv(_single_rows("intt", x, p), p,
+                             negacyclic=negacyclic, lazy=lazy)
+    return out.reshape(x.shape)
+
+
+def dyadic_mul(a, b, p, *, lazy: bool = True):
+    """a .* b mod p.q for NTT-domain operands of one shape."""
+    return dyadic_kernel.dyadic_mul(a.contiguous(), b.contiguous(), q=p.q,
+                                    mu=p.barrett_mu, lazy=lazy)
+
+
+def dyadic_mac(acc, a, b, p, *, lazy: bool = True):
+    """acc + a .* b mod p.q (the MM -> MA chain) for operands of one shape."""
+    return dyadic_kernel.dyadic_mac(acc.contiguous(), a.contiguous(),
+                                    b.contiguous(), q=p.q, mu=p.barrett_mu,
+                                    lazy=lazy)
+
+
+# ------------------------------------------------ multi-prime NTT banks
 
 
 def _rows(t: dict, k: int, *names):

@@ -17,10 +17,12 @@ import functools
 
 import torch
 
+from repro_torch.core import ntt as _ntt
 from repro_torch.core.modmath import (addmod, lazy_addmod, lazy_submod,
                                       mulmod_barrett, mulmod_barrett_lazy,
                                       mulmod_shoup, mulmod_shoup_lazy, submod,
                                       u16, u32)
+from repro_torch.core.params import NTTParams
 from repro_torch.kernels import COUNTS
 
 
@@ -52,6 +54,49 @@ def _shoup_pair(bits: int):
     return (functools.partial(mulmod_shoup_lazy, bits=bits),
             functools.partial(mulmod_shoup, bits=bits))
 
+
+# ------------------------------------------------------ single prime
+
+def ntt_fwd_ref(x, p: NTTParams, negacyclic: bool, lazy: bool = False):
+    """Single-prime forward NTT of x (..., n) int32: ``core.ntt``'s
+    functions, which keep the kernel's lazy-band order."""
+    COUNTS["ntt_fwd"].plain_calls += 1
+    if negacyclic:
+        return _ntt.ntt_negacyclic(x, p, lazy=lazy)
+    return _ntt.ntt_cyclic(x, p, lazy=lazy)
+
+
+def ntt_inv_ref(x, p: NTTParams, negacyclic: bool, lazy: bool = False):
+    COUNTS["ntt_inv"].plain_calls += 1
+    if negacyclic:
+        return _ntt.intt_negacyclic(x, p, lazy=lazy)
+    return _ntt.intt_cyclic(x, p, lazy=lazy)
+
+
+def dyadic_mul_ref(a, b, q: int, mu: int, lazy: bool = False):
+    """a * b mod q with the u32 Barrett product; lazy takes the [0, 2q)
+    band and then one subtract of q."""
+    COUNTS["dyadic_mul"].plain_calls += 1
+    av, bv = u32(a), u32(b)
+    if lazy:
+        r = mulmod_barrett_lazy(av, bv, q, mu)
+        return torch.where(r >= q, r - q, r).int()
+    return mulmod_barrett(av, bv, q, mu).int()
+
+
+def dyadic_mac_ref(acc, a, b, q: int, mu: int, lazy: bool = False):
+    """acc + a * b mod q; lazy sums acc (< q) and the [0, 2q) product
+    (< 3q), then reduces by 2q and by q."""
+    COUNTS["dyadic_mac"].plain_calls += 1
+    av, bv, s = u32(a), u32(b), u32(acc)
+    if lazy:
+        s = s + mulmod_barrett_lazy(av, bv, q, mu)
+        s = torch.where(s >= 2 * q, s - 2 * q, s)
+        return torch.where(s >= q, s - q, s).int()
+    return addmod(s, mulmod_barrett(av, bv, q, mu), q).int()
+
+
+# ------------------------------------------------ multi-prime banks
 
 def ntt_fwd_banks_ref(x, qs, tw, twp, pre, prep, negacyclic: bool,
                       lazy: bool = False, reduce_out: bool = True):

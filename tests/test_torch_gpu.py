@@ -3,7 +3,9 @@ card, for every ring size the NTT kernels take (2^4 .. 2^12), both key
 layouts of the digit MAC, ragged batches, the Galois gathers in both
 bit orders (shared and per-batch rows, digits shared and not), and the
 u16 lane of ML-KEM's ring (the 7-stage transforms on n = 256 and the
-basecase product, at odd and ML-KEM-sized batches).  Marked ``gpu``:
+basecase product, at odd and ML-KEM-sized batches), and the single-prime
+transforms and Barrett products (n = 16 .. 2^14, the one-row blocks of
+n >= 8192 included, with ops' any-leading-shape rows).  Marked ``gpu``:
 they skip where no CUDA device is present.  On a GPU machine:
 
     PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_gpu.py
@@ -17,8 +19,8 @@ from repro_torch.convert import from_reference
 from repro_torch.core.ringspec import MLKEM_RING, ring_table_pack
 from repro_torch.fhe import batched as TB
 from repro_torch.fhe import rns
-from repro_torch.core.params import galois_eval_perm
-from repro_torch.kernels import dyadic_kernel, galois_kernel, ntt_kernel, ref
+from repro_torch.core.params import galois_eval_perm, make_ntt_params
+from repro_torch.kernels import dyadic_kernel, galois_kernel, ntt_kernel, ops, ref
 
 pytestmark = pytest.mark.gpu
 
@@ -179,3 +181,45 @@ def test_u16_ntt_and_basemul_kernels_equal_plain(cuda, b, lazy):
     assert c["ntt_fwd_banks_u16"]["launches"] == 2 and c["ntt_fwd_banks"]["launches"] == 0
     assert c["ntt_inv_banks_u16"]["launches"] == 2 and c["ntt_inv_banks"]["launches"] == 0
     assert c["dyadic_basemul_banks"]["launches"] == 1
+
+
+@pytest.mark.parametrize("n", [16, 128, 1024, 8192, 16384])
+@pytest.mark.parametrize("b", [1, 13])
+@pytest.mark.parametrize("lazy", [False, True])
+def test_single_prime_kernels_equal_plain(cuda, n, b, lazy):
+    p = make_ntt_params(n)
+    x = _residues(n + b, [p.q], (b, n))[0]
+    xi = _residues(n + b + 1, [p.q], (b, n), band=2 if lazy else 1)[0]
+    K.reset_counts()
+    for neg in (False, True):
+        assert torch.equal(ntt_kernel.ntt_fwd(x, p, negacyclic=neg, lazy=lazy),
+                           ref.ntt_fwd_ref(x, p, neg, lazy=lazy)), ("fwd", neg)
+        assert torch.equal(ntt_kernel.ntt_inv(xi, p, negacyclic=neg, lazy=lazy),
+                           ref.ntt_inv_ref(xi, p, neg, lazy=lazy)), ("inv", neg)
+    c = _residues(n + b + 2, [p.q], (b, n))[0]
+    kw = dict(q=p.q, mu=p.barrett_mu, lazy=lazy)
+    assert torch.equal(dyadic_kernel.dyadic_mul(x, c, **kw),
+                       ref.dyadic_mul_ref(x, c, p.q, p.barrett_mu, lazy=lazy))
+    assert torch.equal(dyadic_kernel.dyadic_mac(x, c, x, **kw),
+                       ref.dyadic_mac_ref(x, c, x, p.q, p.barrett_mu, lazy=lazy))
+    counts = K.snapshot()
+    for name, launches in (("ntt_fwd", 2), ("ntt_inv", 2), ("dyadic_mul", 1),
+                           ("dyadic_mac", 1)):
+        assert counts[name]["launches"] == launches, name
+
+
+def test_single_prime_ops_round_trip_and_odd_words(cuda):
+    """ops over (3, 5, 128) rows, and the Barrett kernels' one-word path
+    (a word count that is not a multiple of 4, an unaligned view)."""
+    p = make_ntt_params(128)
+    x = _residues(7, [p.q], (3, 5, 128))[0]
+    y = ops.ntt(x, p)
+    assert torch.equal(y, ref.ntt_fwd_ref(x, p, True, lazy=True))
+    assert torch.equal(ops.intt(y, p), x)
+    flat = x.reshape(-1)
+    for a in (flat[:13], flat[1:14]):
+        b = a.flip(0).contiguous()
+        assert torch.equal(dyadic_kernel.dyadic_mul(a, b, q=p.q, mu=p.barrett_mu, lazy=True),
+                           ref.dyadic_mul_ref(a, b, p.q, p.barrett_mu, lazy=True))
+        assert torch.equal(dyadic_kernel.dyadic_mac(b, a, b, q=p.q, mu=p.barrett_mu, lazy=True),
+                           ref.dyadic_mac_ref(b, a, b, p.q, p.barrett_mu, lazy=True))

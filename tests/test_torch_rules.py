@@ -12,11 +12,12 @@ import torch
 
 from repro_torch import kernels as K
 from repro_torch.convert import from_reference
+from repro_torch.core.params import make_ntt_params
 from repro_torch.core.ringspec import MLKEM_RING, ring_table_pack
 from repro_torch.fhe import batched as TB
 from repro_torch.fhe import rns
 from repro_torch.fhe.ckks import CkksContext
-from repro_torch.kernels import build, dyadic_kernel, galois_kernel, ntt_kernel
+from repro_torch.kernels import build, dyadic_kernel, galois_kernel, ntt_kernel, ops
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
@@ -62,6 +63,7 @@ def test_context_without_a_card_raises(monkeypatch):
 
 N = 16
 PRIMES = tuple(rns.make_primes(N, 3))
+P1 = make_ntt_params(N)                 # one 30-bit prime: the single-prime ops
 
 
 def _wrapper_calls(device):
@@ -99,7 +101,21 @@ def _wrapper_calls(device):
             r["ipsin"], r["ipsinp"], **rflags)),
         ("dyadic_basemul_banks", lambda: dyadic_kernel.dyadic_basemul_banks(
             x16, x16, r["qs"], r["mu"], r["gamma"], r["gammap"], lazy=True)),
+        *_single_prime_calls(torch.zeros((2, N), dtype=torch.int32, device=device),
+                             P1).items(),
     ]
+
+
+def _single_prime_calls(x, p):
+    """The four single-prime wrappers on rows ``x`` of ring ``p``."""
+    return {
+        "ntt_fwd": lambda: ntt_kernel.ntt_fwd(x, p, negacyclic=True, lazy=True),
+        "ntt_inv": lambda: ntt_kernel.ntt_inv(x, p, negacyclic=True, lazy=True),
+        "dyadic_mul": lambda: dyadic_kernel.dyadic_mul(x, x, q=p.q, mu=p.barrett_mu,
+                                                       lazy=True),
+        "dyadic_mac": lambda: dyadic_kernel.dyadic_mac(x, x, x, q=p.q, mu=p.barrett_mu,
+                                                       lazy=True),
+    }
 
 
 WRAPPERS = range(len(_wrapper_calls("cpu")))
@@ -256,3 +272,65 @@ def test_basemul_refuses_the_u32_lane():
     g = t["psi"][:, : N // 2].contiguous()
     with pytest.raises(ValueError, match="int16"):
         dyadic_kernel.dyadic_basemul_banks(x, x, t["qs"], t["mu"], g, g, lazy=True)
+
+
+SINGLE = ["ntt_fwd", "ntt_inv", "dyadic_mul", "dyadic_mac"]
+
+
+@pytest.mark.parametrize("which", ["ntt_fwd", "ntt_inv"])
+def test_single_prime_ring_above_2_14_is_refused(monkeypatch, which):
+    """The single-prime transforms hold one row's ping-pong pair in a
+    block's shared memory: n = 2^15 is refused with the limit named."""
+    monkeypatch.setattr(build, "load", lambda name: _NoLaunch())
+    n = 2 * ntt_kernel.MAX_N_SINGLE
+    p = make_ntt_params(n)
+    call = _single_prime_calls(torch.zeros((1, n), dtype=torch.int32, device="meta"),
+                               p)[which]
+    K.reset_counts()
+    with pytest.raises(ValueError, match="power of two in \\[2, 16384\\]"):
+        call()
+    assert K.snapshot()[which] == {"launches": 0, "plain_calls": 0}
+
+
+@pytest.mark.parametrize("which", SINGLE)
+@pytest.mark.parametrize("device", ["cpu", "meta"])
+def test_single_prime_int16_is_refused(monkeypatch, which, device):
+    """The single-prime lane is uint32 only, on every device."""
+    monkeypatch.setattr(build, "load", lambda name: _NoLaunch())
+    call = _single_prime_calls(torch.zeros((2, N), dtype=torch.int16, device=device),
+                               P1)[which]
+    K.reset_counts()
+    with pytest.raises(ValueError, match="must be int32"):
+        call()
+    assert K.snapshot()[which] == {"launches": 0, "plain_calls": 0}
+
+
+@pytest.mark.parametrize("which", ["dyadic_mul", "dyadic_mac"])
+@pytest.mark.parametrize("device", ["cpu", "meta"])
+def test_barrett_mu_zero_is_refused(monkeypatch, which, device):
+    """make_ntt_params leaves mu at 0 for a modulus outside the Barrett
+    window (here 97 < 2^28); the product would be wrong, so both devices
+    refuse it (the ops too)."""
+    monkeypatch.setattr(build, "load", lambda name: _NoLaunch())
+    p = make_ntt_params(N, q=97)
+    assert p.barrett_mu == 0
+    x = torch.zeros((2, N), dtype=torch.int32, device=device)
+    K.reset_counts()
+    with pytest.raises(ValueError, match="mu is 0"):
+        _single_prime_calls(x, p)[which]()
+    op = {"dyadic_mul": lambda: ops.dyadic_mul(x, x, p),
+          "dyadic_mac": lambda: ops.dyadic_mac(x, x, x, p)}[which]
+    with pytest.raises(ValueError, match="mu is 0"):
+        op()
+    assert K.snapshot()[which] == {"launches": 0, "plain_calls": 0}
+
+
+@pytest.mark.parametrize("device", ["cpu", "meta"])
+def test_dyadic_operands_of_other_shapes_are_refused(monkeypatch, device):
+    monkeypatch.setattr(build, "load", lambda name: _NoLaunch())
+    a = torch.zeros((2, N), dtype=torch.int32, device=device)
+    b = torch.zeros((1, N), dtype=torch.int32, device=device)
+    with pytest.raises(ValueError, match="shapes differ"):
+        dyadic_kernel.dyadic_mul(a, b, q=P1.q, mu=P1.barrett_mu, lazy=True)
+    with pytest.raises(ValueError, match="shapes differ"):
+        dyadic_kernel.dyadic_mac(a, a, b, q=P1.q, mu=P1.barrett_mu, lazy=True)
