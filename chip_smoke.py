@@ -9,8 +9,13 @@ Phases (any mismatch raises, so the exit code is non-zero):
   2. kernels   hold each kernel against its plain PyTorch version on the
                card, at the shapes of the CKKS multiply -> rescale and
                rotation paths at n = 2^14 with 8 + 1 primes (and one
-               bit-reversed gather case at n = 1024); results must be
-               bit-identical
+               bit-reversed gather case at n = 1024); the weight-row
+               multiply also at B = 1 and 8 of the 2^14 ring, on a ring of
+               2 (its one-word path), on an unaligned view and with x over
+               the whole u32 range; the three gathers also at n = 2^16,
+               above one block's shared memory; the NTT banks also at
+               n = 8192 and 16384 (one row per block); lazy and eager
+               throughout; results must be bit-identical
   3. slice     CkksContext(n=2^14, levels=7) on the card: encrypt 8 slot
                vectors, answer 4 single multiply -> rescale requests and one
                multiply_many -> rescale_many batch of 8, decrypt_decode every
@@ -26,6 +31,12 @@ Phases (any mismatch raises, so the exit code is non-zero):
                sliding sum), bit-identity with the same traffic on the CPU,
                and that every kernel of the path launched and no plain
                version ran
+  3e. rot16    rotations above one block's shared memory: a
+               CkksContext(n=2^16, levels=3) with Galois keys for 1 and 2:
+               rotate by 1, rotate_many by (1, 2), rotate_hoisted by (1, 2)
+               and a 4 x 4 matvec, checked against numpy, bit for bit
+               against the same requests on device="cpu", and that every
+               kernel of the rotation path launched and no plain version ran
   3c. mlkem    ML-KEM-768 (FIPS 203) on the u16 lane: the two u16 NTT
                instantiations and the basecase product held bit for bit
                against their plain versions at every shape of the b = 1 and
@@ -113,6 +124,11 @@ MAC_N = 4096
 MAC_DIGITS = 8                   # the MM -> MA chain: 1 dyadic_mul, 7 dyadic_mac
 EDGE_NS = (16, 8192, 16384)
 EDGE_B = 13
+BIG_BANKS_NS = (8192, 16384)     # the banks transforms at one row per block
+N16 = 1 << 16                    # rotation rows above one block's shared memory
+ROT16_LEVELS = 3
+ROT16_AMOUNTS = (1, 2)
+ROT16_MV = 4                     # bsgs_split(4) = (2, 2): keys for 1 and 2
 NTT128_KERNELS = ("ntt_fwd", "ntt_inv", "dyadic_mul", "dyadic_mac")
 
 REPLACES = {
@@ -161,13 +177,15 @@ PATH_KERNELS = {
     "mlkem": MLKEM_KERNELS,
     "ntt128": NTT128_KERNELS,
 }
+PATH_KERNELS["rot16"] = PATH_KERNELS["rotation"]
 # launches per ML-KEM entry point at any batch: (u16 forward NTTs, u16
 # inverse NTTs, basecase products), as pq/mlkem.py issues them
 MLKEM_LAUNCHES = {"keygen": (1, 0, 1), "encaps": (1, 2, 2), "decaps": (2, 3, 3)}
 # device function names of the port's kernels, as the profiler sees them
 DEVICE_FUNCTIONS = ("ntt_fwd_banks_kernel", "ntt_inv_banks_kernel",
                     "twiddle_mul_banks_kernel", "dyadic_inner_banks_kernel",
-                    "galois_gather_kernel", "dyadic_basemul_banks_kernel",
+                    "galois_split_kernel", "galois_staged_kernel",
+                    "dyadic_basemul_banks_kernel",
                     "ntt_fwd_kernel", "ntt_inv_kernel", "dyadic_mul_kernel",
                     "dyadic_mac_kernel")
 
@@ -318,12 +336,26 @@ def phase_kernels(fs_pack, ks_primes) -> dict:
                                                    lazy=lazy, reduce_out=reduce_out),
                           ref.ntt_inv_banks_ref(x, *iargs, neg, lazy=lazy,
                                                 reduce_out=reduce_out), what)
-    x = residues(rng, [int(v) for v in qs.cpu()], (BATCH, N), band=2)
-    for lazy in (False, True):
-        check("twiddle_mul_banks",
-              ntt_kernel.twiddle_mul_banks(x, qs, fs_pack["tw"], fs_pack["twp"], lazy=lazy),
-              ref.twiddle_mul_banks_ref(x, qs, fs_pack["tw"], fs_pack["twp"], lazy=lazy),
-              f"(k, B, n)={tuple(x.shape)} lazy={lazy}")
+    for n in BIG_BANKS_NS:
+        t = FB.build_table_pack(rns.make_primes(n, 3), n, "cuda")
+        for lazy in (False, True):
+            x = residues(rng, [int(v) for v in t["qs"].cpu()], (EDGE_B, n),
+                         band=2 if lazy else 1)
+            xr = residues(rng, [int(v) for v in t["qs"].cpu()], (EDGE_B, n))
+            for reduce_out in (False, True):
+                for neg in (False, True):
+                    what = f"n={n} lazy={lazy} reduce_out={reduce_out} negacyclic={neg}"
+                    args = (t["qs"], t["tw"], t["twp"], t["psi"], t["psip"])
+                    kw = dict(lazy=lazy, reduce_out=reduce_out)
+                    check("ntt_fwd_banks",
+                          ntt_kernel.ntt_fwd_banks(xr, *args, negacyclic=neg, **kw),
+                          ref.ntt_fwd_banks_ref(xr, *args, neg, **kw), what)
+                    iargs = (t["qs"], t["ninv"], t["ninv_p"], t["itw"], t["itwp"],
+                             t["ipsin"], t["ipsinp"])
+                    check("ntt_inv_banks",
+                          ntt_kernel.ntt_inv_banks(x, *iargs, negacyclic=neg, **kw),
+                          ref.ntt_inv_banks_ref(x, *iargs, neg, **kw), what)
+    check_twiddle(check, rng, fs_pack)
     sp_qs = [int(v) for v in qs.cpu()]
     ext = torch.stack([residues(rng, sp_qs, (BATCH, N)) for _ in range(k - 1)])
     keys = {"shared": torch.stack([residues(rng, sp_qs, (N,)) for _ in range(k - 1)]),
@@ -342,6 +374,32 @@ def phase_kernels(fs_pack, ks_primes) -> dict:
     return err
 
 
+def check_twiddle(check, rng, fs_pack) -> None:
+    """The weight-row multiply, lazy and eager, on its vector path at the
+    four-step pass's shape (k primes x the B = 8 multiply's 64 columns of
+    2^14) and at B = 1 and 8 of the 2^14 ring, with x in [0, 2q) and over
+    the whole u32 range; on its one-word path on a ring of 2 and on a
+    view one word past a 16-byte boundary."""
+    from repro_torch.kernels import ntt_kernel, ref
+    qs, w, wp = fs_pack["qs"], fs_pack["tw"], fs_pack["twp"]
+    k = qs.shape[0]
+    ql = [int(v) for v in qs.cpu()]
+    full = rng.integers(0, 1 << 32, (k, BATCH, N), dtype=np.uint64).astype(np.uint32)
+    words = residues(rng, ql[:1], (k * BATCH * N + 1,))[0]
+    cases = [(residues(rng, ql, (b, N), band=2), w, wp, f"B={b}")
+             for b in ((k - 1) * BATCH, 1, BATCH)]
+    cases += [(torch.from_numpy(full.view(np.int32)).cuda(), w, wp, "x over all u32"),
+              (residues(rng, ql, (BATCH, 2), band=2), w[:, :2].contiguous(),
+               wp[:, :2].contiguous(), "n=2 (one word a thread)"),
+              (words[1:].view(k, BATCH, N), w, wp, "unaligned view (one word a thread)")]
+    for x, wr, wpr, what in cases:
+        for lazy in (False, True):
+            check("twiddle_mul_banks",
+                  ntt_kernel.twiddle_mul_banks(x, qs, wr, wpr, lazy=lazy),
+                  ref.twiddle_mul_banks_ref(x, qs, wr, wpr, lazy=lazy),
+                  f"(k, B, n)={tuple(x.shape)} {what} lazy={lazy}")
+
+
 def gather_rows(n: int, amounts, natural: bool):
     """(len(amounts), n) int32 gather rows on the card for slot rotations."""
     from repro_torch.core.params import galois_eval_perm
@@ -353,12 +411,13 @@ def gather_rows(n: int, amounts, natural: bool):
 def check_gathers(check, rng, ct_primes) -> None:
     """The three gathers at the rotation path's shapes: k = 8 ciphertext
     primes, d = 8 digits over 8 + 1 primes, B = R = 8, n = 2^14 natural
-    order; and once in bit-reversed order at n = 1024."""
+    order; once in bit-reversed order at n = 1024; and at n = 2^16, rows
+    above one block's shared memory (the split-row body in every mode)."""
     from repro_torch.fhe import rns
     from repro_torch.kernels import galois_kernel, ref
     k = len(ct_primes)
-    for n, natural in ((N, True), (1024, False)):
-        qs = ct_primes if natural else [int(q) for q in rns.make_primes(n, k)]
+    for n, natural in ((N, True), (1024, False), (N16, True)):
+        qs = ct_primes if n == N else [int(q) for q in rns.make_primes(n, k)]
         sp = qs + [qs[0]]                    # k + 1 rows for the digit planes
         rows = gather_rows(n, ROT_AMOUNTS, natural)
         for b in (1, BATCH):
@@ -578,6 +637,94 @@ def phase_rotation_cpu_parity(cuda_cts, cuda_ans) -> None:
         if not same_ct(cuda_ans[name], ct):
             raise AssertionError(f"{name}: cuda run != cpu run")
     log(f"[rotation parity] cuda == cpu bit for bit: {len(cts)} ciphertexts, "
+        f"{len(ans)} answers ({time.perf_counter() - t0:.1f} s on the CPU)")
+
+
+# ----------------------------------------------------------- phase 3e
+
+def rot16_setup(device):
+    """A context at 2^16 with 3 + 1 ciphertext primes, keys for rotations
+    1 and 2 (the 4 x 4 matvec's baby and giant steps too), and the
+    requests' ciphertexts.  Returns (context, matrix pack, ciphertexts,
+    slot vectors, matvec input x, matrix W)."""
+    from repro_torch.fhe import linalg
+    from repro_torch.fhe.ckks import CkksContext
+    rng = np.random.default_rng(SEED + 11)
+    zs = [rng.uniform(-1, 1, N16 // 2) + 1j * rng.uniform(-1, 1, N16 // 2)
+          for _ in ROT16_AMOUNTS]
+    x = rng.uniform(-1, 1, ROT16_MV)
+    W = rng.uniform(-1, 1, (ROT16_MV, ROT16_MV)) / ROT16_MV
+    ctx = CkksContext(n=N16, levels=ROT16_LEVELS, scale_bits=28, seed=SEED + 12,
+                      device=device)
+    M = linalg.PtMatrix.encode(ctx, W)
+    ctx.plan().prepare(rotations=ROT16_AMOUNTS, matvecs=(M,))
+    cts = [ctx.encrypt(ctx.encode(z)) for z in zs]
+    cts.append(ctx.encrypt(linalg.encode_vector(ctx, x, ROT16_MV)))
+    return ctx, M, cts, zs, x, W
+
+
+def run_rot16(ctx, M, cts, zs, x, W):
+    """The rotation path at 2^16, where every gather row is longer than
+    one block's shared memory: rotate, rotate_many, rotate_hoisted and the
+    matvec.  Returns (named answers, expected leading slots)."""
+    from repro_torch.fhe import linalg
+    ans = {"rotate 1": ctx.rotate(cts[0], 1)}
+    expect = {"rotate 1": np.roll(zs[0], -1)}
+    for i, (r, ct) in enumerate(zip(ROT16_AMOUNTS, ctx.rotate_many(cts[:2], ROT16_AMOUNTS))):
+        ans[f"rotate_many[{i}] by {r}"] = ct
+        expect[f"rotate_many[{i}] by {r}"] = np.roll(zs[i], -r)
+    for r, ct in zip(ROT16_AMOUNTS, ctx.rotate_hoisted(cts[0], ROT16_AMOUNTS)):
+        ans[f"rotate_hoisted {r}"] = ct
+        expect[f"rotate_hoisted {r}"] = np.roll(zs[0], -r)
+    ans["matvec"] = linalg.matvec(ctx.plan(), M, cts[-1])
+    expect["matvec"] = x @ W
+    return ans, expect
+
+
+def phase_rot16():
+    from repro_torch import kernels as K
+    t0 = time.perf_counter()
+    setup = rot16_setup(None)
+    ctx, cts = setup[0], setup[2]
+    torch.cuda.synchronize()
+    log(f"[rot16] context n={N16}, {len(ctx.qs)} primes + special, "
+        f"{len(ctx._galois)} Galois keys on {ctx.device}: "
+        f"{time.perf_counter() - t0:.2f} s")
+    K.reset_counts()
+    t0 = time.perf_counter()
+    ans, expect = run_rot16(*setup)
+    torch.cuda.synchronize()
+    counts = K.snapshot()
+    log(f"[rot16] cuda run: {time.perf_counter() - t0:.2f} s, counts "
+        f"{ {k: v for k, v in counts.items() if v['launches'] or v['plain_calls']} }")
+    check_counts("rot16", counts)
+    worst = 0.0
+    for name, ct in ans.items():
+        d = ctx.decrypt_decode(ct)
+        if not np.all(np.isfinite(d)) or d.shape != (N16 // 2,):
+            raise AssertionError(f"rot16 {name}: decoded slots are not finite of "
+                                 "shape (n/2,)")
+        want = expect[name]
+        e = float(np.abs(d[:len(want)] - want).max())
+        worst = max(worst, e)
+        if e >= SLOT_TOL:
+            raise AssertionError(f"rot16 {name}: slot error {e} >= {SLOT_TOL}")
+    log(f"[rot16] {len(ans)} answers, max slot error {worst:.3e} (limit {SLOT_TOL:g})")
+    return cts, ans, counts
+
+
+def phase_rot16_cpu_parity(cuda_cts, cuda_ans) -> None:
+    t0 = time.perf_counter()
+    setup = rot16_setup("cpu")
+    cts = setup[2]
+    ans, _ = run_rot16(*setup)
+    for i, (a, b) in enumerate(zip(cuda_cts, cts)):
+        if not same_ct(a, b):
+            raise AssertionError(f"rot16 ciphertext {i}: cuda run != cpu run")
+    for name, ct in ans.items():
+        if not same_ct(cuda_ans[name], ct):
+            raise AssertionError(f"rot16 {name}: cuda run != cpu run")
+    log(f"[rot16 parity] cuda == cpu bit for bit: {len(cts)} ciphertexts, "
         f"{len(ans)} answers ({time.perf_counter() - t0:.1f} s on the CPU)")
 
 
@@ -1110,7 +1257,7 @@ def phase_ntt128_times(counts: dict, errs: dict) -> tuple:
 # ------------------------------------------------------------ phase 4
 
 def phase_times(ctx, cts, fs_pack, ks_pack, per_op, counts, errs, rot) -> list:
-    from repro_torch.fhe import linalg
+    from repro_torch.fhe import linalg, rns
     from repro_torch.kernels import dyadic_kernel, galois_kernel, ntt_kernel, ref
     rng = np.random.default_rng(SEED + 2)
     kp1 = fs_pack["qs"].shape[0]
@@ -1179,6 +1326,30 @@ def phase_times(ctx, cts, fs_pack, ks_pack, per_op, counts, errs, rot) -> list:
     log("[times] library: index_select / gather at the kernel's shape for the "
         "three gathers; none for the NTT banks, the Shoup weight-row multiply "
         "and the Barrett digit MAC, which no single PyTorch call computes")
+    # beside the path's shapes: the weight-row multiply of a B = 1 request,
+    # and the gathers at 2^16 (the split-row body in all three modes)
+    x1 = residues(rng, qlist, (k, N), band=2)
+    rows16 = gather_rows(N16, ROT_AMOUNTS, True)
+    qs16 = [int(q) for q in rns.make_primes(N16, kp1)]
+    h1 = residues(rng, qs16[:k], (1, N16))
+    h8 = residues(rng, qs16[:k], (BATCH, N16))
+    dig16 = torch.stack([residues(rng, qs16, (1, N16)) for _ in range(k)])
+    for name, fn, lib_fn, nbytes, shape in (
+            ("twiddle_mul_banks", lambda: ntt_kernel.twiddle_mul_banks(x1, *tw, lazy=True),
+             None, 2 * x1.numel() * w + 2 * fs_pack["tw"].numel() * w + kp1 * w,
+             tuple(x1.shape)),
+            ("galois_banks", lambda: galois_kernel.galois_banks(h1, rows16[0]),
+             lambda: torch.index_select(h1, 2, rows16[0]),
+             (2 * h1.numel() + N16) * w, tuple(h1.shape)),
+            ("galois_banks_multi", lambda: galois_kernel.galois_banks_multi(h8, rows16),
+             lambda: torch.gather(h8, 2, rows16.expand(h8.shape)),
+             (2 * h8.numel() + rows16.numel()) * w, tuple(h8.shape)),
+            ("galois_digits", lambda: galois_kernel.galois_digits(dig16, rows16, shared=True),
+             lambda: torch.index_select(dig16.view(k * kp1, N16), 1, rows16.view(-1)),
+             ((1 + BATCH) * dig16.numel() + rows16.numel()) * w, tuple(dig16.shape))):
+        lib = f", library {graph_ms(lib_fn):.4f} ms" if lib_fn is not None else ""
+        log(f"[times] {name} {shape} (beside the path): kernel {graph_ms(fn):.4f} ms"
+            f"{lib}, bound {nbytes / HBM_BYTES_PER_S * 1e3:.4f} ms ({nbytes} bytes)")
     for what, n_launch in per_op.items():
         log(f"[times] launches per {what}: {n_launch}")
 
@@ -1312,6 +1483,8 @@ def main() -> int:
     phase_cpu_parity(zs, cts, answers)
     rctx, M, rcts, rans, rcounts, rot_err, rot_per_op = phase_rotation()
     phase_rotation_cpu_parity(rcts, rans)
+    r16_cts, r16_ans, r16counts = phase_rot16()
+    phase_rot16_cpu_parity(r16_cts, r16_ans)
     errs.update(phase_mlkem_kernels())
     mlkem_in, mlkem_out, mcounts, mlkem_per_op = phase_mlkem()
     phase_mlkem_cpu_parity(mlkem_in, mlkem_out)
@@ -1321,8 +1494,8 @@ def main() -> int:
     per_op = {"multiply + rescale": {k: v for k, v in per_op.items() if v},
               **rot_per_op, **{f"mlkem {op}": c for op, c in mlkem_per_op.items()},
               **ntt_per_op}
-    counts = {"multiply": counts, "rotation": rcounts, "mlkem": mcounts,
-              "ntt128": ncounts}
+    counts = {"multiply": counts, "rotation": rcounts, "rot16": r16counts,
+              "mlkem": mcounts, "ntt128": ncounts}
     kernels, profiles = phase_times(ctx, cts, fs_pack, ks_pack, per_op, counts,
                                     errs, {"ctx": rctx, "M": M, "cts": rcts})
     mlkem_kernels, mlkem_profiles = phase_mlkem_times(counts, errs)

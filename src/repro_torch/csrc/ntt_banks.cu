@@ -20,12 +20,20 @@
 // and its two weights and writes one word.  The least time is those
 // bytes over the card's memory rate.
 //
-// What this simple design does about it: each block runs one prime's
-// rows through every stage in a shared-memory ping-pong pair, so a word
-// crosses device memory exactly twice (ntt_block.cuh, shared with the
-// single-prime kernels of ntt.cu).  The TPU kernel kept all twiddle rows
-// resident in VMEM, which does not fit a block's shared memory at
-// n = 4096: only tables up to 16 KB (n <= 256) go to shared memory.
+// What the transforms' simple design does about it: each block runs one
+// prime's rows through every stage in a shared-memory ping-pong pair, so a
+// word crosses device memory exactly twice (ntt_block.cuh, shared with the
+// single-prime kernels of ntt.cu); up to n = 4096 a block holds 4096 / n
+// rows, above it one row (the u32 lane up to 2^14: 128 KB).  The TPU
+// kernel kept all twiddle rows resident in VMEM, which does not fit a
+// block's shared memory at n = 4096: only tables up to 16 KB (n <= 256) go
+// to shared memory.
+//
+// The weight-row multiply is a 16-byte stream, one prime per grid row
+// (twiddle_mul_banks_kernel): the bytes in flight per SM set its time, so
+// it keeps about 2048 threads resident on each SM, each holding one
+// column's weight pair and moving one 16-byte load and one 16-byte store
+// per row, with no division in its index.
 #include <cuda_runtime.h>
 
 #include <cstdint>
@@ -38,6 +46,9 @@ using namespace modarith;
 namespace {
 
 using ntt_block::kThreads;
+
+constexpr int kStreamThreads = 256;
+constexpr long long kMaxStreamBlocks = 132 * 8;  // 2048 threads on each SM
 
 template <typename T, bool kLazy>
 __global__ void __launch_bounds__(kThreads)
@@ -76,26 +87,70 @@ ntt_inv_banks_kernel(const T* __restrict__ x, T* __restrict__ out,
       stages, rows, negacyclic, reduce_out, tw_smem);
 }
 
-template <bool kLazy>
-__global__ void __launch_bounds__(kThreads)
+// The weight-row multiply as a memory stream: grid.y is the prime, so q
+// and the prime's weight rows are fixed per block; grid.x strides over
+// the prime's b*n words.  kVec: one thread per 16-byte vector, four
+// independent Shoup products.  n is a power of two and the launcher makes
+// the grid stride a multiple of the n/4 vectors of a row, so a thread's
+// column v & (n/4 - 1) never changes: it loads its weight pair once and
+// streams x through its rows (no division, and the (k, n) weights leave
+// L2 once per thread rather than once per row).  Otherwise one thread per
+// word and the column i % n (n not a multiple of 4, or an unaligned
+// pointer).
+template <bool kLazy, bool kVec>
+__global__ void __launch_bounds__(kStreamThreads)
 twiddle_mul_banks_kernel(const uint32_t* __restrict__ x, uint32_t* __restrict__ out,
                          const uint32_t* __restrict__ qs,
                          const uint32_t* __restrict__ w,
                          const uint32_t* __restrict__ wp, long long per_prime,
-                         int n, long long total) {
-  for (long long idx = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-       idx < total; idx += (long long)gridDim.x * blockDim.x) {
-    const long long p = idx / per_prime;
-    const long long j = p * n + (idx % n);
-    const uint32_t q = qs[p];
-    out[idx] = kLazy ? shoup_lazy(x[idx], w[j], wp[j], q)
-                     : shoup(x[idx], w[j], wp[j], q);
+                         int n) {
+  const int p = blockIdx.y;
+  const uint32_t q = qs[p];
+  x += (size_t)p * per_prime;
+  out += (size_t)p * per_prime;
+  w += (size_t)p * n;
+  wp += (size_t)p * n;
+  auto mul = [q](uint32_t a, uint32_t b, uint32_t bp) {
+    return kLazy ? shoup_lazy(a, b, bp, q) : shoup(a, b, bp, q);
+  };
+  if (kVec) {
+    const unsigned items = (unsigned)(per_prime >> 2);
+    const unsigned stride = gridDim.x * kStreamThreads;
+    unsigned i = blockIdx.x * kStreamThreads + threadIdx.x;
+    if (i >= items) return;
+    const unsigned col = i & ((unsigned)(n >> 2) - 1);
+    const uint4 b = __ldg(reinterpret_cast<const uint4*>(w) + col);
+    const uint4 bp = __ldg(reinterpret_cast<const uint4*>(wp) + col);
+    const uint4* x4 = reinterpret_cast<const uint4*>(x);
+    uint4* out4 = reinterpret_cast<uint4*>(out);
+#pragma unroll 4
+    for (; i < items; i += stride) {
+      const uint4 a = x4[i];
+      out4[i] = make_uint4(mul(a.x, b.x, bp.x), mul(a.y, b.y, bp.y),
+                           mul(a.z, b.z, bp.z), mul(a.w, b.w, bp.w));
+    }
+  } else {
+    for (long long i = (long long)blockIdx.x * kStreamThreads + threadIdx.x;
+         i < per_prime; i += (long long)gridDim.x * kStreamThreads) {
+      const long long j = i % n;
+      out[i] = mul(x[i], w[j], wp[j]);
+    }
   }
 }
 
 using ntt_block::Geometry;
 using ntt_block::geometry;
 using ntt_block::ilog2;
+
+// Above n = 4096 a block holds one row's ping-pong pair (64 KB at 8192 and
+// 128 KB at 16384 on the u32 lane); above 48 KB a block's dynamic shared
+// memory must be asked for, as ntt.cu's prepare does.
+template <typename Kernel>
+cudaError_t allow_smem(Kernel kernel, const Geometry& g) {
+  if (g.smem_bytes <= 48 * 1024) return cudaSuccess;
+  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              (int)g.smem_bytes);
+}
 
 template <typename T>
 int launch_fwd(const void* x, void* out, const void* qs, const void* tw,
@@ -106,6 +161,8 @@ int launch_fwd(const void* x, void* out, const void* qs, const void* tw,
   const Geometry g = geometry(k, b, n, stages, sizeof(T));
   auto* s = static_cast<cudaStream_t>(stream);
   auto kernel = lazy ? &ntt_fwd_banks_kernel<T, true> : &ntt_fwd_banks_kernel<T, false>;
+  const cudaError_t e = allow_smem(kernel, g);
+  if (e != cudaSuccess) return (int)e;
   kernel<<<g.grid, kThreads, g.smem_bytes, s>>>(
       static_cast<const T*>(x), static_cast<T*>(out), static_cast<const T*>(qs),
       static_cast<const T*>(tw), static_cast<const T*>(twp),
@@ -124,6 +181,8 @@ int launch_inv(const void* x, void* out, const void* qs, const void* ninv,
   const Geometry g = geometry(k, b, n, stages, sizeof(T));
   auto* s = static_cast<cudaStream_t>(stream);
   auto kernel = lazy ? &ntt_inv_banks_kernel<T, true> : &ntt_inv_banks_kernel<T, false>;
+  const cudaError_t e = allow_smem(kernel, g);
+  if (e != cudaSuccess) return (int)e;
   kernel<<<g.grid, kThreads, g.smem_bytes, s>>>(
       static_cast<const T*>(x), static_cast<T*>(out), static_cast<const T*>(qs),
       static_cast<const T*>(ninv), static_cast<const T*>(ninv_p),
@@ -137,9 +196,10 @@ int launch_inv(const void* x, void* out, const void* qs, const void* ninv,
 
 // Every launcher returns cudaGetLastError() of its launch; the Python
 // wrapper raises on a non-zero code.  Shapes are checked by the wrapper:
-// x/out (k, b, n) with n a power of two in [2, 4096], tables as in the
-// TablePack layout, contiguous; uint32 (int32 bit patterns) for the
-// plain launchers, uint16 (int16 bit patterns) for the _u16 ones.
+// x/out (k, b, n) with n a power of two in [2, 16384] (the u16 lane up to
+// 4096), tables as in the TablePack layout, contiguous; uint32 (int32 bit
+// patterns) for the plain launchers, uint16 (int16 bit patterns) for the
+// _u16 ones.  twiddle_mul_banks takes x/out (k, b, n) and w/wp (k, n).
 
 extern "C" int ntt_fwd_banks(const void* x, void* out, const void* qs,
                              const void* tw, const void* twp, const void* psi,
@@ -185,22 +245,35 @@ extern "C" int twiddle_mul_banks(const void* x, void* out, const void* qs,
                                  const void* w, const void* wp, int k,
                                  long long b, int n, int lazy, void* stream) {
   const long long per_prime = b * n;
-  const long long total = per_prime * k;
-  if (total <= 0) return (int)cudaGetLastError();
-  const long long blocks = (total + kThreads - 1) / kThreads;
-  const unsigned grid = (unsigned)(blocks < 1048576 ? blocks : 1048576);
+  if (k <= 0 || per_prime <= 0) return (int)cudaGetLastError();
+  auto aligned = [](const void* p) {
+    return reinterpret_cast<uintptr_t>(p) % 16 == 0;
+  };
+  // the vector path's 32-bit index covers a prime's b*n/4 vectors
+  const bool vec = n % 4 == 0 && (n & (n - 1)) == 0 && per_prime / 4 < (1LL << 31) &&
+                   aligned(x) && aligned(out) && aligned(w) && aligned(wp);
+  const long long items = vec ? per_prime / 4 : per_prime;
+  // about 2048 resident threads on each SM over all k primes, then stride;
+  // on the vector path the stride is a whole number of rows (n/4 vectors)
+  const long long want = (items + kStreamThreads - 1) / kStreamThreads;
+  long long blocks = (kMaxStreamBlocks + k - 1) / k;
+  if (want <= blocks) {
+    blocks = want;  // one step a thread
+  } else if (vec) {
+    const long long row_blocks = n / 4 > kStreamThreads ? n / 4 / kStreamThreads : 1;
+    blocks = blocks > row_blocks ? blocks / row_blocks * row_blocks : row_blocks;
+  }
+  const dim3 grid((unsigned)blocks, (unsigned)k);
   auto* s = static_cast<cudaStream_t>(stream);
   const auto* a_x = static_cast<const uint32_t*>(x);
   auto* a_out = static_cast<uint32_t*>(out);
   const auto* a_qs = static_cast<const uint32_t*>(qs);
   const auto* a_w = static_cast<const uint32_t*>(w);
   const auto* a_wp = static_cast<const uint32_t*>(wp);
-  if (lazy) {
-    twiddle_mul_banks_kernel<true><<<grid, kThreads, 0, s>>>(
-        a_x, a_out, a_qs, a_w, a_wp, per_prime, n, total);
-  } else {
-    twiddle_mul_banks_kernel<false><<<grid, kThreads, 0, s>>>(
-        a_x, a_out, a_qs, a_w, a_wp, per_prime, n, total);
-  }
+  auto kernel = lazy ? (vec ? &twiddle_mul_banks_kernel<true, true>
+                            : &twiddle_mul_banks_kernel<true, false>)
+                     : (vec ? &twiddle_mul_banks_kernel<false, true>
+                            : &twiddle_mul_banks_kernel<false, false>);
+  kernel<<<grid, kStreamThreads, 0, s>>>(a_x, a_out, a_qs, a_w, a_wp, per_prime, n);
   return (int)cudaGetLastError();
 }

@@ -6,11 +6,13 @@ TPU kernels ``galois_banks_pallas`` / ``galois_banks_multi_pallas`` /
 the NTT-domain automorphism as a lane gather, with one shared index row,
 one per batch element, or one per batch element applied to every digit
 of a key-switch decomposition.  A CPU tensor goes to the plain version in
-``kernels.ref``; a CUDA tensor launches the kernel or raises.  The block
-stages one source row in shared memory and moves rows as 16-byte
-vectors, so a row longer than a block's shared memory holds, a row
-length that is not a multiple of 4 and a tensor not 16-byte aligned are
-refused with ``ValueError``.
+``kernels.ref``; a CUDA tensor launches the kernel or raises.  The kernel
+moves rows as 16-byte vectors, so a row length that is not a multiple of
+4 and a tensor not 16-byte aligned are refused with ``ValueError``.  Rows
+of any length run: ``galois_banks`` splits every output row across
+blocks that gather straight from device memory, and the other two stage
+a source row in one block's shared memory up to ``MAX_ROW`` words and
+split longer rows the same way.
 """
 from __future__ import annotations
 
@@ -20,13 +22,12 @@ from repro_torch.kernels import COUNTS, build, ref
 from repro_torch.kernels.ntt_kernel import (check_shape, check_tensors,
                                             raise_on, stream)
 
-MAX_ROW = 232448 // 4     # words of one row in a block's 227 KB of shared memory
+# words of one row in a block's 227 KB of shared memory: the longest row
+# that galois_banks_multi / galois_digits stage (csrc/galois.cu kMaxSmemRow)
+MAX_ROW = 232448 // 4
 
 
 def _check_row(where: str, n: int, rows: int) -> None:
-    if n > MAX_ROW:
-        raise ValueError(f"{where}: a row of n={n} words exceeds the {MAX_ROW} "
-                         "words one block's shared memory holds")
     if n % 4:
         raise ValueError(f"{where}: rows move as 16-byte vectors, so n={n} "
                          "must be a multiple of 4")
@@ -97,7 +98,7 @@ def galois_digits(x, idx, *, shared: bool):
     check_shape(where, "x", x, (d, k, 1 if shared else bi, n))
     check_shape(where, "idx", idx, (bi, n))
     check_aligned(where, x=x, idx=idx)
-    out = torch.empty((d, k, bi, n), dtype=torch.int32, device=x.device)
+    out = x.new_empty((d, k, bi, n))
     if out.numel() == 0:
         return out
     rc = lib.galois_digits(x.data_ptr(), idx.data_ptr(), out.data_ptr(), d, k,

@@ -19,9 +19,9 @@ a mix is refused with ``ValueError`` on every device.
 
 ``ntt_fwd`` / ``ntt_inv`` replace the single-prime TPU kernels
 ``ntt_fwd_pallas`` / ``ntt_inv_pallas``: one prime's ``NTTParams``, a
-(B, n) int32 batch, every log2(n) stage, n up to 2^14 (the banks stop at
-4096).  Their tables go to the tensor's device once per (n, q, psi,
-device) (``core.ntt.device_tables``).  The single-prime lane is uint32
+(B, n) int32 batch, every log2(n) stage, n up to 2^14 as the u32 banks.
+Their tables go to the tensor's device once per (n, q, psi, device)
+(``core.ntt.device_tables``).  The single-prime lane is uint32
 only, so an int16 tensor is refused on every device.
 """
 from __future__ import annotations
@@ -31,7 +31,8 @@ import torch
 from repro_torch.core.ntt import device_tables
 from repro_torch.kernels import COUNTS, build, ref
 
-MAX_N = 4096          # one row pair fills the block's 32 KB ping-pong tile
+MAX_N = 1 << 14       # banks, u32 lane: one row's ping-pong pair in 128 KB
+MAX_N_U16 = 4096      # banks, u16 lane: the largest ring it has (see below)
 MAX_N_SINGLE = 1 << 14  # one row's ping-pong pair fills 128 KB of shared memory
 
 
@@ -75,6 +76,12 @@ def _check_geometry(where: str, x: torch.Tensor, stages: int) -> tuple[int, int,
     if x.ndim != 3:
         raise ValueError(f"{where}: x must be (k, B, n), got {tuple(x.shape)}")
     k, b, n = x.shape
+    if x.dtype == torch.int16 and n > MAX_N_U16:
+        # a u16 ring (core.ringspec) has q < 2^12 and block 1 or 2, and
+        # needs 2n / block | q - 1, so none has n > 4096
+        raise ValueError(f"{where}: n={n} on the u16 lane: its moduli lie below "
+                         f"2^12, so 2n/block does not divide q - 1 for any n > "
+                         f"{MAX_N_U16}")
     if n < 2 or n > MAX_N or n & (n - 1):
         raise ValueError(f"{where}: n={n} must be a power of two in [2, {MAX_N}]")
     if not 0 <= stages <= n.bit_length() - 1:

@@ -159,11 +159,12 @@ def ntt_inv_banks_ref(x, qs, ninv, ninv_p, itw, itwp, post, postp,
 
 def twiddle_mul_banks_ref(x, qs, w, wp, lazy: bool = False):
     """x (k, ..., n) times per-prime weight rows w/wp (k, n) mod qs (k,);
-    any u32 input representative is accepted."""
+    any u32 input representative is accepted (words of 2^31 and above
+    arrive as negative int32 bit patterns)."""
     COUNTS["twiddle_mul_banks"].plain_calls += 1
     nd = x.ndim
     mul = mulmod_shoup_lazy if lazy else mulmod_shoup
-    return mul(x.long(), _per_prime(w, nd), _per_prime(wp, nd),
+    return mul(u32(x), _per_prime(w, nd), _per_prime(wp, nd),
                _per_prime(qs, nd)).int()
 
 

@@ -1,12 +1,17 @@
 """The port's CUDA kernels against their plain PyTorch versions on the
-card, for every ring size the NTT kernels take (2^4 .. 2^12), both key
-layouts of the digit MAC, ragged batches, the Galois gathers in both
-bit orders (shared and per-batch rows, digits shared and not), and the
-u16 lane of ML-KEM's ring (the 7-stage transforms on n = 256 and the
-basecase product, at odd and ML-KEM-sized batches), and the single-prime
-transforms and Barrett products (n = 16 .. 2^14, the one-row blocks of
-n >= 8192 included, with ops' any-leading-shape rows).  Marked ``gpu``:
-they skip where no CUDA device is present.  On a GPU machine:
+card, for every ring size the NTT kernels take (2^4 .. 2^14, the one-row
+blocks of n >= 8192 included), both key layouts of the
+digit MAC, ragged batches, the weight-row multiply on its vector and
+scalar paths (the main path's shapes, an unaligned view, x over the
+whole u32 range), the Galois gathers in both bit orders (shared and
+per-batch rows, digits shared and not, rows above one block's shared
+memory at 2^16 and 2^17), and the u16 lane of ML-KEM's ring (the 7-stage
+transforms on n = 256 and the basecase product, at odd and ML-KEM-sized
+batches), and the single-prime transforms and Barrett products
+(n = 16 .. 2^14, with ops' any-leading-shape rows); and rotate,
+rotate_many, rotate_hoisted and the matvec at 2^16 against the port's
+CPU run.  Marked ``gpu``: they skip where no CUDA device is present.  On
+a GPU machine:
 
     PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_gpu.py
 """
@@ -38,9 +43,11 @@ def _residues(seed, qs, shape, band=1):
     return torch.from_numpy(np.stack(rows).astype(np.int32)).cuda()
 
 
-@pytest.mark.parametrize("logn", range(4, 13))
+@pytest.mark.parametrize("logn", range(4, 15))
 @pytest.mark.parametrize("lazy", [False, True])
 def test_ntt_banks_kernels_equal_plain(cuda, logn, lazy):
+    """Up to 4096 a block holds 4096 / n rows; at 8192 and 16384 one row
+    in 64 / 128 KB of dynamic shared memory."""
     n = 1 << logn
     primes = rns.make_primes(n, 3)
     t = TB.build_table_pack(primes, n, cuda)
@@ -63,15 +70,60 @@ def test_ntt_banks_kernels_equal_plain(cuda, logn, lazy):
             assert K.COUNTS["ntt_inv_banks"].launches == 1
 
 
+def _twiddle_check(x, fp, lazy):
+    K.reset_counts()
+    got = ntt_kernel.twiddle_mul_banks(x, fp["qs"], fp["tw"], fp["twp"], lazy=lazy)
+    want = ref.twiddle_mul_banks_ref(x, fp["qs"], fp["tw"], fp["twp"], lazy=lazy)
+    assert torch.equal(got, want)
+    assert K.COUNTS["twiddle_mul_banks"].launches == 1
+
+
+@pytest.mark.parametrize("shape", [(9, 64, 1 << 14), (9, 1, 1 << 14), (9, 8, 1 << 14),
+                                   (3, 5, 1 << 14), (3, 7, 2), (2, 3, 4)])
 @pytest.mark.parametrize("lazy", [False, True])
-def test_twiddle_kernel_equal_plain(cuda, lazy):
+def test_twiddle_kernel_equal_plain(cuda, shape, lazy):
+    """The four-step pass's shape at B = 8 (9 primes, 64 columns of a
+    128 x 128 split of 2^14), the whole 2^14 ring at B = 1 and 8, an odd
+    batch, and rings of 2 (the one-word path) and 4 words."""
+    k, b, n = shape
+    primes = rns.make_primes(max(n, 16), k)
+    fp = TB.build_fourstep_pack(primes, n, cuda) if n >= 16 else _weights(primes, n, cuda)
+    _twiddle_check(_residues(k * b, primes, (b, n), band=2), fp, lazy)
+
+
+def _weights(primes, n, device):
+    """Random weight rows below each prime and their Shoup companions."""
+    rng = np.random.default_rng(n)
+    w = np.stack([rng.integers(0, q, n) for q in primes])
+    wp = np.stack([[(int(v) << 32) // q for v in row] for row, q in zip(w, primes)])
+    as_i32 = lambda a: torch.from_numpy(np.asarray(a, dtype=np.int64).astype(np.uint32)
+                                        .view(np.int32)).to(device)
+    return {"qs": as_i32(primes), "tw": as_i32(w), "twp": as_i32(wp)}
+
+
+@pytest.mark.parametrize("lazy", [False, True])
+def test_twiddle_kernel_takes_any_u32_representative(cuda, lazy):
+    """Shoup's product takes any u32 x, so x covers the whole range,
+    the words above 2^31 included (negative int32 bit patterns)."""
     n = 1 << 14
+    primes = rns.make_primes(n, 9)
+    fp = TB.build_fourstep_pack(primes, n, cuda)
+    rng = np.random.default_rng(lazy)
+    x = rng.integers(0, 1 << 32, (9, 8, n), dtype=np.uint64).astype(np.uint32)
+    x[:, 0, :4] = [0, 1, (1 << 32) - 1, 1 << 31]
+    _twiddle_check(torch.from_numpy(x.view(np.int32)).to(cuda), fp, lazy)
+
+
+@pytest.mark.parametrize("lazy", [False, True])
+def test_twiddle_kernel_on_an_unaligned_view(cuda, lazy):
+    """x one word past a 16-byte boundary takes the one-word path."""
+    n = 1 << 10
     primes = rns.make_primes(n, 3)
     fp = TB.build_fourstep_pack(primes, n, cuda)
-    x = _residues(3, primes, (5, n), band=2)
-    got = ntt_kernel.twiddle_mul_banks(x, fp["qs"], fp["tw"], fp["twp"], lazy=lazy)
-    assert torch.equal(got, ref.twiddle_mul_banks_ref(x, fp["qs"], fp["tw"], fp["twp"],
-                                                      lazy=lazy))
+    words = _residues(1, primes[:1], (3 * 4 * n + 1,))[0]
+    x = words[1:].view(3, 4, n)
+    assert x.data_ptr() % 16 and x.is_contiguous()
+    _twiddle_check(x, fp, lazy)
 
 
 @pytest.mark.parametrize("per_batch", [False, True])
@@ -95,6 +147,12 @@ def test_wrong_device_table_is_refused(cuda):
     x = _residues(1, primes, (2, n))
     with pytest.raises(ValueError, match="is on cpu"):
         ntt_kernel.twiddle_mul_banks(x, t["qs"].cpu(), t["psi"], t["psip"], lazy=False)
+
+
+def _rotation_rows(n, amounts, natural=True, conjugate=False):
+    gs = [pow(5, r, 2 * n) for r in amounts] + ([2 * n - 1] if conjugate else [])
+    return torch.from_numpy(np.stack([galois_eval_perm(g, n, natural)
+                                      for g in gs]).astype(np.int32)).cuda()
 
 
 @pytest.mark.parametrize("logn,natural", [(4, False), (10, False), (10, True),
@@ -136,11 +194,85 @@ def test_galois_digits_kernel_equal_plain(cuda, logn, natural, R):
                        ref.galois_digits_banks_ref(one[:1], rows))
 
 
-def test_oversized_gather_row_is_refused(cuda):
+@pytest.mark.parametrize("shape", [(8, 1, 1 << 14), (8, 8, 1 << 14), (3, 2, 8),
+                                   (1, 1, 4), (9, 3, 4096)])
+def test_galois_banks_split_rows_equal_plain(cuda, shape):
+    """The shared-index gather splits every output row across blocks: a
+    rotate's (8, 1, 2^14), B > 1, and rows of one or two vectors."""
+    k, b, n = shape
+    primes = rns.make_primes(max(n, 16), k)
+    rows = _rotation_rows(n, (1, 5), natural=n >= 8) if n >= 8 else \
+        torch.tensor([[3, 0, 2, 1]], dtype=torch.int32, device=cuda)
+    x = _residues(k * b + n, primes, (b, n))
+    K.reset_counts()
+    for r in range(rows.shape[0]):
+        assert torch.equal(galois_kernel.galois_banks(x, rows[r]),
+                           ref.galois_banks_ref(x, rows[r])), r
+    assert K.COUNTS["galois_banks"].launches == rows.shape[0]
+
+
+@pytest.mark.parametrize("n", [galois_kernel.MAX_ROW + 4, 1 << 16, 1 << 17])
+def test_gathers_above_one_blocks_shared_memory_equal_plain(cuda, n):
+    """Rows longer than a block's shared memory holds take the split-row
+    body in all three modes: shared index (galois_banks), per-row index
+    (galois_banks_multi, galois_digits) and fan-out (galois_digits with
+    ``shared``).  n = MAX_ROW + 4 is no ring size: a random permutation."""
+    primes = rns.make_primes(1 << 16, 3)
+    if n & (n - 1):
+        rng = np.random.default_rng(n)
+        rows = torch.from_numpy(np.stack([rng.permutation(n) for _ in range(3)])
+                                .astype(np.int32)).cuda()
+    else:
+        rows = _rotation_rows(n, (1, 2), conjugate=True)
+    b = rows.shape[0]
+    x = _residues(n, primes, (b, n))
+    ext = torch.stack([_residues(n + d, primes, (b, n)) for d in range(2)])
+    one = ext[:, :, :1].contiguous()
+    K.reset_counts()
+    assert torch.equal(galois_kernel.galois_banks(x, rows[1]),
+                       ref.galois_banks_ref(x, rows[1]))
+    assert torch.equal(galois_kernel.galois_banks_multi(x, rows),
+                       ref.galois_banks_ref(x, rows))
+    assert torch.equal(galois_kernel.galois_digits(ext, rows, shared=False),
+                       ref.galois_digits_banks_ref(ext, rows))
+    assert torch.equal(galois_kernel.galois_digits(one, rows, shared=True),
+                       ref.galois_digits_banks_ref(one, rows))
+    c = K.snapshot()
+    assert [c[k]["launches"] for k in ("galois_banks", "galois_banks_multi",
+                                       "galois_digits")] == [1, 1, 2]
+
+
+def _rotation_traffic(device):
+    """rotate, rotate_many, rotate_hoisted and a 4 x 4 matvec at 2^16 with
+    3 + 1 ciphertext primes, from one seed."""
+    from repro_torch.fhe import linalg
+    from repro_torch.fhe.ckks import CkksContext
     n = 1 << 16
-    x = torch.zeros((1, 1, n), dtype=torch.int32, device=cuda)
-    with pytest.raises(ValueError, match="shared memory"):
-        galois_kernel.galois_banks(x, torch.zeros(n, dtype=torch.int32, device=cuda))
+    rng = np.random.default_rng(16)
+    ctx = CkksContext(n=n, levels=3, scale_bits=28, seed=16, device=device)
+    M = linalg.PtMatrix.encode(ctx, rng.uniform(-1, 1, (4, 4)) / 4)
+    ctx.plan().prepare(rotations=(1, 2), matvecs=(M,))
+    zs = [rng.uniform(-1, 1, n // 2) + 1j * rng.uniform(-1, 1, n // 2) for _ in range(2)]
+    cts = [ctx.encrypt(ctx.encode(z)) for z in zs]
+    v = ctx.encrypt(linalg.encode_vector(ctx, rng.uniform(-1, 1, 4), 4))
+    out = [ctx.rotate(cts[0], 1), *ctx.rotate_many(cts, (1, 2)),
+           *ctx.rotate_hoisted(cts[0], (1, 2)), linalg.matvec(ctx.plan(), M, v)]
+    return ctx, zs, out
+
+
+def test_rotations_at_2_16_equal_the_cpu_run(cuda):
+    """The rotation path above MAX_ROW: the card's answers equal the port's
+    CPU run word for word, and the card launched all three gathers."""
+    K.reset_counts()
+    ctx, zs, got = _rotation_traffic(cuda)
+    c = K.snapshot()
+    for name in ("galois_banks", "galois_banks_multi", "galois_digits"):
+        assert c[name]["launches"] > 0 and c[name]["plain_calls"] == 0, name
+    assert np.abs(ctx.decrypt_decode(got[0]) - np.roll(zs[0], -1)).max() < 1e-2
+    _, _, want = _rotation_traffic("cpu")
+    for i, (a, b) in enumerate(zip(got, want)):
+        assert torch.equal(a.c0.data.cpu(), b.c0.data) and \
+            torch.equal(a.c1.data.cpu(), b.c1.data), i
 
 
 def test_unaligned_gather_row_is_refused(cuda):

@@ -126,3 +126,47 @@ def test_fourstep_batch_leading():
                               batch_leading=True)
     p = TO.ntt_fourstep_banks(u32_to_tensor(x, "cpu"), port, batch_leading=True)
     assert _same(r, p)
+
+
+N_BIG = 1 << 13
+_BIG = {}
+
+
+def _big_packs():
+    """Table packs for 2 primes at n = 8192, where the card runs one row
+    per block (the one-kernel transforms, not the four-step pipeline)."""
+    if not _BIG:
+        primes = RR.make_primes(N_BIG, 2)
+        ref = RB.build_table_pack(list(primes), N_BIG)
+        _BIG.update(primes=primes, ref=ref, port=from_reference(ref, "cpu"))
+    return _BIG["primes"], _BIG["ref"], _BIG["port"]
+
+
+@pytest.mark.parametrize("lazy", [False, True])
+def test_ntt_banks_at_8192_match_reference(lazy):
+    """ops.ntt_banks / intt_banks at n = 8192, (k, B) = (2, 2): every word
+    equal to the reference's, lazy and eager."""
+    primes, ref, port = _big_packs()
+    x = _residues(N_BIG + lazy, primes, (2,), N_BIG)
+    r = RO.ntt_banks(jnp.asarray(x), ref, use_pallas=False, lazy=lazy)
+    p = TO.ntt_banks(u32_to_tensor(x, "cpu"), port, lazy=lazy)
+    assert _same(r, p)
+    xin = _residues(N_BIG + 2 + lazy, primes, (2,), N_BIG, band=2 if lazy else 1)
+    r2 = RO.intt_banks(jnp.asarray(xin), ref, use_pallas=False, lazy=lazy)
+    p2 = TO.intt_banks(u32_to_tensor(xin, "cpu"), port, lazy=lazy)
+    assert _same(r2, p2)
+
+
+@pytest.mark.parametrize("lazy", [False, True])
+def test_twiddle_mul_banks_any_u32_representative_matches_reference(lazy):
+    """The weight-row multiply takes any u32 x (Shoup's contract), the
+    words of 2^31 and above included: they travel as negative int32 bit
+    patterns in the port and must give the reference's words."""
+    rng = np.random.default_rng(14 + lazy)
+    x = rng.integers(0, 1 << 32, (len(PRIMES), 3, N), dtype=np.uint64).astype(np.uint32)
+    x[:, 0, :4] = [0, 1, (1 << 32) - 1, 1 << 31]
+    qs, w, wp = REF_PACK["qs"], REF_PACK["psi"], REF_PACK["psip"]
+    r = RO.twiddle_mul_banks(jnp.asarray(x), w, wp, qs, lazy=lazy, use_pallas=False)
+    p = TO.twiddle_mul_banks(u32_to_tensor(x, "cpu"), PORT_PACK["psi"],
+                             PORT_PACK["psip"], PORT_PACK["qs"], lazy=lazy)
+    assert _same(r, p)

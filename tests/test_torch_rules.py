@@ -176,6 +176,27 @@ def test_oversized_transform_is_refused(monkeypatch):
                                  lazy=True, reduce_out=True)
 
 
+@pytest.mark.parametrize("which", ["ntt_fwd_banks", "ntt_inv_banks"])
+def test_u16_transform_above_4096_is_refused(monkeypatch, which):
+    """No u16 ring has n > 4096 (q < 2^12, 2n/block | q - 1 with block at
+    most 2), so the u16 lane refuses it with that reason."""
+    monkeypatch.setattr(build, "load", lambda name: _NoLaunch())
+    n = 8192
+    x = torch.zeros((1, 1, n), dtype=torch.int16, device="meta")
+    tw = torch.zeros((1, 7, n // 2), dtype=torch.int16, device="meta")
+    row = torch.zeros((1, n), dtype=torch.int16, device="meta")
+    one = row[:, 0]
+    call = {"ntt_fwd_banks": lambda: ntt_kernel.ntt_fwd_banks(
+                x, one, tw, tw, row, row, negacyclic=False, lazy=True, reduce_out=True),
+            "ntt_inv_banks": lambda: ntt_kernel.ntt_inv_banks(
+                x, one, one, one, tw, tw, row, row, negacyclic=False, lazy=True,
+                reduce_out=True)}[which]
+    K.reset_counts()
+    with pytest.raises(ValueError, match="u16 lane"):
+        call()
+    assert all(c == {"launches": 0, "plain_calls": 0} for c in K.snapshot().values())
+
+
 GATHERS = ["galois_banks", "galois_banks_multi", "galois_digits"]
 
 
@@ -188,16 +209,81 @@ def _gather_call(which, n):
                                                                  shared=False)}[which]
 
 
+class _FakeCuda(torch.Tensor):
+    """A meta tensor that reports a CUDA device, so a wrapper takes its
+    kernel path on a machine with no card; every op runs on the meta
+    tensor underneath (data pointer 0, so 16-byte aligned)."""
+
+    @classmethod
+    def __torch_function__(cls, func, types, args=(), kwargs=None):
+        plain = lambda a: a.as_subclass(torch.Tensor) if isinstance(a, cls) else a
+        with torch._C.DisableTorchFunctionSubclass():
+            return func(*map(plain, args), **{k: plain(v) for k, v in (kwargs or {}).items()})
+
+    @property
+    def device(self):
+        return torch.device("cuda", 0)
+
+
+class _Recorder:
+    """A loaded library whose launchers record (name, n) and succeed."""
+
+    def __init__(self):
+        self.calls = []
+
+    def __getattr__(self, fn):
+        def launcher(*args):
+            self.calls.append((fn, args))
+            return 0
+        return launcher
+
+
 @pytest.mark.parametrize("which", GATHERS)
-def test_oversized_gather_row_is_refused(monkeypatch, which):
-    """A row longer than one block's shared memory holds is refused, never
-    computed another way."""
-    monkeypatch.setattr(build, "load", lambda name: _NoLaunch())
-    call = _gather_call(which, galois_kernel.MAX_ROW + 4)
+def test_gather_row_above_max_row_reaches_its_launcher(monkeypatch, which):
+    """A row longer than one block's shared memory holds passes every
+    check of the wrapper and reaches its launcher once (the launcher gives
+    it the split-row body): no refusal, no plain version."""
+    lib = _Recorder()
+    monkeypatch.setattr(build, "load", lambda name: lib)
+    monkeypatch.setattr(galois_kernel, "stream", lambda: 0)
+    n = galois_kernel.MAX_ROW + 4
+    fake = lambda shape: torch.zeros(shape, dtype=torch.int32,
+                                     device="meta").as_subclass(_FakeCuda)
+    x, rows = fake((1, 2, n)), fake((2, n))
+    call = {"galois_banks": lambda: galois_kernel.galois_banks(x, fake((n,))),
+            "galois_banks_multi": lambda: galois_kernel.galois_banks_multi(x, rows),
+            "galois_digits": lambda: galois_kernel.galois_digits(
+                fake((1, 1, 2, n)), rows, shared=False)}[which]
     K.reset_counts()
-    with pytest.raises(ValueError, match="shared memory"):
-        call()
-    assert K.snapshot()[which] == {"launches": 0, "plain_calls": 0}
+    out = call()
+    assert out.shape[-1] == n
+    # n is the launcher's sixth argument, the seventh for galois_digits
+    launched = [(fn, args[6] if fn == "galois_digits" else args[5])
+                for fn, args in lib.calls]
+    assert launched == [(which, n)]
+    assert K.snapshot()[which] == {"launches": 1, "plain_calls": 0}
+
+
+@pytest.mark.parametrize("n", [8192, 16384])
+def test_banks_transform_above_4096_reaches_its_launcher(monkeypatch, n):
+    """The u32 banks transforms take n up to 2^14 (one row per block in
+    dynamic shared memory): the checks pass and each launcher is reached
+    once with that n."""
+    lib = _Recorder()
+    monkeypatch.setattr(build, "load", lambda name: lib)
+    monkeypatch.setattr(ntt_kernel, "stream", lambda: 0)
+    fake = lambda *shape: torch.zeros(shape, dtype=torch.int32,
+                                      device="meta").as_subclass(_FakeCuda)
+    x, row, one, tw = fake(2, 3, n), fake(2, n), fake(2), fake(2, 7, n // 2)
+    flags = dict(negacyclic=False, lazy=True, reduce_out=True)
+    K.reset_counts()
+    ntt_kernel.ntt_fwd_banks(x, one, tw, tw, row, row, **flags)
+    ntt_kernel.ntt_inv_banks(x, one, one, one, tw, tw, row, row, **flags)
+    # n follows the pointers and k, b: argument 9 forward, 11 inverse
+    assert [(fn, args[9 if "fwd" in fn else 11]) for fn, args in lib.calls] == [
+        ("ntt_fwd_banks", n), ("ntt_inv_banks", n)]
+    c = K.snapshot()
+    assert c["ntt_fwd_banks"]["launches"] == c["ntt_inv_banks"]["launches"] == 1
 
 
 @pytest.mark.parametrize("which", GATHERS)
