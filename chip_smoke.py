@@ -9,13 +9,15 @@ Phases (any mismatch raises, so the exit code is non-zero):
   2. kernels   hold each kernel against its plain PyTorch version on the
                card, at the shapes of the CKKS multiply -> rescale and
                rotation paths at n = 2^14 with 8 + 1 primes (and one
-               bit-reversed gather case at n = 1024); the weight-row
-               multiply also at B = 1 and 8 of the 2^14 ring, on a ring of
-               2 (its one-word path), on an unaligned view and with x over
-               the whole u32 range; the three gathers also at n = 2^16,
-               above one block's shared memory; the NTT banks also at
-               n = 8192 and 16384 (one row per block); lazy and eager
-               throughout; results must be bit-identical
+               bit-reversed gather case at n = 1024); the NTT banks at the
+               four-step passes' rows of a B = 1 and a B = 8 request and an
+               odd row count, and at n = 8192 .. 2^17 (two passes through
+               scratch); the weight-row multiply also at B = 1 and 8 of the
+               2^14 ring, on a ring of 2 (its one-word path), on an
+               unaligned view and with x over the whole u32 range; the
+               three gathers also at n = 2^16, above one block's shared
+               memory; lazy and eager throughout; results must be
+               bit-identical
   3. slice     CkksContext(n=2^14, levels=7) on the card: encrypt 8 slot
                vectors, answer 4 single multiply -> rescale requests and one
                multiply_many -> rescale_many batch of 8, decrypt_decode every
@@ -51,7 +53,9 @@ Phases (any mismatch raises, so the exit code is non-zero):
                ops.ntt / intt / dyadic_mul / dyadic_mac with 30-bit primes:
                the four single-prime kernels held bit for bit against their
                plain versions at every shape of the path and at n = 16, 8192
-               and 16384 (B = 13), lazy and eager; then 10^5 random NTT-128s
+               and 16384 (B = 13), lazy and eager, and ops.ntt / intt at
+               n = 2^15, where they run as a one-prime bank on the banks
+               launchers; then 10^5 random NTT-128s
                (paper §VII.C; a cyclic forward, the Table III transform, and
                a negacyclic forward -> inverse round trip), negacyclic
                products ntt -> dyadic_mul -> intt at n = 1024 and 4096 (64
@@ -63,7 +67,11 @@ Phases (any mismatch raises, so the exit code is non-zero):
                sum against numpy, and that each kernel launched and no plain
                version ran
   4. times     per kernel (CUDA events around a CUDA-graph replay, so the
-               device time) beside its memory bound, its eager call, its
+               device time) beside its memory bound (the NTT banks also
+               beside an integer-instruction bound at the SM clock that
+               nvidia-smi reads during the timings; bound_by names the
+               larger), the banks also at a B = 1 request's shapes and at
+               2^15 .. 2^17, its eager call, its
                plain version and, for the gathers, the one PyTorch call that
                computes the same function; request latencies of the CKKS
                paths (interleaved rounds: median, quartiles, ratio to a
@@ -104,8 +112,21 @@ LEVELS = 7                       # L+1 = 8 ciphertext primes + special P
 BATCH = 8
 SLOT_TOL = 1e-2
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM memory rate (NVIDIA data sheet)
+INT32_LANES = 132 * 64           # H100 SXM: 132 SMs x 64 INT32 lanes a clock
+# integer instructions of the reference's op sequence as sm_90a compiles
+# it (ntt_regs::Arith, counted by tools/sass_ntt_banks.py's probe): a lazy
+# u32 butterfly is 8 (IMAD.HI, IMAD, IMAD for the Shoup product; IMAD.IADD,
+# VIADDMNMX for the add; ISETP, SEL, IADD3 for the subtract), the u16
+# lane's 9 (its product is IMAD, SHF, IMAD, IMAD), eager ones 1 more (the
+# product's band reduce).  A pre-weight or epilogue multiply is the
+# product (and its band reduce when eager), a final reduce one VIADDMNMX.
+# Keys: (bytes a word, lazy).
+BFLY_OPS = {(4, True): 8, (4, False): 9, (2, True): 9, (2, False): 10}
+MUL_OPS = {(4, True): 3, (4, False): 4, (2, True): 4, (2, False): 5}
+BAND_OPS = 1
 REPS = 25                        # timing repetitions, median reported
 LAT_ROUNDS = 20                  # interleaved rounds of the request latencies
+PROFILE_TRIES = 3                # profiles of a request before its breakdown is "not measured"
 
 ROT_AMOUNTS = tuple(range(1, BATCH + 1))
 MV_DIM = 64                      # bsgs_split(64) = (8, 8)
@@ -124,7 +145,8 @@ MAC_N = 4096
 MAC_DIGITS = 8                   # the MM -> MA chain: 1 dyadic_mul, 7 dyadic_mac
 EDGE_NS = (16, 8192, 16384)
 EDGE_B = 13
-BIG_BANKS_NS = (8192, 16384)     # the banks transforms at one row per block
+BIG_BANKS_NS = (8192, 16384, 1 << 15, 1 << 16, 1 << 17)  # two passes through scratch
+SINGLE_BANK_N = 1 << 15          # ops.ntt / intt as a one-prime bank
 N16 = 1 << 16                    # rotation rows above one block's shared memory
 ROT16_LEVELS = 3
 ROT16_AMOUNTS = (1, 2)
@@ -182,7 +204,7 @@ PATH_KERNELS["rot16"] = PATH_KERNELS["rotation"]
 # inverse NTTs, basecase products), as pq/mlkem.py issues them
 MLKEM_LAUNCHES = {"keygen": (1, 0, 1), "encaps": (1, 2, 2), "decaps": (2, 3, 3)}
 # device function names of the port's kernels, as the profiler sees them
-DEVICE_FUNCTIONS = ("ntt_fwd_banks_kernel", "ntt_inv_banks_kernel",
+DEVICE_FUNCTIONS = ("ntt_rows_kernel", "ntt_cols_kernel",
                     "twiddle_mul_banks_kernel", "dyadic_inner_banks_kernel",
                     "galois_split_kernel", "galois_staged_kernel",
                     "dyadic_basemul_banks_kernel",
@@ -210,6 +232,49 @@ def residues(rng, qs, shape, band=1):
 
 def max_abs_err(a, b) -> int:
     return int((a.long() - b.long()).abs().max().item()) if a.numel() else 0
+
+
+def banks_int_ops(x, stages: int, *, fwd: bool, negacyclic: bool, lazy: bool,
+                  reduce_out: bool) -> int:
+    """Integer instructions the reference's op sequence needs for one
+    banks transform of x (k, B, n): the butterflies, the pre-weight or
+    epilogue multiply and the final reduce (BFLY_OPS, MUL_OPS, BAND_OPS)."""
+    w = x.element_size()
+    words = x.numel()
+    ops = words // 2 * stages * BFLY_OPS[(w, lazy)]
+    if fwd:
+        ops += (words * MUL_OPS[(w, lazy)] if negacyclic else 0) + \
+            (BAND_OPS * words if lazy and reduce_out else 0)
+    else:
+        ops += words * MUL_OPS[(w, lazy and not reduce_out)]
+    return ops
+
+
+class SmClock:
+    """The SM clock (MHz) as nvidia-smi reads it every 100 ms while the
+    timings run; ``mhz`` is the highest reading (the fastest the card
+    ran, so the integer bound is the least time)."""
+
+    def __enter__(self):
+        self.proc = subprocess.Popen(
+            ["nvidia-smi", "--query-gpu=clocks.sm", "--format=csv,noheader,nounits",
+             "-lms", "100"], stdout=subprocess.PIPE, text=True)
+        return self
+
+    def __exit__(self, *exc):
+        self.proc.terminate()
+        out, _ = self.proc.communicate(timeout=60)
+        readings = [float(v) for v in out.split() if v.replace(".", "", 1).isdigit()]
+        self.mhz = max(readings) if readings else None
+        self.samples = len(readings)
+        return False
+
+
+def int_bound_ms(ops: int, mhz: float) -> float:
+    return ops / (INT32_LANES * mhz * 1e6) * 1e3
+
+
+BESIDE = []      # (label, kernel ms, byte bound ms, integer ops) off the path's shapes
 
 
 def eager_ms(fn, reps=REPS, inner=5) -> float:
@@ -290,6 +355,7 @@ def phase_build() -> None:
                 log(f"[build]   {line.strip()}")
     for name in build.SOURCES:
         build.load(name)
+        log(f"[build] {build.library_path(name).name}")
     log(f"[gpu] {gpu_line()}")
 
 
@@ -313,16 +379,19 @@ def phase_kernels(fs_pack, ks_primes) -> dict:
             raise AssertionError(f"{name} {what}: kernel != plain version "
                                  f"(max abs err {e})")
 
-    packs = {128: fs_pack["pack1"],
-             1024: FB.build_table_pack(rns.make_primes(1024, k), 1024, "cuda")}
-    for n, t in packs.items():
+    # n = 128: the forward pass rows of a B = 1 / B = 8 multiply's
+    # decompose (1024 / 8192), its inverse's (128 / 1024), an odd count
+    packs = [(128, fs_pack["pack1"], rows) for rows in (37, 128, 1024, 8192)]
+    packs.append((1024, FB.build_table_pack(rns.make_primes(1024, k), 1024, "cuda"), 1024))
+    for n, t, rows in packs:
         for lazy in (False, True):
-            x = residues(rng, [int(v) for v in t["qs"].cpu()], (1024, n),
+            x = residues(rng, [int(v) for v in t["qs"].cpu()], (rows, n),
                          band=2 if lazy else 1)
-            xr = residues(rng, [int(v) for v in t["qs"].cpu()], (1024, n))
+            xr = residues(rng, [int(v) for v in t["qs"].cpu()], (rows, n))
             for reduce_out in (False, True):
                 for neg in (False, True):
-                    what = f"n={n} lazy={lazy} reduce_out={reduce_out} negacyclic={neg}"
+                    what = (f"(B, n)=({rows}, {n}) lazy={lazy} reduce_out={reduce_out} "
+                            f"negacyclic={neg}")
                     args = (t["qs"], t["tw"], t["twp"], t["psi"], t["psip"])
                     check("ntt_fwd_banks",
                           ntt_kernel.ntt_fwd_banks(xr, *args, negacyclic=neg,
@@ -925,11 +994,13 @@ def phase_mlkem_times(counts: dict, errs: dict) -> tuple:
         "ntt_fwd_banks_u16": (
             lambda: ntt_kernel.ntt_fwd_banks(x_f, *fargs, **kw),
             lambda: ref.ntt_fwd_banks_ref(x_f, *fargs, **kw),
-            None, tuple(x_f.shape), 2 * x_f.numel() * w + tables + w),
+            None, tuple(x_f.shape), 2 * x_f.numel() * w + tables + w,
+            banks_int_ops(x_f, t["tw"].shape[1], fwd=True, **kw)),
         "ntt_inv_banks_u16": (
             lambda: ntt_kernel.ntt_inv_banks(x_i, *iargs, **kw),
             lambda: ref.ntt_inv_banks_ref(x_i, *iargs, **kw),
-            None, tuple(x_i.shape), 2 * x_i.numel() * w + tables + 3 * w),
+            None, tuple(x_i.shape), 2 * x_i.numel() * w + tables + 3 * w,
+            banks_int_ops(x_i, t["itw"].shape[1], fwd=False, **kw)),
         "dyadic_basemul_banks": (
             lambda: dyadic_kernel.dyadic_basemul_banks(m_a, m_b, *gargs, lazy=True),
             lambda: ref.dyadic_basemul_banks_ref(m_a, m_b, *gargs, lazy=True),
@@ -1044,17 +1115,21 @@ def phase_ntt128_kernels() -> dict:
                                 .astype(np.int32)).cuda()
 
     ntt_shapes = ([(NTT128_B, 128)] + [(PRODUCT_B, n) for n in PRODUCT_NS]
-                  + [(MAC_DIGITS * PRODUCT_B, MAC_N)] + [(EDGE_B, n) for n in EDGE_NS])
+                  + [(MAC_DIGITS * PRODUCT_B, MAC_N)] + [(EDGE_B, n) for n in EDGE_NS]
+                  + [(EDGE_B, SINGLE_BANK_N)])
     mul_shapes = [(PRODUCT_B, n) for n in PRODUCT_NS] + [(EDGE_B, n) for n in EDGE_NS]
     for lazy in (False, True):
         for b, n in ntt_shapes:
             p = make_ntt_params(n)
             x, xi = rows(p.q, (b, n)), rows(p.q, (b, n), band=2 if lazy else 1)
+            # above 2^14 the wrappers launch the banks kernels (one prime)
+            fwd, inv = (("ntt_fwd_banks", "ntt_inv_banks") if n > ntt_kernel.MAX_N_SINGLE
+                        else ("ntt_fwd", "ntt_inv"))
             for neg in (False, True):
                 what = f"(B, n)=({b}, {n}) lazy={lazy} negacyclic={neg}"
-                check("ntt_fwd", ntt_kernel.ntt_fwd(x, p, negacyclic=neg, lazy=lazy),
+                check(fwd, ntt_kernel.ntt_fwd(x, p, negacyclic=neg, lazy=lazy),
                       ref.ntt_fwd_ref(x, p, neg, lazy=lazy), what)
-                check("ntt_inv", ntt_kernel.ntt_inv(xi, p, negacyclic=neg, lazy=lazy),
+                check(inv, ntt_kernel.ntt_inv(xi, p, negacyclic=neg, lazy=lazy),
                       ref.ntt_inv_ref(xi, p, neg, lazy=lazy), what)
         for b, n in mul_shapes:
             p = make_ntt_params(n)
@@ -1257,6 +1332,7 @@ def phase_ntt128_times(counts: dict, errs: dict) -> tuple:
 # ------------------------------------------------------------ phase 4
 
 def phase_times(ctx, cts, fs_pack, ks_pack, per_op, counts, errs, rot) -> list:
+    from repro_torch.fhe import batched as FB
     from repro_torch.fhe import linalg, rns
     from repro_torch.kernels import dyadic_kernel, galois_kernel, ntt_kernel, ref
     rng = np.random.default_rng(SEED + 2)
@@ -1284,13 +1360,17 @@ def phase_times(ctx, cts, fs_pack, ks_pack, per_op, counts, errs, rot) -> list:
                                              lazy=True, reduce_out=False),
             lambda: ref.ntt_fwd_banks_ref(x_f, *tw1, False, lazy=True,
                                           reduce_out=False),
-            None, tuple(x_f.shape), 2 * x_f.numel() * w + 2 * t1["tw"].numel() * w + kp1 * w),
+            None, tuple(x_f.shape), 2 * x_f.numel() * w + 2 * t1["tw"].numel() * w + kp1 * w,
+            banks_int_ops(x_f, t1["tw"].shape[1], fwd=True, negacyclic=False, lazy=True,
+                          reduce_out=False)),
         "ntt_inv_banks": (
             lambda: ntt_kernel.ntt_inv_banks(x_i, *iw1, negacyclic=False,
                                              lazy=True, reduce_out=False),
             lambda: ref.ntt_inv_banks_ref(x_i, *iw1, False, lazy=True,
                                           reduce_out=False),
-            None, tuple(x_i.shape), 2 * x_i.numel() * w + 2 * iw1[3].numel() * w + 3 * k * w),
+            None, tuple(x_i.shape), 2 * x_i.numel() * w + 2 * iw1[3].numel() * w + 3 * k * w,
+            banks_int_ops(x_i, iw1[3].shape[1], fwd=False, negacyclic=False, lazy=True,
+                          reduce_out=False)),
         "twiddle_mul_banks": (
             lambda: ntt_kernel.twiddle_mul_banks(x_t, *tw, lazy=True),
             lambda: ref.twiddle_mul_banks_ref(x_t, *tw, lazy=True),
@@ -1350,6 +1430,20 @@ def phase_times(ctx, cts, fs_pack, ks_pack, per_op, counts, errs, rot) -> list:
         lib = f", library {graph_ms(lib_fn):.4f} ms" if lib_fn is not None else ""
         log(f"[times] {name} {shape} (beside the path): kernel {graph_ms(fn):.4f} ms"
             f"{lib}, bound {nbytes / HBM_BYTES_PER_S * 1e3:.4f} ms ({nbytes} bytes)")
+    # the banks at a B = 1 multiply's pass shapes (the decompose's forward
+    # rows and the inverse's), and rings above 4096 words (two passes)
+    x1f = residues(rng, qlist, (k * (N // n1), n1))
+    x1i = residues(rng, qlist[:k], (N // n1, n1), band=2)
+    time_banks_beside("B=1 pass", x1f, t1, fwd=True, negacyclic=False, lazy=True,
+                      reduce_out=False)
+    time_banks_beside("B=1 pass", x1i, {n: v[:k] for n, v in t1.items()}, fwd=False,
+                      negacyclic=False, lazy=True, reduce_out=False)
+    for n in BIG_BANKS_NS[2:]:
+        tb = FB.build_table_pack(rns.make_primes(n, 3), n, "cuda")
+        xb = residues(rng, [int(q) for q in tb["qs"].cpu()], (EDGE_B, n))
+        for fwd in (True, False):
+            time_banks_beside("two passes", xb, tb, fwd=fwd, negacyclic=True, lazy=True,
+                              reduce_out=True)
     for what, n_launch in per_op.items():
         log(f"[times] launches per {what}: {n_launch}")
 
@@ -1391,12 +1485,57 @@ def phase_times(ctx, cts, fs_pack, ks_pack, per_op, counts, errs, rot) -> list:
     return out, profiles
 
 
+def time_banks_beside(label, x, t, *, fwd, negacyclic, lazy, reduce_out) -> None:
+    """One banks transform off the path's table shapes: its device time,
+    byte bound and integer instructions, kept in BESIDE for the integer
+    bound at the end."""
+    from repro_torch.kernels import ntt_kernel
+    w = x.element_size()
+    kw = dict(negacyclic=negacyclic, lazy=lazy, reduce_out=reduce_out)
+    if fwd:
+        name, tabs = "ntt_fwd_banks", ("tw", "twp", "psi", "psip")
+        fn = lambda: ntt_kernel.ntt_fwd_banks(x, t["qs"], t["tw"], t["twp"], t["psi"],
+                                              t["psip"], **kw)
+    else:
+        name, tabs = "ntt_inv_banks", ("itw", "itwp", "ipsin", "ipsinp")
+        fn = lambda: ntt_kernel.ntt_inv_banks(x, t["qs"], t["ninv"], t["ninv_p"], t["itw"],
+                                              t["itwp"], t["ipsin"], t["ipsinp"], **kw)
+    weights = negacyclic
+    nbytes = (2 * x.numel() + sum(t[a].numel() for a in tabs[:2 + 2 * weights])) * w
+    ms = graph_ms(fn)
+    ops = banks_int_ops(x, t[tabs[0]].shape[1], fwd=fwd, **kw)
+    bound = nbytes / HBM_BYTES_PER_S * 1e3
+    BESIDE.append((f"{name} {tuple(x.shape)} ({label})", ms, bound, ops))
+    log(f"[times] {name} {tuple(x.shape)} ({label}): kernel {ms:.4f} ms, byte bound "
+        f"{bound:.4f} ms ({nbytes} bytes), {ops} integer instructions")
+
+
+def apply_int_bounds(records: list, mhz: float) -> None:
+    """bound_ms of every banks record: the larger of its byte bound and its
+    integer bound at ``mhz``; bound_by names it.  Logs the records kept
+    beside the path the same way."""
+    for rec in records:
+        if rec.get("int_ops"):
+            rec["int_bound_ms"] = int_bound_ms(rec["int_ops"], mhz)
+            rec["sm_clock_mhz"] = mhz
+            if rec["int_bound_ms"] > rec["bytes_bound_ms"]:
+                rec["bound_ms"], rec["bound_by"] = rec["int_bound_ms"], "operations"
+            log(f"[bounds] {rec['name']} {tuple(rec['shape'])}: kernel {rec['ms']:.4f} ms, "
+                f"bytes {rec['bytes_bound_ms']:.4f} ms, integer {rec['int_bound_ms']:.4f} "
+                f"ms at {mhz:.0f} MHz, bound by {rec['bound_by']} "
+                f"({rec['ms'] / rec['bound_ms']:.2f}x)")
+    for label, ms, bound, ops in BESIDE:
+        ib = int_bound_ms(ops, mhz)
+        log(f"[bounds] {label}: kernel {ms:.4f} ms, bytes {bound:.4f} ms, integer "
+            f"{ib:.4f} ms at {mhz:.0f} MHz ({ms / max(bound, ib):.2f}x the larger)")
+
+
 def time_kernels(cases: dict, counts: dict, errs: dict) -> list:
     """The JSON record of each kernel: its CUDA-graph time, plain version,
     library call (or None), byte bound and eager call at the case's
     shape, and its launches on each path's counted run."""
     out = []
-    for name, (kern, plain, library, shape, nbytes) in cases.items():
+    for name, (kern, plain, library, shape, nbytes, *ops) in cases.items():
         ms = graph_ms(kern)
         plain_ms = graph_ms(plain, inner=1)
         wrapper_ms = eager_ms(kern)
@@ -1411,6 +1550,7 @@ def time_kernels(cases: dict, counts: dict, errs: dict) -> list:
                     "replaces": REPLACES[name], "launches": sum(by_path.values()),
                     "max_abs_err": errs[name], "ms": ms, "plain_ms": plain_ms,
                     "bound_ms": bound_ms, "bound_by": "bytes",
+                    "bytes_bound_ms": bound_ms, "int_ops": ops[0] if ops else None,
                     "library_ms": library_ms, "shape": list(shape),
                     "eager_ms": wrapper_ms, "launches_by_path": by_path})
     return out
@@ -1420,20 +1560,29 @@ def profile_request(req, lat_ms: float, label: str) -> None:
     """Where one request's time goes: the device kernels of one warm
     request under torch.profiler, their busy time against the request's
     measured latency, split into the port's kernels and the PyTorch glue
-    between them."""
+    between them.  A profile that recorded fewer port kernels than the
+    wrappers launched in it is taken again, up to PROFILE_TRIES times."""
     from torch.profiler import ProfilerActivity, profile
+    from repro_torch import kernels as K
     req()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        req()
-        torch.cuda.synchronize()
-    kern = [e for e in prof.events()
-            if e.device_type == torch.autograd.DeviceType.CUDA]
-    if not kern:
-        log(f"[trace] {label}: the profiler recorded no device kernels; "
-            "device busy share not measured")
+    for _ in range(PROFILE_TRIES):
+        before = K.snapshot()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            req()
+            torch.cuda.synchronize()
+        launched = sum(c.launches - before[name]["launches"] for name, c in K.COUNTS.items())
+        kern = [e for e in prof.events()
+                if e.device_type == torch.autograd.DeviceType.CUDA]
+        ours = [e for e in kern if any(f in e.name for f in DEVICE_FUNCTIONS)]
+        if kern and len(ours) >= launched:
+            break
+        log(f"[trace] {label}: the profiler recorded {len(ours)} port kernels of the "
+            f"{launched} the wrappers launched")
+    else:
+        log(f"[trace] {label}: short in {PROFILE_TRIES} profiles; device busy share "
+            "not measured")
         return
-    ours = [e for e in kern if any(f in e.name for f in DEVICE_FUNCTIONS)]
     busy = sum(e.time_range.elapsed_us() for e in kern) / 1e3
     mine = sum(e.time_range.elapsed_us() for e in ours) / 1e3
     log(f"[trace] {label}: {len(kern)} device kernels ({len(ours)} of the "
@@ -1488,7 +1637,8 @@ def main() -> int:
     errs.update(phase_mlkem_kernels())
     mlkem_in, mlkem_out, mcounts, mlkem_per_op = phase_mlkem()
     phase_mlkem_cpu_parity(mlkem_in, mlkem_out)
-    errs.update(phase_ntt128_kernels())
+    for name, e in phase_ntt128_kernels().items():
+        errs[name] = max(errs.get(name, 0), e)
     ntt_in, ntt_out, ncounts, ntt_per_op = phase_ntt128()
     phase_ntt128_cpu_parity(ntt_in, ntt_out)
     per_op = {"multiply + rescale": {k: v for k, v in per_op.items() if v},
@@ -1496,11 +1646,17 @@ def main() -> int:
               **ntt_per_op}
     counts = {"multiply": counts, "rotation": rcounts, "rot16": r16counts,
               "mlkem": mcounts, "ntt128": ncounts}
-    kernels, profiles = phase_times(ctx, cts, fs_pack, ks_pack, per_op, counts,
-                                    errs, {"ctx": rctx, "M": M, "cts": rcts})
-    mlkem_kernels, mlkem_profiles = phase_mlkem_times(counts, errs)
-    ntt_kernels, ntt_profiles = phase_ntt128_times(counts, errs)
+    with SmClock() as clock:
+        kernels, profiles = phase_times(ctx, cts, fs_pack, ks_pack, per_op, counts,
+                                        errs, {"ctx": rctx, "M": M, "cts": rcts})
+        mlkem_kernels, mlkem_profiles = phase_mlkem_times(counts, errs)
+        ntt_kernels, ntt_profiles = phase_ntt128_times(counts, errs)
     kernels += mlkem_kernels + ntt_kernels
+    if clock.mhz is None:
+        raise AssertionError("nvidia-smi read no SM clock during the timings")
+    log(f"[clock] SM clock during the timings: highest of {clock.samples} readings "
+        f"{clock.mhz:.0f} MHz")
+    apply_int_bounds(kernels, clock.mhz)
     for req, lat_ms, label in profiles + mlkem_profiles + ntt_profiles:
         profile_request(req, lat_ms, label)
     log(f"[done] {time.perf_counter() - t_start:.1f} s, slot error "

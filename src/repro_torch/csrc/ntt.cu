@@ -18,14 +18,15 @@
 // butterfly.  The card's int32 rate is not in its data sheet's table, so
 // the bound counted is bytes.
 //
-// What this simple design does about it: the block body of the banks
-// kernels (ntt_block.cuh).  Up to n = 4096 a block holds 4096 / n rows in a
+// What this simple design does about it: the shared-memory ping-pong block
+// body of ntt_block.cuh.  Up to n = 4096 a block holds 4096 / n rows in a
 // 32 KB shared-memory ping-pong pair (32 rows of NTT-128), with the stage
 // table pair in shared memory when it fits in 16 KB (n <= 256: 3.5 KB at
 // n = 128).  The reference's single-prime kernel has no four-step cut-off,
 // so at n = 8192 and 16384 a block holds one row in 64 KB / 128 KB of
 // dynamic shared memory (asked for with cudaFuncSetAttribute above 48 KB)
-// and reads the stage tables from device memory.  Larger rings are refused.
+// and reads the stage tables from device memory.  Larger rings are refused
+// here; the Python wrappers run them as a one-prime bank (ntt_banks.cu).
 #include <cuda_runtime.h>
 
 #include <cstdint>

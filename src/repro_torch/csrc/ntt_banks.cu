@@ -11,23 +11,34 @@
 // (the CKKS RNS primes; launchers ntt_fwd_banks / ntt_inv_banks), or
 // uint16_t storage with the 16-bit one (ML-KEM's q = 3329 ring, whose
 // incomplete transform runs 7 stages on n = 256; launchers
-// ntt_fwd_banks_u16 / ntt_inv_banks_u16).  Every stage covers all n/2
-// pairs, so any stage count up to log2 n works.
+// ntt_fwd_banks_u16 / ntt_inv_banks_u16).  Any stage count up to log2 n
+// works.
 //
-// What bounds them on an H100: device memory.  A transform reads each
-// word once and writes it once (8 bytes per word) and does ~log2(n)
-// butterflies on it in between; the weight-row multiply reads the word
-// and its two weights and writes one word.  The least time is those
-// bytes over the card's memory rate.
+// What bounds them on an H100: device memory, with the integer pipes
+// close behind.  A transform reads each word once and writes it once (8
+// bytes per u32 word); in between it runs log2(n)/2 butterflies per word,
+// a lazy u32 one 8 integer instructions as compiled (the Shoup product
+// IMAD.HI, IMAD, IMAD; the band add 2; the subtract 3), which at n = 128
+// comes to about 0.7 of the bytes' time.  The 16-bit lane moves half the
+// bytes for the same butterflies (9 instructions each), so its bound is
+// the instructions.  The weight-row multiply reads the word and its two
+// weights and writes one word: bytes.
 //
-// What the transforms' simple design does about it: each block runs one
-// prime's rows through every stage in a shared-memory ping-pong pair, so a
-// word crosses device memory exactly twice (ntt_block.cuh, shared with the
-// single-prime kernels of ntt.cu); up to n = 4096 a block holds 4096 / n
-// rows, above it one row (the u32 lane up to 2^14: 128 KB).  The TPU
-// kernel kept all twiddle rows resident in VMEM, which does not fit a
-// block's shared memory at n = 4096: only tables up to 16 KB (n <= 256) go
-// to shared memory.
+// What the transforms' design does about it (ntt_regs.cuh): words stay in
+// registers under their original indices, 16 to a thread, and each stage
+// whose pairing bit is a register bit runs there; a row crosses shared
+// memory once per 4 stages (once at n = 128 and 256), conflict-free, with
+// a warp barrier while a row fits a warp, and twiddle columns are a
+// per-stage base plus a constant; small rings read their twiddles from a
+// copy of the table pair in shared memory.  So a word costs its bytes, its
+// butterflies and little else.  A block holds 32 to 256 threads, fewer
+// when the batch is small, on a persistent grid of at most one wave; below
+// one warp per SM, rings of 16 .. 256 words take 4 words a thread instead
+// of 16, a shorter chain per thread for a B = 1 request.  Rings up to 4096
+// words take one launch.  Larger u32 rings (2^13 .. 2^17) take
+// two: a column pass over the top L - 12 index bits, then the row body on
+// contiguous 4096-word chunks, through a scratch tensor the wrapper
+// allocates.
 //
 // The weight-row multiply is a 16-byte stream, one prime per grid row
 // (twiddle_mul_banks_kernel): the bytes in flight per SM set its time, so
@@ -39,53 +50,14 @@
 #include <cstdint>
 
 #include "modarith.cuh"
-#include "ntt_block.cuh"
+#include "ntt_regs.cuh"
 
 using namespace modarith;
 
 namespace {
 
-using ntt_block::kThreads;
-
 constexpr int kStreamThreads = 256;
 constexpr long long kMaxStreamBlocks = 132 * 8;  // 2048 threads on each SM
-
-template <typename T, bool kLazy>
-__global__ void __launch_bounds__(kThreads)
-ntt_fwd_banks_kernel(const T* __restrict__ x, T* __restrict__ out,
-                     const T* __restrict__ qs, const T* __restrict__ tw,
-                     const T* __restrict__ twp, const T* __restrict__ psi,
-                     const T* __restrict__ psip, int b, int n, int log_n,
-                     int stages, int rows, bool negacyclic, bool reduce_out,
-                     bool tw_smem) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  const int p = blockIdx.y;
-  const size_t table = (size_t)p * stages * (n >> 1);
-  ntt_block::fwd_block<T, kLazy>(
-      reinterpret_cast<T*>(smem_raw), x + (size_t)p * b * n,
-      out + (size_t)p * b * n, qs[p], tw + table, twp + table,
-      psi + (size_t)p * n, psip + (size_t)p * n, b, n, log_n, stages, rows,
-      negacyclic, reduce_out, tw_smem);
-}
-
-template <typename T, bool kLazy>
-__global__ void __launch_bounds__(kThreads)
-ntt_inv_banks_kernel(const T* __restrict__ x, T* __restrict__ out,
-                     const T* __restrict__ qs, const T* __restrict__ ninv,
-                     const T* __restrict__ ninv_p, const T* __restrict__ itw,
-                     const T* __restrict__ itwp, const T* __restrict__ post,
-                     const T* __restrict__ postp, int b, int n, int log_n,
-                     int stages, int rows, bool negacyclic, bool reduce_out,
-                     bool tw_smem) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  const int p = blockIdx.y;
-  const size_t table = (size_t)p * stages * (n >> 1);
-  ntt_block::inv_block<T, kLazy>(
-      reinterpret_cast<T*>(smem_raw), x + (size_t)p * b * n,
-      out + (size_t)p * b * n, qs[p], ninv[p], ninv_p[p], itw + table,
-      itwp + table, post + (size_t)p * n, postp + (size_t)p * n, b, n, log_n,
-      stages, rows, negacyclic, reduce_out, tw_smem);
-}
 
 // The weight-row multiply as a memory stream: grid.y is the prime, so q
 // and the prime's weight rows are fixed per block; grid.x strides over
@@ -138,37 +110,164 @@ twiddle_mul_banks_kernel(const uint32_t* __restrict__ x, uint32_t* __restrict__ 
   }
 }
 
-using ntt_block::Geometry;
-using ntt_block::geometry;
-using ntt_block::ilog2;
+using ntt_regs::Tables;
 
-// Above n = 4096 a block holds one row's ping-pong pair (64 KB at 8192 and
-// 128 KB at 16384 on the u32 lane); above 48 KB a block's dynamic shared
-// memory must be asked for, as ntt.cu's prepare does.
-template <typename Kernel>
-cudaError_t allow_smem(Kernel kernel, const Geometry& g) {
-  if (g.smem_bytes <= 48 * 1024) return cudaSuccess;
-  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              (int)g.smem_bytes);
+constexpr long long kWantBlocks = 4 * 132;  // blocks that fill 132 SMs
+// below one warp a SM at 16 words a thread, rings of 16 .. 256 words take
+// 4 words a thread (four times the threads, a shorter chain each: ML-KEM's
+// b = 1 transforms run a fifth to a third faster on an H100, PERF.md)
+constexpr long long kSmallThreads = 132 * 32;
+
+inline int ilog2(int n) {
+  int s = 0;
+  while ((1 << s) < n) ++s;
+  return s;
+}
+
+inline bool aligned16(const void* p) {
+  return reinterpret_cast<uintptr_t>(p) % 16 == 0;
+}
+
+// The number of SMs of the current device, read once.
+inline int sm_count() {
+  static int sms = 0;
+  if (sms == 0) {
+    int dev = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (sms <= 0) sms = 132;
+  }
+  return sms;
+}
+
+// The row body over `rows` rows of 2^LL words per prime: 256 threads a
+// block, halved while there would be fewer than kWantBlocks tiles (down to
+// one row, and one warp); a persistent grid of at most one wave of blocks.
+template <typename T, bool kLazy, bool kFwd, int LL, int GL, int RB>
+int launch_rows(const T* x, T* out, const Tables<T>& tb, int k, int rows,
+                cudaStream_t s) {
+  constexpr int TPR = 1 << (LL - RB);
+  const int least = TPR > 32 ? TPR : 32;
+  int tpb = ntt_regs::kThreads;
+  auto tiles = [&](int t) { return (rows + t / TPR - 1) / (t / TPR); };
+  while (tpb > least && (long long)k * tiles(tpb) < kWantBlocks) tpb /= 2;
+  const int rpb = tpb / TPR;
+  size_t smem = ntt_regs::phases(LL, RB) > 1
+                    ? (size_t)rpb * ntt_regs::row_stride(LL) * sizeof(uint32_t)
+                    : 0;
+  if (ntt_regs::staged_table_bytes<T, LL, GL>() > 0)
+    smem += (size_t)2 * tb.stages * (1 << (GL - 1)) * sizeof(T);
+  auto kernel = &ntt_regs::ntt_rows_kernel<T, kLazy, kFwd, LL, GL, RB>;
+  // resident blocks a SM, read once per block size (tpb is 32 << slot)
+  // and shared-memory size of this instantiation
+  static int cached_per_sm[4] = {0, 0, 0, 0};
+  static size_t cached_smem[4] = {0, 0, 0, 0};
+  const int slot = ilog2(tpb) - 5;
+  if (cached_per_sm[slot] == 0 || cached_smem[slot] != smem) {
+    int blocks = 0;
+    cudaError_t e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel, tpb, smem);
+    if (e != cudaSuccess) return (int)e;
+    cached_smem[slot] = smem;
+    cached_per_sm[slot] = blocks > 0 ? blocks : 1;
+  }
+  const int per_sm = cached_per_sm[slot];
+  const long long total = (long long)k * tiles(tpb);
+  const long long wave = (long long)per_sm * sm_count();
+  const dim3 grid((unsigned)(total < wave ? total : wave));
+  const bool vec_tables = aligned16(tb.tw) && aligned16(tb.twp) &&
+                          ((size_t)tb.stages * (1 << (GL - 1)) * sizeof(T)) % 16 == 0;
+  kernel<<<grid, tpb, smem, s>>>(x, out, tb, k, rows, tiles(tpb),
+                                 aligned16(x) && aligned16(out), vec_tables);
+  return (int)cudaGetLastError();
+}
+
+// The column body: one thread per column of each of the b rings.
+template <bool kLazy, bool kFwd, int GL>
+int launch_cols(const uint32_t* x, uint32_t* out, const Tables<uint32_t>& tb,
+                int k, int b, cudaStream_t s) {
+  constexpr int S = GL - ntt_regs::kRowLog;
+  const long long threads = (long long)b << (GL - S);
+  const dim3 grid((unsigned)((threads + ntt_regs::kThreads - 1) / ntt_regs::kThreads),
+                  (unsigned)k);
+  ntt_regs::ntt_cols_kernel<kLazy, kFwd, S, GL><<<grid, ntt_regs::kThreads, 0, s>>>(
+      x, out, tb, b);
+  return (int)cudaGetLastError();
+}
+
+// A ring of 2^GL words: one row launch up to 4096 words; above, the
+// column pass and the chunk rows, through scratch (forward: columns
+// first; inverse: chunks first).
+template <typename T, bool kLazy, bool kFwd, int GL>
+int launch_ring(const T* x, T* out, T* scratch, const Tables<T>& tb, int k,
+                int b, cudaStream_t s) {
+  if constexpr (GL <= ntt_regs::kRowLog) {
+    if constexpr (GL >= 4 && GL <= 8) {
+      if ((long long)k * b * (1 << (GL - 4)) < kSmallThreads)
+        return launch_rows<T, kLazy, kFwd, GL, GL, 2>(x, out, tb, k, b, s);
+    }
+    return launch_rows<T, kLazy, kFwd, GL, GL, ntt_regs::reg_bits(GL)>(x, out, tb, k, b, s);
+  } else if constexpr (sizeof(T) == 4) {
+    constexpr int S = GL - ntt_regs::kRowLog;
+    constexpr int LL = ntt_regs::kRowLog;
+    if (scratch == nullptr) return (int)cudaErrorInvalidValue;
+    int rc;
+    if (kFwd) {
+      rc = launch_cols<kLazy, true, GL>(x, scratch, tb, k, b, s);
+      if (rc != 0) return rc;
+      return launch_rows<T, kLazy, true, LL, GL, 4>(scratch, out, tb, k, b << S, s);
+    }
+    rc = launch_rows<T, kLazy, false, LL, GL, 4>(x, scratch, tb, k, b << S, s);
+    if (rc != 0) return rc;
+    return launch_cols<kLazy, false, GL>(scratch, out, tb, k, b, s);
+  } else {
+    return (int)cudaErrorInvalidValue;  // no u16 ring is larger than 4096
+  }
+}
+
+template <typename T, bool kLazy, bool kFwd>
+int dispatch(const T* x, T* out, T* scratch, const Tables<T>& tb, int k, int b,
+             int n, cudaStream_t s) {
+  switch (ilog2(n)) {
+#define NTT_RING(L) \
+  case L:           \
+    return launch_ring<T, kLazy, kFwd, L>(x, out, scratch, tb, k, b, s);
+    NTT_RING(1) NTT_RING(2) NTT_RING(3) NTT_RING(4) NTT_RING(5) NTT_RING(6)
+    NTT_RING(7) NTT_RING(8) NTT_RING(9) NTT_RING(10) NTT_RING(11) NTT_RING(12)
+    NTT_RING(13) NTT_RING(14) NTT_RING(15) NTT_RING(16) NTT_RING(17)
+#undef NTT_RING
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+}
+
+template <typename T>
+int launch_transform(bool fwd, const void* x, void* out, void* scratch,
+                     const Tables<T>& tb, int k, int b, int n, bool lazy,
+                     void* stream) {
+  if (k <= 0 || b <= 0) return (int)cudaGetLastError();
+  if (n < 2 || n > (1 << 17) || (n & (n - 1)) != 0) return (int)cudaErrorInvalidValue;
+  auto* s = static_cast<cudaStream_t>(stream);
+  const T* xi = static_cast<const T*>(x);
+  T* o = static_cast<T*>(out);
+  T* sc = static_cast<T*>(scratch);
+  if (fwd) {
+    return lazy ? dispatch<T, true, true>(xi, o, sc, tb, k, b, n, s)
+                : dispatch<T, false, true>(xi, o, sc, tb, k, b, n, s);
+  }
+  return lazy ? dispatch<T, true, false>(xi, o, sc, tb, k, b, n, s)
+              : dispatch<T, false, false>(xi, o, sc, tb, k, b, n, s);
 }
 
 template <typename T>
 int launch_fwd(const void* x, void* out, const void* qs, const void* tw,
                const void* twp, const void* psi, const void* psip, int k,
                int b, int n, int stages, int negacyclic, int lazy,
-               int reduce_out, void* stream) {
-  if (k <= 0 || b <= 0) return (int)cudaGetLastError();
-  const Geometry g = geometry(k, b, n, stages, sizeof(T));
-  auto* s = static_cast<cudaStream_t>(stream);
-  auto kernel = lazy ? &ntt_fwd_banks_kernel<T, true> : &ntt_fwd_banks_kernel<T, false>;
-  const cudaError_t e = allow_smem(kernel, g);
-  if (e != cudaSuccess) return (int)e;
-  kernel<<<g.grid, kThreads, g.smem_bytes, s>>>(
-      static_cast<const T*>(x), static_cast<T*>(out), static_cast<const T*>(qs),
-      static_cast<const T*>(tw), static_cast<const T*>(twp),
-      static_cast<const T*>(psi), static_cast<const T*>(psip), b, n, ilog2(n),
-      stages, g.rows, negacyclic != 0, reduce_out != 0, g.tw_smem);
-  return (int)cudaGetLastError();
+               int reduce_out, void* scratch, void* stream) {
+  const Tables<T> tb{static_cast<const T*>(qs), static_cast<const T*>(tw),
+                     static_cast<const T*>(twp), static_cast<const T*>(psi),
+                     static_cast<const T*>(psip), nullptr, nullptr, stages,
+                     negacyclic != 0, reduce_out != 0};
+  return launch_transform<T>(true, x, out, scratch, tb, k, b, n, lazy != 0, stream);
 }
 
 template <typename T>
@@ -176,47 +275,43 @@ int launch_inv(const void* x, void* out, const void* qs, const void* ninv,
                const void* ninv_p, const void* itw, const void* itwp,
                const void* post, const void* postp, int k, int b, int n,
                int stages, int negacyclic, int lazy, int reduce_out,
-               void* stream) {
-  if (k <= 0 || b <= 0) return (int)cudaGetLastError();
-  const Geometry g = geometry(k, b, n, stages, sizeof(T));
-  auto* s = static_cast<cudaStream_t>(stream);
-  auto kernel = lazy ? &ntt_inv_banks_kernel<T, true> : &ntt_inv_banks_kernel<T, false>;
-  const cudaError_t e = allow_smem(kernel, g);
-  if (e != cudaSuccess) return (int)e;
-  kernel<<<g.grid, kThreads, g.smem_bytes, s>>>(
-      static_cast<const T*>(x), static_cast<T*>(out), static_cast<const T*>(qs),
-      static_cast<const T*>(ninv), static_cast<const T*>(ninv_p),
-      static_cast<const T*>(itw), static_cast<const T*>(itwp),
-      static_cast<const T*>(post), static_cast<const T*>(postp), b, n,
-      ilog2(n), stages, g.rows, negacyclic != 0, reduce_out != 0, g.tw_smem);
-  return (int)cudaGetLastError();
+               void* scratch, void* stream) {
+  const Tables<T> tb{static_cast<const T*>(qs), static_cast<const T*>(itw),
+                     static_cast<const T*>(itwp), static_cast<const T*>(post),
+                     static_cast<const T*>(postp), static_cast<const T*>(ninv),
+                     static_cast<const T*>(ninv_p), stages, negacyclic != 0,
+                     reduce_out != 0};
+  return launch_transform<T>(false, x, out, scratch, tb, k, b, n, lazy != 0, stream);
 }
 
 }  // namespace
 
 // Every launcher returns cudaGetLastError() of its launch; the Python
 // wrapper raises on a non-zero code.  Shapes are checked by the wrapper:
-// x/out (k, b, n) with n a power of two in [2, 16384] (the u16 lane up to
+// x/out (k, b, n) with n a power of two in [2, 131072] (the u16 lane up to
 // 4096), tables as in the TablePack layout, contiguous; uint32 (int32 bit
 // patterns) for the plain launchers, uint16 (int16 bit patterns) for the
-// _u16 ones.  twiddle_mul_banks takes x/out (k, b, n) and w/wp (k, n).
+// _u16 ones.  scratch: a (k, b, n) tensor of x's lane for n > 4096 (the
+// two-pass route), else unused (may be null).  A transform is one
+// launcher call whichever route it takes.  twiddle_mul_banks takes x/out
+// (k, b, n) and w/wp (k, n).
 
 extern "C" int ntt_fwd_banks(const void* x, void* out, const void* qs,
                              const void* tw, const void* twp, const void* psi,
                              const void* psip, int k, int b, int n, int stages,
                              int negacyclic, int lazy, int reduce_out,
-                             void* stream) {
+                             void* scratch, void* stream) {
   return launch_fwd<uint32_t>(x, out, qs, tw, twp, psi, psip, k, b, n, stages,
-                              negacyclic, lazy, reduce_out, stream);
+                              negacyclic, lazy, reduce_out, scratch, stream);
 }
 
 extern "C" int ntt_fwd_banks_u16(const void* x, void* out, const void* qs,
                                  const void* tw, const void* twp,
                                  const void* psi, const void* psip, int k,
                                  int b, int n, int stages, int negacyclic,
-                                 int lazy, int reduce_out, void* stream) {
+                                 int lazy, int reduce_out, void* scratch, void* stream) {
   return launch_fwd<uint16_t>(x, out, qs, tw, twp, psi, psip, k, b, n, stages,
-                              negacyclic, lazy, reduce_out, stream);
+                              negacyclic, lazy, reduce_out, scratch, stream);
 }
 
 extern "C" int ntt_inv_banks(const void* x, void* out, const void* qs,
@@ -224,10 +319,10 @@ extern "C" int ntt_inv_banks(const void* x, void* out, const void* qs,
                              const void* itw, const void* itwp, const void* post,
                              const void* postp, int k, int b, int n, int stages,
                              int negacyclic, int lazy, int reduce_out,
-                             void* stream) {
+                             void* scratch, void* stream) {
   return launch_inv<uint32_t>(x, out, qs, ninv, ninv_p, itw, itwp, post, postp,
                               k, b, n, stages, negacyclic, lazy, reduce_out,
-                              stream);
+                              scratch, stream);
 }
 
 extern "C" int ntt_inv_banks_u16(const void* x, void* out, const void* qs,
@@ -235,10 +330,10 @@ extern "C" int ntt_inv_banks_u16(const void* x, void* out, const void* qs,
                                  const void* itw, const void* itwp,
                                  const void* post, const void* postp, int k,
                                  int b, int n, int stages, int negacyclic,
-                                 int lazy, int reduce_out, void* stream) {
+                                 int lazy, int reduce_out, void* scratch, void* stream) {
   return launch_inv<uint16_t>(x, out, qs, ninv, ninv_p, itw, itwp, post, postp,
                               k, b, n, stages, negacyclic, lazy, reduce_out,
-                              stream);
+                              scratch, stream);
 }
 
 extern "C" int twiddle_mul_banks(const void* x, void* out, const void* qs,

@@ -1,6 +1,5 @@
-// One block's constant-geometry NTT, shared by the multi-prime banks
-// kernels (ntt_banks.cu) and the single-prime kernels (ntt.cu), as the
-// reference shares _fwd_stages / _inv_stages between its two families
+// One block's constant-geometry NTT, the body of the single-prime kernels
+// (ntt.cu), with the reference's _fwd_stages / _inv_stages
 // (src/repro/kernels/ntt_kernel.py).
 //
 // A block transforms `rows` consecutive rows of one prime's (b, n)

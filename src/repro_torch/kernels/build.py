@@ -37,10 +37,10 @@ _U = ctypes.c_uint          # a uint32 scalar: a modulus, mu, n^-1 or its compan
 # C signature of every launcher: (argtypes) -> cudaError_t as int
 SIGNATURES = {
     "ntt_banks": {
-        "ntt_fwd_banks": [_P] * 7 + [_I] * 7 + [_P],
-        "ntt_inv_banks": [_P] * 9 + [_I] * 7 + [_P],
-        "ntt_fwd_banks_u16": [_P] * 7 + [_I] * 7 + [_P],
-        "ntt_inv_banks_u16": [_P] * 9 + [_I] * 7 + [_P],
+        "ntt_fwd_banks": [_P] * 7 + [_I] * 7 + [_P, _P],
+        "ntt_inv_banks": [_P] * 9 + [_I] * 7 + [_P, _P],
+        "ntt_fwd_banks_u16": [_P] * 7 + [_I] * 7 + [_P, _P],
+        "ntt_inv_banks_u16": [_P] * 9 + [_I] * 7 + [_P, _P],
         "twiddle_mul_banks": [_P] * 5 + [_I, _L, _I, _I, _P],
     },
     "dyadic_inner": {

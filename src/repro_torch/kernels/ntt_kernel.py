@@ -17,23 +17,33 @@ counted apart.  Every tensor of one call must share the lane: a u16 pack
 run through the u32 formulas would give wrong numbers with no error, so
 a mix is refused with ``ValueError`` on every device.
 
+On the card a u32 ring of up to 4096 words is one launch of the
+register-resident body; a larger one (up to ``MAX_N`` = 2^17) runs two
+passes through a scratch tensor this module allocates, still one launcher
+call and one count.
+
 ``ntt_fwd`` / ``ntt_inv`` replace the single-prime TPU kernels
 ``ntt_fwd_pallas`` / ``ntt_inv_pallas``: one prime's ``NTTParams``, a
-(B, n) int32 batch, every log2(n) stage, n up to 2^14 as the u32 banks.
-Their tables go to the tensor's device once per (n, q, psi, device)
-(``core.ntt.device_tables``).  The single-prime lane is uint32
-only, so an int16 tensor is refused on every device.
+(B, n) int32 batch, every log2(n) stage.  Their tables go to the tensor's
+device once per (n, q, psi, device) (``core.ntt.device_tables``).  Up to
+``MAX_N_SINGLE`` = 2^14 they launch ``csrc/ntt.cu``; above it, up to
+``MAX_N``, the call is a one-prime bank (``single_prime_bank``) on the u32
+banks launcher and counts one launch of ``ntt_fwd_banks`` /
+``ntt_inv_banks``.  The single-prime lane is uint32 only, so an int16
+tensor is refused on every device.
 """
 from __future__ import annotations
 
 import torch
 
+from repro_torch.convert import u32_to_tensor
 from repro_torch.core.ntt import device_tables
 from repro_torch.kernels import COUNTS, build, ref
 
-MAX_N = 1 << 14       # banks, u32 lane: one row's ping-pong pair in 128 KB
+MAX_N = 1 << 17       # banks, u32 lane: two passes of at most 32 and 4096 words
+MAX_N_ROW = 4096      # the largest ring one launch transforms (no scratch)
 MAX_N_U16 = 4096      # banks, u16 lane: the largest ring it has (see below)
-MAX_N_SINGLE = 1 << 14  # one row's ping-pong pair fills 128 KB of shared memory
+MAX_N_SINGLE = 1 << 14  # csrc/ntt.cu: one row's ping-pong pair fills 128 KB
 
 
 LANES = {torch.int32: "uint32", torch.int16: "uint16"}
@@ -83,7 +93,9 @@ def _check_geometry(where: str, x: torch.Tensor, stages: int) -> tuple[int, int,
                          f"2^12, so 2n/block does not divide q - 1 for any n > "
                          f"{MAX_N_U16}")
     if n < 2 or n > MAX_N or n & (n - 1):
-        raise ValueError(f"{where}: n={n} must be a power of two in [2, {MAX_N}]")
+        raise ValueError(f"{where}: n={n} must be a power of two in [2, {MAX_N}]: "
+                         "above it the column pass would hold more than 32 "
+                         "words a thread")
     if not 0 <= stages <= n.bit_length() - 1:
         raise ValueError(f"{where}: {stages} stages for n={n}")
     return k, b, n
@@ -96,6 +108,15 @@ def raise_on(where: str, rc: int) -> None:
 
 def stream() -> int:
     return torch.cuda.current_stream().cuda_stream
+
+
+def _scratch(x: torch.Tensor) -> torch.Tensor | None:
+    """The two-pass route's scratch tensor, for rings above ``MAX_N_ROW``."""
+    return torch.empty_like(x) if x.shape[-1] > MAX_N_ROW else None
+
+
+def _ptr(t: torch.Tensor | None) -> int:
+    return 0 if t is None else t.data_ptr()
 
 
 def ntt_fwd_banks(x, qs, tw, twp, psi, psip, *, negacyclic: bool,
@@ -122,10 +143,11 @@ def ntt_fwd_banks(x, qs, tw, twp, psi, psip, *, negacyclic: bool,
     out = torch.empty_like(x)
     if x.numel() == 0:
         return out
+    scratch = _scratch(x)
     rc = getattr(lib, where)(x.data_ptr(), out.data_ptr(), qs.data_ptr(),
                              tw.data_ptr(), twp.data_ptr(), psi.data_ptr(),
                              psip.data_ptr(), k, b, n, stages, int(negacyclic),
-                             int(lazy), int(reduce_out), stream())
+                             int(lazy), int(reduce_out), _ptr(scratch), stream())
     raise_on(where, rc)
     COUNTS[where].launches += 1
     return out
@@ -156,11 +178,12 @@ def ntt_inv_banks(x, qs, ninv, ninv_p, itw, itwp, post, postp, *,
     out = torch.empty_like(x)
     if x.numel() == 0:
         return out
+    scratch = _scratch(x)
     rc = getattr(lib, where)(x.data_ptr(), out.data_ptr(), qs.data_ptr(),
                              ninv.data_ptr(), ninv_p.data_ptr(), itw.data_ptr(),
                              itwp.data_ptr(), post.data_ptr(), postp.data_ptr(),
                              k, b, n, stages, int(negacyclic), int(lazy),
-                             int(reduce_out), stream())
+                             int(reduce_out), _ptr(scratch), stream())
     raise_on(where, rc)
     COUNTS[where].launches += 1
     return out
@@ -208,22 +231,52 @@ def _check_single(where: str, x, p) -> tuple[int, int]:
     b, n = x.shape
     if n != p.n:
         raise ValueError(f"{where}: rows of {n} for params of n={p.n}")
-    if n < 2 or n > MAX_N_SINGLE or n & (n - 1):
-        raise ValueError(f"{where}: n={n} must be a power of two in [2, "
-                         f"{MAX_N_SINGLE}]: a block holds one row's ping-pong "
-                         "pair in shared memory")
+    if n < 2 or n > MAX_N or n & (n - 1):
+        raise ValueError(f"{where}: n={n} must be a power of two in [2, {MAX_N}]: "
+                         f"above {MAX_N_SINGLE} the ring runs on the u32 banks, "
+                         f"which stop at {MAX_N}")
     return b, n
+
+
+_BANKS: dict = {}
+
+
+def single_prime_bank(p, device) -> dict:
+    """Prime ``p``'s tables as a one-prime bank in the TablePack layout
+    (``qs``, ``tw``/``twp``, ``psi``/``psip``, ``ninv``/``ninv_p``,
+    ``itw``/``itwp``, ``ipsin``/``ipsinp``, each with a leading axis of 1),
+    views of ``core.ntt.device_tables``: the route of ``ntt_fwd`` /
+    ``ntt_inv`` above ``MAX_N_SINGLE``."""
+    device = torch.device(device)
+    key = (p.n, p.q, p.psi, str(device))
+    if key not in _BANKS:
+        t = device_tables(p, device)
+        bank = {name: t[src][None] for name, src in (
+            ("tw", "tw"), ("twp", "twp"), ("psi", "psi_pows"), ("psip", "psi_pows_p"),
+            ("itw", "itw"), ("itwp", "itwp"), ("ipsin", "ipsi_ninv"),
+            ("ipsinp", "ipsi_ninv_p"))}
+        for name, v in (("qs", p.q), ("ninv", p.ninv), ("ninv_p", p.ninv_p)):
+            bank[name] = u32_to_tensor([v], device)
+        _BANKS[key] = bank
+    return _BANKS[key]
 
 
 def ntt_fwd(x, p, *, negacyclic: bool, lazy: bool):
     """x: (B, n) int32 in [0, p.q); p: the prime's ``NTTParams``.
-    Returns the forward transform in bitrev order, in [0, q) either way."""
+    Returns the forward transform in bitrev order, in [0, q) either way.
+    Above ``MAX_N_SINGLE`` on the card: one ``ntt_fwd_banks`` launch of a
+    one-prime bank with ``reduce_out=True``, counted there."""
     where = "ntt_fwd"
     check_u32(where, x=x)
     if x.device.type == "cpu":
         return ref.ntt_fwd_ref(x, p, negacyclic, lazy=lazy)
-    lib = build.load("ntt")
     b, n = _check_single(where, x, p)
+    if n > MAX_N_SINGLE:
+        t = single_prime_bank(p, x.device)
+        return ntt_fwd_banks(x[None], t["qs"], t["tw"], t["twp"], t["psi"],
+                             t["psip"], negacyclic=negacyclic, lazy=lazy,
+                             reduce_out=True)[0]
+    lib = build.load("ntt")
     check_tensors(where, x.device, x=x)
     t = device_tables(p, x.device)
     out = torch.empty_like(x)
@@ -241,13 +294,20 @@ def ntt_fwd(x, p, *, negacyclic: bool, lazy: bool):
 def ntt_inv(x, p, *, negacyclic: bool, lazy: bool):
     """x: (B, n) int32 in bitrev order, any representative below 2q.
     Returns natural order in [0, q): the epilogue multiplies by
-    psi^-i * n^-1 (negacyclic) or n^-1 (cyclic) exactly."""
+    psi^-i * n^-1 (negacyclic) or n^-1 (cyclic) exactly.  Above
+    ``MAX_N_SINGLE`` on the card: one ``ntt_inv_banks`` launch of a
+    one-prime bank with ``reduce_out=True``, counted there."""
     where = "ntt_inv"
     check_u32(where, x=x)
     if x.device.type == "cpu":
         return ref.ntt_inv_ref(x, p, negacyclic, lazy=lazy)
-    lib = build.load("ntt")
     b, n = _check_single(where, x, p)
+    if n > MAX_N_SINGLE:
+        t = single_prime_bank(p, x.device)
+        return ntt_inv_banks(x[None], t["qs"], t["ninv"], t["ninv_p"], t["itw"],
+                             t["itwp"], t["ipsin"], t["ipsinp"],
+                             negacyclic=negacyclic, lazy=lazy, reduce_out=True)[0]
+    lib = build.load("ntt")
     check_tensors(where, x.device, x=x)
     t = device_tables(p, x.device)
     out = torch.empty_like(x)

@@ -1,6 +1,7 @@
 """The port's CUDA kernels against their plain PyTorch versions on the
-card, for every ring size the NTT kernels take (2^4 .. 2^14, the one-row
-blocks of n >= 8192 included), both key layouts of the
+card, for every ring size the NTT kernels take (the banks at 2 .. 2^17:
+one launch up to 4096, two passes through scratch above; fewer stages
+than log2 n; an unaligned view), both key layouts of the
 digit MAC, ragged batches, the weight-row multiply on its vector and
 scalar paths (the main path's shapes, an unaligned view, x over the
 whole u32 range), the Galois gathers in both bit orders (shared and
@@ -8,7 +9,8 @@ per-batch rows, digits shared and not, rows above one block's shared
 memory at 2^16 and 2^17), and the u16 lane of ML-KEM's ring (the 7-stage
 transforms on n = 256 and the basecase product, at odd and ML-KEM-sized
 batches), and the single-prime transforms and Barrett products
-(n = 16 .. 2^14, with ops' any-leading-shape rows); and rotate,
+(n = 16 .. 2^17, the one-prime bank above 2^14, with ops'
+any-leading-shape rows); and rotate,
 rotate_many, rotate_hoisted and the matvec at 2^16 against the port's
 CPU run.  Marked ``gpu``: they skip where no CUDA device is present.  On
 a GPU machine:
@@ -43,16 +45,18 @@ def _residues(seed, qs, shape, band=1):
     return torch.from_numpy(np.stack(rows).astype(np.int32)).cuda()
 
 
-@pytest.mark.parametrize("logn", range(4, 15))
+@pytest.mark.parametrize("logn", range(1, 18))
+@pytest.mark.parametrize("b", [1, 7, 37])
 @pytest.mark.parametrize("lazy", [False, True])
-def test_ntt_banks_kernels_equal_plain(cuda, logn, lazy):
-    """Up to 4096 a block holds 4096 / n rows; at 8192 and 16384 one row
-    in 64 / 128 KB of dynamic shared memory."""
+def test_ntt_banks_kernels_equal_plain(cuda, logn, b, lazy):
+    """Every ring the u32 banks take: one launch of the register body up
+    to 4096 words, two passes through scratch from 8192 to 2^17; one row,
+    an odd count, and counts that fill no warp or block."""
     n = 1 << logn
-    primes = rns.make_primes(n, 3)
+    primes = rns.make_primes(max(n, 16), 3)
     t = TB.build_table_pack(primes, n, cuda)
-    x = _residues(logn, primes, (7, n), band=2 if lazy else 1)
-    xr = _residues(logn + 100, primes, (7, n))
+    x = _residues(logn, primes, (b, n), band=2 if lazy else 1)
+    xr = _residues(logn + 100, primes, (b, n))
     fargs = (t["qs"], t["tw"], t["twp"], t["psi"], t["psip"])
     iargs = (t["qs"], t["ninv"], t["ninv_p"], t["itw"], t["itwp"], t["ipsin"], t["ipsinp"])
     for reduce_out in (False, True):
@@ -68,6 +72,67 @@ def test_ntt_banks_kernels_equal_plain(cuda, logn, lazy):
             assert torch.equal(got, want), ("inv", n, lazy, reduce_out, neg)
             assert K.COUNTS["ntt_fwd_banks"].launches == 1
             assert K.COUNTS["ntt_inv_banks"].launches == 1
+
+
+@pytest.mark.parametrize("logn", [4, 5, 6, 7, 8])
+@pytest.mark.parametrize("lazy", [False, True])
+def test_ntt_banks_both_bodies_equal_plain(cuda, logn, lazy):
+    """Rings of 16 .. 256 words take 4 words a thread below one warp per SM
+    and 16 above it: 2 and 300 rows of 3 primes land on either side."""
+    n = 1 << logn
+    primes = rns.make_primes(n, 3)
+    t = TB.build_table_pack(primes, n, cuda)
+    fargs = (t["qs"], t["tw"], t["twp"], t["psi"], t["psip"])
+    iargs = (t["qs"], t["ninv"], t["ninv_p"], t["itw"], t["itwp"], t["ipsin"], t["ipsinp"])
+    for b in (2, 300):
+        x = _residues(logn + b, primes, (b, n), band=2 if lazy else 1)
+        xr = _residues(logn + b + 1, primes, (b, n))
+        for neg in (False, True):
+            kw = dict(negacyclic=neg, lazy=lazy, reduce_out=True)
+            assert torch.equal(ntt_kernel.ntt_fwd_banks(xr, *fargs, **kw),
+                               ref.ntt_fwd_banks_ref(xr, *fargs, **kw)), ("fwd", b, neg)
+            assert torch.equal(ntt_kernel.ntt_inv_banks(x, *iargs, **kw),
+                               ref.ntt_inv_banks_ref(x, *iargs, **kw)), ("inv", b, neg)
+
+
+@pytest.mark.parametrize("n,stages", [(128, 5), (256, 7), (4096, 9), (1 << 15, 3),
+                                      (1 << 15, 14)])
+@pytest.mark.parametrize("lazy", [False, True])
+def test_ntt_banks_with_fewer_stages_equal_plain(cuda, n, stages, lazy):
+    """Stage counts below log2 n on the u32 lane: the words land at
+    rotl / rotr of their indices, on both routes."""
+    primes = rns.make_primes(n, 2)
+    t = TB.build_table_pack(primes, n, cuda)
+    for name in ("tw", "twp", "itw", "itwp"):
+        t[name] = t[name][:, :stages].contiguous()
+    x = _residues(stages, primes, (5, n), band=2 if lazy else 1)
+    xr = _residues(stages + 1, primes, (5, n))
+    fargs = (t["qs"], t["tw"], t["twp"], t["psi"], t["psip"])
+    iargs = (t["qs"], t["ninv"], t["ninv_p"], t["itw"], t["itwp"], t["ipsin"], t["ipsinp"])
+    for neg in (False, True):
+        kw = dict(lazy=lazy, reduce_out=not lazy)
+        assert torch.equal(ntt_kernel.ntt_fwd_banks(xr, *fargs, negacyclic=neg, **kw),
+                           ref.ntt_fwd_banks_ref(xr, *fargs, neg, **kw)), ("fwd", neg)
+        assert torch.equal(ntt_kernel.ntt_inv_banks(x, *iargs, negacyclic=neg, **kw),
+                           ref.ntt_inv_banks_ref(x, *iargs, neg, **kw)), ("inv", neg)
+
+
+@pytest.mark.parametrize("n", [128, 1 << 15])
+def test_ntt_banks_on_an_unaligned_view(cuda, n):
+    """x one word past a 16-byte boundary: the body loads and stores word
+    by word instead of as 16-byte vectors."""
+    primes = rns.make_primes(n, 2)
+    t = TB.build_table_pack(primes, n, cuda)
+    words = _residues(n, primes[:1], (2 * 3 * n + 1,))[0]
+    x = words[1:].view(2, 3, n)
+    assert x.data_ptr() % 16 and x.is_contiguous()
+    fargs = (t["qs"], t["tw"], t["twp"], t["psi"], t["psip"])
+    iargs = (t["qs"], t["ninv"], t["ninv_p"], t["itw"], t["itwp"], t["ipsin"], t["ipsinp"])
+    kw = dict(negacyclic=True, lazy=True, reduce_out=True)
+    assert torch.equal(ntt_kernel.ntt_fwd_banks(x, *fargs, **kw),
+                       ref.ntt_fwd_banks_ref(x, *fargs, **kw))
+    assert torch.equal(ntt_kernel.ntt_inv_banks(x, *iargs, **kw),
+                       ref.ntt_inv_banks_ref(x, *iargs, **kw))
 
 
 def _twiddle_check(x, fp, lazy):
@@ -289,7 +354,7 @@ def _ring_rows(seed, shape, band=1):
     return torch.from_numpy(rng.integers(0, band * q, shape).astype(np.int16)).cuda()
 
 
-@pytest.mark.parametrize("b", [1, 5, 3 * 256, 9 * 256])
+@pytest.mark.parametrize("b", [1, 5, 3, 33, 3 * 256, 9 * 256])
 @pytest.mark.parametrize("lazy", [False, True])
 def test_u16_ntt_and_basemul_kernels_equal_plain(cuda, b, lazy):
     r = from_reference(ring_table_pack(MLKEM_RING), cuda)
@@ -315,10 +380,12 @@ def test_u16_ntt_and_basemul_kernels_equal_plain(cuda, b, lazy):
     assert c["dyadic_basemul_banks"]["launches"] == 1
 
 
-@pytest.mark.parametrize("n", [16, 128, 1024, 8192, 16384])
+@pytest.mark.parametrize("n", [16, 128, 1024, 8192, 16384, 1 << 15, 1 << 16, 1 << 17])
 @pytest.mark.parametrize("b", [1, 13])
 @pytest.mark.parametrize("lazy", [False, True])
 def test_single_prime_kernels_equal_plain(cuda, n, b, lazy):
+    """Up to 2^14 the single-prime kernels; above it the transforms run
+    as a one-prime bank on the u32 banks launchers, counted there."""
     p = make_ntt_params(n)
     x = _residues(n + b, [p.q], (b, n))[0]
     xi = _residues(n + b + 1, [p.q], (b, n), band=2 if lazy else 1)[0]
@@ -335,9 +402,23 @@ def test_single_prime_kernels_equal_plain(cuda, n, b, lazy):
     assert torch.equal(dyadic_kernel.dyadic_mac(x, c, x, **kw),
                        ref.dyadic_mac_ref(x, c, x, p.q, p.barrett_mu, lazy=lazy))
     counts = K.snapshot()
-    for name, launches in (("ntt_fwd", 2), ("ntt_inv", 2), ("dyadic_mul", 1),
-                           ("dyadic_mac", 1)):
+    banks = n > ntt_kernel.MAX_N_SINGLE
+    for name, launches in (("ntt_fwd", 0 if banks else 2), ("ntt_inv", 0 if banks else 2),
+                           ("ntt_fwd_banks", 2 if banks else 0),
+                           ("ntt_inv_banks", 2 if banks else 0),
+                           ("dyadic_mul", 1), ("dyadic_mac", 1)):
         assert counts[name]["launches"] == launches, name
+
+
+@pytest.mark.parametrize("n", [1 << 15, 1 << 16, 1 << 17])
+def test_single_prime_ops_above_2_14_round_trip(cuda, n):
+    """ops.ntt / intt on (2, 3, n) rows above 2^14 give the plain
+    version's words and x back."""
+    p = make_ntt_params(n)
+    x = _residues(n, [p.q], (2, 3, n))[0]
+    y = ops.ntt(x, p)
+    assert torch.equal(y, ref.ntt_fwd_ref(x, p, True, lazy=True))
+    assert torch.equal(ops.intt(y, p), x)
 
 
 def test_single_prime_ops_round_trip_and_odd_words(cuda):

@@ -166,12 +166,14 @@ def test_non_cuda_tensor_is_refused_not_computed(monkeypatch, i):
 
 
 def test_oversized_transform_is_refused(monkeypatch):
+    """Above MAX_N = 2^17 the column pass would hold more than 32 words a
+    thread: the banks refuse the ring with the limit named."""
     monkeypatch.setattr(build, "load", lambda name: _NoLaunch())
     n = 2 * ntt_kernel.MAX_N
     x = torch.zeros((1, 1, n), dtype=torch.int32, device="meta")
     tw = torch.zeros((1, n.bit_length() - 1, n // 2), dtype=torch.int32, device="meta")
     row = torch.zeros((1, n), dtype=torch.int32, device="meta")
-    with pytest.raises(ValueError, match="power of two"):
+    with pytest.raises(ValueError, match="power of two in \\[2, 131072\\]"):
         ntt_kernel.ntt_fwd_banks(x, row[:, 0], tw, tw, row, row, negacyclic=True,
                                  lazy=True, reduce_out=True)
 
@@ -212,13 +214,15 @@ def _gather_call(which, n):
 class _FakeCuda(torch.Tensor):
     """A meta tensor that reports a CUDA device, so a wrapper takes its
     kernel path on a machine with no card; every op runs on the meta
-    tensor underneath (data pointer 0, so 16-byte aligned)."""
+    tensor underneath (data pointer 0, so 16-byte aligned) and a tensor
+    it returns is one again."""
 
     @classmethod
     def __torch_function__(cls, func, types, args=(), kwargs=None):
         plain = lambda a: a.as_subclass(torch.Tensor) if isinstance(a, cls) else a
         with torch._C.DisableTorchFunctionSubclass():
-            return func(*map(plain, args), **{k: plain(v) for k, v in (kwargs or {}).items()})
+            out = func(*map(plain, args), **{k: plain(v) for k, v in (kwargs or {}).items()})
+            return out.as_subclass(cls) if type(out) is torch.Tensor else out
 
     @property
     def device(self):
@@ -264,26 +268,43 @@ def test_gather_row_above_max_row_reaches_its_launcher(monkeypatch, which):
     assert K.snapshot()[which] == {"launches": 1, "plain_calls": 0}
 
 
-@pytest.mark.parametrize("n", [8192, 16384])
+def _fake(*shape):
+    return torch.zeros(shape, dtype=torch.int32, device="meta").as_subclass(_FakeCuda)
+
+
+@pytest.mark.parametrize("n", [8192, 16384, 1 << 15, 1 << 16, 1 << 17])
 def test_banks_transform_above_4096_reaches_its_launcher(monkeypatch, n):
-    """The u32 banks transforms take n up to 2^14 (one row per block in
-    dynamic shared memory): the checks pass and each launcher is reached
-    once with that n."""
+    """The u32 banks transforms take n up to 2^17 (two passes through a
+    scratch tensor above 4096 words): the checks pass and each launcher
+    is reached once with that n and a scratch tensor's pointer."""
     lib = _Recorder()
     monkeypatch.setattr(build, "load", lambda name: lib)
     monkeypatch.setattr(ntt_kernel, "stream", lambda: 0)
-    fake = lambda *shape: torch.zeros(shape, dtype=torch.int32,
-                                      device="meta").as_subclass(_FakeCuda)
-    x, row, one, tw = fake(2, 3, n), fake(2, n), fake(2), fake(2, 7, n // 2)
+    scratch = []
+    monkeypatch.setattr(ntt_kernel, "_scratch",
+                        lambda x: scratch.append(tuple(x.shape)) or x)
+    x, row, one, tw = _fake(2, 3, n), _fake(2, n), _fake(2), _fake(2, 7, n // 2)
     flags = dict(negacyclic=False, lazy=True, reduce_out=True)
     K.reset_counts()
     ntt_kernel.ntt_fwd_banks(x, one, tw, tw, row, row, **flags)
     ntt_kernel.ntt_inv_banks(x, one, one, one, tw, tw, row, row, **flags)
-    # n follows the pointers and k, b: argument 9 forward, 11 inverse
-    assert [(fn, args[9 if "fwd" in fn else 11]) for fn, args in lib.calls] == [
-        ("ntt_fwd_banks", n), ("ntt_inv_banks", n)]
+    # n follows the pointers and k, b: argument 9 forward, 11 inverse; the
+    # scratch pointer is the launcher's last but one
+    assert [(fn, args[9 if "fwd" in fn else 11], len(args)) for fn, args in lib.calls] == [
+        ("ntt_fwd_banks", n, 16), ("ntt_inv_banks", n, 18)]
+    assert scratch == [(2, 3, n)] * 2
     c = K.snapshot()
     assert c["ntt_fwd_banks"]["launches"] == c["ntt_inv_banks"]["launches"] == 1
+
+
+def test_banks_scratch_only_above_one_launchs_ring():
+    """Up to 4096 words one launch transforms a ring and no scratch is
+    allocated; above it the two passes get one of x's shape."""
+    assert ntt_kernel._scratch(torch.zeros((1, 2, ntt_kernel.MAX_N_ROW),
+                                           dtype=torch.int32)) is None
+    x = torch.zeros((1, 2, 2 * ntt_kernel.MAX_N_ROW), dtype=torch.int16)
+    s = ntt_kernel._scratch(x)
+    assert s.shape == x.shape and s.dtype == x.dtype
 
 
 @pytest.mark.parametrize("which", GATHERS)
@@ -364,18 +385,49 @@ SINGLE = ["ntt_fwd", "ntt_inv", "dyadic_mul", "dyadic_mac"]
 
 
 @pytest.mark.parametrize("which", ["ntt_fwd", "ntt_inv"])
-def test_single_prime_ring_above_2_14_is_refused(monkeypatch, which):
-    """The single-prime transforms hold one row's ping-pong pair in a
-    block's shared memory: n = 2^15 is refused with the limit named."""
-    monkeypatch.setattr(build, "load", lambda name: _NoLaunch())
+def test_single_prime_ring_above_2_14_reaches_the_banks_launcher(monkeypatch, which):
+    """Above 2^14 a single-prime transform runs as a one-prime bank: one
+    call of the u32 banks launcher with k = 1 and n = 2^15, counted
+    there and not on the single-prime kernel."""
+    lib = _Recorder()
+    monkeypatch.setattr(build, "load", lambda name: lib)
+    monkeypatch.setattr(ntt_kernel, "stream", lambda: 0)
     n = 2 * ntt_kernel.MAX_N_SINGLE
     p = make_ntt_params(n)
+    real = ntt_kernel.single_prime_bank(p, "meta")
+    monkeypatch.setattr(ntt_kernel, "single_prime_bank",
+                        lambda p, device: {k: v.as_subclass(_FakeCuda)
+                                           for k, v in real.items()})
+    K.reset_counts()
+    out = _single_prime_calls(_fake(3, n), p)[which]()
+    assert tuple(out.shape) == (3, n)
+    bank = "ntt_fwd_banks" if which == "ntt_fwd" else "ntt_inv_banks"
+    fn, args = lib.calls[0]
+    assert len(lib.calls) == 1 and fn == bank
+    kbn = args[7:10] if which == "ntt_fwd" else args[9:12]
+    assert tuple(kbn) == (1, 3, n)
+    c = K.snapshot()
+    assert c[bank] == {"launches": 1, "plain_calls": 0}
+    assert c[which] == {"launches": 0, "plain_calls": 0}
+
+
+@pytest.mark.parametrize("which", ["ntt_fwd", "ntt_inv"])
+def test_single_prime_ring_above_2_17_is_refused(monkeypatch, which):
+    """Past the banks' 2^17 a single-prime ring is refused with the limit
+    named, before any kernel or plain version runs."""
+    monkeypatch.setattr(build, "load", lambda name: _NoLaunch())
+    n = 2 * ntt_kernel.MAX_N
+
+    class Ring:      # the wrapper reads only n before it refuses
+        pass
+    p = Ring()
+    p.n = n
     call = _single_prime_calls(torch.zeros((1, n), dtype=torch.int32, device="meta"),
                                p)[which]
     K.reset_counts()
-    with pytest.raises(ValueError, match="power of two in \\[2, 16384\\]"):
+    with pytest.raises(ValueError, match="power of two in \\[2, 131072\\]"):
         call()
-    assert K.snapshot()[which] == {"launches": 0, "plain_calls": 0}
+    assert all(c == {"launches": 0, "plain_calls": 0} for c in K.snapshot().values())
 
 
 @pytest.mark.parametrize("which", SINGLE)
