@@ -52,10 +52,13 @@ Phases (any mismatch raises, so the exit code is non-zero):
   3d. ntt128   the paper's single-prime NTT-128 unit on the card, through
                ops.ntt / intt / dyadic_mul / dyadic_mac with 30-bit primes:
                the four single-prime kernels held bit for bit against their
-               plain versions at every shape of the path and at n = 16, 8192
-               and 16384 (B = 13), lazy and eager, and ops.ntt / intt at
-               n = 2^15, where they run as a one-prime bank on the banks
-               launchers; then 10^5 random NTT-128s
+               plain versions at every shape of the path, at one row, at an
+               uneven 100003 rows, on a view that is not 16-byte aligned and
+               at every ring of 2 .. 4096 words (B = 37), lazy and eager,
+               the lazy inverse on [0, 2q) inputs; below 64 words, on the
+               unaligned views, at n = 8192 and 16384 (B = 13) and through
+               ops.ntt / intt at n = 2^15 the transforms run as a one-prime
+               bank on the banks launchers; then 10^5 random NTT-128s
                (paper §VII.C; a cyclic forward, the Table III transform, and
                a negacyclic forward -> inverse round trip), negacyclic
                products ntt -> dyadic_mul -> intt at n = 1024 and 4096 (64
@@ -67,10 +70,10 @@ Phases (any mismatch raises, so the exit code is non-zero):
                sum against numpy, and that each kernel launched and no plain
                version ran
   4. times     per kernel (CUDA events around a CUDA-graph replay, so the
-               device time) beside its memory bound (the NTT banks also
-               beside an integer-instruction bound at the SM clock that
-               nvidia-smi reads during the timings; bound_by names the
-               larger), the banks also at a B = 1 request's shapes and at
+               device time) beside its memory bound (the NTT banks and the
+               single-prime transforms also beside an integer-instruction
+               bound at the SM clock that nvidia-smi reads during the
+               timings; bound_by names the larger), the banks also at a B = 1 request's shapes and at
                2^15 .. 2^17, its eager call, its
                plain version and, for the gathers, the one PyTorch call that
                computes the same function; request latencies of the CKKS
@@ -145,6 +148,8 @@ MAC_N = 4096
 MAC_DIGITS = 8                   # the MM -> MA chain: 1 dyadic_mul, 7 dyadic_mac
 EDGE_NS = (16, 8192, 16384)
 EDGE_B = 13
+RING_B = 37                      # rows of every ring of 2 .. 4096 words
+UNEVEN_B = 100_003               # rows that split unevenly over the grid
 BIG_BANKS_NS = (8192, 16384, 1 << 15, 1 << 16, 1 << 17)  # two passes through scratch
 SINGLE_BANK_N = 1 << 15          # ops.ntt / intt as a one-prime bank
 N16 = 1 << 16                    # rotation rows above one block's shared memory
@@ -208,7 +213,7 @@ DEVICE_FUNCTIONS = ("ntt_rows_kernel", "ntt_cols_kernel",
                     "twiddle_mul_banks_kernel", "dyadic_inner_banks_kernel",
                     "galois_split_kernel", "galois_staged_kernel",
                     "dyadic_basemul_banks_kernel",
-                    "ntt_fwd_kernel", "ntt_inv_kernel", "dyadic_mul_kernel",
+                    "ntt_stream_kernel", "dyadic_mul_kernel",
                     "dyadic_mac_kernel")
 
 
@@ -1114,22 +1119,38 @@ def phase_ntt128_kernels() -> dict:
         return torch.from_numpy(rng.integers(0, band * q, shape, dtype=np.int64)
                                 .astype(np.int32)).cuda()
 
-    ntt_shapes = ([(NTT128_B, 128)] + [(PRODUCT_B, n) for n in PRODUCT_NS]
+    ntt_shapes = ([(NTT128_B, 128), (1, 128), (UNEVEN_B, 128)]
+                  + [(PRODUCT_B, n) for n in PRODUCT_NS]
                   + [(MAC_DIGITS * PRODUCT_B, MAC_N)] + [(EDGE_B, n) for n in EDGE_NS]
+                  + [(RING_B, 1 << logn) for logn in range(1, 13)]
                   + [(EDGE_B, SINGLE_BANK_N)])
     mul_shapes = [(PRODUCT_B, n) for n in PRODUCT_NS] + [(EDGE_B, n) for n in EDGE_NS]
     for lazy in (False, True):
         for b, n in ntt_shapes:
             p = make_ntt_params(n)
             x, xi = rows(p.q, (b, n)), rows(p.q, (b, n), band=2 if lazy else 1)
-            # above 2^14 the wrappers launch the banks kernels (one prime)
-            fwd, inv = (("ntt_fwd_banks", "ntt_inv_banks") if n > ntt_kernel.MAX_N_SINGLE
+            # below 64 and above 4096 words the wrappers launch the banks
+            # kernels (one prime)
+            fwd, inv = (("ntt_fwd_banks", "ntt_inv_banks") if ntt_kernel.on_banks(x)
                         else ("ntt_fwd", "ntt_inv"))
             for neg in (False, True):
                 what = f"(B, n)=({b}, {n}) lazy={lazy} negacyclic={neg}"
                 check(fwd, ntt_kernel.ntt_fwd(x, p, negacyclic=neg, lazy=lazy),
                       ref.ntt_fwd_ref(x, p, neg, lazy=lazy), what)
                 check(inv, ntt_kernel.ntt_inv(xi, p, negacyclic=neg, lazy=lazy),
+                      ref.ntt_inv_ref(xi, p, neg, lazy=lazy), what)
+        # views one word past a 16-byte boundary: the row stream's bulk
+        # copies need aligned rows, so these run as a one-prime bank
+        for b, n in ((EDGE_B, 128), (3, MAC_N)):
+            p = make_ntt_params(n)
+            flat, flati = rows(p.q, (b * n + 1,)), rows(p.q, (b * n + 1,), band=2 if lazy else 1)
+            x, xi = flat[1:].view(b, n), flati[1:].view(b, n)
+            assert ntt_kernel.on_banks(x) and ntt_kernel.on_banks(xi)
+            for neg in (False, True):
+                what = f"(B, n)=({b}, {n}) unaligned view lazy={lazy} negacyclic={neg}"
+                check("ntt_fwd_banks", ntt_kernel.ntt_fwd(x, p, negacyclic=neg, lazy=lazy),
+                      ref.ntt_fwd_ref(x, p, neg, lazy=lazy), what)
+                check("ntt_inv_banks", ntt_kernel.ntt_inv(xi, p, negacyclic=neg, lazy=lazy),
                       ref.ntt_inv_ref(xi, p, neg, lazy=lazy), what)
         for b, n in mul_shapes:
             p = make_ntt_params(n)
@@ -1243,15 +1264,22 @@ def phase_ntt128_times(counts: dict, errs: dict) -> tuple:
     w = 4   # bytes per word
     tables = 2 * p.tw.size * w                      # tw + twp (or itw + itwp)
     mk = dict(q=p.q, mu=p.barrett_mu, lazy=True)
+    stages = p.tw.shape[0]
+    # integer instructions as for the banks (a one-prime bank of B rows):
+    # lazy butterflies, the forward's final reduce, the inverse's exact
+    # epilogue multiply
+    path = dict(lazy=True, reduce_out=True)
     cases = {
         "ntt_fwd": (
             lambda: ntt_kernel.ntt_fwd(x, p, negacyclic=False, lazy=True),
             lambda: ref.ntt_fwd_ref(x, p, False, lazy=True),
-            None, tuple(x.shape), 2 * x.numel() * w + tables),
+            None, tuple(x.shape), 2 * x.numel() * w + tables,
+            banks_int_ops(x, stages, fwd=True, negacyclic=False, **path)),
         "ntt_inv": (
             lambda: ntt_kernel.ntt_inv(x, p, negacyclic=True, lazy=True),
             lambda: ref.ntt_inv_ref(x, p, True, lazy=True),
-            None, tuple(x.shape), 2 * x.numel() * w + tables + 2 * p.n * w),
+            None, tuple(x.shape), 2 * x.numel() * w + tables + 2 * p.n * w,
+            banks_int_ops(x, stages, fwd=False, negacyclic=True, **path)),
         "dyadic_mul": (
             lambda: dyadic_kernel.dyadic_mul(a, b, **mk),
             lambda: ref.dyadic_mul_ref(a, b, p.q, p.barrett_mu, lazy=True),
@@ -1264,6 +1292,19 @@ def phase_ntt128_times(counts: dict, errs: dict) -> tuple:
     out = time_kernels(cases, counts, errs)
     log("[times] library: none for the single-prime NTT and the Barrett "
         "product and MAC, which no single PyTorch call computes")
+    # rows 9-10's inputs as a one-prime bank on the banks launchers: the
+    # route the row stream has to beat
+    bank = ntt_kernel.single_prime_bank(p, x.device)
+    for name, fn in (
+            ("ntt_fwd", lambda: ntt_kernel.ntt_fwd_banks(
+                x[None], bank["qs"], bank["tw"], bank["twp"], bank["psi"], bank["psip"],
+                negacyclic=False, **path)),
+            ("ntt_inv", lambda: ntt_kernel.ntt_inv_banks(
+                x[None], bank["qs"], bank["ninv"], bank["ninv_p"], bank["itw"], bank["itwp"],
+                bank["ipsin"], bank["ipsinp"], negacyclic=True, **path))):
+        rec = next(r for r in out if r["name"] == name)
+        log(f"[times] {name} {tuple(x.shape)} as a one-prime bank: {graph_ms(fn):.4f} ms "
+            f"(the row stream {rec['ms']:.4f} ms)")
     fwd = next(r for r in out if r["name"] == "ntt_fwd")
     log(f"[times] NTT-128 at B={NTT128_B}: {NTT128_B / fwd['ms'] / 1e3:.1f} M NTT/s "
         f"(kernel {fwd['ms']:.4f} ms; byte bound {NTT128_B / fwd['bound_ms'] / 1e3:.1f} "
@@ -1289,8 +1330,8 @@ def phase_ntt128_times(counts: dict, errs: dict) -> tuple:
         log(f"[times] {name} {shape} (product path): kernel {graph_ms(fn):.4f} ms, "
             f"bound {nbytes / HBM_BYTES_PER_S * 1e3:.4f} ms ({nbytes} bytes), "
             f"eager call {eager_ms(fn):.4f} ms")
-    # one row per block from n = 8192: at B = 13 the grid holds 13 blocks,
-    # at B = 132 one for each SM
+    # rings above 4096 words run as a one-prime bank (two passes), counted
+    # on the banks kernels
     for n in EDGE_NS[1:]:
         pn = make_ntt_params(n)
         for rows in (EDGE_B, 132):
@@ -1299,7 +1340,7 @@ def phase_ntt128_times(counts: dict, errs: dict) -> tuple:
             nbytes = 2 * e.numel() * w + 2 * pn.tw.size * w + 2 * n * w
             for name, kern in (("ntt_fwd", ntt_kernel.ntt_fwd), ("ntt_inv", ntt_kernel.ntt_inv)):
                 ms = graph_ms(lambda: kern(e, pn, negacyclic=True, lazy=True))
-                log(f"[times] {name} ({rows}, {n}) (one row per block): kernel {ms:.4f} ms, "
+                log(f"[times] {name} ({rows}, {n}) (one-prime bank): kernel {ms:.4f} ms, "
                     f"bound {nbytes / HBM_BYTES_PER_S * 1e3:.4f} ms ({nbytes} bytes), "
                     f"{ms * 1e3 / rows:.2f} us per row")
 
@@ -1511,7 +1552,8 @@ def time_banks_beside(label, x, t, *, fwd, negacyclic, lazy, reduce_out) -> None
 
 
 def apply_int_bounds(records: list, mhz: float) -> None:
-    """bound_ms of every banks record: the larger of its byte bound and its
+    """bound_ms of every record with an integer count (the NTT banks and
+    the single-prime transforms): the larger of its byte bound and its
     integer bound at ``mhz``; bound_by names it.  Logs the records kept
     beside the path the same way."""
     for rec in records:

@@ -110,6 +110,9 @@ twiddle_mul_banks_kernel(const uint32_t* __restrict__ x, uint32_t* __restrict__ 
   }
 }
 
+using ntt_regs::aligned16;
+using ntt_regs::ilog2;
+using ntt_regs::sm_count;
 using ntt_regs::Tables;
 
 constexpr long long kWantBlocks = 4 * 132;  // blocks that fill 132 SMs
@@ -117,28 +120,6 @@ constexpr long long kWantBlocks = 4 * 132;  // blocks that fill 132 SMs
 // 4 words a thread (four times the threads, a shorter chain each: ML-KEM's
 // b = 1 transforms run a fifth to a third faster on an H100, PERF.md)
 constexpr long long kSmallThreads = 132 * 32;
-
-inline int ilog2(int n) {
-  int s = 0;
-  while ((1 << s) < n) ++s;
-  return s;
-}
-
-inline bool aligned16(const void* p) {
-  return reinterpret_cast<uintptr_t>(p) % 16 == 0;
-}
-
-// The number of SMs of the current device, read once.
-inline int sm_count() {
-  static int sms = 0;
-  if (sms == 0) {
-    int dev = 0;
-    cudaGetDevice(&dev);
-    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-    if (sms <= 0) sms = 132;
-  }
-  return sms;
-}
 
 // The row body over `rows` rows of 2^LL words per prime: 256 threads a
 // block, halved while there would be fewer than kWantBlocks tiles (down to

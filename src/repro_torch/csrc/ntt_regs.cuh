@@ -200,10 +200,11 @@ __device__ __forceinline__ void store_run(T* p, const uint32_t (&v)[R]) {
 // own index bits (its chunk's high bits included).  Forward: the phase's
 // new bits b from the top down, stage t = GL-1-b.  Inverse: its new bits
 // from the bottom up, applied stage b, table row stages-1-b.  A stage past
-// `stages` does not run.
-template <typename T, bool kLazy, bool kFwd, int LL, int GL, int RB, int K, bool kStaged>
-__device__ __forceinline__ void row_phase(uint32_t (&v)[1 << RB],
-                                          const Arith<T, kLazy>& ar,
+// `stages` does not run.  A: Arith, or any type with its fwd / inv (ntt.cu
+// records each butterfly's (w, wp) with one).
+template <typename T, bool kLazy, bool kFwd, int LL, int GL, int RB, int K, bool kStaged,
+          typename A = Arith<T, kLazy>>
+__device__ __forceinline__ void row_phase(uint32_t (&v)[1 << RB], const A& ar,
                                           const T* __restrict__ tw,
                                           const T* __restrict__ twp, int stages,
                                           uint32_t obase) {
@@ -557,6 +558,30 @@ ntt_cols_kernel(const uint32_t* __restrict__ x, uint32_t* __restrict__ out,
                                     : ar.inv_out(v[a], wn, wnp, tb.reduce_out);
     }
   }
+}
+
+// ------------------------------------------------- host-side helpers
+
+inline int ilog2(int n) {
+  int s = 0;
+  while ((1 << s) < n) ++s;
+  return s;
+}
+
+inline bool aligned16(const void* p) {
+  return reinterpret_cast<uintptr_t>(p) % 16 == 0;
+}
+
+// The number of SMs of the current device, read once.
+inline int sm_count() {
+  static int sms = 0;
+  if (sms == 0) {
+    int dev = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (sms <= 0) sms = 132;
+  }
+  return sms;
 }
 
 }  // namespace ntt_regs

@@ -55,8 +55,9 @@ SIGNATURES = {
         "dyadic_basemul_banks": [_P] * 7 + [_I] * 4 + [_P],
     },
     "ntt": {
-        "ntt_fwd": [_P] * 6 + [_U] + [_I] * 4 + [_P],
-        "ntt_inv": [_P] * 6 + [_U] * 3 + [_I] * 4 + [_P],
+        "ntt_fwd": [_P] * 9 + [_I] * 4 + [_P],
+        "ntt_inv": [_P] * 11 + [_I] * 4 + [_P],
+        "ntt_thread_major": [_P] * 4 + [_I, _I, _P],
     },
     "dyadic": {
         "dyadic_mul": [_P] * 3 + [_U, _U, _L, _P],

@@ -25,12 +25,15 @@ call and one count.
 ``ntt_fwd`` / ``ntt_inv`` replace the single-prime TPU kernels
 ``ntt_fwd_pallas`` / ``ntt_inv_pallas``: one prime's ``NTTParams``, a
 (B, n) int32 batch, every log2(n) stage.  Their tables go to the tensor's
-device once per (n, q, psi, device) (``core.ntt.device_tables``).  Up to
-``MAX_N_SINGLE`` = 2^14 they launch ``csrc/ntt.cu``; above it, up to
-``MAX_N``, the call is a one-prime bank (``single_prime_bank``) on the u32
-banks launcher and counts one launch of ``ntt_fwd_banks`` /
-``ntt_inv_banks``.  The single-prime lane is uint32 only, so an int16
-tensor is refused on every device.
+device once per (n, q, psi, device), as a one-prime bank in the TablePack
+layout (``single_prime_bank``).  Rings of ``MIN_N_STREAM`` = 64 to
+``MAX_N_SINGLE`` = 4096 words whose rows start on a 16-byte boundary
+launch ``csrc/ntt.cu`` (the row stream, whose bulk copies need that
+alignment); every other call, up to ``MAX_N``, runs that bank on the u32
+banks launcher (its row body, and two passes through scratch above 4096
+words) and counts one launch of ``ntt_fwd_banks`` / ``ntt_inv_banks``
+(``on_banks``).  The single-prime lane is uint32 only, so an int16 tensor
+is refused on every device.
 """
 from __future__ import annotations
 
@@ -43,7 +46,8 @@ from repro_torch.kernels import COUNTS, build, ref
 MAX_N = 1 << 17       # banks, u32 lane: two passes of at most 32 and 4096 words
 MAX_N_ROW = 4096      # the largest ring one launch transforms (no scratch)
 MAX_N_U16 = 4096      # banks, u16 lane: the largest ring it has (see below)
-MAX_N_SINGLE = 1 << 14  # csrc/ntt.cu: one row's ping-pong pair fills 128 KB
+MIN_N_STREAM = 64     # csrc/ntt.cu: the smallest ring of a 16-byte-aligned tile row
+MAX_N_SINGLE = 4096   # csrc/ntt.cu: the largest ring of one tile row
 
 
 LANES = {torch.int32: "uint32", torch.int16: "uint16"}
@@ -245,8 +249,11 @@ def single_prime_bank(p, device) -> dict:
     """Prime ``p``'s tables as a one-prime bank in the TablePack layout
     (``qs``, ``tw``/``twp``, ``psi``/``psip``, ``ninv``/``ninv_p``,
     ``itw``/``itwp``, ``ipsin``/``ipsinp``, each with a leading axis of 1),
-    views of ``core.ntt.device_tables``: the route of ``ntt_fwd`` /
-    ``ntt_inv`` above ``MAX_N_SINGLE``."""
+    views of ``core.ntt.device_tables``: the tables ``csrc/ntt.cu`` reads,
+    and the banks' route of ``ntt_fwd`` / ``ntt_inv``.  On a CUDA device,
+    for a ring of the row stream, also the stage tables' thread-major
+    copies (``twt``/``twpt``, ``itwt``/``itwpt``), which the library's
+    ``ntt_thread_major`` builds once."""
     device = torch.device(device)
     key = (p.n, p.q, p.psi, str(device))
     if key not in _BANKS:
@@ -257,35 +264,53 @@ def single_prime_bank(p, device) -> dict:
             ("ipsinp", "ipsi_ninv_p"))}
         for name, v in (("qs", p.q), ("ninv", p.ninv), ("ninv_p", p.ninv_p)):
             bank[name] = u32_to_tensor([v], device)
+        if device.type == "cuda" and MIN_N_STREAM <= p.n <= MAX_N_SINGLE:
+            lib = build.load("ntt")
+            for fwd, src, srcp, dst, dstp in ((1, "tw", "twp", "twt", "twpt"),
+                                              (0, "itw", "itwp", "itwt", "itwpt")):
+                bank[dst], bank[dstp] = torch.empty_like(bank[src]), torch.empty_like(bank[srcp])
+                raise_on("ntt_thread_major", lib.ntt_thread_major(
+                    bank[src].data_ptr(), bank[srcp].data_ptr(), bank[dst].data_ptr(),
+                    bank[dstp].data_ptr(), p.n, fwd, stream()))
         _BANKS[key] = bank
     return _BANKS[key]
+
+
+def on_banks(x: torch.Tensor) -> bool:
+    """Whether ``ntt_fwd`` / ``ntt_inv`` of CUDA rows ``x`` (B, n) run as a
+    one-prime bank on the banks launchers rather than on ``csrc/ntt.cu``:
+    rings outside [``MIN_N_STREAM``, ``MAX_N_SINGLE``], and rows that do
+    not start on a 16-byte boundary (the row stream moves them by bulk
+    copy)."""
+    n = x.shape[-1]
+    return not MIN_N_STREAM <= n <= MAX_N_SINGLE or x.data_ptr() % 16 != 0
 
 
 def ntt_fwd(x, p, *, negacyclic: bool, lazy: bool):
     """x: (B, n) int32 in [0, p.q); p: the prime's ``NTTParams``.
     Returns the forward transform in bitrev order, in [0, q) either way.
-    Above ``MAX_N_SINGLE`` on the card: one ``ntt_fwd_banks`` launch of a
+    On the card where ``on_banks``: one ``ntt_fwd_banks`` launch of a
     one-prime bank with ``reduce_out=True``, counted there."""
     where = "ntt_fwd"
     check_u32(where, x=x)
     if x.device.type == "cpu":
         return ref.ntt_fwd_ref(x, p, negacyclic, lazy=lazy)
     b, n = _check_single(where, x, p)
-    if n > MAX_N_SINGLE:
+    if on_banks(x):
         t = single_prime_bank(p, x.device)
         return ntt_fwd_banks(x[None], t["qs"], t["tw"], t["twp"], t["psi"],
                              t["psip"], negacyclic=negacyclic, lazy=lazy,
                              reduce_out=True)[0]
     lib = build.load("ntt")
     check_tensors(where, x.device, x=x)
-    t = device_tables(p, x.device)
+    t = single_prime_bank(p, x.device)
     out = torch.empty_like(x)
     if out.numel() == 0:
         return out
-    rc = lib.ntt_fwd(x.data_ptr(), out.data_ptr(), t["tw"].data_ptr(),
-                     t["twp"].data_ptr(), t["psi_pows"].data_ptr(),
-                     t["psi_pows_p"].data_ptr(), p.q, b, n, int(negacyclic),
-                     int(lazy), stream())
+    rc = lib.ntt_fwd(x.data_ptr(), out.data_ptr(), t["qs"].data_ptr(),
+                     t["tw"].data_ptr(), t["twp"].data_ptr(), t["twt"].data_ptr(),
+                     t["twpt"].data_ptr(), t["psi"].data_ptr(), t["psip"].data_ptr(), b, n,
+                     int(negacyclic), int(lazy), stream())
     raise_on(where, rc)
     COUNTS[where].launches += 1
     return out
@@ -294,29 +319,30 @@ def ntt_fwd(x, p, *, negacyclic: bool, lazy: bool):
 def ntt_inv(x, p, *, negacyclic: bool, lazy: bool):
     """x: (B, n) int32 in bitrev order, any representative below 2q.
     Returns natural order in [0, q): the epilogue multiplies by
-    psi^-i * n^-1 (negacyclic) or n^-1 (cyclic) exactly.  Above
-    ``MAX_N_SINGLE`` on the card: one ``ntt_inv_banks`` launch of a
-    one-prime bank with ``reduce_out=True``, counted there."""
+    psi^-i * n^-1 (negacyclic) or n^-1 (cyclic) exactly.  On the card
+    where ``on_banks``: one ``ntt_inv_banks`` launch of a one-prime bank
+    with ``reduce_out=True``, counted there."""
     where = "ntt_inv"
     check_u32(where, x=x)
     if x.device.type == "cpu":
         return ref.ntt_inv_ref(x, p, negacyclic, lazy=lazy)
     b, n = _check_single(where, x, p)
-    if n > MAX_N_SINGLE:
+    if on_banks(x):
         t = single_prime_bank(p, x.device)
         return ntt_inv_banks(x[None], t["qs"], t["ninv"], t["ninv_p"], t["itw"],
                              t["itwp"], t["ipsin"], t["ipsinp"],
                              negacyclic=negacyclic, lazy=lazy, reduce_out=True)[0]
     lib = build.load("ntt")
     check_tensors(where, x.device, x=x)
-    t = device_tables(p, x.device)
+    t = single_prime_bank(p, x.device)
     out = torch.empty_like(x)
     if out.numel() == 0:
         return out
-    rc = lib.ntt_inv(x.data_ptr(), out.data_ptr(), t["itw"].data_ptr(),
-                     t["itwp"].data_ptr(), t["ipsi_ninv"].data_ptr(),
-                     t["ipsi_ninv_p"].data_ptr(), p.q, p.ninv, p.ninv_p, b, n,
-                     int(negacyclic), int(lazy), stream())
+    rc = lib.ntt_inv(x.data_ptr(), out.data_ptr(), t["qs"].data_ptr(),
+                     t["ninv"].data_ptr(), t["ninv_p"].data_ptr(), t["itw"].data_ptr(),
+                     t["itwp"].data_ptr(), t["itwt"].data_ptr(), t["itwpt"].data_ptr(),
+                     t["ipsin"].data_ptr(), t["ipsinp"].data_ptr(), b, n, int(negacyclic),
+                     int(lazy), stream())
     raise_on(where, rc)
     COUNTS[where].launches += 1
     return out

@@ -9,8 +9,9 @@ per-batch rows, digits shared and not, rows above one block's shared
 memory at 2^16 and 2^17), and the u16 lane of ML-KEM's ring (the 7-stage
 transforms on n = 256 and the basecase product, at odd and ML-KEM-sized
 batches), and the single-prime transforms and Barrett products
-(n = 16 .. 2^17, the one-prime bank above 2^14, with ops'
-any-leading-shape rows); and rotate,
+(n = 2 .. 2^17: the row stream from 64 to 4096 words at one row and at
+uneven row counts, the row body below it and on unaligned views, the
+one-prime bank above 4096, with ops' any-leading-shape rows); and rotate,
 rotate_many, rotate_hoisted and the matvec at 2^16 against the port's
 CPU run.  Marked ``gpu``: they skip where no CUDA device is present.  On
 a GPU machine:
@@ -380,12 +381,14 @@ def test_u16_ntt_and_basemul_kernels_equal_plain(cuda, b, lazy):
     assert c["dyadic_basemul_banks"]["launches"] == 1
 
 
-@pytest.mark.parametrize("n", [16, 128, 1024, 8192, 16384, 1 << 15, 1 << 16, 1 << 17])
-@pytest.mark.parametrize("b", [1, 13])
+@pytest.mark.parametrize("n,b", [(n, b) for n in (16, 128, 1024, 4096, 8192, 16384, 1 << 15,
+                                                 1 << 16, 1 << 17) for b in (1, 13)]
+                         + [(4096, 64), (128, 100_003), (1024, 1003), (2048, 77)])
 @pytest.mark.parametrize("lazy", [False, True])
 def test_single_prime_kernels_equal_plain(cuda, n, b, lazy):
-    """Up to 2^14 the single-prime kernels; above it the transforms run
-    as a one-prime bank on the u32 banks launchers, counted there."""
+    """From 64 to 4096 words the row stream (at one row, at row counts
+    that split unevenly over the grid); below and above it the transforms
+    run as a one-prime bank on the u32 banks launchers, counted there."""
     p = make_ntt_params(n)
     x = _residues(n + b, [p.q], (b, n))[0]
     xi = _residues(n + b + 1, [p.q], (b, n), band=2 if lazy else 1)[0]
@@ -402,7 +405,7 @@ def test_single_prime_kernels_equal_plain(cuda, n, b, lazy):
     assert torch.equal(dyadic_kernel.dyadic_mac(x, c, x, **kw),
                        ref.dyadic_mac_ref(x, c, x, p.q, p.barrett_mu, lazy=lazy))
     counts = K.snapshot()
-    banks = n > ntt_kernel.MAX_N_SINGLE
+    banks = ntt_kernel.on_banks(x)
     for name, launches in (("ntt_fwd", 0 if banks else 2), ("ntt_inv", 0 if banks else 2),
                            ("ntt_fwd_banks", 2 if banks else 0),
                            ("ntt_inv_banks", 2 if banks else 0),
@@ -410,15 +413,40 @@ def test_single_prime_kernels_equal_plain(cuda, n, b, lazy):
         assert counts[name]["launches"] == launches, name
 
 
-@pytest.mark.parametrize("n", [1 << 15, 1 << 16, 1 << 17])
-def test_single_prime_ops_above_2_14_round_trip(cuda, n):
-    """ops.ntt / intt on (2, 3, n) rows above 2^14 give the plain
-    version's words and x back."""
+@pytest.mark.parametrize("n", [8192, 1 << 15, 1 << 16, 1 << 17])
+def test_single_prime_ops_above_4096_round_trip(cuda, n):
+    """ops.ntt / intt on (2, 3, n) rows above 4096 words (one-prime banks)
+    give the plain version's words and x back."""
     p = make_ntt_params(n)
     x = _residues(n, [p.q], (2, 3, n))[0]
     y = ops.ntt(x, p)
     assert torch.equal(y, ref.ntt_fwd_ref(x, p, True, lazy=True))
     assert torch.equal(ops.intt(y, p), x)
+
+
+@pytest.mark.parametrize("n", [2, 32, 64, 128, 4096])
+@pytest.mark.parametrize("lazy", [False, True])
+def test_single_prime_every_ring_and_an_unaligned_view(cuda, n, lazy):
+    """Every ring from 2 words, on aligned rows and on a view one word past
+    a 16-byte boundary: the same words as the plain version, the lazy
+    inverse on [0, 2q) inputs included.  Rings below the row stream's 64
+    words and the unaligned views run as a one-prime bank (the banks' row
+    body loads and stores its own words), counted there."""
+    p = make_ntt_params(n)
+    flat = _residues(n + 5, [p.q], (7 * n + 1,))[0]
+    flati = _residues(n + 6, [p.q], (7 * n + 1,), band=2 if lazy else 1)[0]
+    K.reset_counts()
+    for x, xi in ((flat[:7 * n].view(7, n), flati[:7 * n].view(7, n)),
+                  (flat[1:].view(7, n), flati[1:].view(7, n))):
+        for neg in (False, True):
+            assert torch.equal(ntt_kernel.ntt_fwd(x, p, negacyclic=neg, lazy=lazy),
+                               ref.ntt_fwd_ref(x, p, neg, lazy=lazy)), ("fwd", neg)
+            assert torch.equal(ntt_kernel.ntt_inv(xi, p, negacyclic=neg, lazy=lazy),
+                               ref.ntt_inv_ref(xi, p, neg, lazy=lazy)), ("inv", neg)
+    c = K.snapshot()
+    stream = 2 if n >= ntt_kernel.MIN_N_STREAM else 0   # the aligned rows' two calls
+    assert c["ntt_fwd"]["launches"] == c["ntt_inv"]["launches"] == stream
+    assert c["ntt_fwd_banks"]["launches"] == c["ntt_inv_banks"]["launches"] == 4 - stream
 
 
 def test_single_prime_ops_round_trip_and_odd_words(cuda):

@@ -384,31 +384,103 @@ def test_basemul_refuses_the_u32_lane():
 SINGLE = ["ntt_fwd", "ntt_inv", "dyadic_mul", "dyadic_mac"]
 
 
-@pytest.mark.parametrize("which", ["ntt_fwd", "ntt_inv"])
-def test_single_prime_ring_above_2_14_reaches_the_banks_launcher(monkeypatch, which):
-    """Above 2^14 a single-prime transform runs as a one-prime bank: one
-    call of the u32 banks launcher with k = 1 and n = 2^15, counted
-    there and not on the single-prime kernel."""
-    lib = _Recorder()
-    monkeypatch.setattr(build, "load", lambda name: lib)
-    monkeypatch.setattr(ntt_kernel, "stream", lambda: 0)
-    n = 2 * ntt_kernel.MAX_N_SINGLE
-    p = make_ntt_params(n)
-    real = ntt_kernel.single_prime_bank(p, "meta")
+def _fake_single_prime_bank(monkeypatch, p):
+    """``single_prime_bank`` returning prime ``p``'s tables as fake CUDA
+    tensors, with stand-ins for the thread-major copies the library
+    builds on a card."""
+    real = dict(ntt_kernel.single_prime_bank(p, "meta"))
+    for dst, src in (("twt", "tw"), ("twpt", "twp"), ("itwt", "itw"), ("itwpt", "itwp")):
+        real.setdefault(dst, real[src])
     monkeypatch.setattr(ntt_kernel, "single_prime_bank",
                         lambda p, device: {k: v.as_subclass(_FakeCuda)
                                            for k, v in real.items()})
-    K.reset_counts()
-    out = _single_prime_calls(_fake(3, n), p)[which]()
-    assert tuple(out.shape) == (3, n)
+
+
+def _banks_route(lib, which, b, n):
+    """The one call a single-prime transform on the banks route makes:
+    the u32 banks launcher with k = 1 and (B, n), counted there and not
+    on the single-prime kernel."""
     bank = "ntt_fwd_banks" if which == "ntt_fwd" else "ntt_inv_banks"
     fn, args = lib.calls[0]
     assert len(lib.calls) == 1 and fn == bank
     kbn = args[7:10] if which == "ntt_fwd" else args[9:12]
-    assert tuple(kbn) == (1, 3, n)
+    assert tuple(kbn) == (1, b, n)
     c = K.snapshot()
     assert c[bank] == {"launches": 1, "plain_calls": 0}
     assert c[which] == {"launches": 0, "plain_calls": 0}
+
+
+@pytest.mark.parametrize("n", [8192, 16384, 1 << 15])
+@pytest.mark.parametrize("which", ["ntt_fwd", "ntt_inv"])
+def test_single_prime_ring_above_4096_reaches_the_banks_launcher(monkeypatch, which, n):
+    """Above 4096 words a single-prime transform runs as a one-prime bank:
+    one call of the u32 banks launcher with k = 1 and the ring's n,
+    counted there and not on the single-prime kernel."""
+    lib = _Recorder()
+    monkeypatch.setattr(build, "load", lambda name: lib)
+    monkeypatch.setattr(ntt_kernel, "stream", lambda: 0)
+    assert n > ntt_kernel.MAX_N_SINGLE == 4096
+    p = make_ntt_params(n)
+    _fake_single_prime_bank(monkeypatch, p)
+    K.reset_counts()
+    out = _single_prime_calls(_fake(3, n), p)[which]()
+    assert tuple(out.shape) == (3, n)
+    _banks_route(lib, which, 3, n)
+
+
+@pytest.mark.parametrize("n,offset", [(2, 0), (32, 0), (64, 1), (128, 1), (128, 2),
+                                      (4096, 3)])
+@pytest.mark.parametrize("which", ["ntt_fwd", "ntt_inv"])
+def test_single_prime_ring_below_64_or_unaligned_reaches_the_banks_launcher(
+        monkeypatch, which, n, offset):
+    """Rings below the row stream's 64 words, and rows that do not start
+    on a 16-byte boundary (a view ``offset`` words into its storage), run
+    as a one-prime bank on the u32 banks launcher, counted there."""
+    lib = _Recorder()
+    monkeypatch.setattr(build, "load", lambda name: lib)
+    monkeypatch.setattr(ntt_kernel, "stream", lambda: 0)
+    p = make_ntt_params(n)
+    _fake_single_prime_bank(monkeypatch, p)
+    x = _fake(3 * n + offset)[offset:].view(3, n)
+    assert ntt_kernel.on_banks(x)
+    K.reset_counts()
+    out = _single_prime_calls(x, p)[which]()
+    assert tuple(out.shape) == (3, n)
+    _banks_route(lib, which, 3, n)
+
+
+@pytest.mark.parametrize("n", [64, 128, 1024, 4096])
+@pytest.mark.parametrize("which", ["ntt_fwd", "ntt_inv"])
+def test_single_prime_ring_up_to_4096_reaches_its_launcher(monkeypatch, which, n):
+    """From 64 up to 4096 words, rows on a 16-byte boundary, a
+    single-prime transform is one call of its own launcher
+    (``csrc/ntt.cu``) with (B, n) and the prime's one-prime bank tables,
+    counted on the single-prime kernel."""
+    lib = _Recorder()
+    monkeypatch.setattr(build, "load", lambda name: lib)
+    monkeypatch.setattr(ntt_kernel, "stream", lambda: 0)
+    p = make_ntt_params(n)
+    _fake_single_prime_bank(monkeypatch, p)
+    K.reset_counts()
+    out = _single_prime_calls(_fake(5, n), p)[which]()
+    assert tuple(out.shape) == (5, n)
+    fn, args = lib.calls[0]
+    assert len(lib.calls) == 1 and fn == which
+    assert len(args) == len(build.SIGNATURES["ntt"][which])
+    bn = args[9:11] if which == "ntt_fwd" else args[11:13]
+    assert tuple(bn) == (5, n)
+    c = K.snapshot()
+    assert c[which] == {"launches": 1, "plain_calls": 0}
+    assert c["ntt_fwd_banks"]["launches"] == c["ntt_inv_banks"]["launches"] == 0
+
+
+def test_no_source_includes_the_ping_pong_body():
+    """The single-prime transforms left the shared-memory ping-pong body
+    (``ntt_block.cuh``) for the row stream; the header is gone and no
+    source or header names it."""
+    assert not (build.CSRC / "ntt_block.cuh").exists()
+    for f in sorted(build.CSRC.glob("*.cu")) + sorted(build.CSRC.glob("*.cuh")):
+        assert "ntt_block" not in f.read_text(), f.name
 
 
 @pytest.mark.parametrize("which", ["ntt_fwd", "ntt_inv"])

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
-"""Time the NTT banks transforms of one checkout of the port on the card.
+"""Time the NTT transforms of one checkout of the port on the card.
 
-    python3 tools/time_ntt_banks.py [--src DIR] [--label NAME]
+    python3 tools/time_ntt_banks.py [--src DIR] [--label NAME] [--only TEXT ...]
 
 DIR is the ``src`` directory of a checkout (default: this repository's),
 so two trees can be timed in one machine call, in turns (A, B, B, A),
@@ -10,7 +10,12 @@ Cases: the u32 banks at the CKKS multiply's table shapes (B = 8) and at
 a B = 1 request's (the B = 8 forward also with 0, 2 and 4 of its 7
 stages, and one device copy of its words), the u16 banks at ML-KEM's b = 256 and b = 1 shapes,
 the u32 banks at (3, 13, n) for n = 2^13 .. 2^17 (where the tree takes
-n), and the single-prime ``ntt_fwd`` / ``ntt_inv`` at (10^5, 128).
+n), and the single-prime ``ntt_fwd`` / ``ntt_inv`` at every shape of the
+NTT-128 traffic: (10^5, 128) (and one device copy of its words), the
+products' (512, 4096), (64, 4096) and (64, 1024), and (13 or 132, 8192 or
+16384), each also through the k = 1 banks launchers (``single_prime_bank``)
+up to 4096 words.  ``--only`` keeps the cases whose name contains one of
+the texts.
 Each time is the device time of one call: 10 calls captured in a CUDA
 graph, the graph replayed 25 times between CUDA events, the median of
 the per-call mean.  Prints one JSON line with the card's name and power
@@ -57,6 +62,8 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--src", default=os.path.join(ROOT, "src"))
     ap.add_argument("--label", default="this tree")
+    ap.add_argument("--only", action="append", default=[],
+                    help="time only the cases whose name contains this text")
     args = ap.parse_args()
     sys.path.insert(0, os.path.abspath(args.src))
     import numpy as np
@@ -125,12 +132,34 @@ def main() -> int:
         neg = dict(negacyclic=True, lazy=True, reduce_out=True)
         cases[f"ntt_fwd_banks {tuple(x.shape)}"] = fwd(x, t, **neg)
         cases[f"ntt_inv_banks {tuple(x.shape)}"] = inv(x, t, **neg)
+    # the single-prime transforms at the NTT-128 traffic's shapes: the
+    # request's batch (rows 9-10), the products', and rings above 4096 words
+    # (one row a block in csrc/ntt.cu before the row stream); each also as
+    # a one-prime bank on the banks launchers where it takes one launch
+    single = [(100_000, 128, False, "fwd"), (100_000, 128, True, "inv"),
+              (100_000, 128, True, "fwd"), (100_000, 128, False, "inv"),
+              (512, 4096, True, "fwd"), (64, 4096, True, "inv"), (64, 1024, True, "fwd"),
+              (64, 1024, True, "inv")]
+    single += [(b, n, True, d) for n in (8192, 16384) for b in (13, 132) for d in ("fwd", "inv")]
+    for b, n, neg, d in single:
+        p = make_ntt_params(n)
+        x = rows([p.q], (b, n))[0]
+        kind = "negacyclic" if neg else "cyclic"
+        kern = ntt_kernel.ntt_fwd if d == "fwd" else ntt_kernel.ntt_inv
+        cases[f"ntt_{d} ({b}, {n}) {kind}"] = (
+            lambda x=x, p=p, neg=neg, kern=kern: kern(x, p, negacyclic=neg, lazy=True))
+        if n > 4096:
+            continue
+        t = ntt_kernel.single_prime_bank(p, dev)
+        path = dict(negacyclic=neg, lazy=True, reduce_out=True)
+        cases[f"ntt_{d} ({b}, {n}) {kind}, k = 1 bank"] = (
+            fwd(x[None], t, **path) if d == "fwd" else inv(x[None], t, **path))
     p = make_ntt_params(128)
     x = rows([p.q], (100_000, 128))[0]
-    cases["ntt_fwd (100000, 128) cyclic"] = lambda: ntt_kernel.ntt_fwd(
-        x, p, negacyclic=False, lazy=True)
-    cases["ntt_inv (100000, 128) negacyclic"] = lambda: ntt_kernel.ntt_inv(
-        x, p, negacyclic=True, lazy=True)
+    dst = torch.empty_like(x)
+    cases["copy_ (100000, 128) (library)"] = lambda d=dst, src=x: d.copy_(src)
+    if args.only:
+        cases = {k: v for k, v in cases.items() if any(o in k for o in args.only)}
     times = {name: graph_ms(fn) for name, fn in cases.items()}
     gpu = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True,
