@@ -15,9 +15,10 @@ Phases (any mismatch raises, so the exit code is non-zero):
                scratch); the weight-row multiply also at B = 1 and 8 of the
                2^14 ring, on a ring of 2 (its one-word path), on an
                unaligned view and with x over the whole u32 range; the
-               three gathers also at n = 2^16, above one block's shared
-               memory; lazy and eager throughout; results must be
-               bit-identical
+               three gathers also at n = 2^16 and 2^17, above one block's
+               shared memory, and the hoisted rotation's c0 gather
+               (1, k, 1, n) fanned out to R = 8; lazy and eager
+               throughout; results must be bit-identical
   3. slice     CkksContext(n=2^14, levels=7) on the card: encrypt 8 slot
                vectors, answer 4 single multiply -> rescale requests and one
                multiply_many -> rescale_many batch of 8, decrypt_decode every
@@ -153,6 +154,7 @@ UNEVEN_B = 100_003               # rows that split unevenly over the grid
 BIG_BANKS_NS = (8192, 16384, 1 << 15, 1 << 16, 1 << 17)  # two passes through scratch
 SINGLE_BANK_N = 1 << 15          # ops.ntt / intt as a one-prime bank
 N16 = 1 << 16                    # rotation rows above one block's shared memory
+N17 = 1 << 17                    # the longest ring the banks take
 ROT16_LEVELS = 3
 ROT16_AMOUNTS = (1, 2)
 ROT16_MV = 4                     # bsgs_split(4) = (2, 2): keys for 1 and 2
@@ -211,7 +213,7 @@ MLKEM_LAUNCHES = {"keygen": (1, 0, 1), "encaps": (1, 2, 2), "decaps": (2, 3, 3)}
 # device function names of the port's kernels, as the profiler sees them
 DEVICE_FUNCTIONS = ("ntt_rows_kernel", "ntt_cols_kernel",
                     "twiddle_mul_banks_kernel", "dyadic_inner_banks_kernel",
-                    "galois_split_kernel", "galois_staged_kernel",
+                    "galois_split_kernel", "galois_bulk_kernel",
                     "dyadic_basemul_banks_kernel",
                     "ntt_stream_kernel", "dyadic_mul_kernel",
                     "dyadic_mac_kernel")
@@ -484,13 +486,16 @@ def gather_rows(n: int, amounts, natural: bool):
 
 def check_gathers(check, rng, ct_primes) -> None:
     """The three gathers at the rotation path's shapes: k = 8 ciphertext
-    primes, d = 8 digits over 8 + 1 primes, B = R = 8, n = 2^14 natural
-    order; once in bit-reversed order at n = 1024; and at n = 2^16, rows
-    above one block's shared memory (the split-row body in every mode)."""
+    primes, d = 8 digits over 8 + 1 primes, B = R = 8 (the hoisted
+    rotation's digit gather and its c0 gather (1, k, 1, n), both fanned
+    out), n = 2^14 natural order; once in bit-reversed order at n = 1024;
+    and at n = 2^16 and, with 3 primes, 2^17: rows above one block's
+    shared memory (the piece ring of the staged body, the split body of
+    galois_banks)."""
     from repro_torch.fhe import rns
     from repro_torch.kernels import galois_kernel, ref
-    k = len(ct_primes)
-    for n, natural in ((N, True), (1024, False), (N16, True)):
+    for n, natural in ((N, True), (1024, False), (N16, True), (N17, True)):
+        k = 3 if n == N17 else len(ct_primes)
         qs = ct_primes if n == N else [int(q) for q in rns.make_primes(n, k)]
         sp = qs + [qs[0]]                    # k + 1 rows for the digit planes
         rows = gather_rows(n, ROT_AMOUNTS, natural)
@@ -508,7 +513,9 @@ def check_gathers(check, rng, ct_primes) -> None:
         one = ext[:, :, :1].contiguous()
         c0 = one[:1].contiguous()
         for what, x, shared in (("non-shared", ext, False), ("shared", one, True),
-                                ("c0 (d = 1) shared", c0, True)):
+                                ("c0 (d = 1) shared", c0, True),
+                                ("c0 of the path (1, k, 1, n) shared",
+                                 one[:1, :k].contiguous(), True)):
             check("galois_digits", galois_kernel.galois_digits(x, rows, shared=shared),
                   ref.galois_digits_banks_ref(x, rows),
                   f"x {tuple(x.shape)} {what} -> R={BATCH}, n={n} natural={natural}")
@@ -1448,17 +1455,24 @@ def phase_times(ctx, cts, fs_pack, ks_pack, per_op, counts, errs, rot) -> list:
         "three gathers; none for the NTT banks, the Shoup weight-row multiply "
         "and the Barrett digit MAC, which no single PyTorch call computes")
     # beside the path's shapes: the weight-row multiply of a B = 1 request,
-    # and the gathers at 2^16 (the split-row body in all three modes)
+    # the hoisted rotation's c0 gather (1, k, 1, n) fanned out to R = 8 at
+    # 2^14, and the gathers at 2^16 (the piece ring of the staged body; the
+    # split body of galois_banks), the c0 gather too
     x1 = residues(rng, qlist, (k, N), band=2)
     rows16 = gather_rows(N16, ROT_AMOUNTS, True)
     qs16 = [int(q) for q in rns.make_primes(N16, kp1)]
     h1 = residues(rng, qs16[:k], (1, N16))
     h8 = residues(rng, qs16[:k], (BATCH, N16))
     dig16 = torch.stack([residues(rng, qs16, (1, N16)) for _ in range(k)])
+    c0 = residues(rng, qlist[:k], (1, N))[None]
+    c016 = residues(rng, qs16[:k], (1, N16))[None]
     for name, fn, lib_fn, nbytes, shape in (
             ("twiddle_mul_banks", lambda: ntt_kernel.twiddle_mul_banks(x1, *tw, lazy=True),
              None, 2 * x1.numel() * w + 2 * fs_pack["tw"].numel() * w + kp1 * w,
              tuple(x1.shape)),
+            ("galois_digits c0", lambda: galois_kernel.galois_digits(c0, rows, shared=True),
+             lambda: torch.index_select(c0.view(k, N), 1, rows.view(-1)),
+             ((1 + BATCH) * c0.numel() + rows.numel()) * w, tuple(c0.shape)),
             ("galois_banks", lambda: galois_kernel.galois_banks(h1, rows16[0]),
              lambda: torch.index_select(h1, 2, rows16[0]),
              (2 * h1.numel() + N16) * w, tuple(h1.shape)),
@@ -1467,7 +1481,10 @@ def phase_times(ctx, cts, fs_pack, ks_pack, per_op, counts, errs, rot) -> list:
              (2 * h8.numel() + rows16.numel()) * w, tuple(h8.shape)),
             ("galois_digits", lambda: galois_kernel.galois_digits(dig16, rows16, shared=True),
              lambda: torch.index_select(dig16.view(k * kp1, N16), 1, rows16.view(-1)),
-             ((1 + BATCH) * dig16.numel() + rows16.numel()) * w, tuple(dig16.shape))):
+             ((1 + BATCH) * dig16.numel() + rows16.numel()) * w, tuple(dig16.shape)),
+            ("galois_digits c0", lambda: galois_kernel.galois_digits(c016, rows16, shared=True),
+             lambda: torch.index_select(c016.view(k, N16), 1, rows16.view(-1)),
+             ((1 + BATCH) * c016.numel() + rows16.numel()) * w, tuple(c016.shape))):
         lib = f", library {graph_ms(lib_fn):.4f} ms" if lib_fn is not None else ""
         log(f"[times] {name} {shape} (beside the path): kernel {graph_ms(fn):.4f} ms"
             f"{lib}, bound {nbytes / HBM_BYTES_PER_S * 1e3:.4f} ms ({nbytes} bytes)")

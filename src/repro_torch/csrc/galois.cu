@@ -13,180 +13,331 @@
 //                                                     out to B gather rows
 // In the evaluation domain the automorphism is a pure slot permutation,
 // the same for every prime and digit, so all three are one gather with
-// different row-to-index-row maps (Rows<kMode> below).
+// different maps from output rows to source and idx rows.
 //
 // What bounds it on an H100: device memory.  Each output word is one
 // index read and one word written; each source row is read once (in the
-// shared mode once for all B gathered rows).  No arithmetic.
+// fan-out mode once for all B gathered rows).  No arithmetic.  A gather
+// reads its source words in no useful order (a rotation's row is the
+// affine map j -> g*j + (g-1)/2 mod n), so every 4-byte word read
+// straight from device memory or L2 costs a 32-byte sector.
 //
-// Two bodies, both moving rows only as 16-byte vectors (n must be a
-// multiple of 4 and every pointer 16-byte aligned, else the launch is
-// refused).  An index outside [0, n) is a caller error; both write
-// 0xFFFFFFFF there (never a residue) instead of reading outside the row.
+// Rows move only as 16-byte vectors (n must be a multiple of 4 and every
+// pointer 16-byte aligned, else the launch is refused).  An index outside
+// [0, n) is a caller error; both bodies write 0xFFFFFFFF there (never a
+// residue) instead of reading outside the row.
 //
-// - Split rows (galois_split_kernel): the grid covers (16-byte output
-//   vectors of a row) x (output rows).  A thread reads one int4 of idx,
-//   gathers its four words straight from the source row in device memory
-//   through the read-only path (a rotate's 8 rows of 64 KB stay in the
-//   50 MB L2 after the first touch) and writes one uint4.  No shared
-//   memory, no barrier, no row-length limit, and a small call spreads
-//   over every SM (a rotate's (8, 1, 2^14): 256 blocks).  galois_banks
-//   runs it at every n; the other two modes above kMaxSmemRow words.
-// - Staged rows (galois_staged_kernel): one block per source row stages
-//   the row in dynamic shared memory with coalesced 16-byte loads and
-//   gathers from there.  In the fan-out mode the block writes all B
-//   gathered rows from one staged row, so the shared decomposition is read
-//   from device memory once.  It needs n * 4 bytes of shared memory, so
-//   the per-row and fan-out modes take it up to kMaxSmemRow words.
+// - Staged rows (galois_bulk_kernel; galois_banks_multi and galois_digits,
+//   every n).  The output vectors a source row feeds (its B gathered rows
+//   in the fan-out mode, its one row otherwise) are cut into runs, one a
+//   block, so that a call of few rows fills the card (plan()).  A block copies the
+//   source row into its shared memory with Hopper bulk copies
+//   (cp.async.bulk, runs of kChunkBytes from the first warp's lanes,
+//   counted in bytes on an mbarrier and waited on by parity; a lost copy
+//   traps after a bounded wait), and every gather read then hits shared
+//   memory.  The indices of the first round load while the row lands.  A
+//   row of up to kRowWords words (227 KB) lands whole and the block
+//   streams its run: int4 of idx, four shared reads, one uint4 written,
+//   kRowVec vectors a thread in flight.  A longer row passes through a
+//   ring of kBufs pieces of 64 KB: the block's run is one tile (kPieceVec
+//   vectors a thread, held in registers with their indices), each piece
+//   fills the words whose index falls in it, and a buffer is refilled
+//   once every thread has read it.
+//   Measured on an H100 and not kept (tools/probe_galois_cluster.py,
+//   PERF.md): staging the row across a thread-block cluster and reading
+//   it from the other blocks' shared memory (each scattered word is a
+//   transfer between SMs), and multicasting its bulk copies to a cluster
+//   of the blocks that share it (the cluster barriers cost more than the
+//   copies it saves).
+// - Split rows (galois_split_kernel; galois_banks): the grid covers
+//   (16-byte output vectors of a row) x (output rows).  A thread reads one
+//   int4 of idx, gathers its four words straight from the source row in
+//   device memory through the read-only path (a rotate's 8 rows of 64 KB
+//   stay in the 50 MB L2 after the first touch) and writes one uint4.  No
+//   shared memory, no barrier, no row-length limit, and a small call
+//   spreads over every SM (a rotate's (8, 1, 2^14): 256 blocks).
 #include <cuda_runtime.h>
 
 #include <cstdint>
 
+#include "bulk.cuh"
+#include "host.cuh"
+
 namespace {
 
-constexpr int kStagedThreads = 512;
+using host::aligned16;
+using host::sm_count;
+
 constexpr int kSplitThreads = 128;
+constexpr unsigned kMaxGridY = 65535;
 // the most dynamic shared memory one block may take on sm_90 (227 KB)
 constexpr int kMaxSmemBytes = 232448;
-constexpr int kMaxSmemRow = kMaxSmemBytes / 4;
-constexpr unsigned kMaxGridY = 65535;
+constexpr int kBufs = 3;                    // the piece ring's buffers
+constexpr int kBarBytes = 32;               // their mbarriers, ahead of the buffers
+// the longest row a block stages whole: what 227 KB of shared memory holds
+constexpr int kRowWords = (kMaxSmemBytes - kBarBytes) / 16 * 4;
+constexpr int kRowThreads = 256;            // a block of a whole row
+constexpr int kRowVec = 4;                  // vectors a thread has in flight there
+constexpr int kPieceWords = 16384;          // a piece of a longer row (64 KB)
+constexpr int kPieceThreads = 1024;         // a block of a longer row
+constexpr int kPieceVec = 4;                // vectors a thread holds there
+constexpr int kTile = kPieceThreads * kPieceVec;  // ... and a block (64 KB of output)
+constexpr int kPieceSmem = kBarBytes + 4 * kBufs * kPieceWords;
+constexpr int kWaveFactor = 2;              // blocks a SM that whole rows take at most
+constexpr int kReceive = 2;                 // ... copying in at most this many bytes a byte out
+constexpr int kMinRun = 1024;               // vectors a part of a whole row keeps at least
+constexpr uint32_t kChunkBytes = 4096;      // a fill is copied in runs of this size
+constexpr long long kMaxBlocks = 1 << 16;   // blocks a launch starts (they loop)
 
+// How output rows map to source and idx rows (B idx rows):
+//   kSharedIdx: out row r reads source row r through idx row 0 (split body)
+//   kPerRowIdx: out row r reads source row r through idx row r % B
+//   kFanOut:    out row s*B + b reads source row s through idx row b
 enum Mode { kSharedIdx = 0, kPerRowIdx = 1, kFanOut = 2 };
 
-// Output row r of a launch reads source row src(r) through idx row
-// irow(r).  `batch` is the number of idx rows (B).
-//   kSharedIdx: src r,          idx row 0
-//   kPerRowIdx: src r,          idx row r % B
-//   kFanOut:    src r / B,      idx row r % B   (out rows s*B + b)
-// Row counts stay below 2^31 (the wrappers refuse more), so the map takes
-// 32-bit division; offsets are taken in 64 bits.
-template <int kMode>
-struct Rows {
-  __device__ __forceinline__ static size_t src(unsigned r, unsigned batch) {
-    return kMode == kFanOut ? r / batch : r;
-  }
-  __device__ __forceinline__ static size_t irow(unsigned r, unsigned batch) {
-    return kMode == kSharedIdx ? 0 : r % batch;
-  }
-};
-
-__device__ __forceinline__ uint32_t pick(const uint32_t* s, int32_t i, int n) {
-  return (unsigned)i < (unsigned)n ? s[i] : 0xFFFFFFFFu;
-}
+// ------------------------------------------------------------ split rows
 
 __device__ __forceinline__ uint32_t pick_ldg(const uint32_t* __restrict__ s,
                                              int32_t i, int n) {
   return (unsigned)i < (unsigned)n ? __ldg(s + i) : 0xFFFFFFFFu;
 }
 
-// grid.x covers the n/4 vectors of a row, grid.y strides over out_rows.
-template <int kMode>
+// Every row through the one idx row: grid.x covers the n/4 vectors of a
+// row, grid.y strides over the rows (fewer than 2^31: the wrappers refuse
+// more; offsets are taken in 64 bits).
 __global__ void __launch_bounds__(kSplitThreads)
 galois_split_kernel(const uint32_t* __restrict__ x,
                     const int32_t* __restrict__ idx,
-                    uint32_t* __restrict__ out, int n, unsigned batch,
-                    unsigned out_rows) {
+                    uint32_t* __restrict__ out, int n, unsigned rows) {
   const int nv = n >> 2;
   const int v = blockIdx.x * kSplitThreads + threadIdx.x;
   if (v >= nv) return;
   const int4* idx4 = reinterpret_cast<const int4*>(idx);
   uint4* out4 = reinterpret_cast<uint4*>(out);
-  for (unsigned r = blockIdx.y; r < out_rows; r += gridDim.y) {
-    const int4 i = __ldg(idx4 + Rows<kMode>::irow(r, batch) * nv + v);
-    const uint32_t* s = x + Rows<kMode>::src(r, batch) * n;
+  const int4 i = __ldg(idx4 + v);
+  for (unsigned r = blockIdx.y; r < rows; r += gridDim.y) {
+    const uint32_t* s = x + (size_t)r * n;
     out4[(size_t)r * nv + v] = make_uint4(pick_ldg(s, i.x, n), pick_ldg(s, i.y, n),
                                   pick_ldg(s, i.z, n), pick_ldg(s, i.w, n));
   }
 }
 
-__device__ __forceinline__ void gather_row(const uint32_t* s,
-                                           const int32_t* __restrict__ idx,
-                                           uint32_t* __restrict__ dst, int n) {
+// ---------------------------------------------------------- staged rows
+
+// word i of a staged row of n words; an index outside [0, n) gives 0xFFFFFFFF
+__device__ __forceinline__ uint32_t pick(const uint32_t* s, int32_t i, int n) {
+  return (unsigned)i < (unsigned)n ? s[i] : 0xFFFFFFFFu;
+}
+
+// word i of the row into acc if it falls in the piece of `len` words
+// that starts at word lo
+__device__ __forceinline__ void take(uint32_t& acc, const uint32_t* s, int32_t i, int lo,
+                                     unsigned len) {
+  const unsigned off = (unsigned)i - (unsigned)lo;
+  if (off < len) acc = s[off];
+}
+
+// Block q (of `blocks`) serves source row q / parts: it writes run
+// q % parts of the row's work, the rows * n/4 output vectors it feeds
+// (rows = B in the fan-out mode, else 1) taken row by row, cut into
+// `parts` even runs.  Fan-out vector (b, v) is out row src*B + b, idx row
+// b; otherwise (0, v) is out row src, idx row src % B.  With more blocks
+// than the grid holds, a block takes q, q + grid.x, ...
+//
+// kPieces false (n <= kRowWords): the row lands in buffer 0 and the block
+// streams its run, kRowVec vectors a thread in flight (a round's indices
+// load while the row lands and while the round before is picked).
+// kPieces true: the run is at most one tile, kPieceVec vectors a thread,
+// held in registers with their indices while the row passes through the
+// ring (piece h in buffer h % kBufs) and each piece fills the words whose
+// index falls in it.
+template <int kMode, bool kPieces>
+__global__ void __launch_bounds__(kPieces ? kPieceThreads : kRowThreads)
+galois_bulk_kernel(const uint32_t* __restrict__ x, const int32_t* __restrict__ idx,
+                   uint32_t* __restrict__ out, int n, int batch, int parts, long long blocks) {
+  constexpr int kVec = kPieces ? kPieceVec : kRowVec;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem_raw);
+  uint32_t* bufs = reinterpret_cast<uint32_t*>(smem_raw + kBarBytes);
+  const int nv = n >> 2;
+  const int piece = kPieces ? kPieceWords : n;
+  const int pieces = kPieces ? (n + kPieceWords - 1) / kPieceWords : 1;
+  const long long work = (long long)(kMode == kFanOut ? batch : 1) * nv;
   const int4* idx4 = reinterpret_cast<const int4*>(idx);
-  uint4* dst4 = reinterpret_cast<uint4*>(dst);
-  for (int j = threadIdx.x; j < n / 4; j += blockDim.x) {
-    const int4 i = idx4[j];
-    dst4[j] = make_uint4(pick(s, i.x, n), pick(s, i.y, n), pick(s, i.z, n),
-                         pick(s, i.w, n));
+  uint4* out4 = reinterpret_cast<uint4*>(out);
+  if (threadIdx.x == 0) {
+    for (int b = 0; b < kBufs; ++b) bulk::mbar_init(full + b);
+    bulk::fence_mbar_init();
   }
-}
-
-// grid.x = number of source rows (Rows<kMode>::src inverted: fan-out
-// source row r writes out rows r*B .. r*B + B - 1).
-template <int kMode>
-__global__ void __launch_bounds__(kStagedThreads)
-galois_staged_kernel(const uint32_t* __restrict__ x,
-                     const int32_t* __restrict__ idx,
-                     uint32_t* __restrict__ out, int n, int batch) {
-  extern __shared__ uint4 smem[];
-  uint32_t* s = reinterpret_cast<uint32_t*>(smem);
-  const long long r = blockIdx.x;
-  const uint4* src4 = reinterpret_cast<const uint4*>(x + r * n);
-  for (int j = threadIdx.x; j < n / 4; j += blockDim.x) smem[j] = src4[j];
   __syncthreads();
-  if (kMode == kFanOut) {
-    for (int b = 0; b < batch; ++b)
-      gather_row(s, idx + (long long)b * n, out + (r * batch + b) * n, n);
-  } else {
-    gather_row(s, idx + Rows<kMode>::irow((unsigned)r, batch) * n, out + r * n, n);
+  uint32_t waits[kBufs] = {};
+  auto wait = [&](int b) { bulk::mbar_wait(full + b, waits[b]++ & 1u); };
+  // every thread has read its buffers: order the reads before the bulk
+  // copies that refill them
+  auto read_all = [&] {
+    bulk::fence_proxy_async();
+    __syncthreads();
+  };
+  for (long long q = blockIdx.x; q < blocks; q += gridDim.x) {
+    const long long src = q / parts;
+    const long long part = q % parts;
+    const long long w_lo = part * work / parts;
+    const long long w_hi = (part + 1) * work / parts;
+    // buffer b <- piece h of the row: the first warp's lanes copy its runs
+    auto fill = [&](int h, int b) {
+      const uint32_t bytes = (uint32_t)min(piece, n - h * piece) * 4u;
+      char* dst = reinterpret_cast<char*>(bufs + b * piece);
+      const char* from = reinterpret_cast<const char*>(x + src * n + (size_t)h * piece);
+      if (threadIdx.x == 0) bulk::mbar_expect_tx(full + b, bytes);
+      if (threadIdx.x < 32) {
+        __syncwarp();
+        for (uint32_t at = threadIdx.x * kChunkBytes; at < bytes; at += 32 * kChunkBytes)
+          bulk::bulk_load(dst + at, from + at, min(kChunkBytes, bytes - at), full + b);
+      }
+    };
+    // vector w of the row's work: its idx and out vectors ((B, n) idx rows,
+    // out rows src*B + b or src, each row n/4 vectors)
+    auto at_idx = [&](long long w) { return kMode == kFanOut ? w : (src % batch) * nv + w; };
+    auto at_out = [&](long long w) { return src * work + w; };
+    // the indices of the kVec vectors w0, w0 + T, ... (-1 past the run)
+    int4 iv[kVec];
+    auto load = [&](long long w0) {
+#pragma unroll
+      for (int u = 0; u < kVec; ++u) {
+        const long long w = w0 + u * (long long)blockDim.x;
+        iv[u] = w < w_hi ? __ldg(idx4 + at_idx(w)) : make_int4(-1, -1, -1, -1);
+      }
+    };
+    if constexpr (!kPieces) {
+      fill(0, 0);
+      const long long step = kVec * (long long)blockDim.x;
+      load(w_lo + threadIdx.x);
+      wait(0);
+      for (long long w0 = w_lo + threadIdx.x; w0 < w_hi; w0 += step) {
+        uint4 ov[kVec];
+#pragma unroll
+        for (int u = 0; u < kVec; ++u)
+          ov[u] = make_uint4(pick(bufs, iv[u].x, n), pick(bufs, iv[u].y, n),
+                             pick(bufs, iv[u].z, n), pick(bufs, iv[u].w, n));
+        load(w0 + step);
+#pragma unroll
+        for (int u = 0; u < kVec; ++u) {
+          const long long w = w0 + u * (long long)blockDim.x;
+          if (w < w_hi) out4[at_out(w)] = ov[u];
+        }
+      }
+    } else {
+      for (int h = 0; h < kBufs && h < pieces; ++h) fill(h, h);
+      load(w_lo + threadIdx.x);
+      uint4 acc[kVec];
+#pragma unroll
+      for (int u = 0; u < kVec; ++u)
+        acc[u] = make_uint4(0xFFFFFFFFu, 0xFFFFFFFFu, 0xFFFFFFFFu, 0xFFFFFFFFu);
+      for (int h = 0; h < pieces; ++h) {
+        const int b = h % kBufs;
+        wait(b);
+        const uint32_t* s = bufs + b * piece;
+        const int lo = h * piece;
+        const unsigned len = (unsigned)min(piece, n - lo);
+#pragma unroll
+        for (int u = 0; u < kVec; ++u) {
+          take(acc[u].x, s, iv[u].x, lo, len);
+          take(acc[u].y, s, iv[u].y, lo, len);
+          take(acc[u].z, s, iv[u].z, lo, len);
+          take(acc[u].w, s, iv[u].w, lo, len);
+        }
+        if (h + kBufs < pieces) {
+          read_all();
+          fill(h + kBufs, b);
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < kVec; ++u) {
+        const long long w = w_lo + threadIdx.x + u * (long long)blockDim.x;
+        if (w < w_hi) out4[at_out(w)] = acc[u];
+      }
+    }
+    if (q + gridDim.x < blocks) read_all();  // before the next row's fills
   }
 }
 
-template <int kMode>
-int launch_split(const uint32_t* x, const int32_t* idx, uint32_t* out,
-                 long long out_rows, int n, int batch, cudaStream_t stream) {
-  const unsigned gx = (unsigned)((n / 4 + kSplitThreads - 1) / kSplitThreads);
-  const unsigned gy = (unsigned)(out_rows < kMaxGridY ? out_rows : kMaxGridY);
-  galois_split_kernel<kMode><<<dim3(gx, gy), kSplitThreads, 0, stream>>>(
-      x, idx, out, n, (unsigned)batch, (unsigned)out_rows);
-  return (int)cudaGetLastError();
+// ------------------------------------------------------------ launchers
+
+// The runs a source row's output vectors are cut into.  A row of up to
+// kRowWords words is staged whole: as many runs as keep a block writing
+// at least 1/kReceive of the bytes it copies in (the row) and the card at
+// most kWaveFactor blocks a SM, each run at least kMinRun vectors (so a
+// call of few rows fills the card, and one of many rows copies each row
+// once).  A longer row passes through the piece ring: runs of at most one
+// tile.  `sms`: the card's SMs.
+inline long long plan(long long src_rows, int n, int batch, bool fan_out, int sms) {
+  const long long rows = fan_out ? batch : 1;
+  const long long work = rows * (n / 4);
+  if (n > kRowWords) return (work + kTile - 1) / kTile;
+  long long parts = kReceive * rows;
+  const long long wave = kWaveFactor * (long long)sms / src_rows;
+  if (parts > wave) parts = wave;
+  if (parts > work / kMinRun) parts = work / kMinRun;
+  return parts > 1 ? parts : 1;
 }
 
 template <int kMode>
-int launch_staged(const uint32_t* x, const int32_t* idx, uint32_t* out,
-                  long long src_rows, int n, int batch, cudaStream_t stream) {
-  const int smem = n * (int)sizeof(uint32_t);
-  if (smem > 48 * 1024) {
-    // above 48 KB a block's dynamic shared memory must be asked for
-    const cudaError_t e = cudaFuncSetAttribute(
-        galois_staged_kernel<kMode>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        smem);
+int launch_bulk(const uint32_t* x, const int32_t* idx, uint32_t* out, long long src_rows,
+                int n, int batch, cudaStream_t stream) {
+  const bool pieces = n > kRowWords;
+  const long long parts = plan(src_rows, n, batch, kMode == kFanOut, sm_count());
+  auto kernel = pieces ? &galois_bulk_kernel<kMode, true> : &galois_bulk_kernel<kMode, false>;
+  static bool opted_in[2] = {false, false};  // above 48 KB: once, for the most it takes
+  if (!opted_in[pieces]) {
+    const int most = pieces ? kPieceSmem : kBarBytes + 4 * kRowWords;
+    const cudaError_t e =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, most);
     if (e != cudaSuccess) return (int)e;
+    opted_in[pieces] = true;
   }
-  galois_staged_kernel<kMode><<<(unsigned)src_rows, kStagedThreads, smem, stream>>>(
-      x, idx, out, n, batch);
+  const long long blocks = src_rows * parts;
+  const unsigned grid = (unsigned)(blocks < kMaxBlocks ? blocks : kMaxBlocks);
+  const size_t smem = pieces ? kPieceSmem : kBarBytes + 4 * (size_t)n;
+  kernel<<<grid, pieces ? kPieceThreads : kRowThreads, smem, stream>>>(x, idx, out, n, batch,
+                                                                     (int)parts, blocks);
   return (int)cudaGetLastError();
 }
 
-// src_rows source rows of n words; the mode's map gives the output rows
-// (src_rows * batch in the fan-out mode, src_rows otherwise).
+int launch_split(const uint32_t* x, const int32_t* idx, uint32_t* out, long long rows, int n,
+                 cudaStream_t stream) {
+  const unsigned gx = (unsigned)((n / 4 + kSplitThreads - 1) / kSplitThreads);
+  const unsigned gy = (unsigned)(rows < kMaxGridY ? rows : kMaxGridY);
+  galois_split_kernel<<<dim3(gx, gy), kSplitThreads, 0, stream>>>(x, idx, out, n,
+                                                                 (unsigned)rows);
+  return (int)cudaGetLastError();
+}
+
+// src_rows source rows of n words, batch idx rows: the split body for the
+// shared idx row, the staged body for the other two modes.
 template <int kMode>
 int launch(const void* x, const void* idx, void* out, long long src_rows, int n,
            int batch, void* stream) {
   if (src_rows <= 0 || n <= 0) return (int)cudaGetLastError();
-  auto aligned = [](const void* p) {
-    return reinterpret_cast<uintptr_t>(p) % 16 == 0;
-  };
-  if (n % 4 != 0 || !aligned(x) || !aligned(idx) || !aligned(out))
+  if (n % 4 != 0 || !aligned16(x) || !aligned16(idx) || !aligned16(out))
     return (int)cudaErrorInvalidValue;
   const auto* px = static_cast<const uint32_t*>(x);
   const auto* pi = static_cast<const int32_t*>(idx);
   auto* po = static_cast<uint32_t*>(out);
   auto* s = static_cast<cudaStream_t>(stream);
-  if constexpr (kMode != kSharedIdx) {
-    if (n <= kMaxSmemRow) return launch_staged<kMode>(px, pi, po, src_rows, n, batch, s);
+  if constexpr (kMode == kSharedIdx) {
+    return launch_split(px, pi, po, src_rows, n, s);
+  } else {
+    return launch_bulk<kMode>(px, pi, po, src_rows, n, batch, s);
   }
-  const long long out_rows = kMode == kFanOut ? src_rows * batch : src_rows;
-  return launch_split<kMode>(px, pi, po, out_rows, n, batch, s);
 }
 
 }  // namespace
 
 // Shapes are checked by the Python wrappers: every tensor contiguous,
 // words uint32 (int32 bit patterns), idx int32, n a multiple of 4, every
-// pointer 16-byte aligned.  Every launcher returns cudaGetLastError() of
-// its launch (or the error of configuring the kernel); the wrapper raises
-// on a non-zero code.
+// pointer 16-byte aligned.  Every launcher returns the error of its
+// launch (or of configuring the kernel); the wrapper raises on a non-zero
+// code.
 
 // x, out (k, b, n); idx (n,)
 extern "C" int galois_banks(const void* x, const void* idx, void* out, int k,
@@ -205,4 +356,11 @@ extern "C" int galois_digits(const void* x, const void* idx, void* out, int d,
                              int k, int b, int n, int shared, void* stream) {
   if (shared) return launch<kFanOut>(x, idx, out, (long long)d * k, n, b, stream);
   return launch<kPerRowIdx>(x, idx, out, (long long)d * k * b, n, b, stream);
+}
+
+// The runs plan() cuts each of src_rows source rows' output into on a card
+// of `sms` SMs (batch idx rows; fan_out: the shared digit mode), as the
+// launches above take them: the schedule the tests emulate.
+extern "C" int galois_bulk_parts(long long src_rows, int n, int batch, int fan_out, int sms) {
+  return (int)plan(src_rows, n, batch, fan_out != 0, sms);
 }

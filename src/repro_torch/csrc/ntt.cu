@@ -55,15 +55,26 @@
 
 #include <cstdint>
 
+#include "bulk.cuh"
+#include "host.cuh"
 #include "modarith.cuh"
 #include "ntt_regs.cuh"
 
 namespace {
 
-using ntt_regs::aligned16;
+using bulk::bulk_commit;
+using bulk::bulk_load;
+using bulk::bulk_store;
+using bulk::bulk_wait_all;
+using bulk::bulk_wait_read;
+using bulk::fence_proxy_async;
+using bulk::mbar_expect_tx;
+using bulk::mbar_init;
+using bulk::mbar_wait;
+using host::aligned16;
+using host::sm_count;
 using ntt_regs::Arith;
 using ntt_regs::ilog2;
-using ntt_regs::sm_count;
 using ntt_regs::Tables;
 
 constexpr int kSlots = 3;                 // tiles in flight or in use per block
@@ -72,83 +83,8 @@ constexpr int kStreamLog = 6;             // the stream takes rings of 64 words 
 constexpr int kMaxLog = 12;               // ... to 4096
 constexpr int kBarBytes = 128;            // the slots' mbarriers, ahead of the tiles
 constexpr long long kWantBlocks = 4 * 132;  // tiles that fill 132 SMs
-constexpr uint32_t kLostCopy = 1u << 24;  // waits on a slot before a lost copy traps
 
 static_assert(kSlots >= 2 && kSlots * 8 <= kBarBytes, "2 .. 16 slots");
-
-// ------------------------------------------------ Hopper's bulk copies
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint64_t* bar) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;" ::"r"(smem_u32(bar)) : "memory");
-}
-
-// one arrival that also expects `bytes` of bulk copies before the phase ends
-__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(smem_u32(bar)),
-               "r"(bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ bool mbar_try_wait(uint64_t* bar, uint32_t parity) {
-  uint32_t done;
-  asm volatile(
-      "{\n\t.reg .pred p;\n\t"
-      "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n\t"
-      "selp.u32 %0, 1, 0, p;\n\t}"
-      : "=r"(done)
-      : "r"(smem_u32(bar)), "r"(parity)
-      : "memory");
-  return done != 0;
-}
-
-// Until the phase of parity `parity` has completed.  A copy that never
-// lands traps (the launch fails) rather than hanging the card.
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
-  uint32_t spins = 0;
-  while (!mbar_try_wait(bar, parity))
-    if (++spins == kLostCopy) __trap();
-}
-
-// global -> shared, `bytes` (a multiple of 16, both ends 16-byte aligned)
-// counted on `bar`
-__device__ __forceinline__ void bulk_load(void* dst, const void* src, uint32_t bytes,
-                                          uint64_t* bar) {
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];" ::
-          "r"(smem_u32(dst)),
-      "l"(src), "r"(bytes), "r"(smem_u32(bar))
-      : "memory");
-}
-
-// shared -> global in this thread's current bulk group
-__device__ __forceinline__ void bulk_store(void* dst, const void* src, uint32_t bytes) {
-  asm volatile("cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;" ::"l"(dst),
-               "r"(smem_u32(src)), "r"(bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void bulk_commit() {
-  asm volatile("cp.async.bulk.commit_group;" ::: "memory");
-}
-
-// until at most N of this thread's bulk groups still read shared memory
-template <int N>
-__device__ __forceinline__ void bulk_wait_read() {
-  asm volatile("cp.async.bulk.wait_group.read %0;" ::"n"(N) : "memory");
-}
-
-__device__ __forceinline__ void bulk_wait_all() {
-  asm volatile("cp.async.bulk.wait_group 0;" ::: "memory");
-}
-
-// this thread's shared-memory writes, ordered before later bulk copies
-__device__ __forceinline__ void fence_proxy_async() {
-  asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
-}
 
 // ------------------------------------------------------ the row stream
 
@@ -317,7 +253,7 @@ ntt_stream_kernel(const uint32_t* __restrict__ x, uint32_t* __restrict__ out,
   const uint32_t* twp = tb.twp;
   if (threadIdx.x == 0) {
     for (int s = 0; s < kSlots; ++s) mbar_init(full + s);
-    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+    bulk::fence_mbar_init();
   }
   if constexpr (kStaged) {
     uint32_t* stw = tiles_smem + kSlots * slot_words;

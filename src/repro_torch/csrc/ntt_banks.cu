@@ -49,6 +49,7 @@
 
 #include <cstdint>
 
+#include "host.cuh"
 #include "modarith.cuh"
 #include "ntt_regs.cuh"
 
@@ -110,9 +111,9 @@ twiddle_mul_banks_kernel(const uint32_t* __restrict__ x, uint32_t* __restrict__ 
   }
 }
 
-using ntt_regs::aligned16;
+using host::aligned16;
+using host::sm_count;
 using ntt_regs::ilog2;
-using ntt_regs::sm_count;
 using ntt_regs::Tables;
 
 constexpr long long kWantBlocks = 4 * 132;  // blocks that fill 132 SMs

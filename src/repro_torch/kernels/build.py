@@ -50,6 +50,7 @@ SIGNATURES = {
         "galois_banks": [_P] * 3 + [_I] * 3 + [_P],
         "galois_banks_multi": [_P] * 3 + [_I] * 3 + [_P],
         "galois_digits": [_P] * 3 + [_I] * 5 + [_P],
+        "galois_bulk_parts": [_L] + [_I] * 4,
     },
     "dyadic_basemul": {
         "dyadic_basemul_banks": [_P] * 7 + [_I] * 4 + [_P],

@@ -10,9 +10,9 @@ of a key-switch decomposition.  A CPU tensor goes to the plain version in
 moves rows as 16-byte vectors, so a row length that is not a multiple of
 4 and a tensor not 16-byte aligned are refused with ``ValueError``.  Rows
 of any length run: ``galois_banks`` splits every output row across
-blocks that gather straight from device memory, and the other two stage
-a source row in one block's shared memory up to ``MAX_ROW`` words and
-split longer rows the same way.
+blocks that gather straight from device memory; the other two copy a
+source row into a block's shared memory by bulk copies, whole up to
+``MAX_ROW`` words and through a ring of pieces above.
 """
 from __future__ import annotations
 
@@ -22,9 +22,10 @@ from repro_torch.kernels import COUNTS, build, ref
 from repro_torch.kernels.ntt_kernel import (check_shape, check_tensors,
                                             raise_on, stream)
 
-# words of one row in a block's 227 KB of shared memory: the longest row
-# that galois_banks_multi / galois_digits stage (csrc/galois.cu kMaxSmemRow)
-MAX_ROW = 232448 // 4
+# the longest row that galois_banks_multi / galois_digits stage whole in
+# one block's 227 KB of shared memory, less its 32 bytes of barriers
+# (csrc/galois.cu kRowWords); a longer row passes through a ring of pieces
+MAX_ROW = (232448 - 32) // 16 * 4
 
 
 def _check_row(where: str, n: int, rows: int) -> None:

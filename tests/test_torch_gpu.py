@@ -5,8 +5,11 @@ than log2 n; an unaligned view), both key layouts of the
 digit MAC, ragged batches, the weight-row multiply on its vector and
 scalar paths (the main path's shapes, an unaligned view, x over the
 whole u32 range), the Galois gathers in both bit orders (shared and
-per-batch rows, digits shared and not, rows above one block's shared
-memory at 2^16 and 2^17), and the u16 lane of ML-KEM's ring (the 7-stage
+per-batch rows, digits shared and not, the staged body at the path's
+shapes and on rows of 4, 8 and 12 words with odd row counts and indices
+outside the row, its plan() against the CPU emulation's, rows above one
+block's shared memory at 2^16 and 2^17), and the u16 lane of ML-KEM's
+ring (the 7-stage
 transforms on n = 256 and the basecase product, at odd and ML-KEM-sized
 batches), and the single-prime transforms and Barrett products
 (n = 2 .. 2^17: the row stream from 64 to 4096 words at one row and at
@@ -28,7 +31,9 @@ from repro_torch.core.ringspec import MLKEM_RING, ring_table_pack
 from repro_torch.fhe import batched as TB
 from repro_torch.fhe import rns
 from repro_torch.core.params import galois_eval_perm, make_ntt_params
-from repro_torch.kernels import dyadic_kernel, galois_kernel, ntt_kernel, ops, ref
+from repro_torch.kernels import build, dyadic_kernel, galois_kernel, ntt_kernel, ops, ref
+
+import galois_schedule
 
 pytestmark = pytest.mark.gpu
 
@@ -279,10 +284,11 @@ def test_galois_banks_split_rows_equal_plain(cuda, shape):
 
 @pytest.mark.parametrize("n", [galois_kernel.MAX_ROW + 4, 1 << 16, 1 << 17])
 def test_gathers_above_one_blocks_shared_memory_equal_plain(cuda, n):
-    """Rows longer than a block's shared memory holds take the split-row
-    body in all three modes: shared index (galois_banks), per-row index
-    (galois_banks_multi, galois_digits) and fan-out (galois_digits with
-    ``shared``).  n = MAX_ROW + 4 is no ring size: a random permutation."""
+    """Rows longer than a block's shared memory holds: the split-row body
+    of the shared index (galois_banks), and the piece ring of the staged
+    body in the per-row index (galois_banks_multi, galois_digits) and
+    fan-out (galois_digits with ``shared``) modes.  n = MAX_ROW + 4 is no
+    ring size (a random permutation) and ends in a short piece."""
     primes = rns.make_primes(1 << 16, 3)
     if n & (n - 1):
         rng = np.random.default_rng(n)
@@ -306,6 +312,93 @@ def test_gathers_above_one_blocks_shared_memory_equal_plain(cuda, n):
     c = K.snapshot()
     assert [c[k]["launches"] for k in ("galois_banks", "galois_banks_multi",
                                        "galois_digits")] == [1, 1, 2]
+
+
+def _gather_rows(n, R, seed):
+    """R gather rows of n words: rotations where n is a ring size of 8 or
+    more, random permutations otherwise."""
+    if n >= 8 and n & (n - 1) == 0:
+        return _rotation_rows(n, range(1, R + 1))
+    rng = np.random.default_rng(seed)
+    return torch.from_numpy(np.stack([rng.permutation(n) for _ in range(R)])
+                            .astype(np.int32)).cuda()
+
+
+# (k, B, n) of galois_banks_multi: a mixed rotate_many of 8 at 2^14, 2^16
+# and 2^17, rows of one to three vectors and a 1024-word ring, with odd
+# row counts and B that no run count divides
+MULTI_SHAPES = [(8, 8, 1 << 14), (8, 8, 1 << 16), (3, 2, 1 << 17), (3, 5, 4), (5, 3, 8),
+                (7, 3, 12), (7, 3, 1024)]
+# (d, k, R, n) of galois_digits: the hoisted R = 8 rotation's digit gather
+# (8, 9, 1, n) and its c0 gather (1, 8, 1, n) at 2^14, 2^16 and 2^17, and
+# small rows with odd row counts
+DIGIT_SHAPES = [(8, 9, 8, 1 << 14), (1, 8, 8, 1 << 14), (8, 9, 8, 1 << 16), (1, 8, 8, 1 << 16),
+                (2, 3, 8, 1 << 17), (1, 3, 8, 1 << 17), (3, 3, 3, 4), (3, 5, 5, 8),
+                (1, 7, 3, 12), (3, 3, 7, 1024)]
+
+
+@pytest.mark.parametrize("shape", MULTI_SHAPES, ids=str)
+def test_staged_multi_gather_equals_plain(cuda, shape):
+    """galois_banks_multi on the staged body equals its plain version."""
+    k, b, n = shape
+    primes = rns.make_primes(max(n, 16), k)
+    rows = _gather_rows(n, b, n)
+    x = _residues(k * b + n, primes, (b, n))
+    K.reset_counts()
+    assert torch.equal(galois_kernel.galois_banks_multi(x, rows), ref.galois_banks_ref(x, rows))
+    assert K.COUNTS["galois_banks_multi"].launches == 1
+
+
+@pytest.mark.parametrize("shape", DIGIT_SHAPES, ids=str)
+def test_staged_digit_gathers_equal_plain(cuda, shape):
+    """galois_digits fanned out from one digit stack (the hoisted path's
+    shared mode) and per row (non-shared) equal their plain versions."""
+    d, k, R, n = shape
+    primes = rns.make_primes(max(n, 16), k)
+    rows = _gather_rows(n, R, n + d)
+    one = torch.stack([_residues(n + j, primes, (1, n)) for j in range(d)])
+    K.reset_counts()
+    got = galois_kernel.galois_digits(one, rows, shared=True)
+    assert got.shape == (d, k, R, n)
+    assert torch.equal(got, ref.galois_digits_banks_ref(one, rows))
+    ext = torch.stack([_residues(2 * n + j, primes, (R, n)) for j in range(d)])
+    assert torch.equal(galois_kernel.galois_digits(ext, rows, shared=False),
+                       ref.galois_digits_banks_ref(ext, rows))
+    assert K.COUNTS["galois_digits"].launches == 2
+
+
+@pytest.mark.parametrize("shape", galois_schedule.PATH + [(3, 12, 3, False), (5, 1024, 3, True),
+                                                       (1, galois_kernel.MAX_ROW + 4, 1, True)],
+                         ids=str)
+def test_staged_plan_is_the_emulated_one(cuda, shape):
+    """The library's plan() (galois_bulk_parts) cuts each call into the
+    runs that the CPU emulation (test_torch_galois_staged.py) takes, on
+    this card and on a 132-SM H100."""
+    src_rows, n, B, fan_out = shape
+    lib = build.load("galois")
+    for sms in (torch.cuda.get_device_properties(0).multi_processor_count, 132):
+        assert lib.galois_bulk_parts(src_rows, n, B, int(fan_out), sms) == \
+            galois_schedule.plan(src_rows, n, B, fan_out, sms), sms
+
+
+@pytest.mark.parametrize("n", [16, 1 << 14, galois_kernel.MAX_ROW + 4, 1 << 16])
+def test_staged_gathers_write_all_ones_outside_the_row(cuda, n):
+    """An index outside [0, n) gives 0xFFFFFFFF in every mode, on whole
+    rows and on the piece ring (the plain versions refuse such indices,
+    so the expectation is built from in-range indices)."""
+    R = 3
+    rows = _gather_rows(n, R, n).clone()
+    rows[0, 0], rows[1, n // 2], rows[2, -1], rows[2, 1] = n, -1, 1 << 30, -n - 5
+    bad = (rows < 0) | (rows >= n)
+    safe = torch.where(bad, torch.zeros_like(rows), rows)
+    x = _residues(n, rns.make_primes(max(n, 16), 2), (R, n))
+    ones = torch.full_like(x, -1)
+    want = torch.where(bad.expand_as(x), ones, ref.galois_banks_ref(x, safe))
+    assert torch.equal(galois_kernel.galois_banks_multi(x, rows), want)
+    one = x[None, :, :1].contiguous()
+    fan = ref.galois_digits_banks_ref(one, safe)
+    want = torch.where(bad.expand_as(fan), torch.full_like(fan, -1), fan)
+    assert torch.equal(galois_kernel.galois_digits(one, rows, shared=True), want)
 
 
 def _rotation_traffic(device):

@@ -244,9 +244,10 @@ class _Recorder:
 
 @pytest.mark.parametrize("which", GATHERS)
 def test_gather_row_above_max_row_reaches_its_launcher(monkeypatch, which):
-    """A row longer than one block's shared memory holds passes every
-    check of the wrapper and reaches its launcher once (the launcher gives
-    it the split-row body): no refusal, no plain version."""
+    """A row longer than one block's shared memory holds (MAX_ROW) passes
+    every check of the wrapper and reaches its launcher once (the launcher
+    passes it through a ring of pieces, or for galois_banks gives it the
+    split-row body): no refusal, no plain version."""
     lib = _Recorder()
     monkeypatch.setattr(build, "load", lambda name: lib)
     monkeypatch.setattr(galois_kernel, "stream", lambda: 0)
@@ -270,6 +271,33 @@ def test_gather_row_above_max_row_reaches_its_launcher(monkeypatch, which):
 
 def _fake(*shape):
     return torch.zeros(shape, dtype=torch.int32, device="meta").as_subclass(_FakeCuda)
+
+
+@pytest.mark.parametrize("n", [1 << 14, galois_kernel.MAX_ROW + 4, 1 << 16, 1 << 17])
+@pytest.mark.parametrize("mode", ["multi", "digits shared", "digits"])
+def test_staged_gathers_hand_their_launcher_the_shape(monkeypatch, mode, n):
+    """galois_banks_multi and galois_digits (fan-out and per-row) reach
+    their launcher at the path's 2^14 (a whole row staged), past MAX_ROW
+    and at 2^16 and 2^17 (the piece ring): no refusal, no plain version,
+    one launch, and the launcher gets the tensors' k, B, n (and d and the
+    shared flag) after the three pointers."""
+    lib = _Recorder()
+    monkeypatch.setattr(build, "load", lambda name: lib)
+    monkeypatch.setattr(galois_kernel, "stream", lambda: 0)
+    d, k, b = 2, 3, 8
+    rows = _fake(b, n)
+    K.reset_counts()
+    if mode == "multi":
+        out = galois_kernel.galois_banks_multi(_fake(k, b, n), rows)
+        want = ("galois_banks_multi", (k, b, n, 0))
+    else:
+        shared = mode == "digits shared"
+        out = galois_kernel.galois_digits(_fake(d, k, 1 if shared else b, n), rows,
+                                          shared=shared)
+        want = ("galois_digits", (d, k, b, n, int(shared), 0))
+    assert out.shape == ((k, b, n) if mode == "multi" else (d, k, b, n))
+    assert [(fn, args[3:]) for fn, args in lib.calls] == [want]
+    assert K.snapshot()[want[0]] == {"launches": 1, "plain_calls": 0}
 
 
 @pytest.mark.parametrize("n", [8192, 16384, 1 << 15, 1 << 16, 1 << 17])
