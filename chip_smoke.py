@@ -17,8 +17,10 @@ Phases (any mismatch raises, so the exit code is non-zero):
                unaligned view and with x over the whole u32 range; the
                three gathers also at n = 2^16 and 2^17, above one block's
                shared memory, and the hoisted rotation's c0 gather
-               (1, k, 1, n) fanned out to R = 8; lazy and eager
-               throughout; results must be bit-identical
+               (1, k, 1, n) fanned out to R = 8, and at 2^14 and 2^16 on
+               indices drawn from [-2n, 2n) (a negative one counts from
+               the end of the row, one outside [-n, n) gives all ones);
+               lazy and eager throughout; results must be bit-identical
   3. slice     CkksContext(n=2^14, levels=7) on the card: encrypt 8 slot
                vectors, answer 4 single multiply -> rescale requests and one
                multiply_many -> rescale_many batch of 8, decrypt_decode every
@@ -43,7 +45,10 @@ Phases (any mismatch raises, so the exit code is non-zero):
   3c. mlkem    ML-KEM-768 (FIPS 203) on the u16 lane: the two u16 NTT
                instantiations and the basecase product held bit for bit
                against their plain versions at every shape of the b = 1 and
-               b = 256 paths and at an odd batch; the 4 in-repo KAT vectors
+               b = 256 paths and at an odd batch, the basecase product also
+               on both of its bodies (the vector body at those shapes and
+               at n = 4, the one-pair body at n = 2 and on a view at an odd
+               word); the 4 in-repo KAT vectors
                (ek, dk, ct, K, implicit rejection) on the card; a b = 256
                keygen -> encaps -> decaps round from the seed with equal
                shared keys and the rejection key for tampered ciphertexts;
@@ -74,7 +79,9 @@ Phases (any mismatch raises, so the exit code is non-zero):
                device time) beside its memory bound (the NTT banks and the
                single-prime transforms also beside an integer-instruction
                bound at the SM clock that nvidia-smi reads during the
-               timings; bound_by names the larger), the banks also at a B = 1 request's shapes and at
+               timings, and the basecase product beside its instructions
+               a pair; bound_by names the larger), the banks also at a
+               B = 1 request's shapes and at
                2^15 .. 2^17, its eager call, its
                plain version and, for the gathers, the one PyTorch call that
                computes the same function; request latencies of the CKKS
@@ -96,6 +103,7 @@ the port only.
 from __future__ import annotations
 
 import argparse
+import ctypes
 import hashlib
 import json
 import os
@@ -128,6 +136,10 @@ INT32_LANES = 132 * 64           # H100 SXM: 132 SMs x 64 INT32 lanes a clock
 BFLY_OPS = {(4, True): 8, (4, False): 9, (2, True): 9, (2, False): 10}
 MUL_OPS = {(4, True): 3, (4, False): 4, (2, True): 4, (2, False): 5}
 BAND_OPS = 1
+# integer-ALU instructions a pair of the basecase product's vector body
+# at k = 1 (its item loop of 2 pairs, index arithmetic included, as
+# tools/time_basemul.py --sass counts them in the built library), by lazy
+BASEMUL_OPS = {True: 57, False: 58}
 REPS = 25                        # timing repetitions, median reported
 LAT_ROUNDS = 20                  # interleaved rounds of the request latencies
 PROFILE_TRIES = 3                # profiles of a request before its breakdown is "not measured"
@@ -214,7 +226,7 @@ MLKEM_LAUNCHES = {"keygen": (1, 0, 1), "encaps": (1, 2, 2), "decaps": (2, 3, 3)}
 DEVICE_FUNCTIONS = ("ntt_rows_kernel", "ntt_cols_kernel",
                     "twiddle_mul_banks_kernel", "dyadic_inner_banks_kernel",
                     "galois_split_kernel", "galois_bulk_kernel",
-                    "dyadic_basemul_banks_kernel",
+                    "basemul_vec_kernel", "basemul_pair_kernel",
                     "ntt_stream_kernel", "dyadic_mul_kernel",
                     "dyadic_mac_kernel")
 
@@ -491,7 +503,7 @@ def check_gathers(check, rng, ct_primes) -> None:
     out), n = 2^14 natural order; once in bit-reversed order at n = 1024;
     and at n = 2^16 and, with 3 primes, 2^17: rows above one block's
     shared memory (the piece ring of the staged body, the split body of
-    galois_banks)."""
+    galois_banks); and at 2^14 and 2^16 on indices drawn from [-2n, 2n)."""
     from repro_torch.fhe import rns
     from repro_torch.kernels import galois_kernel, ref
     for n, natural in ((N, True), (1024, False), (N16, True), (N17, True)):
@@ -519,6 +531,22 @@ def check_gathers(check, rng, ct_primes) -> None:
             check("galois_digits", galois_kernel.galois_digits(x, rows, shared=shared),
                   ref.galois_digits_banks_ref(x, rows),
                   f"x {tuple(x.shape)} {what} -> R={BATCH}, n={n} natural={natural}")
+    # indices drawn from [-2n, 2n) through the split body, the whole-row
+    # staged body (2^14) and the piece ring (2^16): an index in [-n, 0)
+    # counts from the end of the row, one outside [-n, n) gives all ones
+    for n in (N, N16):
+        qs = ct_primes if n == N else [int(q) for q in rns.make_primes(n, len(ct_primes))]
+        mixed = torch.from_numpy(rng.integers(-2 * n, 2 * n, (BATCH, n)).astype(np.int32)).cuda()
+        x = residues(rng, qs, (BATCH, n))
+        check("galois_banks", galois_kernel.galois_banks(x, mixed[0]),
+              ref.galois_banks_ref(x, mixed[0]), f"x {tuple(x.shape)} indices in [-2n, 2n)")
+        check("galois_banks_multi", galois_kernel.galois_banks_multi(x, mixed),
+              ref.galois_banks_ref(x, mixed), f"x {tuple(x.shape)} indices in [-2n, 2n)")
+        ext = torch.stack([residues(rng, qs, (BATCH, n)) for _ in range(2)])
+        for x, shared in ((ext, False), (ext[:, :, :1].contiguous(), True)):
+            check("galois_digits", galois_kernel.galois_digits(x, mixed, shared=shared),
+                  ref.galois_digits_banks_ref(x, mixed),
+                  f"x {tuple(x.shape)} shared={shared} indices in [-2n, 2n)")
 
 
 
@@ -854,6 +882,7 @@ def phase_mlkem_kernels() -> dict:
     shapes = {name: sorted(set(mlkem_path_rows(1)[name] + mlkem_path_rows(MLKEM_B)[name]
                                + (MLKEM_ODD_B,)))
               for name in MLKEM_KERNELS}
+    bodies = set()
     for lazy in (False, True):
         for rows in shapes["ntt_fwd_banks_u16"]:
             x = ring_rows(rng, rows)
@@ -867,16 +896,53 @@ def phase_mlkem_kernels() -> dict:
                 kw = dict(negacyclic=False, lazy=lazy, reduce_out=reduce_out)
                 check("ntt_inv_banks_u16", ntt_kernel.ntt_inv_banks(x, *iargs, **kw),
                       ref.ntt_inv_banks_ref(x, *iargs, **kw), f"B={rows} {kw}")
-        for rows in shapes["dyadic_basemul_banks"]:
-            a, b = ring_rows(rng, rows), ring_rows(rng, rows)
+        for a, b, g, what in basemul_cases(rng, t, shapes["dyadic_basemul_banks"]):
+            body = basemul_body(a, b, g)
             check("dyadic_basemul_banks",
-                  dyadic_kernel.dyadic_basemul_banks(a, b, *gargs, lazy=lazy),
-                  ref.dyadic_basemul_banks_ref(a, b, *gargs, lazy=lazy),
-                  f"B={rows} lazy={lazy}")
+                  dyadic_kernel.dyadic_basemul_banks(a, b, *gargs[:2], *g, lazy=lazy),
+                  ref.dyadic_basemul_banks_ref(a, b, *gargs[:2], *g, lazy=lazy),
+                  f"{what} ({body} body) lazy={lazy}")
+            bodies.add(body)
+    if bodies != {"vector", "pair"}:
+        raise AssertionError(f"dyadic_basemul_banks ran the bodies {bodies}, not both")
     for name, e in err.items():
         log(f"[mlkem kernels] {name} at B in {shapes[name]}: bit-identical to its "
             f"plain version (max abs err {e})")
+    log("[mlkem kernels] dyadic_basemul_banks also at n = 4 and 2 and on a view at an "
+        "odd word: both bodies (vector, pair) bit-identical to the plain version")
     return err
+
+
+def basemul_cases(rng, t, path_rows):
+    """(a, b, (gamma, gammap), what) of the basecase product: the path's
+    (1, B, 256) rows, the smallest ring of the vector body (n = 4) and the
+    pair body's (n = 2), on the first pairs' gamma words, and a view one
+    word past a 4-byte boundary at the path's largest B."""
+    from repro_torch.pq import mlkem
+    g = (t["gamma"], t["gammap"])
+    for rows in path_rows:
+        yield ring_rows(rng, rows), ring_rows(rng, rows), g, f"(1, {rows}, 256)"
+    for n in (4, 2):
+        gn = tuple(x[:, :n // 2].contiguous() for x in g)
+        a, b = (ring_rows(rng, MLKEM_ODD_B * mlkem.N // n).view(1, -1, n) for _ in range(2))
+        yield a, b, gn, f"(1, {a.shape[1]}, {n})"
+    rows = path_rows[-1]
+    words = ring_rows(rng, rows + 1).view(-1)
+    a = words[1:1 + rows * mlkem.N].view(1, rows, mlkem.N)
+    yield a, ring_rows(rng, rows), g, f"(1, {rows}, 256) one word past a 4-byte boundary"
+
+
+def basemul_body(a, b, g) -> str:
+    """The body the library's launcher takes for a, b with gamma rows g
+    (a fresh output is aligned): "vector" or "pair"."""
+    from repro_torch.kernels import build
+    k, bsz, n = a.shape
+    aligned = all(x.data_ptr() % 4 == 0 for x in (a, b, *g))
+    out = (ctypes.c_longlong * 5)()
+    build.load("dyadic_basemul").dyadic_basemul_plan(
+        k, bsz, n, int(aligned), torch.cuda.get_device_properties(0).multi_processor_count,
+        out)
+    return "vector" if out[0] else "pair"
 
 
 def kat_vectors() -> dict:
@@ -1017,7 +1083,8 @@ def phase_mlkem_times(counts: dict, errs: dict) -> tuple:
             lambda: dyadic_kernel.dyadic_basemul_banks(m_a, m_b, *gargs, lazy=True),
             lambda: ref.dyadic_basemul_banks_ref(m_a, m_b, *gargs, lazy=True),
             None, tuple(m_a.shape),
-            3 * m_a.numel() * w + 2 * t["gamma"].numel() * w + 2 * w),
+            3 * m_a.numel() * w + 2 * t["gamma"].numel() * w + 2 * w,
+            m_a.numel() // 2 * BASEMUL_OPS[True]),
     }
     out = time_kernels(cases, counts, errs)
     log("[times] library: none for the u16 transforms and the basecase "

@@ -23,9 +23,13 @@
 // straight from device memory or L2 costs a 32-byte sector.
 //
 // Rows move only as 16-byte vectors (n must be a multiple of 4 and every
-// pointer 16-byte aligned, else the launch is refused).  An index outside
-// [0, n) is a caller error; both bodies write 0xFFFFFFFF there (never a
-// residue) instead of reading outside the row.
+// pointer 16-byte aligned, else the launch is refused).  Indices follow
+// the reference's jnp.take / take_along_axis: one in [-n, 0) counts from
+// the end of the row (n + i), and any other outside [0, n) gives
+// 0xFFFFFFFF (never a residue) instead of a read outside the row.  The
+// wrap is one unsigned min (wrap), taken where an index is used (in
+// pick_ldg and pick, or once for a tile of the ring when its first piece
+// has landed), so no index load is waited for earlier than before.
 //
 // - Staged rows (galois_bulk_kernel; galois_banks_multi and galois_digits,
 //   every n).  The output vectors a source row feeds (its B gathered rows
@@ -95,11 +99,27 @@ constexpr long long kMaxBlocks = 1 << 16;   // blocks a launch starts (they loop
 //   kFanOut:    out row s*B + b reads source row s through idx row b
 enum Mode { kSharedIdx = 0, kPerRowIdx = 1, kFanOut = 2 };
 
+// An index in [-n, 0) becomes n + i and any other keeps its unsigned
+// value, so the unsigned range tests below still send i < -n and i >= n
+// to 0xFFFFFFFF: for i < 0, (unsigned)i + n wraps to n + i exactly when
+// i >= -n; in every other case it is the larger of the two.
+__device__ __forceinline__ unsigned wrap(int32_t i, int n) {
+  return min((unsigned)i, (unsigned)i + (unsigned)n);
+}
+
+__device__ __forceinline__ int4 wrap4(int4 i, int n) {
+  return make_int4((int)wrap(i.x, n), (int)wrap(i.y, n), (int)wrap(i.z, n),
+                   (int)wrap(i.w, n));
+}
+
 // ------------------------------------------------------------ split rows
 
+// word i of source row s (i in [-n, 0) wrapped); outside [-n, n) gives
+// 0xFFFFFFFF
 __device__ __forceinline__ uint32_t pick_ldg(const uint32_t* __restrict__ s,
                                              int32_t i, int n) {
-  return (unsigned)i < (unsigned)n ? __ldg(s + i) : 0xFFFFFFFFu;
+  const unsigned u = wrap(i, n);
+  return u < (unsigned)n ? __ldg(s + u) : 0xFFFFFFFFu;
 }
 
 // Every row through the one idx row: grid.x covers the n/4 vectors of a
@@ -124,13 +144,15 @@ galois_split_kernel(const uint32_t* __restrict__ x,
 
 // ---------------------------------------------------------- staged rows
 
-// word i of a staged row of n words; an index outside [0, n) gives 0xFFFFFFFF
+// word i of a staged row of n words (i in [-n, 0) wrapped); outside
+// [-n, n) gives 0xFFFFFFFF
 __device__ __forceinline__ uint32_t pick(const uint32_t* s, int32_t i, int n) {
-  return (unsigned)i < (unsigned)n ? s[i] : 0xFFFFFFFFu;
+  const unsigned u = wrap(i, n);
+  return u < (unsigned)n ? s[u] : 0xFFFFFFFFu;
 }
 
-// word i of the row into acc if it falls in the piece of `len` words
-// that starts at word lo
+// word i (wrapped) of the row into acc if it falls in the piece of `len`
+// words that starts at word lo; an index outside [0, n) falls in none
 __device__ __forceinline__ void take(uint32_t& acc, const uint32_t* s, int32_t i, int lo,
                                      unsigned len) {
   const unsigned off = (unsigned)i - (unsigned)lo;
@@ -199,13 +221,15 @@ galois_bulk_kernel(const uint32_t* __restrict__ x, const int32_t* __restrict__ i
     // out rows src*B + b or src, each row n/4 vectors)
     auto at_idx = [&](long long w) { return kMode == kFanOut ? w : (src % batch) * nv + w; };
     auto at_out = [&](long long w) { return src * work + w; };
-    // the indices of the kVec vectors w0, w0 + T, ... (-1 past the run)
+    // the indices of the kVec vectors w0, w0 + T, ...; past the run
+    // INT32_MIN, outside [-n, n) (those lanes are never written)
     int4 iv[kVec];
     auto load = [&](long long w0) {
 #pragma unroll
       for (int u = 0; u < kVec; ++u) {
         const long long w = w0 + u * (long long)blockDim.x;
-        iv[u] = w < w_hi ? __ldg(idx4 + at_idx(w)) : make_int4(-1, -1, -1, -1);
+        iv[u] = w < w_hi ? __ldg(idx4 + at_idx(w))
+                         : make_int4(INT32_MIN, INT32_MIN, INT32_MIN, INT32_MIN);
       }
     };
     if constexpr (!kPieces) {
@@ -236,6 +260,10 @@ galois_bulk_kernel(const uint32_t* __restrict__ x, const int32_t* __restrict__ i
       for (int h = 0; h < pieces; ++h) {
         const int b = h % kBufs;
         wait(b);
+        if (h == 0) {  // wrapped once, when the first piece has landed
+#pragma unroll
+          for (int u = 0; u < kVec; ++u) iv[u] = wrap4(iv[u], n);
+        }
         const uint32_t* s = bufs + b * piece;
         const int lo = h * piece;
         const unsigned len = (unsigned)min(piece, n - lo);

@@ -72,6 +72,11 @@ __device__ __forceinline__ uint32_t lazy_sub(uint32_t a, uint32_t b, uint32_t q2
   return a >= b ? a - b : a + (q2 - b);
 }
 
+// The 16-bit lane's helpers write the subtract s >= m ? s - m : s as
+// min(s, s - m): the same word for every u32 s (s - m wraps above s when
+// s < m), one VIADDMNMX on sm_90a instead of a compare, a select and a
+// subtract (as ntt_regs.cuh's band).
+
 // 16-bit Shoup product without the final subtract: [0, 2q) for any u16 x,
 // w < q, wp = floor(w * 2^16 / q).
 __device__ __forceinline__ uint32_t shoup16_lazy(uint32_t x, uint32_t w,
@@ -82,7 +87,7 @@ __device__ __forceinline__ uint32_t shoup16_lazy(uint32_t x, uint32_t w,
 __device__ __forceinline__ uint32_t shoup16(uint32_t x, uint32_t w, uint32_t wp,
                                             uint32_t q) {
   uint32_t r = shoup16_lazy(x, w, wp, q);
-  return r >= q ? r - q : r;
+  return min(r, r - q);
 }
 
 // 16-bit Barrett product reduced to [0, 2q): P = a*b < 2^24, qhat =
@@ -93,13 +98,13 @@ __device__ __forceinline__ uint32_t barrett16_lazy(uint32_t a, uint32_t b,
   uint32_t qhat = ((prod >> 10) * mu) >> 16;
   uint32_t r = prod - qhat * q;  // the reference keeps one subtract of 2q
   uint32_t q2 = q << 1;
-  return r >= q2 ? r - q2 : r;
+  return min(r, r - q2);
 }
 
 __device__ __forceinline__ uint32_t barrett16(uint32_t a, uint32_t b,
                                               uint32_t q, uint32_t mu) {
   uint32_t r = barrett16_lazy(a, b, q, mu);
-  return r >= q ? r - q : r;
+  return min(r, r - q);
 }
 
 // The lane's Shoup product, chosen by the storage type T: uint32_t is the

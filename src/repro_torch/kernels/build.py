@@ -54,6 +54,7 @@ SIGNATURES = {
     },
     "dyadic_basemul": {
         "dyadic_basemul_banks": [_P] * 7 + [_I] * 4 + [_P],
+        "dyadic_basemul_plan": [_I] * 5 + [_P],
     },
     "ntt": {
         "ntt_fwd": [_P] * 9 + [_I] * 4 + [_P],

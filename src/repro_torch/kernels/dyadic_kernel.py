@@ -7,8 +7,11 @@ the reference's ``kernels/dyadic_kernel.py``:
 out[p, b] = sum_d ext[d, p, b] * evk[d, p, (b)] mod q_p with 32-bit
 Barrett products.  ``dyadic_basemul_banks`` replaces the TPU kernel of
 the same name: ML-KEM's degree-1 products mod (X^2 - γ_j) on the int16
-lane.  A CPU tensor goes to the plain version; a CUDA tensor launches
-the kernel or raises.
+lane; its launcher takes 2 pairs a thread in 32-bit words where n/2 is
+even and every operand and gamma row is 4-byte aligned, and one pair a
+thread otherwise (``csrc/dyadic_basemul.cu`` ``plan()``).
+A CPU tensor goes to the plain version; a CUDA tensor launches the
+kernel or raises.
 
 ``dyadic_mul`` / ``dyadic_mac`` (``csrc/dyadic.cu``) replace the
 single-prime TPU kernels of the same names: a * b mod q and

@@ -12,7 +12,10 @@ moves rows as 16-byte vectors, so a row length that is not a multiple of
 of any length run: ``galois_banks`` splits every output row across
 blocks that gather straight from device memory; the other two copy a
 source row into a block's shared memory by bulk copies, whole up to
-``MAX_ROW`` words and through a ring of pieces above.
+``MAX_ROW`` words and through a ring of pieces above.  Indices follow the
+reference's ``jnp.take`` on every device: one in [-n, 0) counts from the
+end of the row (n + i), and any other outside [0, n) gives the all-ones
+word (0xFFFFFFFF, -1 as an int32 bit pattern).
 """
 from __future__ import annotations
 
@@ -69,13 +72,15 @@ def _banks(where: str, x, idx, idx_shape):
 
 def galois_banks(x, idx):
     """x: (k, B, n) int32; idx: (n,) int32 gather row shared by every
-    (prime, batch) row.  out[p, b, j] = x[p, b, idx[j]]."""
+    (prime, batch) row.  out[p, b, j] = x[p, b, idx[j]], idx[j] in
+    [-n, n) (a negative index counts from the end), else all ones."""
     return _banks("galois_banks", x, idx, lambda b, n: (n,))
 
 
 def galois_banks_multi(x, idx):
     """x: (k, B, n) int32; idx: (B, n) int32, row b applied to batch row b
-    of every prime.  out[p, b, j] = x[p, b, idx[b, j]]."""
+    of every prime.  out[p, b, j] = x[p, b, idx[b, j]], with the index
+    rule of ``galois_banks``."""
     return _banks("galois_banks_multi", x, idx, lambda b, n: (b, n))
 
 
@@ -83,8 +88,8 @@ def galois_digits(x, idx, *, shared: bool):
     """x: (d, k, B, n) int32 digit extensions, or (d, k, 1, n) with
     ``shared``; idx: (B, n) int32 rows shared by every digit and prime.
     out[d, p, b, j] = x[d, p, b, idx[b, j]], or x[d, p, 0, idx[b, j]]
-    with ``shared`` (one digit stack fanned out to the B gather rows).
-    Returns (d, k, B, n)."""
+    with ``shared`` (one digit stack fanned out to the B gather rows),
+    with the index rule of ``galois_banks``.  Returns (d, k, B, n)."""
     if x.device.type == "cpu":
         return ref.galois_digits_banks_ref(x, idx)
     lib = build.load("galois")

@@ -188,16 +188,33 @@ def dyadic_inner_banks_ref(ext, evk, qs, mus, lazy: bool = False):
     return acc.int()
 
 
+def _take(idx: torch.Tensor, n: int):
+    """The gather indices of ``jnp.take`` / ``take_along_axis``: an index
+    in [-n, 0) counts from the end of the row (n + i); any other outside
+    [0, n) reads word 0 here and is marked in ``ok`` for the fill."""
+    i = torch.where(idx < 0, idx + n, idx)
+    ok = (i >= 0) & (i < n)
+    return torch.where(ok, i, torch.zeros_like(i)), ok
+
+
+def _fill(out: torch.Tensor, ok: torch.Tensor) -> torch.Tensor:
+    """Words gathered through an index outside [-n, n) become all ones
+    (0xFFFFFFFF on the lane, -1 as an int32 bit pattern), as the
+    reference's unsigned fill."""
+    return torch.where(ok, out, torch.full_like(out, -1))
+
+
 def galois_banks_ref(x, idx):
     """NTT-domain Galois automorphism: a gather along the lane axis, the
     same for every prime row.  x: (k, ..., n); idx: (n,) int32 shared by
     every row, or (B, n) per-batch rows aligned with x's (k, B, n)
-    middle axis."""
+    middle axis.  Indices follow ``_take``."""
+    i, ok = _take(idx, x.shape[-1])
     if idx.ndim == 2:
         COUNTS["galois_banks_multi"].plain_calls += 1
-        return torch.gather(x, -1, idx[None].expand(x.shape))
+        return _fill(torch.gather(x, -1, i[None].expand(x.shape)), ok[None])
     COUNTS["galois_banks"].plain_calls += 1
-    return torch.index_select(x, -1, idx)
+    return _fill(torch.index_select(x, -1, i), ok)
 
 
 def galois_digits_banks_ref(x, idx):
@@ -205,13 +222,15 @@ def galois_digits_banks_ref(x, idx):
     idx (B, n) per-batch rows shared by every digit and prime row:
     out[d, p, b, j] = x[d, p, b, idx[b, j]].  A (d, k, 1, n) x against a
     (B, n) idx with B > 1 fans the one shared digit stack out to every
-    gather row: out[d, p, b, j] = x[d, p, 0, idx[b, j]]."""
+    gather row: out[d, p, b, j] = x[d, p, 0, idx[b, j]].  Indices follow
+    ``_take``."""
     COUNTS["galois_digits"].plain_calls += 1
+    i, ok = _take(idx, x.shape[-1])
     if x.shape[2] == 1 and idx.shape[0] != 1:
         d, k, _, n = x.shape
-        out = torch.index_select(x.reshape(d, k, n), -1, idx.reshape(-1))
-        return out.reshape(d, k, idx.shape[0], n)
-    return torch.gather(x, -1, idx[None, None].expand(x.shape))
+        out = torch.index_select(x.reshape(d, k, n), -1, i.reshape(-1))
+        return _fill(out.reshape(d, k, idx.shape[0], n), ok[None, None])
+    return _fill(torch.gather(x, -1, i[None, None].expand(x.shape)), ok[None, None])
 
 
 def dyadic_basemul_banks_ref(a, b, qs, mus, gamma, gammap, lazy: bool = False):

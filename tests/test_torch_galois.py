@@ -136,3 +136,40 @@ def test_galois_banks_per_batch_property(logn, B, seed, natural):
     got = TOPS.galois_banks(u32_to_tensor(x, "cpu"), _idx(rows))
     assert np.array_equal(tensor_to_u32(got), np.asarray(ROPS.galois_banks(x, rows)))
     assert np.array_equal(tensor_to_u32(TOPS.galois_banks(got, _idx(back))), x)
+
+
+def _mixed_rows(seed, rows, n):
+    """(rows, n) int32 indices drawn from [-2n, 2n): in the row, counted
+    from its end ([-n, 0)) and outside it on both sides."""
+    return np.random.default_rng(seed).integers(-2 * n, 2 * n, (rows, n)).astype(np.int32)
+
+
+@pytest.mark.parametrize("use_pallas", [False, True])
+@pytest.mark.parametrize("n", [16, 64])
+def test_gathers_take_indices_as_the_reference(use_pallas, n):
+    """Indices in [-n, 0) count from the end of the row (n + i) and any
+    other outside [0, n) gives 0xFFFFFFFF, as the reference's jnp.take /
+    take_along_axis: a shared row, per-batch rows, the digit gather and its
+    fan-out mode, word for word against the reference's plain path and its
+    Pallas kernels in interpret mode."""
+    B, d = 4, 2
+    primes = rns.make_primes(n, 3)
+    rows = _mixed_rows(n, B, n)
+    assert (rows < -n).any() and ((rows >= -n) & (rows < 0)).any() and (rows >= n).any()
+    x = _stack(n, primes, (B, n))
+    for idx in (rows[0], rows):
+        want = np.asarray(ROPS.galois_banks(x, idx, use_pallas=use_pallas, tile=4))
+        got = tensor_to_u32(TOPS.galois_banks(u32_to_tensor(x, "cpu"), _idx(idx)))
+        assert np.array_equal(got, want), idx.shape
+    ext = np.stack([_stack(n + 1 + i, primes, (B, n)) for i in range(d)])     # (d, k, B, n)
+    for xs in (ext, ext[:, :, :1].copy()):                                   # per row, fan-out
+        want = np.asarray(ROPS.galois_digits_banks(xs, rows, use_pallas=use_pallas, tile=4))
+        got = tensor_to_u32(TOPS.galois_digits_banks(u32_to_tensor(xs, "cpu"), _idx(rows)))
+        assert got.shape == (d, len(primes), B, n) and np.array_equal(got, want), xs.shape
+    outside = (rows < -n) | (rows >= n)
+    got = tensor_to_u32(TOPS.galois_banks(u32_to_tensor(x, "cpu"), _idx(rows)))
+    assert (got[:, outside] == 0xFFFFFFFF).all()
+    back = np.where(rows < 0, rows + n, rows)
+    inside = ~outside
+    assert np.array_equal(got[:, inside],
+                          np.take_along_axis(x, np.where(inside, back, 0)[None], -1)[:, inside])

@@ -12,8 +12,9 @@ row, in which bulk-copy runs from which lanes, whole or piece by piece
 through the ring of buffers, and which barrier parity each wait uses;
 which block and thread write which 16-byte output vectors; every output
 word written exactly once; and a full wave of blocks at the path's
-shapes.  An index outside [0, n) gives 0xFFFFFFFF; the reference agrees
-for indices >= n (``jnp.take`` wraps -n .. -1 instead).  The schedule
+shapes.  Indices follow the reference's ``jnp.take``: the kernel wraps
+one in [-n, 0) to n + i (``wrap``: one unsigned min), and any other
+outside [0, n) gives 0xFFFFFFFF.  The schedule
 (constants and ``plan()``) is ``galois_schedule.py``'s, which the card's
 tests hold against the library's own."""
 import jax.numpy as jnp
@@ -67,6 +68,7 @@ def emulate(x, idx, fan_out, sms=SMS, max_blocks=MAX_BLOCKS):
             src, part = divmod(q, parts)
             w = np.arange(part * work // parts, (part + 1) * work // parts)
             i = idx_v[w if fan_out else (src % B) * nv + w]
+            i = np.where(i < 0, i + n, i)                # wrap
             at = src * work + w
 
             def fill(h, b):
@@ -213,6 +215,26 @@ def test_out_of_range_index_gives_all_ones():
         assert got[0, 0, 0] == got[0, 1, n // 2] == got[0, 2, -1] == 0xFFFFFFFF
 
 
+@pytest.mark.parametrize("n", [16, 1024, ROW_WORDS + 8])
+def test_negative_index_counts_from_the_end(n):
+    """Indices drawn from [-2n, 2n): one in [-n, 0) reads word n + i and
+    any other outside [0, n) gives 0xFFFFFFFF, on whole rows and on the
+    piece ring, per row and fanned out, as the reference's kernels."""
+    R = 3
+    rows = np.random.default_rng(n).integers(-2 * n, 2 * n, (R, n)).astype(np.int32)
+    x = _words(n, (1, R, n))
+    got, writes, want = _multi(x, rows)
+    assert (writes == 1).all()
+    np.testing.assert_array_equal(got, want)
+    wrapped = (rows >= -n) & (rows < 0)
+    assert wrapped.any() and (got[0][wrapped] == x[0][wrapped.nonzero()[0],
+                                                      rows[wrapped] + n]).all()
+    one = _words(n + 1, (1, 2, 1, n))
+    got, writes, want = _digits(one, rows, shared=True)
+    assert (writes == 1).all()
+    np.testing.assert_array_equal(got, want)
+
+
 def test_grid_loops_when_blocks_exceed_the_launch():
     """More blocks than one launch starts: each takes q, q + grid, ...
     (emulated with a cap of 3 blocks), whole rows and the piece ring, with
@@ -274,3 +296,17 @@ def test_piece_mapping_at_full_rows(n, fan_out):
         assert at % 16 == 0 and length == CHUNK and lane < 32
         got[at // 4:(at + length) // 4] += 1
     assert (got == 1).all()
+
+
+@pytest.mark.parametrize("n", [4, 16, ROW_WORDS + 8, 1 << 17])
+def test_wrap_is_one_unsigned_min(n):
+    """csrc/galois.cu's wrap, min(u, u + n) on the unsigned index, is
+    jnp.take's rule: n + i for i in [-n, 0), i itself in [0, n), and a
+    value at or above n for every other int32 (so it gives 0xFFFFFFFF)."""
+    i = np.concatenate([np.arange(-3 * n, 3 * n), [-(1 << 31), -(1 << 31) + 1, (1 << 31) - 1,
+                                                     -n - 1, -n, n - 1, n]]).astype(np.int64)
+    u = i.astype(np.int32).view(np.uint32).astype(np.uint64)
+    got = np.minimum(u, (u + n) & 0xFFFFFFFF)
+    inside = (i >= -n) & (i < n)
+    assert (got[inside] == np.where(i < 0, i + n, i)[inside]).all()
+    assert (got[~inside] >= n).all()

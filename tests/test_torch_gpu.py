@@ -8,10 +8,11 @@ whole u32 range), the Galois gathers in both bit orders (shared and
 per-batch rows, digits shared and not, the staged body at the path's
 shapes and on rows of 4, 8 and 12 words with odd row counts and indices
 outside the row, its plan() against the CPU emulation's, rows above one
-block's shared memory at 2^16 and 2^17), and the u16 lane of ML-KEM's
-ring (the 7-stage
-transforms on n = 256 and the basecase product, at odd and ML-KEM-sized
-batches), and the single-prime transforms and Barrett products
+block's shared memory at 2^16 and 2^17, indices drawn from [-2n, 2n)),
+and the u16 lane of ML-KEM's ring (the 7-stage transforms on n = 256 and
+the basecase product, at odd and ML-KEM-sized batches; the product on
+both its bodies at 2 .. 4096 words, one and three moduli, an unaligned
+view, and its plan() against the CPU emulation's), and the single-prime transforms and Barrett products
 (n = 2 .. 2^17: the row stream from 64 to 4096 words at one row and at
 uneven row counts, the row body below it and on unaligned views, the
 one-prime bank above 4096, with ops' any-leading-shape rows); and rotate,
@@ -21,6 +22,8 @@ a GPU machine:
 
     PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_gpu.py
 """
+import ctypes
+
 import numpy as np
 import pytest
 import torch
@@ -33,6 +36,7 @@ from repro_torch.fhe import rns
 from repro_torch.core.params import galois_eval_perm, make_ntt_params
 from repro_torch.kernels import build, dyadic_kernel, galois_kernel, ntt_kernel, ops, ref
 
+import basemul_schedule
 import galois_schedule
 
 pytestmark = pytest.mark.gpu
@@ -383,22 +387,49 @@ def test_staged_plan_is_the_emulated_one(cuda, shape):
 
 @pytest.mark.parametrize("n", [16, 1 << 14, galois_kernel.MAX_ROW + 4, 1 << 16])
 def test_staged_gathers_write_all_ones_outside_the_row(cuda, n):
-    """An index outside [0, n) gives 0xFFFFFFFF in every mode, on whole
-    rows and on the piece ring (the plain versions refuse such indices,
-    so the expectation is built from in-range indices)."""
+    """An index outside [-n, n) gives 0xFFFFFFFF in every mode, on whole
+    rows and on the piece ring, and -1 reads the row's last word, as in
+    the plain versions and the reference's jnp.take (the expectation is
+    also built from in-range indices)."""
     R = 3
     rows = _gather_rows(n, R, n).clone()
     rows[0, 0], rows[1, n // 2], rows[2, -1], rows[2, 1] = n, -1, 1 << 30, -n - 5
-    bad = (rows < 0) | (rows >= n)
-    safe = torch.where(bad, torch.zeros_like(rows), rows)
+    bad = (rows < -n) | (rows >= n)
+    safe = torch.where(bad, torch.zeros_like(rows), torch.where(rows < 0, rows + n, rows))
     x = _residues(n, rns.make_primes(max(n, 16), 2), (R, n))
     ones = torch.full_like(x, -1)
     want = torch.where(bad.expand_as(x), ones, ref.galois_banks_ref(x, safe))
-    assert torch.equal(galois_kernel.galois_banks_multi(x, rows), want)
+    assert torch.equal(ref.galois_banks_ref(x, rows), want)
+    got = galois_kernel.galois_banks_multi(x, rows)
+    assert torch.equal(got, want) and torch.equal(got[:, 1, n // 2], x[:, 1, -1])
     one = x[None, :, :1].contiguous()
     fan = ref.galois_digits_banks_ref(one, safe)
     want = torch.where(bad.expand_as(fan), torch.full_like(fan, -1), fan)
     assert torch.equal(galois_kernel.galois_digits(one, rows, shared=True), want)
+
+
+@pytest.mark.parametrize("n", [1 << 14, galois_kernel.MAX_ROW + 4, 1 << 16])
+def test_gathers_take_indices_as_the_reference(cuda, n):
+    """Indices drawn from [-2n, 2n) through all three gathers (the split
+    body, the whole-row staged body at 2^14 and the piece ring above one
+    block's shared memory), per row and fanned out: one in [-n, 0) counts
+    from the end of the row, any other outside [0, n) gives all ones,
+    each equal to the plain version."""
+    R = 3
+    rows = torch.from_numpy(np.random.default_rng(n).integers(-2 * n, 2 * n, (R, n))
+                            .astype(np.int32)).cuda()
+    primes = rns.make_primes(1 << 16, 2)
+    x = _residues(n + 1, primes, (R, n))
+    ext = torch.stack([_residues(n + 2 + d, primes, (R, n)) for d in range(2)])
+    K.reset_counts()
+    assert torch.equal(galois_kernel.galois_banks(x, rows[0]), ref.galois_banks_ref(x, rows[0]))
+    assert torch.equal(galois_kernel.galois_banks_multi(x, rows), ref.galois_banks_ref(x, rows))
+    for xs, shared in ((ext, False), (ext[:, :, :1].contiguous(), True)):
+        assert torch.equal(galois_kernel.galois_digits(xs, rows, shared=shared),
+                           ref.galois_digits_banks_ref(xs, rows)), shared
+    c = K.snapshot()
+    assert [c[k]["launches"] for k in ("galois_banks", "galois_banks_multi",
+                                       "galois_digits")] == [1, 1, 2]
 
 
 def _rotation_traffic(device):
@@ -472,6 +503,51 @@ def test_u16_ntt_and_basemul_kernels_equal_plain(cuda, b, lazy):
     assert c["ntt_fwd_banks_u16"]["launches"] == 2 and c["ntt_fwd_banks"]["launches"] == 0
     assert c["ntt_inv_banks_u16"]["launches"] == 2 and c["ntt_inv_banks"]["launches"] == 0
     assert c["dyadic_basemul_banks"]["launches"] == 1
+
+
+def _basemul_plan(k, b, n, aligned, sms):
+    """(vector body, pairs an item, threads, items, blocks) as the library
+    plans them."""
+    out = (ctypes.c_longlong * 5)()
+    build.load("dyadic_basemul").dyadic_basemul_plan(k, b, n, int(aligned), sms, out)
+    return tuple(out)
+
+
+@pytest.mark.parametrize("logn", range(1, 13))
+@pytest.mark.parametrize("k,b", [(1, 9), (3, 33)])
+@pytest.mark.parametrize("lazy", [False, True])
+def test_basemul_both_bodies_equal_plain(cuda, logn, k, b, lazy):
+    """The basecase product on every ring of 2 .. 4096 words, one and three
+    moduli (primes change inside a block): the vector body from n = 4, the
+    one-pair body at n = 2 and on a view one word past a 4-byte boundary,
+    each equal to the plain version."""
+    n = 1 << logn
+    a, c, *tabs = (torch.from_numpy(v.view(np.int16)).cuda()
+                   for v in basemul_schedule.operands(k, b, n, k * n + b))
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    assert _basemul_plan(k, b, n, True, sms)[0] == (n >= 2 * basemul_schedule.PAIRS)
+    K.reset_counts()
+    assert torch.equal(dyadic_kernel.dyadic_basemul_banks(a, c, *tabs, lazy=lazy),
+                       ref.dyadic_basemul_banks_ref(a, c, *tabs, lazy=lazy))
+    words = torch.cat([a.new_zeros(1), a.reshape(-1)])
+    view = words[1:].view(a.shape)                            # 2 bytes past a boundary
+    assert view.data_ptr() % 4 == 2 and _basemul_plan(k, b, n, False, sms)[0] == 0
+    assert torch.equal(dyadic_kernel.dyadic_basemul_banks(view, c, *tabs, lazy=lazy),
+                       ref.dyadic_basemul_banks_ref(a, c, *tabs, lazy=lazy))
+    assert K.COUNTS["dyadic_basemul_banks"].launches == 2
+
+
+@pytest.mark.parametrize("shape", [(1, 2304, 256), (1, 768, 256), (1, 9, 256), (1, 3, 256),
+                                   (3, 100003, 4096), (3, 33, 4), (1, 5, 2)], ids=str)
+def test_basemul_plan_is_the_emulated_one(cuda, shape):
+    """The library's plan() (dyadic_basemul_plan) is the one the CPU
+    emulation (test_torch_basemul_schedule.py) takes, aligned or not, on
+    this card and on a 132-SM H100."""
+    k, b, n = shape
+    for sms in (torch.cuda.get_device_properties(0).multi_processor_count, 132):
+        for aligned in (True, False):
+            assert _basemul_plan(k, b, n, aligned, sms) == \
+                basemul_schedule.plan(k, b, n, aligned, sms), (sms, aligned)
 
 
 @pytest.mark.parametrize("n,b", [(n, b) for n in (16, 128, 1024, 4096, 8192, 16384, 1 << 15,
