@@ -42,6 +42,22 @@ Phases (any mismatch raises, so the exit code is non-zero):
                and a 4 x 4 matvec, checked against numpy, bit for bit
                against the same requests on device="cpu", and that every
                kernel of the rotation path launched and no plain version ran
+  3f. serve    the serving engine (fhe/serve.py) at full width: a third
+               CkksContext(n=2^14, levels=7) and a 64 x 64 matrix pack,
+               the plan prepared at the full basis and one level down with
+               every program captured as a CUDA graph for group sizes 8,
+               16, 24 and 32 and the matvec composite (the graphs' memory
+               printed); synthetic_trace of 32 requests (mixed kinds and
+               levels, rotation amounts in [-2, slots + 3)) drained by run
+               and run_async as a backlog, then by run_async under Poisson
+               arrivals at half the backlog's measured rate; a mixed queue
+               of multiplies, conjugations and 4 ML-KEM decaps at b = 1.
+               Checks that no drain captures a graph (fresh_traces == 0)
+               or fails a request, async == sync bit for bit, every answer
+               equals the eager module-level program on the card, every
+               CKKS kernel launched through the replays and no plain
+               version ran, and a seeded subset of 8 requests and the mixed
+               queue (the decaps' bytes included) equal a CPU run
   3c. mlkem    ML-KEM-768 (FIPS 203) on the u16 lane: the two u16 NTT
                instantiations and the basecase product held bit for bit
                against their plain versions at every shape of the b = 1 and
@@ -86,12 +102,16 @@ Phases (any mismatch raises, so the exit code is non-zero):
                plain version and, for the gathers, the one PyTorch call that
                computes the same function; request latencies of the CKKS
                paths (interleaved rounds: median, quartiles, ratio to a
-               rotate of the same round) and of keygen, encaps and decaps at
+               rotate of the same round; the plans' programs as CUDA
+               graphs, and multiply + rescale at B = 1 and 8, rotate and
+               the matvec also on the plans' eager twins, which run the
+               module-level programs) and of keygen, encaps and decaps at
                b = 1 and b = 256 (interleaved rounds, handshakes per
                second), NTT-128s per second at B = 10^5 and the host-clock
                latency of that request and of the n = 4096 product, and a
                torch.profiler breakdown of one request's device time (one
-               decaps at b = 256 and one NTT-128 batch among them)
+               decaps at b = 256 and one NTT-128 batch among them, each CKKS
+               request graphed and eager)
 
     python3 chip_smoke.py --seed N     # another seed for every phase
 
@@ -103,6 +123,7 @@ the port only.
 from __future__ import annotations
 
 import argparse
+import copy
 import ctypes
 import hashlib
 import json
@@ -171,6 +192,12 @@ ROT16_LEVELS = 3
 ROT16_AMOUNTS = (1, 2)
 ROT16_MV = 4                     # bsgs_split(4) = (2, 2): keys for 1 and 2
 NTT128_KERNELS = ("ntt_fwd", "ntt_inv", "dyadic_mul", "dyadic_mac")
+SERVE_N = 32                     # requests of the serving phase's trace
+SERVE_TILE = 8                   # the engine's batch tile (the reference's default)
+SERVE_SIZES = (8, 16, 24, 32)    # padded group sizes up to max_batch = 4 tiles
+SERVE_CPU = 8                    # the seeded subset of the trace the CPU drains again
+SERVE_DECAPS = 4                 # ML-KEM decaps at b = 1 in the mixed queue
+POISSON_LOAD = 0.5               # Poisson arrivals at this share of the backlog rate
 
 REPLACES = {
     "ntt_fwd_banks": "src/repro/kernels/ntt_kernel.py:306",
@@ -219,6 +246,7 @@ PATH_KERNELS = {
     "ntt128": NTT128_KERNELS,
 }
 PATH_KERNELS["rot16"] = PATH_KERNELS["rotation"]
+PATH_KERNELS["serve"] = PATH_KERNELS["rotation"]
 # launches per ML-KEM entry point at any batch: (u16 forward NTTs, u16
 # inverse NTTs, basecase products), as pq/mlkem.py issues them
 MLKEM_LAUNCHES = {"keygen": (1, 0, 1), "encaps": (1, 2, 2), "decaps": (2, 3, 3)}
@@ -835,6 +863,191 @@ def phase_rot16_cpu_parity(cuda_cts, cuda_ans) -> None:
             raise AssertionError(f"rot16 {name}: cuda run != cpu run")
     log(f"[rot16 parity] cuda == cpu bit for bit: {len(cts)} ciphertexts, "
         f"{len(ans)} answers ({time.perf_counter() - t0:.1f} s on the CPU)")
+
+
+# ----------------------------------------------------------- phase 3f
+
+def eager_twin(plan):
+    """The plan with the same tables and keys whose programs run eagerly
+    (the module-level programs, no CUDA graph)."""
+    twin = copy.copy(plan)
+    twin._graphs = None
+    return twin
+
+
+def serve_setup(device):
+    """The serving context at 2^14 with 8 + 1 primes and its 64 x 64
+    matrix pack; the plan prepared at the full basis and one level down
+    (on the card, every program's graph captured for every group size and
+    the matvec composite); the trace of SERVE_N requests; then the Galois
+    key of every rotation in the trace, drawn in request order, so the
+    drains time no key generation.  Returns (context, pack, requests)."""
+    from repro_torch.fhe import linalg
+    from repro_torch.fhe.ckks import CkksContext
+    from repro_torch.fhe.serve import synthetic_trace
+    rng = np.random.default_rng(SEED + 13)
+    ctx = CkksContext(n=N, levels=LEVELS, scale_bits=28, seed=SEED + 14, device=device)
+    M = linalg.PtMatrix.encode(ctx, rng.uniform(-1, 1, (MV_DIM, MV_DIM)) / 8)
+    plan = ctx.plan()
+    for basis, mvs in ((ctx.qs, (M,)), (ctx.qs[:-1], ())):
+        plan.prepare(basis=basis, rotations=(1,), conjugate=True,
+                     batch_sizes=SERVE_SIZES, matvecs=mvs)
+    reqs, _ = synthetic_trace(ctx, SERVE_N, seed=SEED, matrix=M)
+    for req in reqs:
+        if req.op == "rotate" and req.r % ctx.slots:
+            g = plan.rotation_group_element(req.r)
+            plan.galois_key(g, req.ct.primes)
+            plan.eval_idx(g)
+    return ctx, M, reqs
+
+
+def mixed_queue(ctx, reqs):
+    """Two multiplies of the trace, two conjugations at one basis (a
+    uniform Galois group) and SERVE_DECAPS ML-KEM decaps at b = 1, one key
+    and ciphertext each, interleaved."""
+    from repro_torch.fhe.serve import FheRequest
+    from repro_torch.pq import mlkem
+    d, z, m = mlkem_inputs(SERVE_DECAPS)
+    ek, dk = mlkem.keygen_batch(d, z, device="cpu")
+    ct = mlkem.encaps_batch(ek, m, device="cpu")[1]
+    ckks = [r for r in reqs if r.op == "multiply"][:2]
+    full = [r.ct for r in reqs if r.ct.primes == ctx.qs][:2]
+    out = []
+    for i in range(SERVE_DECAPS):
+        out.append(FheRequest(100 + i, "mlkem_decaps", payload={"dk": dk[i], "ct": ct[i]}))
+        if i < len(ckks):
+            out.append(FheRequest(200 + i, "multiply", ckks[i].ct, other=ckks[i].other))
+        if i < len(full):
+            out.append(FheRequest(300 + i, "conjugate", full[i]))
+    return out
+
+
+def same_answer(a, b) -> bool:
+    """A CKKS answer (ciphertext) or an ML-KEM one (bytes) of two runs."""
+    if hasattr(a, "c0"):
+        return same_ct(a, b)
+    return np.array_equal(np.asarray(a), np.asarray(b))
+
+
+def eager_answer(eager, M, req):
+    """One request on the eager plan: the single module-level program."""
+    from repro_torch.fhe import linalg
+    if req.op == "multiply":
+        return eager.multiply(req.ct, req.other)
+    if req.op == "rescale":
+        return eager.rescale(req.ct)
+    if req.op == "rotate":
+        return eager.rotate(req.ct, req.r)
+    if req.op == "conjugate":
+        return eager.conjugate(req.ct)
+    return linalg.matvec(eager, M, req.ct)
+
+
+def phase_serve():
+    """The serving engine at full width: the trace through ``run`` and
+    ``run_async`` as a backlog and through ``run_async`` under Poisson
+    arrivals at POISSON_LOAD of the backlog's measured rate, then the
+    mixed CKKS + ML-KEM queue.  Every drain captures no graph and fails no
+    request, async equals sync bit for bit, every answer equals the eager
+    programs' on the card, every CKKS kernel launched and no plain
+    version ran."""
+    from repro_torch import kernels as K
+    from repro_torch.fhe.evalplan import EvalPlan
+    from repro_torch.fhe.serve import CkksServeEngine
+    t0 = time.perf_counter()
+    traces0 = EvalPlan.trace_count()
+    torch.cuda.synchronize()
+    reserved0, allocated0 = torch.cuda.memory_reserved(), torch.cuda.memory_allocated()
+    ctx, M, reqs = serve_setup(None)
+    torch.cuda.synchronize()
+    plan = ctx.plan()
+    graphs = EvalPlan.trace_count() - traces0
+    gib = lambda b: f"{b / 2**30:.3f} GiB"
+    log(f"[serve] context, {len(ctx._galois)} Galois keys at two bases, {graphs} CUDA "
+        f"graphs captured, {SERVE_N} requests: {time.perf_counter() - t0:.2f} s; memory "
+        f"after the warm-up: reserved {gib(torch.cuda.memory_reserved())} (this phase "
+        f"{gib(torch.cuda.memory_reserved() - reserved0)}), allocated "
+        f"{gib(torch.cuda.memory_allocated())} (this phase "
+        f"{gib(torch.cuda.memory_allocated() - allocated0)}: keys, tables, the graphs' "
+        f"static inputs and outputs)")
+    engine = CkksServeEngine(plan, batch_tile=SERVE_TILE)
+    mixed_reqs = mixed_queue(ctx, reqs)       # its ML-KEM keys come from the CPU
+    K.reset_counts()
+    drains = {}
+    sync = engine.run(reqs)
+    drains["run (backlog)"] = dict(engine.stats)
+    asy = engine.run_async(reqs)
+    drains["run_async (backlog)"] = dict(engine.stats)
+    rate = SERVE_N / drains["run_async (backlog)"]["wall_s"]
+    arrivals = np.cumsum(np.random.default_rng(SEED + 15).exponential(
+        1.0 / (POISSON_LOAD * rate), SERVE_N)).tolist()
+    poisson = engine.run_async(reqs, arrivals)
+    drains[f"run_async (Poisson, {POISSON_LOAD:g} x {rate:.1f} req/s)"] = dict(engine.stats)
+    mixed = engine.run(mixed_reqs)
+    drains["run (mixed CKKS + ML-KEM)"] = dict(engine.stats)
+    torch.cuda.synchronize()
+    counts = K.snapshot()
+    check_counts("serve", counts)
+    for label, st in drains.items():
+        lat = st["latency_us"]
+        log(f"[serve] {label}: {st['batched_ops']} requests in {st['dispatches']} groups "
+            f"({st['padded']} pad rows, {st['identity']} identity), {st['wall_s'] * 1e3:.3f} "
+            f"ms, {st['batched_ops'] / st['wall_s']:.1f} requests/s, "
+            f"{st['key_switches'] / st['wall_s']:.1f} key switches/s, latency p50 "
+            f"{lat['p50'] / 1e3:.3f} ms, p99 {lat['p99'] / 1e3:.3f} ms, fresh_traces "
+            f"{st['fresh_traces']}, groups {st['groups']}")
+        if st["fresh_traces"] != 0 or st["failed"]:
+            raise AssertionError(f"serve {label}: fresh_traces {st['fresh_traces']}, "
+                                 f"failed {st['failed']}")
+    for name, out in (("run_async", asy), ("Poisson run_async", poisson)):
+        if set(out) != set(sync) or not all(same_ct(out[r], sync[r]) for r in sync):
+            raise AssertionError(f"serve: {name} answers != run's")
+    eager = eager_twin(plan)
+    for req in reqs:
+        if not same_ct(sync[req.rid], eager_answer(eager, M, req)):
+            raise AssertionError(f"serve request {req.rid} ({req.op}): graphed drain != "
+                                 "the eager program on the card")
+    for req in mixed_reqs:
+        if req.op != "mlkem_decaps" and not same_ct(mixed[req.rid], eager_answer(eager, M, req)):
+            raise AssertionError(f"serve mixed request {req.rid}: != the eager program")
+    for req in reqs:
+        d = ctx.decrypt_decode(sync[req.rid])
+        if not np.all(np.isfinite(d)) or d.shape != (N // 2,):
+            raise AssertionError(f"serve request {req.rid}: slots not finite of shape (n/2,)")
+    log(f"[serve] every answer: async == sync bit for bit, == the eager programs on the "
+        f"card; {len(mixed_reqs)} mixed requests; memory after the drains: reserved "
+        f"{gib(torch.cuda.memory_reserved())}, the phase's peak allocated "
+        f"{gib(torch.cuda.max_memory_allocated())} (process); launches "
+        f"{ {k: v['launches'] for k, v in counts.items() if v['launches']} }")
+    return reqs, sync, mixed, counts
+
+
+def phase_serve_cpu_parity(cuda_reqs, cuda_out, cuda_mixed) -> None:
+    """The same trace on device="cpu": every request's inputs equal, and a
+    seeded subset of SERVE_CPU requests and the mixed queue answered bit
+    (and byte) for bit the same."""
+    from repro_torch.fhe.serve import CkksServeEngine
+    t0 = time.perf_counter()
+    ctx, _, reqs = serve_setup("cpu")
+    for a, b in zip(cuda_reqs, reqs):
+        if a.op != b.op or not same_ct(a.ct, b.ct) or (a.other is not None
+                                                       and not same_ct(a.other, b.other)):
+            raise AssertionError(f"serve request {a.rid}: cuda inputs != cpu inputs")
+    subset = sorted(np.random.default_rng(SEED + 16).choice(SERVE_N, SERVE_CPU,
+                                                             replace=False).tolist())
+    engine = CkksServeEngine(ctx.plan(), batch_tile=SERVE_TILE)
+    out = engine.run([reqs[i] for i in subset])
+    mixed = engine.run(mixed_queue(ctx, reqs))
+    for rid in subset:
+        if not same_ct(cuda_out[rid], out[rid]):
+            raise AssertionError(f"serve request {rid}: cuda run != cpu run")
+    if set(mixed) != set(cuda_mixed) or not all(same_answer(cuda_mixed[r], mixed[r])
+                                                for r in mixed):
+        raise AssertionError("serve mixed queue: cuda run != cpu run")
+    log(f"[serve parity] cuda == cpu: {SERVE_N} requests' inputs, the answers of "
+        f"requests {subset} ({[reqs[i].op for i in subset]}) and the mixed queue's "
+        f"{len(mixed)} answers, bytes of {SERVE_DECAPS} decaps included "
+        f"({time.perf_counter() - t0:.1f} s on the CPU)")
 
 
 # ----------------------------------------------------------- phase 3c
@@ -1576,18 +1789,28 @@ def phase_times(ctx, cts, fs_pack, ks_pack, per_op, counts, errs, rot) -> list:
     rhs = [cts[(i + 1) % BATCH] for i in range(BATCH)]
     rctx, M = rot["ctx"], rot["M"]
     rcts = rot["cts"]
+    # the plans' programs run as CUDA graphs; their eager twins run the
+    # module-level programs on the same tables and keys
+    plan, rplan = ctx.plan(), rctx.plan()
+    eager, reager = eager_twin(plan), eager_twin(rplan)
+    mv_ks = len(M.baby_set) - 1 + len(M.giant_set)
     # (label, request, key switches it pays)
     requests = [
-        ("multiply + rescale, B=1", lambda: ctx.rescale(ctx.multiply(a, b)), 1),
+        ("multiply + rescale, B=1", lambda: plan.rescale(plan.multiply(a, b)), 1),
+        ("multiply + rescale, B=1, eager", lambda: eager.rescale(eager.multiply(a, b)), 1),
         (f"multiply + rescale, B={BATCH}",
-         lambda: ctx.rescale_many(ctx.multiply_many(cts[:BATCH], rhs)), BATCH),
-        ("rotate, B=1", lambda: rctx.rotate(rcts[0], 1), 1),
-        (f"rotate_many, B={BATCH}", lambda: rctx.rotate_many(rcts[:BATCH], ROT_AMOUNTS),
+         lambda: plan.rescale_many(plan.multiply_many(cts[:BATCH], rhs)), BATCH),
+        (f"multiply + rescale, B={BATCH}, eager",
+         lambda: eager.rescale_many(eager.multiply_many(cts[:BATCH], rhs)), BATCH),
+        ("rotate, B=1", lambda: rplan.rotate(rcts[0], 1), 1),
+        ("rotate, B=1, eager", lambda: reager.rotate(rcts[0], 1), 1),
+        (f"rotate_many, B={BATCH}", lambda: rplan.rotate_many(rcts[:BATCH], ROT_AMOUNTS),
          BATCH),
-        (f"rotate_hoisted, R={BATCH}", lambda: rctx.rotate_hoisted(rcts[0], ROT_AMOUNTS),
+        (f"rotate_hoisted, R={BATCH}", lambda: rplan.rotate_hoisted(rcts[0], ROT_AMOUNTS),
          BATCH),
-        (f"matvec {MV_DIM}x{MV_DIM}", lambda: linalg.matvec(rctx.plan(), M, rcts[-1]),
-         len(M.baby_set) - 1 + len(M.giant_set)),
+        (f"matvec {MV_DIM}x{MV_DIM}", lambda: linalg.matvec(rplan, M, rcts[-1]), mv_ks),
+        (f"matvec {MV_DIM}x{MV_DIM}, eager", lambda: linalg.matvec(reager, M, rcts[-1]),
+         mv_ks),
     ]
     samples = interleaved_host_ms({label: req for label, req, _ in requests},
                                   LAT_ROUNDS)
@@ -1760,6 +1983,8 @@ def main() -> int:
     phase_rotation_cpu_parity(rcts, rans)
     r16_cts, r16_ans, r16counts = phase_rot16()
     phase_rot16_cpu_parity(r16_cts, r16_ans)
+    s_reqs, s_out, s_mixed, scounts = phase_serve()
+    phase_serve_cpu_parity(s_reqs, s_out, s_mixed)
     errs.update(phase_mlkem_kernels())
     mlkem_in, mlkem_out, mcounts, mlkem_per_op = phase_mlkem()
     phase_mlkem_cpu_parity(mlkem_in, mlkem_out)
@@ -1771,7 +1996,7 @@ def main() -> int:
               **rot_per_op, **{f"mlkem {op}": c for op, c in mlkem_per_op.items()},
               **ntt_per_op}
     counts = {"multiply": counts, "rotation": rcounts, "rot16": r16counts,
-              "mlkem": mcounts, "ntt128": ncounts}
+              "serve": scounts, "mlkem": mcounts, "ntt128": ncounts}
     with SmClock() as clock:
         kernels, profiles = phase_times(ctx, cts, fs_pack, ks_pack, per_op, counts,
                                         errs, {"ctx": rctx, "M": M, "cts": rcts})

@@ -22,8 +22,10 @@
 // affine map j -> g*j + (g-1)/2 mod n), so every 4-byte word read
 // straight from device memory or L2 costs a 32-byte sector.
 //
-// Rows move only as 16-byte vectors (n must be a multiple of 4 and every
-// pointer 16-byte aligned, else the launch is refused).  Indices follow
+// Rows move as 16-byte vectors where n is a multiple of 4 and every pointer
+// is 16-byte aligned; any other call (a row of 1-3 words past a multiple of
+// 4, a view that starts inside a vector) takes the one-word body
+// (galois_word_kernel), one output word a thread.  Indices follow
 // the reference's jnp.take / take_along_axis: one in [-n, 0) counts from
 // the end of the row (n + i), and any other outside [0, n) gives
 // 0xFFFFFFFF (never a residue) instead of a read outside the row.  The
@@ -60,6 +62,13 @@
 //   stay in the 50 MB L2 after the first touch) and writes one uint4.  No
 //   shared memory, no barrier, no row-length limit, and a small call
 //   spreads over every SM (a rotate's (8, 1, 2^14): 256 blocks).
+// - One word a thread (galois_word_kernel; all three modes, rows or
+//   pointers the vector bodies do not take): a grid-strided loop over the
+//   output words, each reading its index and gathering its word through
+//   the read-only path.  No scheme path feeds it (every ring the repo
+//   builds is 16 words or more, and the scheme hands the gathers whole
+//   tensors it allocated); it is there so the card takes every shape the
+//   reference takes.
 #include <cuda_runtime.h>
 
 #include <cstdint>
@@ -92,6 +101,7 @@ constexpr int kReceive = 2;                 // ... copying in at most this many 
 constexpr int kMinRun = 1024;               // vectors a part of a whole row keeps at least
 constexpr uint32_t kChunkBytes = 4096;      // a fill is copied in runs of this size
 constexpr long long kMaxBlocks = 1 << 16;   // blocks a launch starts (they loop)
+constexpr int kWordThreads = 256;           // a block of the one-word body
 
 // How output rows map to source and idx rows (B idx rows):
 //   kSharedIdx: out row r reads source row r through idx row 0 (split body)
@@ -139,6 +149,24 @@ galois_split_kernel(const uint32_t* __restrict__ x,
     const uint32_t* s = x + (size_t)r * n;
     out4[(size_t)r * nv + v] = make_uint4(pick_ldg(s, i.x, n), pick_ldg(s, i.y, n),
                                   pick_ldg(s, i.z, n), pick_ldg(s, i.w, n));
+  }
+}
+
+// ------------------------------------------------------- one word a thread
+
+// Output word w of out row r = w / n: source row r (r / B in the fan-out
+// mode), idx row 0 (kSharedIdx) or r % B.  `words`: every output word.
+template <int kMode>
+__global__ void __launch_bounds__(kWordThreads)
+galois_word_kernel(const uint32_t* __restrict__ x, const int32_t* __restrict__ idx,
+                   uint32_t* __restrict__ out, int n, int batch, long long words) {
+  for (long long w = (long long)blockIdx.x * kWordThreads + threadIdx.x; w < words;
+       w += (long long)gridDim.x * kWordThreads) {
+    const long long r = w / n;
+    const int j = (int)(w - r * n);
+    const long long src = kMode == kFanOut ? r / batch : r;
+    const long long irow = kMode == kSharedIdx ? 0 : r % batch;
+    out[w] = pick_ldg(x + src * n, __ldg(idx + irow * n + j), n);
   }
 }
 
@@ -340,18 +368,30 @@ int launch_split(const uint32_t* x, const int32_t* idx, uint32_t* out, long long
   return (int)cudaGetLastError();
 }
 
+template <int kMode>
+int launch_word(const uint32_t* x, const int32_t* idx, uint32_t* out, long long src_rows,
+                int n, int batch, cudaStream_t stream) {
+  const long long words = (kMode == kFanOut ? src_rows * batch : src_rows) * n;
+  const long long blocks = (words + kWordThreads - 1) / kWordThreads;
+  const unsigned grid = (unsigned)(blocks < kMaxBlocks ? blocks : kMaxBlocks);
+  galois_word_kernel<kMode><<<grid, kWordThreads, 0, stream>>>(x, idx, out, n, batch, words);
+  return (int)cudaGetLastError();
+}
+
 // src_rows source rows of n words, batch idx rows: the split body for the
-// shared idx row, the staged body for the other two modes.
+// shared idx row, the staged body for the other two modes, the one-word
+// body for a row that is not a whole number of 16-byte vectors or a
+// pointer off a 16-byte boundary.
 template <int kMode>
 int launch(const void* x, const void* idx, void* out, long long src_rows, int n,
            int batch, void* stream) {
   if (src_rows <= 0 || n <= 0) return (int)cudaGetLastError();
-  if (n % 4 != 0 || !aligned16(x) || !aligned16(idx) || !aligned16(out))
-    return (int)cudaErrorInvalidValue;
   const auto* px = static_cast<const uint32_t*>(x);
   const auto* pi = static_cast<const int32_t*>(idx);
   auto* po = static_cast<uint32_t*>(out);
   auto* s = static_cast<cudaStream_t>(stream);
+  if (n % 4 != 0 || !aligned16(x) || !aligned16(idx) || !aligned16(out))
+    return launch_word<kMode>(px, pi, po, src_rows, n, batch, s);
   if constexpr (kMode == kSharedIdx) {
     return launch_split(px, pi, po, src_rows, n, s);
   } else {
@@ -362,8 +402,7 @@ int launch(const void* x, const void* idx, void* out, long long src_rows, int n,
 }  // namespace
 
 // Shapes are checked by the Python wrappers: every tensor contiguous,
-// words uint32 (int32 bit patterns), idx int32, n a multiple of 4, every
-// pointer 16-byte aligned.  Every launcher returns the error of its
+// words uint32 (int32 bit patterns), idx int32.  Every launcher returns the error of its
 // launch (or of configuring the kernel); the wrapper raises on a non-zero
 // code.
 

@@ -25,6 +25,7 @@ from the reference and one built here are the same tensors.
 """
 from __future__ import annotations
 
+import dataclasses
 import functools
 
 import numpy as np
@@ -34,11 +35,51 @@ from repro_torch.convert import from_reference
 from repro_torch.core.fourstep import make_fourstep_params
 from repro_torch.core.modmath import (barrett_precompute, mulmod_shoup,
                                       shoup_precompute, submod, u32)
+from repro_torch.core.ntt import cg_intt, cg_ntt
 from repro_torch.core.params import fourstep_split, make_ntt_params
 from repro_torch.kernels import ops
 
 _PACK_KEYS = ("qs", "tw", "twp", "itw", "itwp", "ninv", "ninv_p", "psi",
               "psip", "ipsin", "ipsinp", "mu")
+
+
+@dataclasses.dataclass
+class TablePack:
+    """The TablePack layout as named fields (int32 tensors of uint32
+    values); ``tree()`` is the dict form the banks entry points take."""
+    qs: torch.Tensor
+    tw: torch.Tensor
+    twp: torch.Tensor
+    itw: torch.Tensor
+    itwp: torch.Tensor
+    ninv: torch.Tensor
+    ninv_p: torch.Tensor
+    psi: torch.Tensor
+    psip: torch.Tensor
+    ipsin: torch.Tensor
+    ipsinp: torch.Tensor
+    mu: torch.Tensor
+
+    def tree(self) -> dict:
+        return dataclasses.asdict(self)
+
+
+def table_pack_shapes(k: int, n: int) -> dict:
+    """The shapes of a k-prime TablePack over ring n, pinv rows included,
+    as tensors on the ``meta`` device (shape and dtype, no data): what a
+    dry run sizes the packs by."""
+    s = n.bit_length() - 1
+    shapes = {
+        "qs": (k,), "tw": (k, s, n // 2), "twp": (k, s, n // 2),
+        "itw": (k, s, n // 2), "itwp": (k, s, n // 2),
+        "ninv": (k,), "ninv_p": (k,),
+        "psi": (k, n), "psip": (k, n), "ipsin": (k, n), "ipsinp": (k, n),
+        "mu": (k,),
+        # P^-1 mod q_j (the last prime is the special P), Shoup companions
+        "pinv": (max(k - 1, 1),), "pinv_p": (max(k - 1, 1),),
+    }
+    return {name: torch.empty(shape, dtype=torch.int32, device="meta")
+            for name, shape in shapes.items()}
 
 
 def pack_from_ntt_params(params: list) -> dict:
@@ -139,6 +180,23 @@ def slice_fourstep_pack(fp: dict, rows) -> dict:
     return {"pack1": slice_pack(fp["pack1"], rows),
             "pack2": slice_pack(fp["pack2"], rows),
             **{k: fp[k][rows] for k in flat}}
+
+
+# ------------------------------------------------ per-prime primitives
+
+def ntt_fwd_i(x, t: dict, i):
+    """Negacyclic forward NTT of x (..., n) under prime row i of the pack
+    (bit-reversed order out)."""
+    q = u32(t["qs"][i])
+    x = mulmod_shoup(u32(x), u32(t["psi"][i]), u32(t["psip"][i]), q)
+    return cg_ntt(x, t["tw"][i], t["twp"][i], q)
+
+
+def ntt_inv_i(x, t: dict, i):
+    """Inverse of ``ntt_fwd_i`` (n^-1 folded into the psi^-i weights)."""
+    q = u32(t["qs"][i])
+    x = cg_intt(x, t["itw"][i], t["itwp"][i], 0, 0, q, apply_ninv=False)
+    return mulmod_shoup(u32(x), u32(t["ipsin"][i]), u32(t["ipsinp"][i]), q).int()
 
 
 # ---------------------------------------------------------- keyswitch

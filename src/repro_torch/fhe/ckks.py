@@ -8,7 +8,7 @@ reference's order, so with the same seed keys and ciphertexts are the
 same integers.
 
 Supported here: encode/decode, public-key encryption, decryption,
-add/sub, multiply with relinearization, rescale, slot rotation and
+add/sub, plaintext add/multiply, multiply with relinearization, rescale, slot rotation and
 conjugation through Galois automorphisms, and the batched
 ``multiply_many`` / ``rescale_many`` / ``rotate_many`` /
 ``conjugate_many`` and hoisted ``rotate_hoisted``.
@@ -166,6 +166,14 @@ class CkksContext:
     def sub(self, a: Ciphertext, b: Ciphertext) -> Ciphertext:
         check_same_basis("sub", a, b, check_scale=True)
         return Ciphertext(a.c0.sub(b.c0), a.c1.sub(b.c1), a.scale)
+
+    def add_plain(self, a: Ciphertext, pt: RnsPoly) -> Ciphertext:
+        return Ciphertext(a.c0.add(pt), a.c1, a.scale)
+
+    def mul_plain(self, a: Ciphertext, pt: RnsPoly,
+                  pt_scale: float | None = None) -> Ciphertext:
+        pt_scale = pt_scale or self.scale
+        return Ciphertext(a.c0.mul(pt), a.c1.mul(pt), a.scale * pt_scale)
 
     def multiply(self, a: Ciphertext, b: Ciphertext) -> Ciphertext:
         """Tensor + relinearize (paper Table I 'Homomorphic Mult')."""

@@ -19,13 +19,34 @@ at one basis ride one pass of every kernel, bit-identical to a loop of
 the single-ciphertext programs.  A Galois batch carries a gather row and
 key digits per ciphertext, so one pass can mix rotation amounts.
 Batching never crosses bases.
+
+Compiled programs.  The module-level functions are the plain eager
+programs.  On the card, ``EvalPlan``'s methods run each of them as a CUDA
+graph, the counterpart of the reference's ``jax.jit``: the first call for
+a signature (the program, its basis, the shapes of its tensor arguments:
+B, R, L, uniform against mixed Galois) runs the program once eagerly on
+a side stream, so every kernel is built and every lazily cached table
+exists, then captures it; every later call copies its tensors into the
+graph's static inputs, replays the graph and clones the outputs out.
+Every tensor argument is an input, keys and gather rows included, so
+one capture covers every rotation amount and every pattern of group
+elements at that shape, and no graph reads a tensor a cache may free;
+only the basis's tables are captured as they are.  A plan's graphs share
+one memory pool (they replay in order on one stream and their outputs
+are cloned out).  ``EvalPlan.trace_count()`` counts the captures in the
+process, and ``prepare(warm_jit=True, batch_sizes=...)`` captures ahead
+of traffic.  A capture or replay that fails raises; nothing falls back
+to the eager program.  On the CPU the programs run eagerly.
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 import torch
 
+from repro_torch import kernels as K
+from repro_torch import obs
 from repro_torch.core.modmath import addmod, mulmod_barrett, u32
 from repro_torch.core.params import galois_eval_perm
 from repro_torch.fhe import batched as FB
@@ -193,33 +214,26 @@ def hoisted_rotations_banks(c0, c1, idx, evk_b, evk_a, t, fsp=None):
     return addmod(c0g.long(), ks0.long(), q).int(), ks1
 
 
-def _modsum(parts, group, groups: int, q):
-    """Sum of canonical residues (< 2^31 each) into ``groups`` rows by
-    ``group`` index, reduced mod q.  The int64 sum is exact, so this is
-    the same canonical residue as any order of modular adds."""
-    acc = torch.zeros((groups,) + tuple(parts.shape[1:]), dtype=torch.int64,
-                      device=parts.device)
-    acc.index_add_(0, group, parts)
-    return torch.remainder(acc, q).int()
-
-
-def plain_mac_banks(b0, b1, diags, qs, mus, *, jmap, imap):
+def plain_mac_banks(b0, b1, diags, rows, group, qs, mus, *, groups: int):
     """BSGS multiply-accumulate (the ``fhe.linalg.matvec`` inner sums):
     inner_g = sum over the diagonals d of group g of
-    diags[d] * babies[jmap[d]], for every giant group at once.
+    diags[d] * babies[rows[d]], for every giant group at once.
 
     b0/b1: (R, k, n) halves of the baby rotations; diags: (D, k, n)
-    plaintext diagonals; qs/mus: (k, 1) int64 Barrett columns; jmap[d] is
-    diagonal d's row in the baby stack, imap[d] its giant group.  Returns
-    (G, k, n) stacks in sorted group order."""
-    rank = {g: i for i, g in enumerate(sorted(set(imap)))}
-    group = torch.tensor([rank[g] for g in imap], device=diags.device)
-    rows = torch.tensor(list(jmap), device=diags.device)
+    plaintext diagonals; rows/group: (D,) int64 device tensors, diagonal
+    d's row in the baby stack and its giant group in [0, groups);
+    qs/mus: (k, 1) int64 Barrett columns.  Returns (groups, k, n) stacks.
+    The int64 sum of canonical residues (< 2^31 each) is exact, so this
+    is the same residue as any order of modular adds."""
     d = diags.long()
-    p0 = mulmod_barrett(d, b0[rows].long(), qs, mus)
-    p1 = mulmod_barrett(d, b1[rows].long(), qs, mus)
-    return (_modsum(p0, group, len(rank), qs),
-            _modsum(p1, group, len(rank), qs))
+    out = []
+    for b in (b0, b1):
+        p = mulmod_barrett(d, b[rows].long(), qs, mus)
+        acc = torch.zeros((groups,) + tuple(p.shape[1:]), dtype=torch.int64,
+                          device=p.device)
+        acc.index_add_(0, group, p)
+        out.append(torch.remainder(acc, qs).int())
+    return tuple(out)
 
 
 def accumulate_banks(parts0, parts1, qs):
@@ -228,6 +242,46 @@ def accumulate_banks(parts0, parts1, qs):
     int64 sum is exact, so this equals any order of modular adds."""
     return tuple(torch.remainder(torch.stack(parts).long().sum(0), qs).int()
                  for parts in (parts0, parts1))
+
+
+class _Graph:
+    """One captured program: its static input buffers, the CUDA graph,
+    its static outputs, and the kernel launches one replay makes."""
+
+    def __init__(self, name: str, fn, inputs: tuple, consts: tuple, pool):
+        self.inputs = tuple(torch.empty(x.shape, dtype=x.dtype, device=x.device)
+                            for x in inputs)
+        for s, x in zip(self.inputs, inputs):
+            s.copy_(x)
+        # eager warm-up on a side stream: builds the kernels and fills every
+        # lazily cached table (a host copy is illegal during a capture)
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            fn(*self.inputs, *consts)
+        torch.cuda.current_stream().wait_stream(side)
+        # a captured launch runs at each replay, not at the capture, so the
+        # capture's counts are taken back and added at every replay instead
+        before = {k: c.launches for k, c in K.COUNTS.items()}
+        self.graph = torch.cuda.CUDAGraph()
+        try:
+            with torch.cuda.graph(self.graph, pool=pool):
+                self.outputs = fn(*self.inputs, *consts)
+        except Exception as e:
+            raise K.GraphError(f"{name}: CUDA graph capture failed: {e}") from e
+        self.launches = {}
+        for k, c in K.COUNTS.items():
+            if c.launches != before[k]:
+                self.launches[k] = c.launches - before[k]
+                c.launches = before[k]
+
+    def replay(self, inputs: tuple) -> tuple:
+        for s, x in zip(self.inputs, inputs):
+            s.copy_(x)
+        self.graph.replay()
+        for k, n in self.launches.items():
+            K.COUNTS[k].launches += n
+        return tuple(o.clone() for o in self.outputs)
 
 
 class EvalPlan:
@@ -239,7 +293,10 @@ class EvalPlan:
                    op, the unit of its key-switch rate)
       decomposes   RNS digit decompositions paid; R hoisted rotations
                    count R key switches but 1 decompose
+    and mirrors them into the ``plan.*`` counters of ``obs``.
     """
+
+    _traces = 0      # CUDA graphs captured in the process (trace_count)
 
     def __init__(self, ctx):
         self.ctx = ctx
@@ -250,16 +307,54 @@ class EvalPlan:
         self._batch_keys: dict = {}  # (gs, basis) -> stacked, bounded LRU
         self._idx: dict = {}         # g -> (n,) int32 gather row
         self._rescale_tables: dict = {}
+        # signature -> _Graph on the card; None runs every program eagerly
+        self._graphs: dict | None = {} if self.device.type == "cuda" else None
+        self._pool = None            # the memory pool the graphs share
         self.reset_stats()
 
     def reset_stats(self):
         self.stats = {"dispatches": 0, "key_switches": 0, "decomposes": 0}
         return self
 
+    @staticmethod
+    def trace_count() -> int:
+        """CUDA graphs captured in the process, by every plan.  A serve
+        loop compares deltas: a request that pays a capture inside its
+        latency window shows as growth, and a ``prepare`` that covers the
+        traffic keeps the delta at 0."""
+        return EvalPlan._traces
+
     def _count(self, dispatches=1, key_switches=0, decomposes=0):
         self.stats["dispatches"] += dispatches
         self.stats["key_switches"] += key_switches
         self.stats["decomposes"] += decomposes
+        if obs.enabled():
+            obs.counter_add("plan.dispatches", dispatches)
+            obs.counter_add("plan.key_switches", key_switches)
+            obs.counter_add("plan.decomposes", decomposes)
+
+    def _program(self, name: str, fn, inputs: tuple, consts: tuple, key, **span):
+        """``fn(*inputs, *consts)``: eagerly on the CPU, else through the
+        plan's CUDA graph for (name, key, the inputs' shapes and dtypes),
+        captured on first use.  ``key`` names what ``consts`` depend on
+        (the basis, a static count); every tensor that varies between
+        calls is in ``inputs``."""
+        with obs.span("plan.program", program=name, **span):
+            if self._graphs is None or inputs[0].device.type != "cuda":
+                return fn(*inputs, *consts)
+            sig = (name, key, tuple((tuple(x.shape), x.dtype) for x in inputs))
+            graph = self._graphs.get(sig)
+            if graph is None:
+                if self._pool is None:
+                    self._pool = torch.cuda.graph_pool_handle()
+                graph = self._graphs[sig] = _Graph(name, fn, inputs, consts, self._pool)
+                EvalPlan._traces += 1
+            return graph.replay(inputs)
+
+    @staticmethod
+    def _stack(arrs) -> torch.Tensor:
+        with obs.span("plan.stack", n=len(arrs)):
+            return torch.stack(arrs)
 
     # ------------------------------------------------------------ tables
 
@@ -340,19 +435,30 @@ class EvalPlan:
         return pow(5, r, 2 * self.n)
 
     def prepare(self, basis: tuple[int, ...] | None = None, rotations=(),
-                conjugate: bool = False, hoisted_sets=(), matvecs=()):
+                conjugate: bool = False, relin: bool = True,
+                warm_jit: bool = True, batch_sizes=(), hoisted_sets=(),
+                matvecs=()):
         """Build every table, key and gather row a serving loop will need,
         so no request pays keygen or table construction.  ``rotations``
         and ``conjugate`` name the single and batched rotations to key,
-        ``hoisted_sets`` the rotation-amount sets of ``rotate_hoisted``,
-        ``matvecs`` ``fhe.linalg.PtMatrix`` packs (their baby and giant
-        steps, at the pack's own basis).  Keys are drawn from the
-        context's generator in the reference's order, so the same
-        prepare gives the same keys.  The counters are reset on exit."""
+        ``relin`` the relinearization key, ``hoisted_sets`` the
+        rotation-amount sets of ``rotate_hoisted``, ``matvecs``
+        ``fhe.linalg.PtMatrix`` packs (their baby and giant steps, at the
+        pack's own basis).  Keys are drawn from the context's generator in
+        the reference's order, so the same prepare gives the same keys.
+
+        ``warm_jit`` (on the card) also captures the CUDA graph of each
+        program on a zero ciphertext, as the reference compiles them: the
+        single programs, the ``*_many`` programs at every B of
+        ``batch_sizes`` (a serving engine's padded group sizes; uniform and
+        mixed Galois), ``rotate_hoisted`` per set, and each matvec's whole
+        composite.  One prepare covers one basis.  The counters are reset
+        on exit."""
         basis = tuple(basis if basis is not None else self.ctx.qs)
         self.keyswitch_tables(basis)
         self.rescale_tables(basis)
-        self.relin_key(basis)
+        if relin:
+            self.relin_key(basis)
         gs = [g for g in (self.rotation_group_element(r) for r in rotations)
               if g != 1]
         if conjugate:
@@ -362,6 +468,29 @@ class EvalPlan:
         for g in gs + sorted(hoist_gs - set(gs)):
             self.galois_key(g, basis)
             self.eval_idx(g)
+        warm = warm_jit and self._graphs is not None
+        if warm:
+            z = RnsPoly(torch.zeros((len(basis), self.n), dtype=torch.int32,
+                                    device=self.device), basis, True)
+            zct = Ciphertext(z, z, 1.0)
+            if relin:
+                self.multiply(zct, zct)
+            if len(basis) > 1:
+                self.rescale(zct)
+            if gs:
+                self.apply_galois(zct, gs[0])
+            for B in batch_sizes:
+                cts = [zct] * B
+                if relin:
+                    self.multiply_many(cts, cts)
+                if len(basis) > 1:
+                    self.rescale_many(cts)
+                if gs:                          # uniform batch (shared key)...
+                    self.galois_ks_many(cts, [gs[0]] * B)
+                if len(set(gs)) > 1 and B > 1:  # ...and the mixed signature
+                    self.galois_ks_many(cts, [gs[i % len(gs)] for i in range(B)])
+            for rset in hoisted_sets:
+                self.rotate_hoisted(zct, list(rset))
         for M in matvecs:
             mv_basis = tuple(M.basis)
             self.keyswitch_tables(mv_basis)
@@ -370,6 +499,14 @@ class EvalPlan:
                 if g != 1:
                     self.galois_key(g, mv_basis)
                     self.eval_idx(g)
+            if warm:
+                # the whole composite on a zero ciphertext: the hoisted baby
+                # pass, the MAC, the giant rotate_many and the final sum, as
+                # matvec issues them (linalg imports this module)
+                from repro_torch.fhe import linalg
+                z = RnsPoly(torch.zeros((len(mv_basis), self.n), dtype=torch.int32,
+                                        device=self.device), mv_basis, True)
+                linalg.matvec(self, M, Ciphertext(z, z, 1.0))
         return self.reset_stats()
 
     # ------------------------------------------------------- scheme ops
@@ -380,8 +517,9 @@ class EvalPlan:
         basis = a.primes
         t, fsp = self.keyswitch_tables(basis)
         eb, ea = self.relin_key(basis)
-        c0, c1 = multiply_banks(a.c0.data, a.c1.data, b.c0.data, b.c1.data,
-                                eb, ea, t, fsp)
+        c0, c1 = self._program("multiply", multiply_banks,
+                               (a.c0.data, a.c1.data, b.c0.data, b.c1.data, eb, ea),
+                               (t, fsp), basis)
         self._count(1, key_switches=1, decomposes=1)
         return Ciphertext(RnsPoly(c0, basis, True), RnsPoly(c1, basis, True),
                           a.scale * b.scale)
@@ -390,7 +528,8 @@ class EvalPlan:
         check_level("rescale", a, need=1)
         basis = a.primes
         t, fsp = self.rescale_tables(basis)
-        c0, c1 = rescale_banks(a.c0.data, a.c1.data, t, fsp)
+        c0, c1 = self._program("rescale", rescale_banks, (a.c0.data, a.c1.data),
+                               (t, fsp), basis)
         self._count(1)
         rest = basis[:-1]
         return Ciphertext(RnsPoly(c0, rest, True), RnsPoly(c1, rest, True),
@@ -419,12 +558,12 @@ class EvalPlan:
         basis = self._common_basis("multiply_many", list(As) + list(Bs))
         t, fsp = self.keyswitch_tables(basis)
         eb, ea = self.relin_key(basis)
-        stack = lambda ps: torch.stack([p.data for p in ps])
-        c0, c1 = multiply_many_banks(stack([a.c0 for a in As]),
-                                     stack([a.c1 for a in As]),
-                                     stack([b.c0 for b in Bs]),
-                                     stack([b.c1 for b in Bs]),
-                                     eb, ea, t, fsp)
+        stack = lambda ps: self._stack([p.data for p in ps])
+        c0, c1 = self._program(
+            "multiply_many", multiply_many_banks,
+            (stack([a.c0 for a in As]), stack([a.c1 for a in As]),
+             stack([b.c0 for b in Bs]), stack([b.c1 for b in Bs]), eb, ea),
+            (t, fsp), basis, n=len(As))
         self._count(1, key_switches=len(As), decomposes=len(As))
         return [Ciphertext(RnsPoly(r0, basis, True), RnsPoly(r1, basis, True),
                            a.scale * b.scale)
@@ -439,9 +578,10 @@ class EvalPlan:
             check_level("rescale_many", ct, need=1)
         basis = self._common_basis("rescale_many", cts)
         t, fsp = self.rescale_tables(basis)
-        c0, c1 = rescale_many_banks(torch.stack([ct.c0.data for ct in cts]),
-                                    torch.stack([ct.c1.data for ct in cts]),
-                                    t, fsp)
+        c0, c1 = self._program(
+            "rescale_many", rescale_many_banks,
+            (self._stack([ct.c0.data for ct in cts]),
+             self._stack([ct.c1.data for ct in cts])), (t, fsp), basis, n=len(cts))
         self._count(1)
         rest = basis[:-1]
         return [Ciphertext(RnsPoly(r0, rest, True), RnsPoly(r1, rest, True),
@@ -466,9 +606,11 @@ class EvalPlan:
             idx = self.eval_idx(gs[0])
         else:
             eb, ea, idx = self._galois_batch_key(tuple(gs), basis)
-        c0, c1 = galois_ks_many_banks(torch.stack([ct.c0.data for ct in cts]),
-                                      torch.stack([ct.c1.data for ct in cts]),
-                                      idx, eb, ea, t, fsp)
+        c0, c1 = self._program(
+            "galois_ks_many", galois_ks_many_banks,
+            (self._stack([ct.c0.data for ct in cts]),
+             self._stack([ct.c1.data for ct in cts]), idx, eb, ea),
+            (t, fsp), basis, n=len(cts))
         self._count(1, key_switches=len(cts), decomposes=len(cts))
         return [Ciphertext(RnsPoly(r0, basis, True), RnsPoly(r1, basis, True),
                            ct.scale)
@@ -479,8 +621,9 @@ class EvalPlan:
         basis = a.primes
         t, fsp = self.keyswitch_tables(basis)
         eb, ea = self.galois_key(g, basis)
-        c0, c1 = galois_ks_banks(a.c0.data, a.c1.data, self.eval_idx(g),
-                                 eb, ea, t, fsp)
+        c0, c1 = self._program("galois_ks", galois_ks_banks,
+                               (a.c0.data, a.c1.data, self.eval_idx(g), eb, ea),
+                               (t, fsp), basis)
         self._count(1, key_switches=1, decomposes=1)
         return Ciphertext(RnsPoly(c0, basis, True), RnsPoly(c1, basis, True),
                           a.scale)
@@ -508,8 +651,9 @@ class EvalPlan:
         basis = a.primes
         t, fsp = self.keyswitch_tables(basis)
         eb, ea, idx = self._galois_batch_key(gs, basis)
-        c0, c1 = hoisted_rotations_banks(a.c0.data, a.c1.data, idx, eb, ea,
-                                         t, fsp)
+        c0, c1 = self._program("hoisted_galois", hoisted_rotations_banks,
+                               (a.c0.data, a.c1.data, idx, eb, ea), (t, fsp),
+                               basis, n=len(gs))
         self._count(1, key_switches=len(gs), decomposes=1)
         return [Ciphertext(RnsPoly(r0, basis, True), RnsPoly(r1, basis, True),
                            a.scale)
@@ -546,3 +690,23 @@ class EvalPlan:
 
     def conjugate_many(self, cts) -> list[Ciphertext]:
         return self.galois_ks_many(cts, [2 * self.n - 1] * len(cts))
+
+    # ------------------------------------------------ matvec composites
+
+    def plain_mac(self, b0, b1, M):
+        """``plain_mac_banks`` of the baby halves b0/b1 (R, k, n) with the
+        ``fhe.linalg.PtMatrix`` pack M's diagonals: (G, k, n) stacks."""
+        diags, rows, group, gis = M.mac_pack()
+        qs, mus = rns._basis_consts(M.basis, self.device)
+        groups = len(gis)
+        return self._program("plain_mac",
+                             functools.partial(plain_mac_banks, groups=groups),
+                             (b0, b1, diags, rows, group), (qs, mus), (M.basis, groups))
+
+    def accumulate(self, parts0, parts1, basis: tuple[int, ...]):
+        """``accumulate_banks``: the modular sums of L (k, n) halves."""
+        qs = rns._basis_consts(basis, self.device)[0]
+        L = len(parts0)
+        return self._program("accumulate",
+                             lambda *xs: accumulate_banks(xs[:L], xs[L:], qs),
+                             (*parts0, *parts1), (), basis)

@@ -32,9 +32,7 @@ import math
 import numpy as np
 import torch
 
-from repro_torch.fhe import rns
-from repro_torch.fhe.evalplan import (Ciphertext, EvalPlan, accumulate_banks,
-                                      check_level, plain_mac_banks)
+from repro_torch.fhe.evalplan import Ciphertext, EvalPlan, check_level
 from repro_torch.fhe.rns import RnsPoly
 
 __all__ = ["PtMatrix", "bsgs_split", "encode_vector", "matvec", "rotate_sum"]
@@ -109,20 +107,24 @@ class PtMatrix:
         return tuple(sorted({i * self.n1 for (i, _) in self.diags if i}))
 
     def mac_pack(self):
-        """(diags (D, k, n) stack, jmap, imap, gis) for
-        ``plain_mac_banks``: diagonal d (sorted (i, j) order) multiplies
-        baby row ``jmap[d]`` into giant group ``imap[d]``; ``gis`` lists
-        the giant indices in output order.  Built once per pack."""
+        """(diags (D, k, n) stack, rows, group, gis) for
+        ``evalplan.plain_mac_banks``: diagonal d (sorted (i, j) order)
+        multiplies baby row ``rows[d]`` into giant group ``group[d]``
+        (both (D,) int64 tensors on the diagonals' device, so a program
+        never builds them from host data); ``gis`` lists the giant indices
+        in output order.  Built once per pack."""
         cached = self.__dict__.get("_mac_pack")
         if cached is None:
             keys = sorted(self.diags)
             jrow = {j: t for t, j in enumerate(self.baby_set)}
             gis = tuple(sorted({i for (i, _) in keys}))
             grow = {i: t for t, i in enumerate(gis)}
+            diags = torch.stack([self.diags[ij].data for ij in keys])
+            index = lambda v: torch.tensor(v, dtype=torch.int64).to(diags.device)
             cached = self.__dict__["_mac_pack"] = (
-                torch.stack([self.diags[ij].data for ij in keys]),
-                tuple(jrow[j] for (_, j) in keys),
-                tuple(grow[i] for (i, _) in keys),
+                diags,
+                index([jrow[j] for (_, j) in keys]),
+                index([grow[i] for (i, _) in keys]),
                 gis)
         return cached
 
@@ -162,9 +164,8 @@ def matvec(plan: EvalPlan, M: PtMatrix, ct: Ciphertext) -> Ciphertext:
     babies = plan.rotate_hoisted(ct, list(M.baby_set))
     b0 = torch.stack([b.c0.data for b in babies])
     b1 = torch.stack([b.c1.data for b in babies])
-    diags, jmap, imap, gis = M.mac_pack()
-    qs, mus = rns._basis_consts(M.basis, ct.c0.device)
-    i0, i1 = plain_mac_banks(b0, b1, diags, qs, mus, jmap=jmap, imap=imap)
+    i0, i1 = plan.plain_mac(b0, b1, M)
+    gis = M.mac_pack()[3]
     scale = ct.scale * M.scale
     inners = {gi: Ciphertext(RnsPoly(r0, M.basis, True),
                              RnsPoly(r1, M.basis, True), scale)
@@ -176,8 +177,8 @@ def matvec(plan: EvalPlan, M: PtMatrix, ct: Ciphertext) -> Ciphertext:
     parts = ([inners[0]] if 0 in inners else []) + rotated
     if len(parts) == 1:
         return parts[0]
-    a0, a1 = accumulate_banks([p.c0.data for p in parts],
-                              [p.c1.data for p in parts], qs)
+    a0, a1 = plan.accumulate([p.c0.data for p in parts],
+                             [p.c1.data for p in parts], M.basis)
     return Ciphertext(RnsPoly(a0, M.basis, True),
                       RnsPoly(a1, M.basis, True), scale)
 

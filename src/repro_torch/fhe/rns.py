@@ -18,15 +18,21 @@ import math
 import numpy as np
 import torch
 
-from repro_torch.convert import tensor_to_u32, u32_to_tensor
+from repro_torch.convert import resolve_device, tensor_to_u32, u32_to_tensor
 from repro_torch.core.modmath import (addmod, barrett_precompute,
                                       mulmod_barrett, mulmod_shoup,
                                       shoup_precompute, submod, u32)
-from repro_torch.core.params import gen_ntt_primes
+from repro_torch.core.params import NTTParams, gen_ntt_primes, make_ntt_params
 from repro_torch.fhe import batched as FB
 from repro_torch.kernels import ops
 
 _PACKS: dict = {}
+
+
+@functools.lru_cache(maxsize=None)
+def prime_params(n: int, q: int) -> NTTParams:
+    """One prime's NTT tables over ring n (cached)."""
+    return make_ntt_params(n, q=q)
 
 
 def _cached(key, build):
@@ -186,6 +192,23 @@ def ternary_coeffs(rng: np.random.Generator, n: int) -> np.ndarray:
 
 
 # ---------------------------------------------------- base conversions
+
+def center_row(row, q: int) -> np.ndarray:
+    """uint32 residues -> centered int64 in [-q/2, q/2]."""
+    r = np.asarray(row).astype(np.int64)
+    return np.where(r > q // 2, r - q, r)
+
+
+def extend_single(row, src_q: int, dst_primes: tuple[int, ...], device=None) -> RnsPoly:
+    """EXACT base conversion of one centered residue row mod ``src_q`` to
+    ``dst_primes`` (the alpha=1 mod-up of the paper's Fig 22), on the
+    host: ``row`` is a uint32 numpy row; the result, in coefficient
+    form, lands on ``device`` (the card unless the caller asks for
+    another)."""
+    c = center_row(row, src_q)
+    rows = np.stack([(((c % q) + q) % q).astype(np.uint32) for q in dst_primes])
+    return RnsPoly(u32_to_tensor(rows, resolve_device(device)), tuple(dst_primes), False)
+
 
 def crt_reconstruct_centered(poly: RnsPoly) -> np.ndarray:
     """(k, n) residues -> centered big-int numpy object array (host CRT)."""

@@ -23,6 +23,8 @@ import threading
 import time
 from pathlib import Path
 
+from repro_torch.kernels import DeviceFault
+
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 SOURCES = ("ntt_banks", "dyadic_inner", "galois", "dyadic_basemul", "ntt",
@@ -71,7 +73,7 @@ _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}
 
 
-class BuildError(RuntimeError):
+class BuildError(DeviceFault, RuntimeError):
     """The CUDA kernels could not be built or loaded."""
 
 

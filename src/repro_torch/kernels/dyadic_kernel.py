@@ -25,7 +25,7 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels import COUNTS, build, ref
+from repro_torch.kernels import COUNTS, KernelRefusal, build, ref
 from repro_torch.kernels.ntt_kernel import (check_lane, check_shape,
                                             check_tensors, check_u32, raise_on,
                                             stream)
@@ -39,11 +39,11 @@ def dyadic_inner_banks(ext, evk, qs, mus, *, lazy: bool):
     lib = build.load("dyadic_inner")
     where = "dyadic_inner_banks"
     if ext.ndim != 4 or evk.ndim not in (3, 4):
-        raise ValueError(f"{where}: ext (d, k, B, n) and evk (d, k, [B,] n) "
-                         f"expected, got {tuple(ext.shape)}, {tuple(evk.shape)}")
+        raise KernelRefusal(f"{where}: ext (d, k, B, n) and evk (d, k, [B,] n) "
+                            f"expected, got {tuple(ext.shape)}, {tuple(evk.shape)}")
     d, k, b, n = ext.shape
     if d == 0:
-        raise ValueError(f"{where}: no digits")
+        raise KernelRefusal(f"{where}: no digits")
     check_tensors(where, ext.device, ext=ext, evk=evk, qs=qs, mus=mus)
     per_batch = evk.ndim == 4
     check_shape(where, "evk", evk, (d, k, b, n) if per_batch else (d, k, n))
@@ -68,16 +68,16 @@ def dyadic_basemul_banks(a, b, qs, mus, gamma, gammap, *, lazy: bool):
     where = "dyadic_basemul_banks"
     lane = check_lane(where, a=a, b=b, qs=qs, mus=mus, gamma=gamma, gammap=gammap)
     if lane != torch.int16:
-        raise ValueError(f"{where}: the basecase product runs on the int16 "
-                         f"(uint16) lane only, got {lane}")
+        raise KernelRefusal(f"{where}: the basecase product runs on the int16 "
+                            f"(uint16) lane only, got {lane}")
     if a.device.type == "cpu":
         return ref.dyadic_basemul_banks_ref(a, b, qs, mus, gamma, gammap, lazy=lazy)
     lib = build.load("dyadic_basemul")
     if a.ndim != 3:
-        raise ValueError(f"{where}: a must be (k, B, n), got {tuple(a.shape)}")
+        raise KernelRefusal(f"{where}: a must be (k, B, n), got {tuple(a.shape)}")
     k, bb, n = a.shape
     if n < 2 or n & (n - 1):
-        raise ValueError(f"{where}: n={n} must be a power of two >= 2")
+        raise KernelRefusal(f"{where}: n={n} must be a power of two >= 2")
     check_tensors(where, a.device, dtype=lane, a=a, b=b, qs=qs, mus=mus,
                   gamma=gamma, gammap=gammap)
     check_shape(where, "b", b, (k, bb, n))
@@ -100,10 +100,10 @@ def _check_pointwise(where: str, mu: int, **tensors) -> None:
     check_u32(where, **tensors)
     shapes = {name: tuple(t.shape) for name, t in tensors.items()}
     if len(set(shapes.values())) != 1:
-        raise ValueError(f"{where}: operand shapes differ: {shapes}")
+        raise KernelRefusal(f"{where}: operand shapes differ: {shapes}")
     if mu == 0:
-        raise ValueError(f"{where}: Barrett mu is 0: the modulus lies outside "
-                         "the u32 Barrett window (2^28, 2^30)")
+        raise KernelRefusal(f"{where}: Barrett mu is 0: the modulus lies outside "
+                            "the u32 Barrett window (2^28, 2^30)")
 
 
 def dyadic_mul(a, b, *, q: int, mu: int, lazy: bool):

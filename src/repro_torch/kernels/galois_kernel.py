@@ -6,13 +6,14 @@ TPU kernels ``galois_banks_pallas`` / ``galois_banks_multi_pallas`` /
 the NTT-domain automorphism as a lane gather, with one shared index row,
 one per batch element, or one per batch element applied to every digit
 of a key-switch decomposition.  A CPU tensor goes to the plain version in
-``kernels.ref``; a CUDA tensor launches the kernel or raises.  The kernel
-moves rows as 16-byte vectors, so a row length that is not a multiple of
-4 and a tensor not 16-byte aligned are refused with ``ValueError``.  Rows
-of any length run: ``galois_banks`` splits every output row across
-blocks that gather straight from device memory; the other two copy a
-source row into a block's shared memory by bulk copies, whole up to
-``MAX_ROW`` words and through a ring of pieces above.  Indices follow the
+``kernels.ref``; a CUDA tensor launches the kernel or raises.  Rows of
+any length run: ``galois_banks`` splits every output row across blocks
+that gather straight from device memory; the other two copy a source row
+into a block's shared memory by bulk copies, whole up to ``MAX_ROW``
+words and through a ring of pieces above.  Those bodies move rows as
+16-byte vectors; a row length that is not a multiple of 4, or a tensor
+that does not start on a 16-byte boundary (a view), takes the launcher's
+one-word body instead, one output word a thread.  Indices follow the
 reference's ``jnp.take`` on every device: one in [-n, 0) counts from the
 end of the row (n + i), and any other outside [0, n) gives the all-ones
 word (0xFFFFFFFF, -1 as an int32 bit pattern).
@@ -21,7 +22,7 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels import COUNTS, build, ref
+from repro_torch.kernels import COUNTS, KernelRefusal, build, ref
 from repro_torch.kernels.ntt_kernel import (check_shape, check_tensors,
                                             raise_on, stream)
 
@@ -31,20 +32,9 @@ from repro_torch.kernels.ntt_kernel import (check_shape, check_tensors,
 MAX_ROW = (232448 - 32) // 16 * 4
 
 
-def _check_row(where: str, n: int, rows: int) -> None:
-    if n % 4:
-        raise ValueError(f"{where}: rows move as 16-byte vectors, so n={n} "
-                         "must be a multiple of 4")
+def _check_rows(where: str, rows: int) -> None:
     if rows >= 1 << 31:
-        raise ValueError(f"{where}: {rows} rows exceed one launch's grid")
-
-
-def check_aligned(where: str, **tensors) -> None:
-    """Every tensor's data starts on a 16-byte boundary (the kernel moves
-    rows as uint4/int4)."""
-    for name, t in tensors.items():
-        if t.data_ptr() % 16:
-            raise ValueError(f"{where}: {name} must start on a 16-byte boundary")
+        raise KernelRefusal(f"{where}: {rows} rows exceed one launch's grid")
 
 
 def _banks(where: str, x, idx, idx_shape):
@@ -54,12 +44,11 @@ def _banks(where: str, x, idx, idx_shape):
         return ref.galois_banks_ref(x, idx)
     lib = build.load("galois")
     if x.ndim != 3:
-        raise ValueError(f"{where}: x must be (k, B, n), got {tuple(x.shape)}")
+        raise KernelRefusal(f"{where}: x must be (k, B, n), got {tuple(x.shape)}")
     k, b, n = x.shape
-    _check_row(where, n, k * b)
+    _check_rows(where, k * b)
     check_tensors(where, x.device, x=x, idx=idx)
     check_shape(where, "idx", idx, idx_shape(b, n))
-    check_aligned(where, x=x, idx=idx)
     out = torch.empty_like(x)
     if x.numel() == 0:
         return out
@@ -95,15 +84,14 @@ def galois_digits(x, idx, *, shared: bool):
     lib = build.load("galois")
     where = "galois_digits"
     if x.ndim != 4 or idx.ndim != 2:
-        raise ValueError(f"{where}: x (d, k, B, n) and idx (B, n) expected, "
-                         f"got {tuple(x.shape)}, {tuple(idx.shape)}")
+        raise KernelRefusal(f"{where}: x (d, k, B, n) and idx (B, n) expected, "
+                            f"got {tuple(x.shape)}, {tuple(idx.shape)}")
     d, k, b, n = x.shape
     bi = idx.shape[0]
-    _check_row(where, n, d * k * bi)
+    _check_rows(where, d * k * bi)
     check_tensors(where, x.device, x=x, idx=idx)
     check_shape(where, "x", x, (d, k, 1 if shared else bi, n))
     check_shape(where, "idx", idx, (bi, n))
-    check_aligned(where, x=x, idx=idx)
     out = x.new_empty((d, k, bi, n))
     if out.numel() == 0:
         return out

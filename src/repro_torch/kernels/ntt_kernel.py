@@ -15,7 +15,8 @@ int16 tensors (ML-KEM's q = 3329 ring, ``core.ringspec``) the 16-bit
 Shoup lane, launched as ``ntt_fwd_banks_u16`` / ``ntt_inv_banks_u16`` and
 counted apart.  Every tensor of one call must share the lane: a u16 pack
 run through the u32 formulas would give wrong numbers with no error, so
-a mix is refused with ``ValueError`` on every device.
+a mix is refused with ``KernelRefusal`` (a ``ValueError``) on every
+device.
 
 On the card a u32 ring of up to 4096 words is one launch of the
 register-resident body; a larger one (up to ``MAX_N`` = 2^17) runs two
@@ -41,7 +42,7 @@ import torch
 
 from repro_torch.convert import u32_to_tensor
 from repro_torch.core.ntt import device_tables
-from repro_torch.kernels import COUNTS, build, ref
+from repro_torch.kernels import COUNTS, KernelRefusal, LaunchError, build, ref
 
 MAX_N = 1 << 17       # banks, u32 lane: two passes of at most 32 and 4096 words
 MAX_N_ROW = 4096      # the largest ring one launch transforms (no scratch)
@@ -58,15 +59,15 @@ def check_tensors(where: str, device: torch.device, *,
     """Every tensor of ``dtype`` (int32 or int16 bit patterns),
     contiguous and on ``device`` (a CUDA device)."""
     if device.type != "cuda":
-        raise ValueError(f"{where}: CUDA tensors expected, got device {device}")
+        raise KernelRefusal(f"{where}: CUDA tensors expected, got device {device}")
     for name, t in tensors.items():
         if t.device != device:
-            raise ValueError(f"{where}: {name} is on {t.device}, expected {device}")
+            raise KernelRefusal(f"{where}: {name} is on {t.device}, expected {device}")
         if t.dtype != dtype:
-            raise ValueError(f"{where}: {name} must be {dtype} ({LANES[dtype]} "
-                             f"bit patterns), got {t.dtype}")
+            raise KernelRefusal(f"{where}: {name} must be {dtype} ({LANES[dtype]} "
+                                f"bit patterns), got {t.dtype}")
         if not t.is_contiguous():
-            raise ValueError(f"{where}: {name} must be contiguous")
+            raise KernelRefusal(f"{where}: {name} must be contiguous")
 
 
 def check_lane(where: str, **tensors) -> torch.dtype:
@@ -75,39 +76,39 @@ def check_lane(where: str, **tensors) -> torch.dtype:
     dtypes = {name: t.dtype for name, t in tensors.items()}
     lanes = set(dtypes.values())
     if len(lanes) != 1 or not lanes <= set(LANES):
-        raise ValueError(f"{where}: every tensor must be int32 (the uint32 lane) "
-                         f"or every tensor int16 (the uint16 lane), got {dtypes}")
+        raise KernelRefusal(f"{where}: every tensor must be int32 (the uint32 lane) "
+                            f"or every tensor int16 (the uint16 lane), got {dtypes}")
     return lanes.pop()
 
 
 def check_shape(where: str, name: str, t: torch.Tensor, shape: tuple) -> None:
     if tuple(t.shape) != tuple(shape):
-        raise ValueError(f"{where}: {name} has shape {tuple(t.shape)}, "
-                         f"expected {tuple(shape)}")
+        raise KernelRefusal(f"{where}: {name} has shape {tuple(t.shape)}, "
+                            f"expected {tuple(shape)}")
 
 
 def _check_geometry(where: str, x: torch.Tensor, stages: int) -> tuple[int, int, int]:
     if x.ndim != 3:
-        raise ValueError(f"{where}: x must be (k, B, n), got {tuple(x.shape)}")
+        raise KernelRefusal(f"{where}: x must be (k, B, n), got {tuple(x.shape)}")
     k, b, n = x.shape
     if x.dtype == torch.int16 and n > MAX_N_U16:
         # a u16 ring (core.ringspec) has q < 2^12 and block 1 or 2, and
         # needs 2n / block | q - 1, so none has n > 4096
-        raise ValueError(f"{where}: n={n} on the u16 lane: its moduli lie below "
-                         f"2^12, so 2n/block does not divide q - 1 for any n > "
-                         f"{MAX_N_U16}")
+        raise KernelRefusal(f"{where}: n={n} on the u16 lane: its moduli lie below "
+                            f"2^12, so 2n/block does not divide q - 1 for any n > "
+                            f"{MAX_N_U16}")
     if n < 2 or n > MAX_N or n & (n - 1):
-        raise ValueError(f"{where}: n={n} must be a power of two in [2, {MAX_N}]: "
-                         "above it the column pass would hold more than 32 "
-                         "words a thread")
+        raise KernelRefusal(f"{where}: n={n} must be a power of two in [2, {MAX_N}]: "
+                            "above it the column pass would hold more than 32 "
+                            "words a thread")
     if not 0 <= stages <= n.bit_length() - 1:
-        raise ValueError(f"{where}: {stages} stages for n={n}")
+        raise KernelRefusal(f"{where}: {stages} stages for n={n}")
     return k, b, n
 
 
 def raise_on(where: str, rc: int) -> None:
     if rc != 0:
-        raise RuntimeError(f"{where}: kernel launch failed with CUDA error {rc}")
+        raise LaunchError(f"{where}: kernel launch failed with CUDA error {rc}")
 
 
 def stream() -> int:
@@ -201,7 +202,7 @@ def twiddle_mul_banks(x, qs, w, wp, *, lazy: bool):
     lib = build.load("ntt_banks")
     where = "twiddle_mul_banks"
     if x.ndim != 3:
-        raise ValueError(f"{where}: x must be (k, B, n), got {tuple(x.shape)}")
+        raise KernelRefusal(f"{where}: x must be (k, B, n), got {tuple(x.shape)}")
     k, b, n = x.shape
     check_tensors(where, x.device, x=x, qs=qs, w=w, wp=wp)
     check_shape(where, "qs", qs, (k,))
@@ -225,20 +226,20 @@ def check_u32(where: str, **tensors) -> None:
     no other, on any device."""
     for name, t in tensors.items():
         if t.dtype != torch.int32:
-            raise ValueError(f"{where}: {name} must be int32 (uint32 bit "
-                             f"patterns), the single-prime lane, got {t.dtype}")
+            raise KernelRefusal(f"{where}: {name} must be int32 (uint32 bit "
+                                f"patterns), the single-prime lane, got {t.dtype}")
 
 
 def _check_single(where: str, x, p) -> tuple[int, int]:
     if x.ndim != 2:
-        raise ValueError(f"{where}: x must be (B, n), got {tuple(x.shape)}")
+        raise KernelRefusal(f"{where}: x must be (B, n), got {tuple(x.shape)}")
     b, n = x.shape
     if n != p.n:
-        raise ValueError(f"{where}: rows of {n} for params of n={p.n}")
+        raise KernelRefusal(f"{where}: rows of {n} for params of n={p.n}")
     if n < 2 or n > MAX_N or n & (n - 1):
-        raise ValueError(f"{where}: n={n} must be a power of two in [2, {MAX_N}]: "
-                         f"above {MAX_N_SINGLE} the ring runs on the u32 banks, "
-                         f"which stop at {MAX_N}")
+        raise KernelRefusal(f"{where}: n={n} must be a power of two in [2, {MAX_N}]: "
+                            f"above {MAX_N_SINGLE} the ring runs on the u32 banks, "
+                            f"which stop at {MAX_N}")
     return b, n
 
 

@@ -34,6 +34,7 @@ import math
 
 import torch
 
+from repro_torch import obs
 from repro_torch.core.params import bitrev_perm
 from repro_torch.kernels import dyadic_kernel, galois_kernel, ntt_kernel
 
@@ -89,6 +90,21 @@ def _rows(t: dict, k: int, *names):
     return tuple(t[name][:k] for name in names)
 
 
+def _spanned(fn):
+    """Wrap a banks entry point in an ``obs.span("ops.<name>")``.  Inside
+    a CUDA-graph capture (``fhe.evalplan``) the span times the capture's
+    host work once, not the replays.  Disabled, it is one flag check."""
+    name = f"ops.{fn.__name__}"
+
+    @functools.wraps(fn)
+    def wrapper(*args, **kw):
+        if not obs.enabled():
+            return fn(*args, **kw)
+        with obs.span(name, cat="kernel"):
+            return fn(*args, **kw)
+    return wrapper
+
+
 def _ct_batch_axis(fn):
     """``batch_leading=True`` reads the first argument as a (b, k, ..., n)
     stack: swap the ciphertext axis behind the prime axis, run the
@@ -106,6 +122,7 @@ def _as3(x: torch.Tensor) -> torch.Tensor:
     return x.reshape(x.shape[0], -1, x.shape[-1]).contiguous()
 
 
+@_spanned
 @_ct_batch_axis
 def ntt_banks(x, t: dict, *, negacyclic: bool = True, lazy: bool = True,
               reduce_out: bool = True):
@@ -122,6 +139,7 @@ def ntt_banks(x, t: dict, *, negacyclic: bool = True, lazy: bool = True,
     return out.reshape(x.shape)
 
 
+@_spanned
 @_ct_batch_axis
 def intt_banks(x, t: dict, *, negacyclic: bool = True, lazy: bool = True,
                reduce_out: bool = True):
@@ -134,6 +152,7 @@ def intt_banks(x, t: dict, *, negacyclic: bool = True, lazy: bool = True,
     return out.reshape(x.shape)
 
 
+@_spanned
 @_ct_batch_axis
 def twiddle_mul_banks(x, w, wp, qs, *, lazy: bool = False):
     """Per-prime weight-row multiply: x (k, ..., n), w/wp (k, n), qs (k,).
@@ -143,6 +162,7 @@ def twiddle_mul_banks(x, w, wp, qs, *, lazy: bool = False):
     return out.reshape(x.shape)
 
 
+@_spanned
 @_ct_batch_axis
 def galois_banks(x, idx):
     """Galois automorphism in the NTT domain: out[..., j] = x[..., idx[j]].
@@ -160,12 +180,13 @@ def galois_banks(x, idx):
         if idx.shape != (math.prod(x.shape[1:-1]), x.shape[-1]):
             raise ValueError(f"galois_banks: per-batch idx {tuple(idx.shape)} "
                              f"for x {tuple(x.shape)}")
-        out = galois_kernel.galois_banks_multi(_as3(x), idx)
+        out = galois_kernel.galois_banks_multi(_as3(x), idx.contiguous())
     else:
-        out = galois_kernel.galois_banks(_as3(x), idx)
+        out = galois_kernel.galois_banks(_as3(x), idx.contiguous())
     return out.reshape(x.shape)
 
 
+@_spanned
 def galois_digits_banks(ext, idx):
     """Galois gather over key-switch digit extensions — the hoisted-
     rotation move: per-batch gather rows applied to a shared digit
@@ -183,7 +204,8 @@ def galois_digits_banks(ext, idx):
     if idx.shape != (bi, n) or not (shared or bi == b):
         raise ValueError(f"galois_digits_banks: idx {tuple(idx.shape)} for "
                          f"ext {tuple(ext.shape)}")
-    return galois_kernel.galois_digits(ext.contiguous(), idx, shared=shared)
+    return galois_kernel.galois_digits(ext.contiguous(), idx.contiguous(),
+                                       shared=shared)
 
 
 _BREV: dict = {}
@@ -202,6 +224,7 @@ def fourstep_dims(fp: dict) -> tuple[int, int]:
     return fp["pack1"]["tw"].shape[-1] * 2, fp["pack2"]["tw"].shape[-1] * 2
 
 
+@_spanned
 @_ct_batch_axis
 def ntt_fourstep_banks(x, fp: dict, *, negacyclic: bool = True,
                        lazy: bool = True):
@@ -237,6 +260,7 @@ def ntt_fourstep_banks(x, fp: dict, *, negacyclic: bool = True,
     return xr.reshape(k, b, n1, n2).transpose(-1, -2).reshape(shape)
 
 
+@_spanned
 @_ct_batch_axis
 def intt_fourstep_banks(x, fp: dict, *, negacyclic: bool = True,
                         lazy: bool = True):
@@ -273,6 +297,7 @@ def intt_fourstep_banks(x, fp: dict, *, negacyclic: bool = True,
     return x.reshape(shape)
 
 
+@_spanned
 def dyadic_inner_banks(ext, evk, t: dict, *, lazy: bool = True):
     """Key-switch inner product out[j] = sum_i ext[i, j] * evk[i, j] mod q_j.
     ext: (d, k, B, n) NTT-domain digit extensions; evk: (d, k, n) shared
@@ -288,6 +313,7 @@ def dyadic_inner_banks(ext, evk, t: dict, *, lazy: bool = True):
                                             t["qs"], t["mu"], lazy=lazy)
 
 
+@_spanned
 def dyadic_basemul_banks(a, b, t: dict, *, batch_leading: bool = False,
                          lazy: bool = True):
     """Degree-1 basecase multiplication of an INCOMPLETE ring (a

@@ -465,12 +465,49 @@ def test_rotations_at_2_16_equal_the_cpu_run(cuda):
             torch.equal(a.c1.data.cpu(), b.c1.data), i
 
 
-def test_unaligned_gather_row_is_refused(cuda):
-    n = 64
-    words = torch.zeros(2 * n + 1, dtype=torch.int32, device=cuda)
-    x = words[1:n + 1].view(1, 1, n)
-    with pytest.raises(ValueError, match="16-byte boundary"):
-        galois_kernel.galois_banks(x, torch.arange(n, dtype=torch.int32, device=cuda))
+@pytest.mark.parametrize("n", [1, 2, 3, 5, 6, 7, 18])
+def test_gather_rows_of_few_words_equal_plain(cuda, n):
+    """Rows that are not a whole number of 16-byte vectors take the
+    one-word body: all three gathers, per row and fanned out, on indices
+    drawn from [-2n, 2n), each equal to the plain version."""
+    R = 3
+    rows = torch.from_numpy(np.random.default_rng(n).integers(-2 * n, 2 * n, (R, n))
+                            .astype(np.int32)).cuda()
+    primes = rns.make_primes(1 << 10, 2)
+    x = _residues(n + 1, primes, (R, n))
+    ext = torch.stack([_residues(n + 2 + d, primes, (R, n)) for d in range(2)])
+    K.reset_counts()
+    assert torch.equal(galois_kernel.galois_banks(x, rows[0]), ref.galois_banks_ref(x, rows[0]))
+    assert torch.equal(galois_kernel.galois_banks_multi(x, rows), ref.galois_banks_ref(x, rows))
+    for xs, shared in ((ext, False), (ext[:, :, :1].contiguous(), True)):
+        assert torch.equal(galois_kernel.galois_digits(xs, rows, shared=shared),
+                           ref.galois_digits_banks_ref(xs, rows)), shared
+    c = K.snapshot()
+    assert [c[k]["launches"] for k in ("galois_banks", "galois_banks_multi",
+                                       "galois_digits")] == [1, 1, 2]
+
+
+@pytest.mark.parametrize("n", [64, 1 << 14])
+def test_unaligned_gather_row_equals_plain(cuda, n):
+    """x and idx views that start one word past a 16-byte boundary, and a
+    transposed idx through ops, equal the plain version on all three
+    gathers."""
+    R = 3
+    q = rns.make_primes(n, 1)
+    x = _residues(n, q, (2 * R * n + 1,))[0, 1:].view(2, R, n)
+    ext = _residues(n + 1, q, (4 * R * n + 1,))[0, 1:].view(2, 2, R, n)
+    perm = _rotation_rows(n, (1, 2, 3), natural=n >= ops.FOURSTEP_MIN_N)
+    idx = torch.empty(R * n + 1, dtype=torch.int32, device=cuda)[1:].view(R, n)
+    idx.copy_(perm)
+    assert x.data_ptr() % 16 and ext.data_ptr() % 16 and idx.data_ptr() % 16
+    assert torch.equal(galois_kernel.galois_banks(x, idx[0]), ref.galois_banks_ref(x, idx[0]))
+    assert torch.equal(galois_kernel.galois_banks_multi(x, idx), ref.galois_banks_ref(x, idx))
+    assert torch.equal(galois_kernel.galois_digits(ext, idx, shared=False),
+                       ref.galois_digits_banks_ref(ext, idx))
+    t = perm.t().contiguous().t()                     # (R, n), not contiguous
+    assert torch.equal(ops.galois_banks(x, t), ref.galois_banks_ref(x, perm))
+    assert torch.equal(ops.galois_digits_banks(ext[:, :, :1].contiguous(), t),
+                       ref.galois_digits_banks_ref(ext[:, :, :1].contiguous(), perm))
 
 
 def _ring_rows(seed, shape, band=1):
@@ -633,3 +670,125 @@ def test_single_prime_ops_round_trip_and_odd_words(cuda):
                            ref.dyadic_mul_ref(a, b, p.q, p.barrett_mu, lazy=True))
         assert torch.equal(dyadic_kernel.dyadic_mac(b, a, b, q=p.q, mu=p.barrett_mu, lazy=True),
                            ref.dyadic_mac_ref(b, a, b, p.q, p.barrett_mu, lazy=True))
+
+
+# ------------------------------------------------ EvalPlan's CUDA graphs
+
+def _graphed(device, n=1 << 10, seed=5):
+    """A context on the card with keys for rotations 1-3, conjugation and
+    an 8 x 4 matvec, two ciphertexts, and the plan's eager twin (the same
+    tables and keys, every program run eagerly)."""
+    import copy
+    from repro_torch.fhe import linalg
+    from repro_torch.fhe.ckks import CkksContext
+    ctx = CkksContext(n=n, levels=2, scale_bits=28, seed=seed, device=device)
+    rng = np.random.default_rng(seed)
+    M = linalg.PtMatrix.encode(ctx, rng.uniform(-1, 1, (8, 4)) / 4)
+    plan = ctx.plan()
+    plan.prepare(rotations=(1, 2, 3), conjugate=True, warm_jit=False, matvecs=(M,))
+    cts = [ctx.encrypt(ctx.encode(rng.uniform(-1, 1, ctx.slots))) for _ in range(3)]
+    eager = copy.copy(plan)
+    eager._graphs = None
+    return ctx, plan, eager, M, cts
+
+
+def _programs(plan, M, cts):
+    """name -> answers of each graphed program (and the matvec composite)."""
+    from repro_torch.fhe import linalg
+    a, b, c = cts
+    return {
+        "multiply": [plan.multiply(a, b)],
+        "rescale": [plan.rescale(a)],
+        "galois_ks": [plan.rotate(a, 1), plan.conjugate(b)],
+        "multiply_many": plan.multiply_many(cts, [b, c, a]),
+        "rescale_many": plan.rescale_many(cts),
+        "galois_ks_many uniform": plan.rotate_many(cts, [2, 2, 2]),
+        "galois_ks_many mixed": plan.rotate_many(cts, [1, 2, 3]),
+        "hoisted_galois": plan.rotate_hoisted(a, [1, 2, 3]),
+        "matvec (plain_mac, accumulate)": [linalg.matvec(plan, M, a)],
+    }
+
+
+def _same_cts(xs, ys):
+    return len(xs) == len(ys) and all(
+        torch.equal(x.c0.data, y.c0.data) and torch.equal(x.c1.data, y.c1.data)
+        and x.scale == y.scale and x.primes == y.primes for x, y in zip(xs, ys))
+
+
+@pytest.mark.parametrize("logn", [10, 14])
+def test_graph_replays_equal_the_eager_programs(cuda, logn):
+    """Every graphed program, on its capturing call and on replays with
+    other inputs, equals the same program run eagerly on the card."""
+    from repro_torch.fhe.evalplan import EvalPlan
+    ctx, plan, eager, M, cts = _graphed(cuda, 1 << logn)
+    before = EvalPlan.trace_count()
+    for round_ in range(3):
+        got, want = _programs(plan, M, cts), _programs(eager, M, cts)
+        for name in want:
+            assert _same_cts(got[name], want[name]), (round_, name)
+        cts = [x for x in got["multiply_many"]]         # other inputs, same shapes
+    assert EvalPlan.trace_count() - before == len(plan._graphs) >= 9
+    assert eager._graphs is None
+
+
+def test_fresh_traces_zero_after_a_covering_prepare(cuda):
+    """An engine's drain on an unprepared plan captures graphs inside its
+    latency window (fresh_traces > 0); after a prepare that covers both
+    serving bases, the engine's group sizes and the matvec pack it
+    captures none, and every answer equals the eager programs'."""
+    from repro_torch.fhe import linalg
+    from repro_torch.fhe.ckks import CkksContext
+    from repro_torch.fhe.serve import CkksServeEngine, synthetic_trace
+    ctx = CkksContext(n=1 << 10, levels=2, scale_bits=28, seed=9, device=cuda)
+    M = linalg.PtMatrix.encode(ctx, np.random.default_rng(9).uniform(-1, 1, (8, 4)) / 4)
+    reqs, _ = synthetic_trace(ctx, 16, seed=9, matrix=M)
+    engine = CkksServeEngine(ctx.plan(), batch_tile=4, max_batch=8)
+    cold = engine.run_async(reqs)
+    assert engine.stats["fresh_traces"] > 0 and not engine.stats["failed"]
+    fresh = CkksContext(n=1 << 10, levels=2, scale_bits=28, seed=9, device=cuda)
+    M2 = linalg.PtMatrix.encode(fresh, np.random.default_rng(9).uniform(-1, 1, (8, 4)) / 4)
+    plan = fresh.plan()
+    for basis in (fresh.qs, fresh.qs[:-1]):
+        plan.prepare(basis=basis, rotations=(1, 2), conjugate=True,
+                     batch_sizes=(4, 8), matvecs=(M2,) if basis == fresh.qs else ())
+    reqs2, _ = synthetic_trace(fresh, 16, seed=9, matrix=M2)
+    engine = CkksServeEngine(plan, batch_tile=4, max_batch=8)
+    for drain in (engine.run, engine.run_async):
+        out = drain(reqs2)
+        assert engine.stats["fresh_traces"] == 0 and not engine.stats["failed"]
+    assert set(out) == set(cold)
+
+
+def test_counts_advance_on_replay(cuda):
+    """A replay adds the launches its capture recorded, so COUNTS read the
+    kernels the card ran: a graphed multiply + rescale counts what the
+    eager one counts, call after call, and no plain version runs."""
+    _, plan, eager, _, (a, b, _) = _graphed(cuda)
+    plan.rescale(plan.multiply(a, b))                    # capture
+    K.reset_counts()
+    eager.rescale(eager.multiply(a, b))
+    once = K.snapshot()
+    assert once["ntt_fwd_banks"]["launches"] > 0
+    for calls in (1, 2, 3):
+        K.reset_counts()
+        for _ in range(calls):
+            plan.rescale(plan.multiply(a, b))
+        got = K.snapshot()
+        for name, c in once.items():
+            assert got[name]["launches"] == calls * c["launches"], (calls, name)
+            assert got[name]["plain_calls"] == 0
+
+
+def test_batch_key_eviction_under_a_live_graph(cuda):
+    """The mixed-batch key stacks are inputs copied into the graph, so
+    evicting their cache entry (and restacking it later) changes no
+    answer: patterns A, B, A again through one captured signature."""
+    _, plan, eager, _, cts = _graphed(cuda)
+    plan._BATCH_KEY_CACHE_MAX = 1
+    eager._batch_keys = {}
+    for amounts in ([1, 2, 3], [3, 1, 2], [1, 2, 3], [2, 3, 1]):
+        got = plan.rotate_many(cts, amounts)
+        assert len(plan._batch_keys) == 1
+        assert _same_cts(got, eager.rotate_many(cts, amounts)), amounts
+    mixed = [sig for sig in plan._graphs if sig[0] == "galois_ks_many"]
+    assert len(mixed) == 1

@@ -336,21 +336,63 @@ def test_banks_scratch_only_above_one_launchs_ring():
 
 
 @pytest.mark.parametrize("which", GATHERS)
-def test_gather_row_not_a_multiple_of_4_is_refused(monkeypatch, which):
-    """The kernel moves rows only as 16-byte vectors."""
-    monkeypatch.setattr(build, "load", lambda name: _NoLaunch())
-    call = _gather_call(which, 18)
+def test_gather_row_not_a_multiple_of_4_reaches_its_launcher(monkeypatch, which):
+    """A row of 18 words (not a whole number of 16-byte vectors) passes
+    every check of the wrapper and reaches its launcher once, which gives
+    it the one-word body: no refusal, no plain version."""
+    lib = _Recorder()
+    monkeypatch.setattr(build, "load", lambda name: lib)
+    monkeypatch.setattr(galois_kernel, "stream", lambda: 0)
+    n = 18
+    x, rows = _fake(1, 2, n), _fake(2, n)
+    call = {"galois_banks": lambda: galois_kernel.galois_banks(x, rows[0]),
+            "galois_banks_multi": lambda: galois_kernel.galois_banks_multi(x, rows),
+            "galois_digits": lambda: galois_kernel.galois_digits(x[None], rows,
+                                                                 shared=False)}[which]
     K.reset_counts()
-    with pytest.raises(ValueError, match="multiple of 4"):
-        call()
-    assert K.snapshot()[which] == {"launches": 0, "plain_calls": 0}
+    assert call().shape[-1] == n
+    launched = [(fn, args[6] if fn == "galois_digits" else args[5])
+                for fn, args in lib.calls]
+    assert launched == [(which, n)]
+    assert K.snapshot()[which] == {"launches": 1, "plain_calls": 0}
 
 
-def test_unaligned_gather_tensor_is_refused():
-    words = torch.zeros(20, dtype=torch.int32)
-    galois_kernel.check_aligned("w", x=words[4:])
-    with pytest.raises(ValueError, match="16-byte boundary"):
-        galois_kernel.check_aligned("w", x=words[4:], idx=words[1:17])
+def test_unaligned_gather_views_reach_the_launcher(monkeypatch):
+    """x and idx views that start one word past a 16-byte boundary reach
+    the launcher as they are (it takes the one-word body for them)."""
+    lib = _Recorder()
+    monkeypatch.setattr(build, "load", lambda name: lib)
+    monkeypatch.setattr(galois_kernel, "stream", lambda: 0)
+    n = 16
+    x = _fake(2 * n + 1)[1:].view(1, 2, n)
+    idx = _fake(n + 1)[1:]
+    assert x.data_ptr() % 16 and idx.data_ptr() % 16
+    K.reset_counts()
+    galois_kernel.galois_banks(x, idx)
+    ((fn, args),) = lib.calls
+    assert fn == "galois_banks" and args[:2] == (x.data_ptr(), idx.data_ptr())
+    assert K.snapshot()["galois_banks"] == {"launches": 1, "plain_calls": 0}
+
+
+@pytest.mark.parametrize("which", ["shared row", "per-batch rows", "digits"])
+def test_non_contiguous_gather_idx_is_made_contiguous(monkeypatch, which):
+    """ops.galois_banks / galois_digits_banks hand the launcher a contiguous
+    copy of an idx that is not (a transposed or strided view), so the card
+    takes every idx layout the reference takes."""
+    lib = _Recorder()
+    monkeypatch.setattr(build, "load", lambda name: lib)
+    monkeypatch.setattr(galois_kernel, "stream", lambda: 0)
+    n, b = 16, 2
+    x = _fake(1, b, n)
+    call = {"shared row": lambda idx: ops.galois_banks(x, idx[0]),
+            "per-batch rows": lambda idx: ops.galois_banks(x, idx),
+            "digits": lambda idx: ops.galois_digits_banks(x[None], idx)}[which]
+    idx = _fake(n, b).t()                      # (b, n), not contiguous
+    assert not idx.is_contiguous() and not idx[0].is_contiguous()
+    K.reset_counts()
+    call(idx)
+    assert len(lib.calls) == 1
+    assert sum(c["launches"] for c in K.snapshot().values()) == 1
 
 
 def test_library_is_keyed_by_its_sources():
