@@ -58,6 +58,23 @@ Phases (any mismatch raises, so the exit code is non-zero):
                CKKS kernel launched through the replays and no plain
                version ran, and a seeded subset of 8 requests and the mixed
                queue (the decaps' bytes included) equal a CPU run
+  3g. scaleout the tile funnel and the batch-sharded EvalPlan at 2^14 with
+               8 + 1 primes: autotune.ensure("serve_batch", 8, 2^14, 32,
+               shards=2) measured on the card (its candidate table printed
+               in ms), its sidecar written to a temporary file and read back
+               by a fresh copy of the module, and a resolve inside a CUDA
+               graph capture that must not measure; EvalPlan over a mesh of
+               the card once and twice (two cards when there are two)
+               running multiply_many -> rescale_many, mixed rotate_many,
+               conjugate_many of 5, rotate_hoisted by 7 amounts and the
+               64 x 64 matvec (batches that pad), bit for bit against the
+               unsharded plan; a CkksServeEngine over the two-shard plan
+               with batch_tile=None (the tuned entry): group tile, equal
+               per_device_rows, fresh_traces == 0, answers == the tile-8
+               unsharded drain of phase 3f, and its run_async timed against
+               that engine's in interleaved rounds; fourstep_ntt_sharded at
+               128 x 128 over 1, 2 and 4 shards == fourstep_ntt; every kernel
+               of the rotation path launched, no plain version ran
   3c. mlkem    ML-KEM-768 (FIPS 203) on the u16 lane: the two u16 NTT
                instantiations and the basecase product held bit for bit
                against their plain versions at every shape of the b = 1 and
@@ -198,6 +215,11 @@ SERVE_SIZES = (8, 16, 24, 32)    # padded group sizes up to max_batch = 4 tiles
 SERVE_CPU = 8                    # the seeded subset of the trace the CPU drains again
 SERVE_DECAPS = 4                 # ML-KEM decaps at b = 1 in the mixed queue
 POISSON_LOAD = 0.5               # Poisson arrivals at this share of the backlog rate
+SCALE_SHARDS = 2                 # the "b" mesh of phase 3g: the card twice
+SCALE_B = 5                      # its batches and rotations pad 5 -> 6 and 7 -> 8
+SCALE_R = 7
+SCALE_ROUNDS = 3                 # interleaved drains, sharded against unsharded
+FOURSTEP_SHARDS = (1, 2, 4)      # fourstep_ntt_sharded at 128 x 128
 
 REPLACES = {
     "ntt_fwd_banks": "src/repro/kernels/ntt_kernel.py:306",
@@ -247,6 +269,7 @@ PATH_KERNELS = {
 }
 PATH_KERNELS["rot16"] = PATH_KERNELS["rotation"]
 PATH_KERNELS["serve"] = PATH_KERNELS["rotation"]
+PATH_KERNELS["scaleout"] = PATH_KERNELS["rotation"]
 # launches per ML-KEM entry point at any batch: (u16 forward NTTs, u16
 # inverse NTTs, basecase products), as pq/mlkem.py issues them
 MLKEM_LAUNCHES = {"keygen": (1, 0, 1), "encaps": (1, 2, 2), "decaps": (2, 3, 3)}
@@ -1019,7 +1042,7 @@ def phase_serve():
         f"{gib(torch.cuda.memory_reserved())}, the phase's peak allocated "
         f"{gib(torch.cuda.max_memory_allocated())} (process); launches "
         f"{ {k: v['launches'] for k, v in counts.items() if v['launches']} }")
-    return reqs, sync, mixed, counts
+    return ctx, M, reqs, sync, mixed, counts
 
 
 def phase_serve_cpu_parity(cuda_reqs, cuda_out, cuda_mixed) -> None:
@@ -1048,6 +1071,210 @@ def phase_serve_cpu_parity(cuda_reqs, cuda_out, cuda_mixed) -> None:
         f"requests {subset} ({[reqs[i].op for i in subset]}) and the mixed queue's "
         f"{len(mixed)} answers, bytes of {SERVE_DECAPS} decaps included "
         f"({time.perf_counter() - t0:.1f} s on the CPU)")
+
+
+# ----------------------------------------------------------- phase 3g
+
+def phase_tuner(k: int) -> int:
+    """``autotune.ensure("serve_batch", k, N, SERVE_N, shards=SCALE_SHARDS)``
+    measured on the card: its candidate table printed, its sidecar written
+    to a temporary file and read back by a fresh copy of the module (the
+    entry the two-shard engine resolves later); then a resolve of an
+    uncached entry inside a CUDA graph capture, with measuring on, must
+    take the default without measuring.  Returns the tuned tile."""
+    import importlib
+    import tempfile
+    from repro_torch import obs
+    from repro_torch.kernels import autotune
+
+    def counters():
+        return {k: v for k, v in obs.snapshot()["counters"].items()
+                if k.startswith("autotune.")}
+    per_shard = autotune.shard_batch(SERVE_N, SCALE_SHARDS)
+    key = f"{torch.cuda.get_device_name(0)}|serve_batch|{k}|{N}|{per_shard}|uint32"
+    with tempfile.TemporaryDirectory() as tmp:
+        sidecar = os.path.join(tmp, "tiles.json")
+        os.environ[autotune.ENV_CACHE] = sidecar
+        obs.enable()
+        try:
+            autotune.clear()
+            obs.reset()
+            t0 = time.perf_counter()
+            tile = autotune.ensure("serve_batch", k, N, SERVE_N, shards=SCALE_SHARDS)
+            secs = time.perf_counter() - t0
+            measured = counters()
+            ev = autotune.table()["evidence"][key]
+            want = {str(t) for t in {autotune.clamp(c, per_shard) for c in autotune.CANDIDATE_TILES}}
+            if (measured.get("autotune.measurements") != 1 or ev["source"] != "measured"
+                    or set(ev["candidates"]) != want):
+                raise AssertionError(f"tuner: no complete measurement: {measured}, {ev}")
+            table = ", ".join(f"tile {t} {s * 1e3:.4f} ms" for t, s in
+                              sorted(ev["candidates"].items(), key=lambda ts: int(ts[0])))
+            log(f"[tuner] serve_batch k={k} n={N} b={SERVE_N} over {SCALE_SHARDS} shards "
+                f"(per-shard b={per_shard}): {per_shard} rows as ceil(b/t) banks forward "
+                f"calls of t rows, median of 3: {table}; chosen {tile} ({secs:.2f} s "
+                f"with the build) on {gpu_line()}")
+            with open(sidecar) as f:
+                disk = json.load(f)
+            importlib.reload(autotune)       # a fresh process: the cache comes from the sidecar
+            obs.reset()
+            got = autotune.resolve_tile("serve_batch", k, N, SERVE_N, shards=SCALE_SHARDS)
+            source = autotune.table()["evidence"][key]["source"]
+            if disk["entries"].get(key) != tile or got != tile or source != "disk" \
+                    or counters() != {"autotune.resolve.cache_hit": 1}:
+                raise AssertionError(f"tuner sidecar: wrote {disk['entries'].get(key)}, read "
+                                     f"{got} from {source}, counters {counters()}")
+            os.environ[autotune.ENV_AUTOTUNE] = "1"
+            obs.reset()
+            x = torch.zeros(4, device="cuda")
+            graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(graph):
+                inside = autotune.resolve_tile("serve_batch", k, N, SERVE_N)
+                x += 1
+            if inside != autotune.DEFAULT_TILE or counters() != {
+                    "autotune.resolve.cache_miss": 1, "autotune.resolve.default": 1}:
+                raise AssertionError(f"tuner: a resolve inside a capture gave {inside}, "
+                                     f"counters {counters()}")
+        finally:
+            os.environ.pop(autotune.ENV_CACHE, None)
+            os.environ.pop(autotune.ENV_AUTOTUNE, None)
+            obs.disable()
+            obs.reset()
+    log(f"[tuner] sidecar read back by a fresh module (cache hit, source disk); a resolve "
+        f"inside a graph capture took the default {autotune.DEFAULT_TILE} and measured nothing")
+    return tile
+
+
+def scaleout_traffic(plan, M, cts):
+    """Batched programs at sizes the two-shard mesh pads: multiply_many ->
+    rescale_many, mixed rotate_many and conjugate_many of SCALE_B,
+    rotate_hoisted by SCALE_R amounts, the 64 x 64 matvec (7 live baby
+    rotations, 7 giant ones)."""
+    from repro_torch.fhe import linalg
+    a, b = cts[:SCALE_B], cts[1:SCALE_B + 1]
+    prod = plan.multiply_many(a, b)
+    return {"multiply_many": prod, "rescale_many": plan.rescale_many(prod),
+            "rotate_many": plan.rotate_many(a, ROT_AMOUNTS[:SCALE_B]),
+            "conjugate_many": plan.conjugate_many(a),
+            "rotate_hoisted": plan.rotate_hoisted(cts[0], ROT_AMOUNTS[:SCALE_R]),
+            "matvec": [linalg.matvec(plan, M, cts[-1])]}
+
+
+def phase_scaleout(rot: dict, srv: dict) -> dict:
+    """Phase 3g: the tuner, then the batch-sharded EvalPlan on meshes of the
+    card once and twice (and of two cards when there are two) against the
+    unsharded plan, the two-shard serving engine with the tuned tile
+    against the tile-8 unsharded drain, and fourstep_ntt_sharded against
+    fourstep_ntt.  Counts are reset before the sharded runs and read after
+    them; the unsharded answers are taken before."""
+    from repro_torch import kernels as K
+    from repro_torch.core import fourstep as fs
+    from repro_torch.fhe.evalplan import EvalPlan
+    from repro_torch.fhe.serve import CkksServeEngine
+    from repro_torch.mesh import make_mesh
+    t_phase = time.perf_counter()
+    rctx, M, cts = rot["ctx"], rot["M"], rot["cts"]
+    sctx = srv["ctx"]
+    tile = phase_tuner(len(sctx.qs))
+
+    meshes = [("the card once", ["cuda"]), ("the card twice", ["cuda"] * SCALE_SHARDS)]
+    if torch.cuda.device_count() >= 2:
+        meshes.append(("two cards", ["cuda:0", "cuda:1"]))
+    else:
+        log(f"[scaleout] two distinct cards: skipped, this machine has "
+            f"{torch.cuda.device_count()} CUDA device")
+    want = scaleout_traffic(rctx.plan(), M, cts)
+    fsp = fs.make_fourstep_params(128, 128)
+    a = residues(np.random.default_rng(SEED + 17), [fsp.q], (128 * 128,))[0]
+    fs_want = {neg: fs.fourstep_ntt(a, fsp, negacyclic=neg) for neg in (False, True)}
+    unsharded = CkksServeEngine(sctx.plan(), batch_tile=SERVE_TILE)
+    torch.cuda.synchronize()
+
+    K.reset_counts()
+    traces0 = EvalPlan.trace_count()
+    for label, devices in meshes:
+        t0 = time.perf_counter()
+        plan = EvalPlan(rctx, mesh=make_mesh(devices))
+        got = scaleout_traffic(plan, M, cts)
+        for name, ws in want.items():
+            if len(got[name]) != len(ws) or not all(same_ct(g, w) for g, w in zip(got[name], ws)):
+                raise AssertionError(f"scaleout {label}: {name} != the unsharded plan's")
+        torch.cuda.synchronize()
+        log(f"[scaleout] mesh of {label}, shards {plan.mesh_devices}: multiply_many -> "
+            f"rescale_many, rotate_many, conjugate_many of {SCALE_B}, rotate_hoisted R="
+            f"{SCALE_R}, the {MV_DIM} x {MV_DIM} matvec == the unsharded plan bit for bit "
+            f"({len(plan._graphs)} graphs, {time.perf_counter() - t0:.2f} s)")
+
+    plan2 = EvalPlan(sctx, mesh=make_mesh(["cuda"] * SCALE_SHARDS))
+    engine = CkksServeEngine(plan2)
+    if (engine.devices, engine.batch_tile, engine.group_tile) != (
+            SCALE_SHARDS, tile, tile * SCALE_SHARDS):
+        raise AssertionError(f"scaleout engine: devices {engine.devices}, tile "
+                             f"{engine.batch_tile}, group tile {engine.group_tile}")
+    gt = engine.group_tile
+    sizes = tuple(range(gt, -(-SERVE_N // gt) * gt + 1, gt))
+    t0 = time.perf_counter()
+    for basis, mvs in ((sctx.qs, (srv["M"],)), (sctx.qs[:-1], ())):
+        plan2.prepare(basis=basis, rotations=(1,), conjugate=True, batch_sizes=sizes,
+                      matvecs=mvs)
+    torch.cuda.synchronize()
+    log(f"[scaleout] two-shard serving plan prepared for group sizes {sizes}: "
+        f"{time.perf_counter() - t0:.2f} s, {len(plan2._graphs)} graphs, reserved "
+        f"{torch.cuda.memory_reserved() / 2**30:.3f} GiB")
+    reqs = srv["reqs"]
+    drains, stats = {}, {}
+    for mode in ("run", "run_async"):
+        drains[mode] = getattr(engine, mode)(reqs)
+        stats[mode] = dict(engine.stats)
+    fs_got = {}
+    for copies in FOURSTEP_SHARDS:
+        mesh = make_mesh(["cuda"] * copies)
+        for neg in (False, True):
+            fs_got[(copies, neg)] = fs.fourstep_ntt_sharded(a.view(128, 128), fsp, mesh,
+                                                            axis="b", negacyclic=neg)
+    torch.cuda.synchronize()
+    counts = K.snapshot()
+    fresh = EvalPlan.trace_count() - traces0
+    check_counts("scaleout", counts)
+
+    for mode, out in drains.items():
+        st = stats[mode]
+        matvecs = sum(c for g, c in st["groups"].items() if g.startswith("matvec"))
+        rows = st["per_device_rows"]
+        if (st["fresh_traces"] != 0 or st["failed"] or len(rows) != SCALE_SHARDS
+                or len(set(rows)) != 1 or sum(rows) != st["batched_ops"] - matvecs + st["padded"]):
+            raise AssertionError(f"scaleout engine {mode}: fresh_traces {st['fresh_traces']}, "
+                                 f"failed {st['failed']}, per_device_rows {rows}")
+        if set(out) != set(srv["out"]) or not all(same_ct(out[r], srv["out"][r]) for r in out):
+            raise AssertionError(f"scaleout engine {mode}: answers != the tile-8 unsharded drain")
+        log(f"[scaleout] two-shard engine {mode}: batch_tile {engine.batch_tile} (tuned), group "
+            f"tile {gt}, {st['batched_ops']} requests in {st['dispatches']} groups "
+            f"({st['padded']} pad rows), per_device_rows {rows}, fresh_traces 0, answers == "
+            f"the tile-8 unsharded drain")
+    times = {"two shards": [], "unsharded, tile 8": []}
+    for _ in range(SCALE_ROUNDS):
+        for label, eng in (("two shards", engine), ("unsharded, tile 8", unsharded)):
+            eng.run_async(reqs)
+            if eng.stats["fresh_traces"] or eng.stats["failed"]:
+                raise AssertionError(f"scaleout timing, {label}: {eng.stats['failed']}, "
+                                     f"fresh_traces {eng.stats['fresh_traces']}")
+            times[label].append(eng.stats["wall_s"])
+    med = {label: statistics.median(ts) for label, ts in times.items()}
+    log(f"[scaleout] run_async of the {SERVE_N}-request trace, {SCALE_ROUNDS} interleaved "
+        f"rounds, median: two shards on one card {med['two shards'] * 1e3:.3f} ms "
+        f"({SERVE_N / med['two shards']:.1f} requests/s), unsharded at tile 8 "
+        f"{med['unsharded, tile 8'] * 1e3:.3f} ms ({SERVE_N / med['unsharded, tile 8']:.1f} "
+        f"requests/s); all rounds ms {({k: [round(t * 1e3, 3) for t in v] for k, v in times.items()})}")
+    for (copies, neg), D in fs_got.items():
+        if not torch.equal(D.t().reshape(-1), fs_want[neg]):
+            raise AssertionError(f"fourstep_ntt_sharded over {copies} shards (negacyclic "
+                                 f"{neg}) != fourstep_ntt")
+    log(f"[scaleout] fourstep_ntt_sharded 128 x 128 over {FOURSTEP_SHARDS} shards, cyclic and "
+        f"negacyclic == fourstep_ntt; {fresh} graphs captured in the counted run (the "
+        f"sharded plans' first calls and the prepare); launches "
+        f"{ {k: v['launches'] for k, v in counts.items() if v['launches']} }; phase "
+        f"{time.perf_counter() - t_phase:.1f} s")
+    return counts
 
 
 # ----------------------------------------------------------- phase 3c
@@ -1983,8 +2210,10 @@ def main() -> int:
     phase_rotation_cpu_parity(rcts, rans)
     r16_cts, r16_ans, r16counts = phase_rot16()
     phase_rot16_cpu_parity(r16_cts, r16_ans)
-    s_reqs, s_out, s_mixed, scounts = phase_serve()
+    sctx, sM, s_reqs, s_out, s_mixed, scounts = phase_serve()
     phase_serve_cpu_parity(s_reqs, s_out, s_mixed)
+    gcounts = phase_scaleout({"ctx": rctx, "M": M, "cts": rcts},
+                             {"ctx": sctx, "M": sM, "reqs": s_reqs, "out": s_out})
     errs.update(phase_mlkem_kernels())
     mlkem_in, mlkem_out, mcounts, mlkem_per_op = phase_mlkem()
     phase_mlkem_cpu_parity(mlkem_in, mlkem_out)
@@ -1996,7 +2225,7 @@ def main() -> int:
               **rot_per_op, **{f"mlkem {op}": c for op, c in mlkem_per_op.items()},
               **ntt_per_op}
     counts = {"multiply": counts, "rotation": rcounts, "rot16": r16counts,
-              "serve": scounts, "mlkem": mcounts, "ntt128": ncounts}
+              "serve": scounts, "scaleout": gcounts, "mlkem": mcounts, "ntt128": ncounts}
     with SmClock() as clock:
         kernels, profiles = phase_times(ctx, cts, fs_pack, ks_pack, per_op, counts,
                                         errs, {"ctx": rctx, "M": M, "cts": rcts})

@@ -138,3 +138,51 @@ def fourstep_schedule(n1: int, n2: int) -> dict:
         "reorders": 1,                  # the inter-pass transpose
         "twiddle_muls": n1 * n2,        # fused step-3 correction
     }
+
+
+# ------------------------------------------------------------- sharded
+
+def fourstep_ntt_sharded(a2d, fsp: FourStepParams, mesh, axis: str = "model",
+                         negacyclic: bool = False):
+    """Four-step over the shards of one mesh axis (``repro_torch.mesh``).
+
+    a2d: (n1, n2) int32 matrix whose columns split over the axis's D
+    shards.  Shard i runs the pre-weight (negacyclic), its column
+    NTT-N1s and the step-3 twiddle on its (n1, n2/D) block on its device;
+    the reorder network between the two NTT banks (the reference's one
+    ``all_to_all``) is explicit copies: shard j gathers rows
+    [j n1/D, (j+1) n1/D) of every block, then runs its row NTT-N2s.
+    Returns the D matrix (n1, n2) on a2d's device, row block j from
+    shard j (the reference's ``P(axis, None)``); A_hat[k2*n1+k1] =
+    D[k1, k2]."""
+    n1, n2 = fsp.n1, fsp.n2
+    devices = mesh.axis_devices(axis)
+    D = len(devices)
+    if tuple(a2d.shape) != (n1, n2) or n1 % D or n2 % D:
+        raise ValueError(f"fourstep_ntt_sharded: a ({n1}, {n2}) matrix over "
+                         f"{D} shards, got {tuple(a2d.shape)}")
+    c, r = n2 // D, n1 // D
+    blocks = []
+    for i, d in enumerate(devices):
+        fp = _banks_pack(n1, n2, fsp.q, str(d))
+        cols = slice(i * c, (i + 1) * c)
+
+        def weighted(x, name):
+            w = fp[name].view(n1, n2)[:, cols].reshape(1, n1 * c)
+            wp = fp[name + "p"].view(n1, n2)[:, cols].reshape(1, n1 * c)
+            return ops.twiddle_mul_banks(x.reshape(1, 1, n1 * c), w, wp,
+                                         fp["qs"]).view(n1, c)
+
+        x = a2d[:, cols].to(d)
+        if negacyclic:
+            x = weighted(x, "psi")
+        xt = ops.ntt_banks(x.t().contiguous()[None], fp["pack1"],
+                           negacyclic=False)[0][:, ops._brev(n1, d)]
+        blocks.append(weighted(xt.t(), "tw"))
+    rows = []
+    for j, d in enumerate(devices):
+        fp = _banks_pack(n1, n2, fsp.q, str(d))
+        x = torch.cat([b[j * r:(j + 1) * r].to(d) for b in blocks], dim=1)
+        x = ops.ntt_banks(x[None], fp["pack2"], negacyclic=False)[0]
+        rows.append(x[:, ops._brev(n2, d)].to(a2d.device))
+    return torch.cat(rows, dim=0)

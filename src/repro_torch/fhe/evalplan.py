@@ -31,12 +31,29 @@ graph's static inputs, replays the graph and clones the outputs out.
 Every tensor argument is an input, keys and gather rows included, so
 one capture covers every rotation amount and every pattern of group
 elements at that shape, and no graph reads a tensor a cache may free;
-only the basis's tables are captured as they are.  A plan's graphs share
-one memory pool (they replay in order on one stream and their outputs
-are cloned out).  ``EvalPlan.trace_count()`` counts the captures in the
-process, and ``prepare(warm_jit=True, batch_sizes=...)`` captures ahead
-of traffic.  A capture or replay that fails raises; nothing falls back
+only the basis's tables are captured as they are.  A plan's graphs on
+one device share one memory pool (they replay in order on one stream
+and their outputs are cloned out).  ``EvalPlan.trace_count()`` counts
+the captures in the process, and ``prepare(warm_jit=True,
+batch_sizes=...)`` captures ahead of traffic.  A capture or replay that fails raises; nothing falls back
 to the eager program.  On the CPU the programs run eagerly.
+
+Scale-out.  ``EvalPlan(ctx, mesh=mesh.make_mesh(devices))`` splits every
+batched program over the mesh's "b" axis, as the reference's
+``shard_map`` twins do: ``multiply_many``, ``rescale_many`` and
+``galois_ks_many`` cut their (B, k, n) stacks into equal shards (a mixed
+Galois batch builds each shard's own key stacks and gather rows), and
+``hoisted_galois`` cuts its R rotations while every shard takes the whole
+ciphertext and pays its own decomposition.  No shard reads another's
+rows, so the answers equal the unsharded plan's bit for bit.  A batch is
+padded to a multiple of the axis size by repeating its last entry; pad
+rows are computed and dropped, and the counters charge the logical batch.
+Tables, keys and gather rows are copied to each device once and cached.
+Each shard runs that device's CUDA graph for its shapes: shards on one
+card run in turn and share a graph, shards on different cards run on
+each card's current stream, and their outputs are copied to the plan's
+device.  A mesh of one device is sharded too.  A "k" axis (the RNS prime
+axis) of size 1 changes nothing; a larger one is not ported and raises.
 """
 from __future__ import annotations
 
@@ -54,6 +71,7 @@ from repro_torch.fhe import rns
 from repro_torch.fhe.batched import batched_keyswitch, mod_down_banks
 from repro_torch.fhe.rns import RnsPoly
 from repro_torch.kernels import ops
+from repro_torch.mesh import canonical
 
 
 @dataclasses.dataclass
@@ -294,23 +312,58 @@ class EvalPlan:
       decomposes   RNS digit decompositions paid; R hoisted rotations
                    count R key switches but 1 decompose
     and mirrors them into the ``plan.*`` counters of ``obs``.
+
+    ``mesh`` (``repro_torch.mesh.Mesh``) splits the batched programs over
+    its "b" axis (module docstring, "Scale-out").
     """
 
     _traces = 0      # CUDA graphs captured in the process (trace_count)
 
-    def __init__(self, ctx):
+    def __init__(self, ctx, mesh=None):
         self.ctx = ctx
         self.n = ctx.n
         self.device = ctx.device
         self.natural = self.n >= ops.FOURSTEP_MIN_N
+        self.mesh = mesh
+        self._shards = None          # the device of each "b" shard, or None
+        if mesh is not None:
+            bad = set(mesh.axis_names) - {"b", "k"}
+            if bad:
+                raise ValueError(
+                    f"EvalPlan: unknown mesh axis name(s) {sorted(bad)} — the "
+                    "scale-out convention shards the ciphertext batch axis over "
+                    "'b' and the RNS prime axis over 'k'")
+            if mesh.shape.get("k", 1) > 1:
+                raise NotImplementedError(
+                    f"EvalPlan: a 'k' mesh axis of size {mesh.shape['k']} (the RNS "
+                    "prime axis split over devices) is not ported yet; see "
+                    "ROADMAP.md Queue 1")
+            if "b" in mesh.axis_names:
+                # a shard on the plan's own device uses the plan's tables
+                here = canonical(self.device)
+                self._shards = tuple(self.device if canonical(d) == here else d
+                                     for d in mesh.axis_devices("b"))
         self._keys: dict = {}        # ('relin', basis) | ('galois', g, basis)
-        self._batch_keys: dict = {}  # (gs, basis) -> stacked, bounded LRU
+        self._batch_keys: dict = {}  # (gs, basis, device) -> stacked, bounded LRU
         self._idx: dict = {}         # g -> (n,) int32 gather row
+        self._replicas: dict = {}    # (key, device) -> a key or row on that device
         self._rescale_tables: dict = {}
         # signature -> _Graph on the card; None runs every program eagerly
         self._graphs: dict | None = {} if self.device.type == "cuda" else None
-        self._pool = None            # the memory pool the graphs share
+        self._pools: dict = {}       # device -> the memory pool its graphs share
         self.reset_stats()
+
+    @property
+    def mesh_devices(self) -> int:
+        """Shards of the mesh's "b" axis (1 unsharded): the serve engine's
+        group multiplier and the tuner's ``shards=``."""
+        return len(self._shards) if self._shards is not None else 1
+
+    def _pad_batch(self, items: list) -> list:
+        """``items`` padded to a multiple of the "b" axis size by repeating
+        its last entry.  Callers zip results against the original list, so
+        pad rows are computed and dropped."""
+        return list(items) + [items[-1]] * (-len(items) % self.mesh_devices)
 
     def reset_stats(self):
         self.stats = {"dispatches": 0, "key_switches": 0, "decomposes": 0}
@@ -333,23 +386,56 @@ class EvalPlan:
             obs.counter_add("plan.key_switches", key_switches)
             obs.counter_add("plan.decomposes", decomposes)
 
-    def _program(self, name: str, fn, inputs: tuple, consts: tuple, key, **span):
-        """``fn(*inputs, *consts)``: eagerly on the CPU, else through the
-        plan's CUDA graph for (name, key, the inputs' shapes and dtypes),
-        captured on first use.  ``key`` names what ``consts`` depend on
-        (the basis, a static count); every tensor that varies between
-        calls is in ``inputs``."""
-        with obs.span("plan.program", program=name, **span):
-            if self._graphs is None or inputs[0].device.type != "cuda":
+    def _call(self, name: str, fn, inputs: tuple, consts: tuple, key):
+        """``fn(*inputs, *consts)`` on the inputs' device: eagerly on the
+        CPU, else through the plan's CUDA graph for (name, key, the device,
+        the inputs' shapes and dtypes), captured on first use.  ``key``
+        names what ``consts`` depend on (the basis, a static count); every
+        tensor that varies between calls is in ``inputs``."""
+        device = inputs[0].device
+        if device.type != "cuda":
+            return fn(*inputs, *consts)
+        with torch.cuda.device(device):     # that card's stream, graphs and pool
+            if self._graphs is None:
                 return fn(*inputs, *consts)
-            sig = (name, key, tuple((tuple(x.shape), x.dtype) for x in inputs))
+            sig = (name, key, str(device),
+                   tuple((tuple(x.shape), x.dtype) for x in inputs))
             graph = self._graphs.get(sig)
             if graph is None:
-                if self._pool is None:
-                    self._pool = torch.cuda.graph_pool_handle()
-                graph = self._graphs[sig] = _Graph(name, fn, inputs, consts, self._pool)
+                pool = self._pools.get(str(device))
+                if pool is None:
+                    pool = self._pools[str(device)] = torch.cuda.graph_pool_handle()
+                graph = self._graphs[sig] = _Graph(name, fn, inputs, consts, pool)
                 EvalPlan._traces += 1
             return graph.replay(inputs)
+
+    def _program(self, name: str, fn, inputs: tuple, consts: tuple, key, **span):
+        """``_call`` inside the ``plan.program`` span."""
+        with obs.span("plan.program", program=name, **span):
+            return self._call(name, fn, inputs, consts, key)
+
+    def _run(self, name: str, fn, count: int, args, key, *, out_axis: int = 0,
+             **span):
+        """A batched program over ``count`` rows (ciphertexts, or the
+        hoisted program's rotations).  ``args(device, rows)`` gives the
+        (inputs, consts) of the rows ``rows`` (a slice) on ``device``.
+        Unsharded, one program of every row on the plan's device; over a
+        mesh's "b" axis (``count`` a multiple of its size, see
+        ``_pad_batch``), shard i's rows run on its device, and the outputs
+        are concatenated along ``out_axis`` on the plan's device."""
+        if self._shards is None:
+            return self._program(name, fn, *args(self.device, slice(None)), key, **span)
+        per = count // len(self._shards)
+        parts = [self._program(name, fn, *args(d, slice(i * per, (i + 1) * per)), key,
+                               shard=i, **span)
+                 for i, d in enumerate(self._shards)]
+        return tuple(torch.cat([p[j] if d == self.device else p[j].to(self.device)
+                                for p, d in zip(parts, self._shards)], dim=out_axis)
+                     for j in range(len(parts[0])))
+
+    def _on(self, x: torch.Tensor, device) -> torch.Tensor:
+        """``x``, a tensor on the plan's device, on a shard's ``device``."""
+        return x if device == self.device else x.to(device)
 
     @staticmethod
     def _stack(arrs) -> torch.Tensor:
@@ -358,78 +444,96 @@ class EvalPlan:
 
     # ------------------------------------------------------------ tables
 
-    def _packs(self, full: tuple[int, ...]):
+    def _packs(self, full: tuple[int, ...], device):
         """(t, fsp) for a basis whose last prime is the special/dropped
         one; past the four-step threshold t is just the scalar columns."""
         if self.natural:
-            return (rns.scalar_pack(full, self.device),
-                    rns.fourstep_basis_pack(full, self.n, self.device))
-        return rns.basis_pack(full, self.n, self.device), None
+            return (rns.scalar_pack(full, device),
+                    rns.fourstep_basis_pack(full, self.n, device))
+        return rns.basis_pack(full, self.n, device), None
 
-    def keyswitch_tables(self, basis: tuple[int, ...]):
-        return self._packs(basis + (self.ctx.special,))
+    def keyswitch_tables(self, basis: tuple[int, ...], device=None):
+        """The key-switch tables of ``basis`` on ``device`` (the plan's by
+        default)."""
+        return self._packs(basis + (self.ctx.special,),
+                           self.device if device is None else device)
 
-    def rescale_tables(self, basis: tuple[int, ...]):
-        if basis not in self._rescale_tables:
+    def rescale_tables(self, basis: tuple[int, ...], device=None):
+        device = self.device if device is None else device
+        key = (basis, str(device))
+        if key not in self._rescale_tables:
             if self.natural:
                 # the FourStepPack has no basis-relative rows, so rescale
                 # shares a slice of the key-switch pack (basis + special)
-                _, ks_fsp = self.keyswitch_tables(basis)
-                self._rescale_tables[basis] = (
-                    rns.scalar_pack(basis, self.device),
+                _, ks_fsp = self.keyswitch_tables(basis, device)
+                self._rescale_tables[key] = (
+                    rns.scalar_pack(basis, device),
                     FB.slice_fourstep_pack(ks_fsp, slice(0, len(basis))))
             else:
-                self._rescale_tables[basis] = self._packs(basis)
-        return self._rescale_tables[basis]
+                self._rescale_tables[key] = self._packs(basis, device)
+        return self._rescale_tables[key]
 
     # -------------------------------------------------------------- keys
 
-    def _stacked(self, key, make):
+    def _replica(self, key, value, device):
+        """``value`` (a tensor or a tuple of them, cached on the plan's
+        device under ``key``) on ``device``, copied there once."""
+        if device is None or device == self.device:
+            return value
+        rkey = (key, str(device))
+        if rkey not in self._replicas:
+            self._replicas[rkey] = (tuple(v.to(device) for v in value)
+                                    if isinstance(value, tuple) else value.to(device))
+        return self._replicas[rkey]
+
+    def _stacked(self, key, make, device):
         if key not in self._keys:
             evk = make()
             self._keys[key] = (torch.stack([p[0].data for p in evk]),
                                torch.stack([p[1].data for p in evk]))
-        return self._keys[key]
+        return self._replica(key, self._keys[key], device)
 
-    def relin_key(self, basis: tuple[int, ...]):
+    def relin_key(self, basis: tuple[int, ...], device=None):
         """(k, k+1, n) stacked relinearization key digit tensors."""
         return self._stacked(("relin", basis),
-                             lambda: self.ctx.relin_keys(basis))
+                             lambda: self.ctx.relin_keys(basis), device)
 
-    def galois_key(self, g: int, basis: tuple[int, ...]):
+    def galois_key(self, g: int, basis: tuple[int, ...], device=None):
         """(k, k+1, n) stacked Galois key digit tensors for sigma_g."""
         return self._stacked(("galois", g, basis),
-                             lambda: self.ctx.galois_keys(g, basis))
+                             lambda: self.ctx.galois_keys(g, basis), device)
 
     # A mixed batch's stacked keys are (k, k+1, B, n) x2 per pattern of
     # group elements, so their cache is a bounded LRU: traffic that
     # repeats a pattern stays resident, random traffic evicts.
     _BATCH_KEY_CACHE_MAX = 32
 
-    def _galois_batch_key(self, gs: tuple[int, ...], basis: tuple[int, ...]):
+    def _galois_batch_key(self, gs: tuple[int, ...], basis: tuple[int, ...],
+                          device=None):
         """(k, k+1, B, n) per-ciphertext key stacks + (B, n) gather rows
-        for a batch of automorphisms gs, cached per (gs, basis)."""
-        key = (gs, basis)
+        for a batch of automorphisms gs on ``device`` (the plan's by
+        default), cached per (gs, basis, device)."""
+        key = (gs, basis, str(self.device if device is None else device))
         if key in self._batch_keys:
             self._batch_keys[key] = self._batch_keys.pop(key)   # LRU touch
         else:
             if len(self._batch_keys) >= self._BATCH_KEY_CACHE_MAX:
                 self._batch_keys.pop(next(iter(self._batch_keys)))
-            keys = [self.galois_key(g, basis) for g in gs]
+            keys = [self.galois_key(g, basis, device) for g in gs]
             self._batch_keys[key] = (
                 torch.stack([kb for kb, _ in keys], dim=2),    # (k, k+1, B, n)
                 torch.stack([ka for _, ka in keys], dim=2),
-                torch.stack([self.eval_idx(g) for g in gs]))
+                torch.stack([self.eval_idx(g, device) for g in gs]))
         return self._batch_keys[key]
 
-    def eval_idx(self, g: int) -> torch.Tensor:
+    def eval_idx(self, g: int, device=None) -> torch.Tensor:
         """(n,) int32 NTT-domain gather row for sigma_g in this ring's
         frequency order (natural past the four-step threshold, bitrev
-        below it)."""
+        below it), on ``device`` (the plan's by default)."""
         if g not in self._idx:
             perm = galois_eval_perm(g, self.n, self.natural)
             self._idx[g] = torch.from_numpy(perm.astype("int32")).to(self.device)
-        return self._idx[g]
+        return self._replica(("idx", g), self._idx[g], device)
 
     def rotation_group_element(self, r: int) -> int:
         return pow(5, r, 2 * self.n)
@@ -452,22 +556,26 @@ class EvalPlan:
         single programs, the ``*_many`` programs at every B of
         ``batch_sizes`` (a serving engine's padded group sizes; uniform and
         mixed Galois), ``rotate_hoisted`` per set, and each matvec's whole
-        composite.  One prepare covers one basis.  The counters are reset
-        on exit."""
+        composite.  One prepare covers one basis.  On a mesh the tables,
+        keys and gather rows are also copied to every shard's device.  The
+        counters are reset on exit."""
         basis = tuple(basis if basis is not None else self.ctx.qs)
-        self.keyswitch_tables(basis)
-        self.rescale_tables(basis)
-        if relin:
-            self.relin_key(basis)
         gs = [g for g in (self.rotation_group_element(r) for r in rotations)
               if g != 1]
         if conjugate:
             gs.append(2 * self.n - 1)
         hoist_gs = {self.rotation_group_element(r)
                     for rset in hoisted_sets for r in rset} - {1}
-        for g in gs + sorted(hoist_gs - set(gs)):
-            self.galois_key(g, basis)
-            self.eval_idx(g)
+        # the plan's device first: its keys are drawn in the reference's order
+        devices = dict.fromkeys((self.device,) + (self._shards or ()))
+        for d in devices:
+            self.keyswitch_tables(basis, d)
+            self.rescale_tables(basis, d)
+            if relin:
+                self.relin_key(basis, d)
+            for g in gs + sorted(hoist_gs - set(gs)):
+                self.galois_key(g, basis, d)
+                self.eval_idx(g, d)
         warm = warm_jit and self._graphs is not None
         if warm:
             z = RnsPoly(torch.zeros((len(basis), self.n), dtype=torch.int32,
@@ -493,12 +601,13 @@ class EvalPlan:
                 self.rotate_hoisted(zct, list(rset))
         for M in matvecs:
             mv_basis = tuple(M.basis)
-            self.keyswitch_tables(mv_basis)
-            for r in set(M.baby_set) | set(M.giant_set):
-                g = self.rotation_group_element(r)
-                if g != 1:
-                    self.galois_key(g, mv_basis)
-                    self.eval_idx(g)
+            for d in devices:
+                self.keyswitch_tables(mv_basis, d)
+                for r in set(M.baby_set) | set(M.giant_set):
+                    g = self.rotation_group_element(r)
+                    if g != 1:
+                        self.galois_key(g, mv_basis, d)
+                        self.eval_idx(g, d)
             if warm:
                 # the whole composite on a zero ciphertext: the hoisted baby
                 # pass, the MAC, the giant rotate_many and the final sum, as
@@ -556,14 +665,15 @@ class EvalPlan:
             check_same_basis("multiply_many", a, b)
             check_level("multiply_many", a)
         basis = self._common_basis("multiply_many", list(As) + list(Bs))
-        t, fsp = self.keyswitch_tables(basis)
-        eb, ea = self.relin_key(basis)
-        stack = lambda ps: self._stack([p.data for p in ps])
-        c0, c1 = self._program(
-            "multiply_many", multiply_many_banks,
-            (stack([a.c0 for a in As]), stack([a.c1 for a in As]),
-             stack([b.c0 for b in Bs]), stack([b.c1 for b in Bs]), eb, ea),
-            (t, fsp), basis, n=len(As))
+        Ap, Bp = self._pad_batch(As), self._pad_batch(Bs)
+        halves = [self._stack([ct.c0.data for ct in Ap]), self._stack([ct.c1.data for ct in Ap]),
+                  self._stack([ct.c0.data for ct in Bp]), self._stack([ct.c1.data for ct in Bp])]
+
+        def args(d, rows):
+            return ((*(self._on(h[rows], d) for h in halves), *self.relin_key(basis, d)),
+                    self.keyswitch_tables(basis, d))
+        c0, c1 = self._run("multiply_many", multiply_many_banks, len(Ap), args, basis,
+                           n=len(As))
         self._count(1, key_switches=len(As), decomposes=len(As))
         return [Ciphertext(RnsPoly(r0, basis, True), RnsPoly(r1, basis, True),
                            a.scale * b.scale)
@@ -577,11 +687,13 @@ class EvalPlan:
         for ct in cts:
             check_level("rescale_many", ct, need=1)
         basis = self._common_basis("rescale_many", cts)
-        t, fsp = self.rescale_tables(basis)
-        c0, c1 = self._program(
-            "rescale_many", rescale_many_banks,
-            (self._stack([ct.c0.data for ct in cts]),
-             self._stack([ct.c1.data for ct in cts])), (t, fsp), basis, n=len(cts))
+        pad = self._pad_batch(cts)
+        halves = [self._stack([ct.c0.data for ct in pad]), self._stack([ct.c1.data for ct in pad])]
+
+        def args(d, rows):
+            return tuple(self._on(h[rows], d) for h in halves), self.rescale_tables(basis, d)
+        c0, c1 = self._run("rescale_many", rescale_many_banks, len(pad), args, basis,
+                           n=len(cts))
         self._count(1)
         rest = basis[:-1]
         return [Ciphertext(RnsPoly(r0, rest, True), RnsPoly(r1, rest, True),
@@ -600,17 +712,20 @@ class EvalPlan:
         for ct in cts:
             check_level("galois_ks_many", ct)
         basis = self._common_basis("galois_ks_many", cts)
-        t, fsp = self.keyswitch_tables(basis)
-        if len(set(gs)) == 1:
-            eb, ea = self.galois_key(gs[0], basis)
-            idx = self.eval_idx(gs[0])
-        else:
-            eb, ea, idx = self._galois_batch_key(tuple(gs), basis)
-        c0, c1 = self._program(
-            "galois_ks_many", galois_ks_many_banks,
-            (self._stack([ct.c0.data for ct in cts]),
-             self._stack([ct.c1.data for ct in cts]), idx, eb, ea),
-            (t, fsp), basis, n=len(cts))
+        pad, pad_gs = self._pad_batch(cts), self._pad_batch(gs)
+        halves = [self._stack([ct.c0.data for ct in pad]), self._stack([ct.c1.data for ct in pad])]
+        uniform = len(set(pad_gs)) == 1
+
+        def args(d, rows):
+            if uniform:
+                eb, ea = self.galois_key(pad_gs[0], basis, d)
+                idx = self.eval_idx(pad_gs[0], d)
+            else:
+                eb, ea, idx = self._galois_batch_key(tuple(pad_gs[rows]), basis, d)
+            return ((*(self._on(h[rows], d) for h in halves), idx, eb, ea),
+                    self.keyswitch_tables(basis, d))
+        c0, c1 = self._run("galois_ks_many", galois_ks_many_banks, len(pad), args, basis,
+                           n=len(cts))
         self._count(1, key_switches=len(cts), decomposes=len(cts))
         return [Ciphertext(RnsPoly(r0, basis, True), RnsPoly(r1, basis, True),
                            ct.scale)
@@ -649,15 +764,19 @@ class EvalPlan:
             return []
         check_level("hoisted_galois", a)
         basis = a.primes
-        t, fsp = self.keyswitch_tables(basis)
-        eb, ea, idx = self._galois_batch_key(gs, basis)
-        c0, c1 = self._program("hoisted_galois", hoisted_rotations_banks,
-                               (a.c0.data, a.c1.data, idx, eb, ea), (t, fsp),
-                               basis, n=len(gs))
+        pad_gs = tuple(self._pad_batch(gs))
+
+        def args(d, rows):
+            # the rotations split; every shard takes the whole ciphertext
+            eb, ea, idx = self._galois_batch_key(pad_gs[rows], basis, d)
+            return ((self._on(a.c0.data, d), self._on(a.c1.data, d), idx, eb, ea),
+                    self.keyswitch_tables(basis, d))
+        c0, c1 = self._run("hoisted_galois", hoisted_rotations_banks, len(pad_gs), args,
+                           basis, out_axis=1, n=len(gs))
         self._count(1, key_switches=len(gs), decomposes=1)
         return [Ciphertext(RnsPoly(r0, basis, True), RnsPoly(r1, basis, True),
                            a.scale)
-                for r0, r1 in zip(c0.unbind(1), c1.unbind(1))]
+                for r0, r1, _ in zip(c0.unbind(1), c1.unbind(1), gs)]
 
     def rotate_hoisted(self, a: Ciphertext, rs) -> list[Ciphertext]:
         """Rotate one ciphertext by every amount in ``rs`` with the

@@ -45,11 +45,13 @@ Grouping rules:
     CKKS ciphertext fails alone at screening, and ``_dispatch`` refuses a
     mixed batch.
 
-Padding: each group is padded to a multiple of ``batch_tile`` by
-repeating its last request (pad rows' results are dropped), so the set
-of graph signatures is the tile's multiples up to ``max_batch``: exactly
-the ``batch_sizes`` to warm with ``EvalPlan.prepare``.  Identity
-rotations (r = 0 mod slots) are answered on the host before any check.
+Padding: each group is padded to a multiple of the group tile
+(``batch_tile`` times the plan's "b" shards) by repeating its last
+request (pad rows' results are dropped), so the set of graph signatures
+is the group tile's multiples up to ``max_batch``: exactly the
+``batch_sizes`` to warm with ``EvalPlan.prepare``, and every shard runs
+whole tiles.  Identity rotations (r = 0 mod slots) are answered on the
+host before any check.
 
 Failure isolation: a request that fails validation (mismatched multiply
 operands, exhausted level) or whose matvec pack raises inside its
@@ -75,7 +77,7 @@ from repro_torch import obs
 from repro_torch.fhe import linalg
 from repro_torch.fhe.evalplan import (Ciphertext, EvalPlan, check_level,
                                       check_same_basis)
-from repro_torch.kernels import is_device_fault
+from repro_torch.kernels import autotune, is_device_fault
 
 # op kinds a request may carry; rotate/conjugate share the Galois batch.
 # mlkem_* kinds are ML-KEM's requests: payload dicts, no ciphertext, and
@@ -89,11 +91,6 @@ _MLKEM_PAYLOAD = {
     "mlkem_encaps": ("ek", "m"),         # (1184,) key, (32,) randomness
     "mlkem_decaps": ("dk", "ct"),        # (2400,) key, (1088,) ciphertext
 }
-
-# the reference's tile when nothing is pinned or cached (its autotune
-# DEFAULT_TILE, clamped to a group of 32); the tile funnel (pin, cache,
-# measure) comes with the port of kernels/autotune.py
-DEFAULT_BATCH_TILE = 8
 
 
 @dataclasses.dataclass
@@ -194,15 +191,18 @@ class CkksServeEngine:
     ``run`` is the synchronous oracle drain, ``run_async`` the
     double-buffered one (same grouping, same answers bit for bit).
     ``max_batch`` caps an async group, so the padded group sizes are the
-    multiples of ``batch_tile`` up to it: the ``batch_sizes`` a caller
-    warms with ``EvalPlan.prepare``.
+    multiples of the group tile up to it: the ``batch_sizes`` a caller
+    warms with ``EvalPlan.prepare``.  The group tile is ``batch_tile``
+    times the plan's ``mesh_devices`` (1 unsharded); ``batch_tile=None``
+    resolves through ``kernels.autotune`` (family ``serve_batch``).
 
     stats (reset per run): ``mode``, ``dispatches`` (request groups
     dispatched), ``batched_ops`` (real requests in them), ``padded`` (pad
     rows), ``identity`` (answered on the host), ``failed`` (rid ->
     message), ``groups`` ("kind@L<level>" -> requests), ``devices`` /
-    ``per_device_rows`` (one card: the batch rows it ran), ``fresh_traces``
-    (CUDA graphs captured during the run: 0 after a covering warm-up),
+    ``per_device_rows`` (the mesh's shards and the batch rows each ran,
+    equal by construction), ``fresh_traces`` (CUDA graphs captured during
+    the run: 0 after a covering warm-up),
     and the plan's counter deltas: ``program_dispatches`` (programs run;
     a matvec runs several), ``key_switches``, ``decomposes`` and
     ``hoisted_reuse`` (key switches that shared a paid decomposition).
@@ -216,9 +216,15 @@ class CkksServeEngine:
 
     def __init__(self, plan: EvalPlan, batch_tile: int | None = None,
                  max_batch: int | None = None):
-        self.devices = 1      # one card (a plan over several is ROADMAP's scale-out)
+        # a plan over a mesh's "b" axis splits each dispatch over its shards,
+        # so groups are sized batch_tile * devices: every shard gets a full
+        # tile and the plan's own shard padding never fires on engine traffic
+        self.devices = plan.mesh_devices
         if batch_tile is None:
-            batch_tile = DEFAULT_BATCH_TILE
+            # the funnel (pin > cache > measure > 8) against a representative
+            # group of 32, per shard: the rows each shard's programs run
+            batch_tile = autotune.resolve_tile("serve_batch", len(plan.ctx.qs), plan.n, 32,
+                                               shards=self.devices, device=plan.device)
         if batch_tile < 1:
             raise ValueError(f"batch_tile must be >= 1, got {batch_tile}")
         self.plan = plan

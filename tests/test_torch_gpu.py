@@ -792,3 +792,110 @@ def test_batch_key_eviction_under_a_live_graph(cuda):
         assert _same_cts(got, eager.rotate_many(cts, amounts)), amounts
     mixed = [sig for sig in plan._graphs if sig[0] == "galois_ks_many"]
     assert len(mixed) == 1
+
+
+# ------------------------------------------------ the "b" mesh on the card
+
+def _sharded_programs(plan, M, cts):
+    """The batched programs at sizes a 2-shard mesh pads (3 -> 4, R = 3 -> 4)
+    and the matvec composite."""
+    from repro_torch.fhe import linalg
+    a, b, c = cts
+    prod = plan.multiply_many(cts, [b, c, a])
+    return {
+        "multiply_many": prod,
+        "rescale_many": plan.rescale_many(prod),
+        "rotate_many mixed": plan.rotate_many(cts, [1, 2, 3]),
+        "conjugate_many": plan.conjugate_many(cts),
+        "rotate_hoisted": plan.rotate_hoisted(a, [1, 2, 3]),
+        "matvec": [linalg.matvec(plan, M, a)],
+    }
+
+
+@pytest.mark.parametrize("logn", [10, 14])
+@pytest.mark.parametrize("copies", [1, 2])
+def test_mesh_on_the_card_equals_the_unsharded_plan(cuda, logn, copies):
+    """A mesh of the card once and twice: every batched program, the
+    hoisted set and the matvec equal the unsharded plan's words, through
+    the sharded graphs (captured once per shape, replayed by both shards),
+    and every kernel of the rotation path launched."""
+    from repro_torch.fhe.evalplan import EvalPlan
+    from repro_torch.mesh import make_mesh
+    ctx, plan, _, M, cts = _graphed(cuda, 1 << logn)
+    sharded = EvalPlan(ctx, mesh=make_mesh([cuda] * copies))
+    assert sharded.mesh_devices == copies and sharded._shards == (ctx.device,) * copies
+    want = _sharded_programs(plan, M, cts)
+    before = EvalPlan.trace_count()
+    K.reset_counts()
+    for round_ in range(2):
+        got = _sharded_programs(sharded, M, cts)
+        for name in want:
+            assert _same_cts(got[name], want[name]), (round_, name)
+    assert EvalPlan.trace_count() - before == len(sharded._graphs)
+    counts = K.snapshot()
+    for name in ("ntt_fwd_banks", "ntt_inv_banks", "dyadic_inner_banks", "galois_banks",
+                 "galois_banks_multi", "galois_digits"):
+        assert counts[name]["launches"] > 0 and counts[name]["plain_calls"] == 0, name
+
+
+def test_mesh_over_two_cards_equals_the_unsharded_plan(cuda):
+    """Shards on two distinct cards (each its own graphs, pool and stream,
+    outputs copied back to the plan's card)."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip(f"needs two CUDA devices, found {torch.cuda.device_count()}")
+    from repro_torch.fhe.evalplan import EvalPlan
+    from repro_torch.mesh import make_mesh
+    ctx, plan, _, M, cts = _graphed(cuda)
+    sharded = EvalPlan(ctx, mesh=make_mesh(["cuda:0", "cuda:1"]))
+    want = _sharded_programs(plan, M, cts)
+    got = _sharded_programs(sharded, M, cts)
+    for name in want:
+        assert _same_cts(got[name], want[name]), name
+    assert {sig[2] for sig in sharded._graphs} == {str(ctx.device), "cuda:1"}
+
+
+def test_fourstep_sharded_on_the_card(cuda):
+    from repro_torch.core import fourstep as fs
+    from repro_torch.mesh import make_mesh
+    fsp = fs.make_fourstep_params(128, 128)
+    a = _residues(3, [fsp.q], (128 * 128,))[0]
+    for neg in (False, True):
+        want = fs.fourstep_ntt(a, fsp, negacyclic=neg)
+        for copies in (1, 2, 4):
+            D = fs.fourstep_ntt_sharded(a.view(128, 128), fsp, make_mesh([cuda] * copies),
+                                        axis="b", negacyclic=neg)
+            assert torch.equal(D.t().reshape(-1), want), (neg, copies)
+
+
+def test_serve_batch_is_measured_on_the_card(cuda, monkeypatch, tmp_path):
+    """The tuner's runner on the card: every candidate timed, the sidecar
+    written and read back, and a resolve inside a graph capture does not
+    measure."""
+    import importlib
+    from repro_torch import obs
+    from repro_torch.kernels import autotune
+    monkeypatch.setenv(autotune.ENV_CACHE, str(tmp_path / "tiles.json"))
+    autotune.clear()
+    tile = autotune.ensure("serve_batch", 3, 1 << 10, 8, shards=2)
+    key = f"{torch.cuda.get_device_name(cuda)}|serve_batch|3|1024|4|uint32"
+    ev = autotune.table()["evidence"][key]
+    assert ev["source"] == "measured" and set(ev["candidates"]) == {"1", "2", "4"}
+    importlib.reload(autotune)
+    assert autotune.resolve_tile("serve_batch", 3, 1 << 10, 8, shards=2) == tile
+    assert autotune.table()["evidence"][key]["source"] == "disk"
+    monkeypatch.setenv(autotune.ENV_AUTOTUNE, "1")
+    obs.enable()
+    obs.reset()
+    try:
+        x = torch.zeros(4, device=cuda)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            inside = autotune.resolve_tile("serve_batch", 3, 1 << 10, 64)
+            x += 1
+        counters = obs.snapshot()["counters"]
+    finally:
+        obs.disable()
+        obs.reset()
+    assert inside == autotune.DEFAULT_TILE
+    assert counters.get("autotune.measurements", 0) == 0
+    assert counters["autotune.resolve.default"] == 1

@@ -26,7 +26,7 @@ from repro_torch.fhe.ckks import CkksContext
 from repro_torch.fhe.evalplan import Ciphertext
 from repro_torch.fhe.rns import RnsPoly
 from repro_torch.fhe.serve import CkksServeEngine, FheRequest, synthetic_trace
-from repro_torch.kernels import build, galois_kernel
+from repro_torch.kernels import autotune, build, galois_kernel
 
 torch.set_num_threads(2)
 
@@ -242,7 +242,7 @@ def test_request_validation():
         engine.run([FheRequest(1, "rescale", ct), FheRequest(1, "rescale", ct)])
     with pytest.raises(ValueError, match="batch_tile"):
         CkksServeEngine(CTX.plan(), batch_tile=0)
-    assert CkksServeEngine(CTX.plan()).batch_tile == serve.DEFAULT_BATCH_TILE == 8
+    assert CkksServeEngine(CTX.plan()).batch_tile == autotune.DEFAULT_TILE == 8
 
 
 def _mixed_queue(plan, M):
