@@ -75,6 +75,21 @@ Phases (any mismatch raises, so the exit code is non-zero):
                that engine's in interleaved rounds; fourstep_ntt_sharded at
                128 x 128 over 1, 2 and 4 shards == fourstep_ntt; every kernel
                of the rotation path launched, no plain version ran
+  3h. kshard   EvalPlan with a "k" mesh axis (the RNS primes split over
+               shards, the key switch's coefficient digits exchanged
+               between them) on the rotation context at 2^14 with 8 + 1
+               primes: "k" over the card twice and four times, ("b", "k")
+               2 x 2 over the card four times, and "k" over two cards when
+               there are two; each runs multiply -> rescale -> multiply ->
+               rescale -> multiply at bases of 8, 7 and 6 primes (split
+               where the axis divides the basis, unsharded where not),
+               rotate, conjugate, a mixed rotate_many of 5, rotate_hoisted
+               by 7 amounts and the 64 x 64 matvec, bit for bit against
+               the unsharded plan, with its count of programs run over "k"
+               (more than 0) and graphs printed; every kernel of the
+               rotation path launched and no plain version ran; then
+               multiply + rescale at B = 1 and a rotate over "k" = 2 on the
+               card timed against the unsharded plan in interleaved rounds
   3c. mlkem    ML-KEM-768 (FIPS 203) on the u16 lane: the two u16 NTT
                instantiations and the basecase product held bit for bit
                against their plain versions at every shape of the b = 1 and
@@ -220,6 +235,11 @@ SCALE_B = 5                      # its batches and rotations pad 5 -> 6 and 7 ->
 SCALE_R = 7
 SCALE_ROUNDS = 3                 # interleaved drains, sharded against unsharded
 FOURSTEP_SHARDS = (1, 2, 4)      # fourstep_ntt_sharded at 128 x 128
+# phase 3h's meshes over the one card: (label, devices, axes, shape); the
+# first is the one timed against the unsharded plan
+KSHARD_MESHES = (("'k' over the card twice", ["cuda"] * 2, ("k",), None),
+                 ("'k' over the card four times", ["cuda"] * 4, ("k",), None),
+                 ("('b', 'k') 2 x 2 over the card four times", ["cuda"] * 4, ("b", "k"), (2, 2)))
 
 REPLACES = {
     "ntt_fwd_banks": "src/repro/kernels/ntt_kernel.py:306",
@@ -270,6 +290,7 @@ PATH_KERNELS = {
 PATH_KERNELS["rot16"] = PATH_KERNELS["rotation"]
 PATH_KERNELS["serve"] = PATH_KERNELS["rotation"]
 PATH_KERNELS["scaleout"] = PATH_KERNELS["rotation"]
+PATH_KERNELS["kshard"] = PATH_KERNELS["rotation"]
 # launches per ML-KEM entry point at any batch: (u16 forward NTTs, u16
 # inverse NTTs, basecase products), as pq/mlkem.py issues them
 MLKEM_LAUNCHES = {"keygen": (1, 0, 1), "encaps": (1, 2, 2), "decaps": (2, 3, 3)}
@@ -1277,6 +1298,91 @@ def phase_scaleout(rot: dict, srv: dict) -> dict:
     return counts
 
 
+# ----------------------------------------------------------- phase 3h
+
+def kshard_traffic(plan, M, cts):
+    """multiply -> rescale -> multiply -> rescale -> multiply at bases of
+    8, 7 and 6 primes (a "k" axis of 2 splits 8 and 6, one of 4 splits 8),
+    rotate by 1, conjugate, a mixed rotate_many of SCALE_B,
+    rotate_hoisted by SCALE_R amounts and the 64 x 64 matvec."""
+    from repro_torch.fhe import linalg
+    a, b = cts[0], cts[1]
+    out = {"multiply at 8": [plan.multiply(a, b)]}
+    out["rescale at 8"] = [plan.rescale(out["multiply at 8"][0])]
+    out["multiply at 7"] = [plan.multiply(out["rescale at 8"][0], out["rescale at 8"][0])]
+    out["rescale at 7"] = [plan.rescale(out["multiply at 7"][0])]
+    out["multiply at 6"] = [plan.multiply(out["rescale at 7"][0], out["rescale at 7"][0])]
+    out["rotate 1"] = [plan.rotate(a, 1)]
+    out["conjugate"] = [plan.conjugate(a)]
+    out["rotate_many"] = plan.rotate_many(cts[:SCALE_B], ROT_AMOUNTS[:SCALE_B])
+    out["rotate_hoisted"] = plan.rotate_hoisted(a, ROT_AMOUNTS[:SCALE_R])
+    out["matvec"] = [linalg.matvec(plan, M, cts[-1])]
+    return out
+
+
+def phase_kshard(rot: dict) -> dict:
+    """Phase 3h: EvalPlan with a "k" mesh axis (the RNS primes split over
+    shards, the key switch's digits exchanged between them) on the
+    rotation context: "k" over the card twice and four times, ("b", "k")
+    2 x 2, and "k" over two cards when there are two, each against the
+    unsharded plan bit for bit, each with programs run over "k"; then
+    multiply + rescale at B = 1 and a rotate over "k" = 2 timed against
+    the unsharded plan in interleaved rounds.  Counts are reset before the
+    sharded runs and read after them; the unsharded answers are taken
+    before."""
+    from repro_torch import kernels as K
+    from repro_torch.fhe.evalplan import EvalPlan
+    from repro_torch.mesh import make_mesh
+    t_phase = time.perf_counter()
+    rctx, M, cts = rot["ctx"], rot["M"], rot["cts"]
+    meshes = [(label, make_mesh(devices, axes, shape))
+              for label, devices, axes, shape in KSHARD_MESHES]
+    if torch.cuda.device_count() >= 2:
+        meshes.append(("'k' over two cards", make_mesh(["cuda:0", "cuda:1"], ("k",))))
+    else:
+        log(f"[kshard] 'k' over two distinct cards: skipped, this machine has "
+            f"{torch.cuda.device_count()} CUDA device")
+    want = kshard_traffic(rctx.plan(), M, cts)       # draws the relin keys at 7 and 6 primes
+    torch.cuda.synchronize()
+
+    K.reset_counts()
+    plans = {}
+    for label, mesh in meshes:
+        t0 = time.perf_counter()
+        plan = plans[label] = EvalPlan(rctx, mesh=mesh)
+        got = kshard_traffic(plan, M, cts)
+        for name, ws in want.items():
+            if len(got[name]) != len(ws) or not all(same_ct(g, w) for g, w in zip(got[name], ws)):
+                raise AssertionError(f"kshard {label}: {name} != the unsharded plan's")
+        torch.cuda.synchronize()
+        if plan.k_programs == 0:
+            raise AssertionError(f"kshard {label}: no program ran over 'k'")
+        log(f"[kshard] {label} (mesh {mesh.shape}): {plan.k_programs} programs over 'k', "
+            f"{len(plan._graphs)} graphs; multiply -> rescale -> multiply -> rescale -> "
+            f"multiply at 8, 7, 6 primes, rotate, conjugate, rotate_many of {SCALE_B}, "
+            f"rotate_hoisted R={SCALE_R}, the {MV_DIM} x {MV_DIM} matvec == the unsharded plan "
+            f"bit for bit ({time.perf_counter() - t0:.2f} s)")
+    counts = K.snapshot()
+    check_counts("kshard", counts)
+
+    plan, kplan = rctx.plan(), plans[KSHARD_MESHES[0][0]]
+    s = kplan.mesh.shape["k"]
+    a, b = cts[0], cts[1]
+    times = interleaved_host_ms({
+        "multiply + rescale, unsharded": lambda: plan.rescale(plan.multiply(a, b)),
+        f"multiply + rescale, 'k' = {s}": lambda: kplan.rescale(kplan.multiply(a, b)),
+        "rotate, unsharded": lambda: plan.rotate(a, 1),
+        f"rotate, 'k' = {s}": lambda: kplan.rotate(a, 1)}, LAT_ROUNDS)
+    for label, ts in times.items():
+        q = statistics.quantiles(ts, n=4)
+        log(f"[kshard] {label} at B = 1, 2^14, 8 + 1 primes: median {statistics.median(ts):.3f} "
+            f"ms ({q[0]:.3f}-{q[2]:.3f}) over {LAT_ROUNDS} interleaved rounds (graphed, host "
+            f"clock to a synchronize) on {gpu_line()}")
+    log(f"[kshard] launches {({k: v['launches'] for k, v in counts.items() if v['launches']})}; "
+        f"phase {time.perf_counter() - t_phase:.1f} s")
+    return counts
+
+
 # ----------------------------------------------------------- phase 3c
 
 def mlkem_pack():
@@ -2214,6 +2320,7 @@ def main() -> int:
     phase_serve_cpu_parity(s_reqs, s_out, s_mixed)
     gcounts = phase_scaleout({"ctx": rctx, "M": M, "cts": rcts},
                              {"ctx": sctx, "M": sM, "reqs": s_reqs, "out": s_out})
+    kcounts = phase_kshard({"ctx": rctx, "M": M, "cts": rcts})
     errs.update(phase_mlkem_kernels())
     mlkem_in, mlkem_out, mcounts, mlkem_per_op = phase_mlkem()
     phase_mlkem_cpu_parity(mlkem_in, mlkem_out)
@@ -2225,7 +2332,8 @@ def main() -> int:
               **rot_per_op, **{f"mlkem {op}": c for op, c in mlkem_per_op.items()},
               **ntt_per_op}
     counts = {"multiply": counts, "rotation": rcounts, "rot16": r16counts,
-              "serve": scounts, "scaleout": gcounts, "mlkem": mcounts, "ntt128": ncounts}
+              "serve": scounts, "scaleout": gcounts, "kshard": kcounts, "mlkem": mcounts,
+              "ntt128": ncounts}
     with SmClock() as clock:
         kernels, profiles = phase_times(ctx, cts, fs_pack, ks_pack, per_op, counts,
                                         errs, {"ctx": rctx, "M": M, "cts": rcts})

@@ -343,13 +343,15 @@ int launch_bulk(const uint32_t* x, const int32_t* idx, uint32_t* out, long long 
   const bool pieces = n > kRowWords;
   const long long parts = plan(src_rows, n, batch, kMode == kFanOut, sm_count());
   auto kernel = pieces ? &galois_bulk_kernel<kMode, true> : &galois_bulk_kernel<kMode, false>;
-  static bool opted_in[2] = {false, false};  // above 48 KB: once, for the most it takes
-  if (!opted_in[pieces]) {
+  // above 48 KB: once a card, for the most it takes
+  static bool opted_in[host::kMaxDevices][2] = {};
+  const int dev = host::current_device();
+  if (!host::kept(dev) || !opted_in[dev][pieces]) {
     const int most = pieces ? kPieceSmem : kBarBytes + 4 * kRowWords;
     const cudaError_t e =
         cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, most);
     if (e != cudaSuccess) return (int)e;
-    opted_in[pieces] = true;
+    if (host::kept(dev)) opted_in[dev][pieces] = true;
   }
   const long long blocks = src_rows * parts;
   const unsigned grid = (unsigned)(blocks < kMaxBlocks ? blocks : kMaxBlocks);

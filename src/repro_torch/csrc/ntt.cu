@@ -370,7 +370,7 @@ struct ThreadMajor {
 // kStreamThreads a block (a row's TPR threads at least), halved while
 // fewer than kWantBlocks tiles would result (down to one row, and one
 // warp); a persistent grid of at most one wave of blocks, the resident
-// blocks a SM read once per block size and shared-memory size.
+// blocks a SM read once a card per block size and shared-memory size.
 template <bool kLazy, bool kFwd, int LL>
 int launch(const uint32_t* x, uint32_t* out, const Tables<uint32_t>& tb, const ThreadMajor& tm,
            int b, cudaStream_t s) {
@@ -384,29 +384,34 @@ int launch(const uint32_t* x, uint32_t* out, const Tables<uint32_t>& tb, const T
   auto kernel = tb.negacyclic ? &ntt_stream_kernel<kLazy, kFwd, true, LL>
                               : &ntt_stream_kernel<kLazy, kFwd, false, LL>;
   const int neg = tb.negacyclic ? 1 : 0;
-  static bool opted_in[2] = {false, false};  // above 48 KB: once, for the largest block
-  if (!opted_in[neg]) {
+  // above 48 KB: once a card, for the largest block
+  static bool opted_in[host::kMaxDevices][2] = {};
+  const int dev = host::current_device();
+  if (!host::kept(dev) || !opted_in[dev][neg]) {
     const cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                                (int)stream_smem<LL>(kMost));
     if (e != cudaSuccess) return (int)e;
-    opted_in[neg] = true;
+    if (host::kept(dev)) opted_in[dev][neg] = true;
   }
   int tpb = kMost;
   while (tpb > kLeast && ((long long)b + tpb / TPR - 1) / (tpb / TPR) < kWantBlocks) tpb /= 2;
   const size_t smem = stream_smem<LL>(tpb);
-  static int per_sm[2][4] = {};  // [neg][log2(tpb / 32)]
-  static size_t sizes[2][4] = {};
+  static int per_sm[host::kMaxDevices][2][4] = {};  // [card][neg][log2(tpb / 32)]
+  static size_t sizes[host::kMaxDevices][2][4] = {};
   const int slot = ilog2(tpb) - 5;
-  if (per_sm[neg][slot] == 0 || sizes[neg][slot] != smem) {
-    int blocks = 0;
+  int blocks = host::kept(dev) && sizes[dev][neg][slot] == smem ? per_sm[dev][neg][slot] : 0;
+  if (blocks == 0) {
     const cudaError_t e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel, tpb, smem);
     if (e != cudaSuccess) return (int)e;
-    sizes[neg][slot] = smem;
-    per_sm[neg][slot] = blocks > 0 ? blocks : 1;
+    if (blocks <= 0) blocks = 1;
+    if (host::kept(dev)) {
+      sizes[dev][neg][slot] = smem;
+      per_sm[dev][neg][slot] = blocks;
+    }
   }
   const int rpb = tpb / TPR;
   const long long tiles = ((long long)b + rpb - 1) / rpb;
-  const long long wave = (long long)per_sm[neg][slot] * sm_count();
+  const long long wave = (long long)blocks * sm_count();
   const dim3 grid((unsigned)(tiles < wave ? tiles : wave));
   kernel<<<grid, tpb, smem, s>>>(x, out, tb, tm.w, tm.wp, b, tables_vec(tb, 1 << LL));
   return (int)cudaGetLastError();

@@ -140,19 +140,22 @@ int launch_rows(const T* x, T* out, const Tables<T>& tb, int k, int rows,
   if (ntt_regs::staged_table_bytes<T, LL, GL>() > 0)
     smem += (size_t)2 * tb.stages * (1 << (GL - 1)) * sizeof(T);
   auto kernel = &ntt_regs::ntt_rows_kernel<T, kLazy, kFwd, LL, GL, RB>;
-  // resident blocks a SM, read once per block size (tpb is 32 << slot)
-  // and shared-memory size of this instantiation
-  static int cached_per_sm[4] = {0, 0, 0, 0};
-  static size_t cached_smem[4] = {0, 0, 0, 0};
+  // resident blocks a SM, read once a card per block size (tpb is
+  // 32 << slot) and shared-memory size of this instantiation
+  static int cached_per_sm[host::kMaxDevices][4] = {};
+  static size_t cached_smem[host::kMaxDevices][4] = {};
   const int slot = ilog2(tpb) - 5;
-  if (cached_per_sm[slot] == 0 || cached_smem[slot] != smem) {
-    int blocks = 0;
-    cudaError_t e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel, tpb, smem);
+  const int dev = host::current_device();
+  int per_sm = host::kept(dev) && cached_smem[dev][slot] == smem ? cached_per_sm[dev][slot] : 0;
+  if (per_sm == 0) {
+    cudaError_t e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, tpb, smem);
     if (e != cudaSuccess) return (int)e;
-    cached_smem[slot] = smem;
-    cached_per_sm[slot] = blocks > 0 ? blocks : 1;
+    if (per_sm <= 0) per_sm = 1;
+    if (host::kept(dev)) {
+      cached_smem[dev][slot] = smem;
+      cached_per_sm[dev][slot] = per_sm;
+    }
   }
-  const int per_sm = cached_per_sm[slot];
   const long long total = (long long)k * tiles(tpb);
   const long long wave = (long long)per_sm * sm_count();
   const dim3 grid((unsigned)(total < wave ? total : wave));

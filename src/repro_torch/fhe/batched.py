@@ -241,27 +241,63 @@ def mod_down_banks(acc, t: dict, *, fsp: dict | None = None, lazy: bool = True):
                         u32(t["pinv_p"])[:, None, None], qcol).int()
 
 
+def decompose_intt(d2, t: dict, *, fsp: dict | None = None, lazy: bool = True):
+    """Phase (A) of the digit decomposition: the digit iNTTs (Fig 22's
+    INTT units), one per prime row.
+
+    d2: (k, B, n) NTT form over t's first k primes.  Returns the (k, B, n)
+    coefficient digits, digit i mod t's prime i."""
+    k = d2.shape[0]
+    return _inv_banks(d2, slice_pack(t, slice(0, k)), fsp, lazy)
+
+
+def decompose_extend(ci, src_qs, t: dict, *, fsp: dict | None = None,
+                     lazy: bool = True):
+    """Phase (B): the centered extension of every coefficient digit onto
+    t's primes, then the forward banks (Fig 22's base extension and NTT
+    banks).  The one step of a key switch that reads every prime's digit.
+
+    ci: (d, B, n) coefficient digits, digit i mod ``src_qs[i]`` (which
+    need not be t's primes: a "k" shard extends every digit onto its own
+    block); t: the pack of the kt primes extended onto.  Returns
+    (d, kt, B, n): NTT-domain digit extensions, digit axis first."""
+    ext = torch.stack([extend_centered(ci[i], src_qs[i], t["qs"])
+                       for i in range(ci.shape[0])])            # (d, kt, B, n)
+    # NTT banks: the digit axis folds into the batch
+    y = _fwd_banks(ext.transpose(0, 1), t, fsp, lazy)           # (kt, d, B, n)
+    return y.transpose(0, 1)                                    # (digit, prime, B, n)
+
+
 def decompose_banks(d2, t: dict, *, fsp: dict | None = None, lazy: bool = True):
     """RNS digit decomposition + mod-up — the front half of Fig 22 (INTT
-    units -> base extension -> NTT banks).
+    units -> base extension -> NTT banks): ``decompose_extend`` of
+    ``decompose_intt``.
 
     d2: (k, B, n) NTT form over the k-prime basis; t: pack for k+1 primes
     (row k = the special prime P).  Returns (k, k+1, B, n): NTT-domain
     digit extensions, digit axis first."""
-    k = d2.shape[0]
-    tb = slice_pack(t, slice(0, k))
-    ci = _inv_banks(d2, tb, fsp, lazy)                          # INTT units
-    ext = torch.stack([extend_centered(ci[i], t["qs"][i], t["qs"])
-                       for i in range(k)])                      # (k, k+1, B, n)
-    # NTT banks: the digit axis folds into the batch
-    y = _fwd_banks(ext.transpose(0, 1), t, fsp, lazy)           # (k+1, k, B, n)
-    return y.transpose(0, 1)                                    # (digit, prime, B, n)
+    ci = decompose_intt(d2, t, fsp=fsp, lazy=lazy)
+    return decompose_extend(ci, t["qs"], t, fsp=fsp, lazy=lazy)
+
+
+def keyswitch_digits(ci, src_qs, evk_b, evk_a, t: dict, *,
+                     fsp: dict | None = None, lazy: bool = True):
+    """The key switch from the coefficient digits on: ``decompose_extend``
+    onto t's kt primes (the last the special P), the two digit MACs and
+    the mod-downs by P.  ci: (d, B, n) digits mod ``src_qs``; evk_b/evk_a:
+    (d, kt, n) or (d, kt, B, n) key digits over t's primes.  Returns
+    (ks0, ks1): (kt - 1, B, n)."""
+    y = decompose_extend(ci, src_qs, t, fsp=fsp, lazy=lazy)    # (digit, prime, B, n)
+    acc0 = ops.dyadic_inner_banks(y, evk_b, t, lazy=lazy)       # MM/MA arrays
+    acc1 = ops.dyadic_inner_banks(y, evk_a, t, lazy=lazy)
+    return (mod_down_banks(acc0, t, fsp=fsp, lazy=lazy),
+            mod_down_banks(acc1, t, fsp=fsp, lazy=lazy))
 
 
 def batched_keyswitch(d2, evk_b, evk_a, t: dict, *, fsp: dict | None = None,
                       lazy: bool = True):
     """Paper Fig 22 pipeline, vectorized over a ciphertext batch and the
-    RNS prime rows.
+    RNS prime rows: ``keyswitch_digits`` of ``decompose_intt``.
 
     d2:      (k, B, n) NTT form over the k-prime basis
     evk_b/a: (k, k+1, n) key digits over basis + special, shared by the
@@ -270,8 +306,5 @@ def batched_keyswitch(d2, evk_b, evk_a, t: dict, *, fsp: dict | None = None,
              ``fsp`` (a FourStepPack for the same primes) every transform
              runs the four-step pipeline and t may be the scalar pack.
     Returns (ks0, ks1): (k, B, n) over the original basis."""
-    y = decompose_banks(d2, t, fsp=fsp, lazy=lazy)              # (digit, prime, B, n)
-    acc0 = ops.dyadic_inner_banks(y, evk_b, t, lazy=lazy)       # MM/MA arrays
-    acc1 = ops.dyadic_inner_banks(y, evk_a, t, lazy=lazy)
-    return (mod_down_banks(acc0, t, fsp=fsp, lazy=lazy),
-            mod_down_banks(acc1, t, fsp=fsp, lazy=lazy))
+    ci = decompose_intt(d2, t, fsp=fsp, lazy=lazy)
+    return keyswitch_digits(ci, t["qs"], evk_b, evk_a, t, fsp=fsp, lazy=lazy)

@@ -52,8 +52,30 @@ Tables, keys and gather rows are copied to each device once and cached.
 Each shard runs that device's CUDA graph for its shapes: shards on one
 card run in turn and share a graph, shards on different cards run on
 each card's current stream, and their outputs are copied to the plan's
-device.  A mesh of one device is sharded too.  A "k" axis (the RNS prime
-axis) of size 1 changes nothing; a larger one is not ported and raises.
+device.  A mesh of one device is sharded too.
+
+A "k" axis of s > 1 shards splits the RNS prime axis, as the reference's
+``_shard_k`` does: a program whose ciphertext has a multiple of s primes
+runs over it, any other runs unsharded on the plan's device.  Over "k"
+go ``multiply``, ``rescale`` and ``apply_galois`` always, and the
+``*_many`` programs and ``hoisted_galois`` when the mesh has no "b" axis.
+Shard j owns the block ``basis[j*m:(j+1)*m]`` (m = k/s) and runs on its
+device with the tables of its shard basis: the block, then the prime the
+program drops (P for a key switch, the last prime for a rescale), so
+``mod_down_banks`` reads that basis's own P^-1 rows.  A key switch splits
+at its one cross-prime step: each shard runs its block up to the digit
+iNTTs (the ``*_front`` programs), the plan gathers the s blocks of
+coefficient digits onto every shard's device (the exchange: a
+``torch.cat`` on one card, peer copies across cards), and each shard
+extends all k digits onto its shard basis and finishes there (the
+``*_back`` programs: forward banks, digit MACs with its rows of the key,
+the mod-down by P, which every shard computes for itself).  A rescale
+copies the dropped prime's rows to every shard and needs no exchange.
+Graphs and tables are keyed by the shard basis, so shards on one card
+never replay each other's.  The outputs, concatenated on the prime axis
+on the plan's device, equal the unsharded plan's bit for bit, the lazy
+[0, 2q) representatives included.  ``plain_mac`` and ``accumulate`` stay
+on the plan's device.
 """
 from __future__ import annotations
 
@@ -68,7 +90,7 @@ from repro_torch.core.modmath import addmod, mulmod_barrett, u32
 from repro_torch.core.params import galois_eval_perm
 from repro_torch.fhe import batched as FB
 from repro_torch.fhe import rns
-from repro_torch.fhe.batched import batched_keyswitch, mod_down_banks
+from repro_torch.fhe.batched import mod_down_banks
 from repro_torch.fhe.rns import RnsPoly
 from repro_torch.kernels import ops
 from repro_torch.mesh import canonical
@@ -133,17 +155,36 @@ def _tensor_product(a0, a1, b0, b1, q, mu):
     return d0, d1, d2
 
 
-def multiply_banks(a0, a1, b0, b1, evk_b, evk_a, t, fsp=None):
-    """Ciphertext tensor + relinearization.  a0/a1/b0/b1: (k, n) NTT-form
-    halves; evk_b/evk_a: (k, k+1, n) relin key digits; t (+ fsp) the
-    basis+special tables.  Returns the (c0, c1) stacks."""
+def multiply_front(a0, a1, b0, b1, t, fsp=None):
+    """A multiply up to its one cross-prime step: the tensor product and
+    the digit iNTTs of d2.  a0/a1/b0/b1: (k, n) NTT-form halves over t's
+    first k primes.  Returns (d0, d1, ci): the int64 (k, n) d0 and d1 and
+    d2's (k, 1, n) coefficient digits."""
     k = a0.shape[0]
     q = u32(t["qs"][:k])[:, None]
     mu = u32(t["mu"][:k])[:, None]
     d0, d1, d2 = _tensor_product(a0, a1, b0, b1, q, mu)
-    ks0, ks1 = batched_keyswitch(d2.int()[:, None], evk_b, evk_a, t, fsp=fsp)
+    return d0, d1, FB.decompose_intt(d2.int()[:, None], t, fsp=fsp)
+
+
+def multiply_back(ci, d0, d1, evk_b, evk_a, src_qs, t, fsp=None):
+    """The rest of a multiply: the key switch of the digits ci (mod
+    ``src_qs``) onto t's primes and the sums with d0/d1.  evk_b/evk_a:
+    (d, kt, n) over t's kt primes.  Returns the (c0, c1) stacks over all
+    of them but P."""
+    k = d0.shape[0]
+    q = u32(t["qs"][:k])[:, None]
+    ks0, ks1 = FB.keyswitch_digits(ci, src_qs, evk_b, evk_a, t, fsp=fsp)
     return (addmod(d0, ks0[:, 0].long(), q).int(),
             addmod(d1, ks1[:, 0].long(), q).int())
+
+
+def multiply_banks(a0, a1, b0, b1, evk_b, evk_a, t, fsp=None):
+    """Ciphertext tensor + relinearization.  a0/a1/b0/b1: (k, n) NTT-form
+    halves; evk_b/evk_a: (k, k+1, n) relin key digits; t (+ fsp) the
+    basis+special tables.  Returns the (c0, c1) stacks."""
+    d0, d1, ci = multiply_front(a0, a1, b0, b1, t, fsp)
+    return multiply_back(ci, d0, d1, evk_b, evk_a, t["qs"], t, fsp)
 
 
 def rescale_banks(c0, c1, t, fsp=None):
@@ -155,18 +196,30 @@ def rescale_banks(c0, c1, t, fsp=None):
     return out[:, 0], out[:, 1]
 
 
-def multiply_many_banks(a0, a1, b0, b1, evk_b, evk_a, t, fsp=None):
-    """B tensor products + relinearization in one pass of every kernel.
-    a0/a1/b0/b1: (B, k, n); evk_b/evk_a: (k, k+1, n) shared by the batch.
-    Returns (B, k, n) stacks."""
+def multiply_many_front(a0, a1, b0, b1, t, fsp=None):
+    """``multiply_front`` of B ciphertexts: a0/a1/b0/b1 (B, k, n).  Returns
+    the (B, k, n) d0 and d1 and the (k, B, n) digits."""
     k = a0.shape[1]
     q = u32(t["qs"][:k])[None, :, None]
     mu = u32(t["mu"][:k])[None, :, None]
     d0, d1, d2 = _tensor_product(a0, a1, b0, b1, q, mu)
-    ks0, ks1 = batched_keyswitch(d2.int().transpose(0, 1).contiguous(),
-                                 evk_b, evk_a, t, fsp=fsp)
+    return d0, d1, FB.decompose_intt(d2.int().transpose(0, 1).contiguous(), t, fsp=fsp)
+
+
+def multiply_many_back(ci, d0, d1, evk_b, evk_a, src_qs, t, fsp=None):
+    k = d0.shape[1]
+    q = u32(t["qs"][:k])[None, :, None]
+    ks0, ks1 = FB.keyswitch_digits(ci, src_qs, evk_b, evk_a, t, fsp=fsp)
     return (addmod(d0, ks0.transpose(0, 1).long(), q).int(),
             addmod(d1, ks1.transpose(0, 1).long(), q).int())
+
+
+def multiply_many_banks(a0, a1, b0, b1, evk_b, evk_a, t, fsp=None):
+    """B tensor products + relinearization in one pass of every kernel.
+    a0/a1/b0/b1: (B, k, n); evk_b/evk_a: (k, k+1, n) shared by the batch.
+    Returns (B, k, n) stacks."""
+    d0, d1, ci = multiply_many_front(a0, a1, b0, b1, t, fsp)
+    return multiply_many_back(ci, d0, d1, evk_b, evk_a, t["qs"], t, fsp)
 
 
 def rescale_many_banks(c0, c1, t, fsp=None):
@@ -180,16 +233,44 @@ def rescale_many_banks(c0, c1, t, fsp=None):
     return out[:, 0], out[:, 1]
 
 
+def galois_ks_front(c0, c1, idx, t, fsp=None):
+    """A rotation up to its one cross-prime step: the NTT-domain gather on
+    both halves and the digit iNTTs of the permuted c1.  c0/c1 (k, n); idx
+    (n,).  Returns (c0g, ci): the gathered c0 and c1's (k, 1, n) digits."""
+    c0g = ops.galois_banks(c0, idx)
+    c1g = ops.galois_banks(c1, idx)
+    return c0g, FB.decompose_intt(c1g[:, None], t, fsp=fsp)
+
+
+def galois_ks_back(ci, c0g, evk_b, evk_a, src_qs, t, fsp=None):
+    k = c0g.shape[0]
+    q = u32(t["qs"][:k])[:, None]
+    ks0, ks1 = FB.keyswitch_digits(ci, src_qs, evk_b, evk_a, t, fsp=fsp)
+    return addmod(c0g.long(), ks0[:, 0].long(), q).int(), ks1[:, 0]
+
+
 def galois_ks_banks(c0, c1, idx, evk_b, evk_a, t, fsp=None):
     """Slot rotation / conjugation: NTT-domain gather on both halves (no
     iNTT/NTT round trip), then the key switch of the permuted c1 under
     the Galois key.  c0/c1 (k, n); idx (n,); evk_b/evk_a (k, k+1, n)."""
-    k = c0.shape[0]
-    q = u32(t["qs"][:k])[:, None]
-    c0g = ops.galois_banks(c0, idx)
-    c1g = ops.galois_banks(c1, idx)
-    ks0, ks1 = batched_keyswitch(c1g[:, None], evk_b, evk_a, t, fsp=fsp)
-    return addmod(c0g.long(), ks0[:, 0].long(), q).int(), ks1[:, 0]
+    c0g, ci = galois_ks_front(c0, c1, idx, t, fsp)
+    return galois_ks_back(ci, c0g, evk_b, evk_a, t["qs"], t, fsp)
+
+
+def galois_ks_many_front(c0, c1, idx, t, fsp=None):
+    """``galois_ks_front`` of B ciphertexts: c0/c1 (B, k, n), idx (n,) or
+    (B, n).  Returns the (B, k, n) gathered c0 and the (k, B, n) digits."""
+    c0g = ops.galois_banks(c0, idx, batch_leading=True)
+    c1g = ops.galois_banks(c1, idx, batch_leading=True)
+    return c0g, FB.decompose_intt(c1g.transpose(0, 1).contiguous(), t, fsp=fsp)
+
+
+def galois_ks_many_back(ci, c0g, evk_b, evk_a, src_qs, t, fsp=None):
+    k = c0g.shape[1]
+    q = u32(t["qs"][:k])[None, :, None]
+    ks0, ks1 = FB.keyswitch_digits(ci, src_qs, evk_b, evk_a, t, fsp=fsp)
+    return (addmod(c0g.long(), ks0.transpose(0, 1).long(), q).int(),
+            ks1.transpose(0, 1))
 
 
 def galois_ks_many_banks(c0, c1, idx, evk_b, evk_a, t, fsp=None):
@@ -197,14 +278,32 @@ def galois_ks_many_banks(c0, c1, idx, evk_b, evk_a, t, fsp=None):
     batch passes (B, n) gather rows and (k, k+1, B, n) per-ciphertext key
     digits; a uniform one the shared (n,) row and (k, k+1, n) digits.
     Returns (B, k, n) stacks."""
-    k = c0.shape[1]
-    q = u32(t["qs"][:k])[None, :, None]
-    c0g = ops.galois_banks(c0, idx, batch_leading=True)
-    c1g = ops.galois_banks(c1, idx, batch_leading=True)
-    ks0, ks1 = batched_keyswitch(c1g.transpose(0, 1).contiguous(), evk_b,
-                                 evk_a, t, fsp=fsp)
-    return (addmod(c0g.long(), ks0.transpose(0, 1).long(), q).int(),
-            ks1.transpose(0, 1))
+    c0g, ci = galois_ks_many_front(c0, c1, idx, t, fsp)
+    return galois_ks_many_back(ci, c0g, evk_b, evk_a, t["qs"], t, fsp)
+
+
+def hoisted_front(c1, t, fsp=None):
+    """The hoisted rotations' one decomposition up to its cross-prime
+    step: c1's (k, 1, n) coefficient digits, in a tuple."""
+    return (FB.decompose_intt(c1[:, None], t, fsp=fsp),)
+
+
+def hoisted_back(ci, c0, idx, evk_b, evk_a, src_qs, t, fsp=None):
+    """The rest of ``hoisted_rotations_banks`` from c1's digits ci (mod
+    ``src_qs``) onto t's primes."""
+    k = c0.shape[0]
+    R = idx.shape[0]
+    q = u32(t["qs"][:k])[:, None, None]
+    y = FB.decompose_extend(ci, src_qs, t, fsp=fsp)         # (d, k+1, 1, n)
+    # shared-mode gathers: the one decomposition (and c0, as a single
+    # "digit") fan out to the R gather rows inside the kernel
+    yg = ops.galois_digits_banks(y, idx)                    # (d, k+1, R, n)
+    acc0 = ops.dyadic_inner_banks(yg, evk_b, t)             # (k+1, R, n)
+    acc1 = ops.dyadic_inner_banks(yg, evk_a, t)
+    ks = mod_down_banks(torch.cat([acc0, acc1], dim=1), t, fsp=fsp)
+    ks0, ks1 = ks[:, :R], ks[:, R:]
+    c0g = ops.galois_digits_banks(c0[None, :, None], idx)[0]
+    return addmod(c0g.long(), ks0.long(), q).int(), ks1
 
 
 def hoisted_rotations_banks(c0, c1, idx, evk_b, evk_a, t, fsp=None):
@@ -217,19 +316,8 @@ def hoisted_rotations_banks(c0, c1, idx, evk_b, evk_a, t, fsp=None):
     c0/c1: (k, n); idx: (R, n) gather rows; evk_b/evk_a: (k, k+1, R, n)
     per-rotation key digits.  Returns (k, R, n) stacks, rotation r in
     batch column r."""
-    k, _ = c0.shape
-    R = idx.shape[0]
-    q = u32(t["qs"][:k])[:, None, None]
-    y = FB.decompose_banks(c1[:, None], t, fsp=fsp)        # (k, k+1, 1, n)
-    # shared-mode gathers: the one decomposition (and c0, as a single
-    # "digit") fan out to the R gather rows inside the kernel
-    yg = ops.galois_digits_banks(y, idx)                    # (k, k+1, R, n)
-    acc0 = ops.dyadic_inner_banks(yg, evk_b, t)             # (k+1, R, n)
-    acc1 = ops.dyadic_inner_banks(yg, evk_a, t)
-    ks = mod_down_banks(torch.cat([acc0, acc1], dim=1), t, fsp=fsp)
-    ks0, ks1 = ks[:, :R], ks[:, R:]
-    c0g = ops.galois_digits_banks(c0[None, :, None], idx)[0]
-    return addmod(c0g.long(), ks0.long(), q).int(), ks1
+    (ci,) = hoisted_front(c1, t, fsp)
+    return hoisted_back(ci, c0, idx, evk_b, evk_a, t["qs"], t, fsp)
 
 
 def plain_mac_banks(b0, b1, diags, rows, group, qs, mus, *, groups: int):
@@ -314,7 +402,9 @@ class EvalPlan:
     and mirrors them into the ``plan.*`` counters of ``obs``.
 
     ``mesh`` (``repro_torch.mesh.Mesh``) splits the batched programs over
-    its "b" axis (module docstring, "Scale-out").
+    its "b" axis and the RNS primes over its "k" axis (module docstring,
+    "Scale-out"); ``k_programs`` counts the scheme programs that ran over
+    "k" since the last ``reset_stats``.
     """
 
     _traces = 0      # CUDA graphs captured in the process (trace_count)
@@ -326,6 +416,7 @@ class EvalPlan:
         self.natural = self.n >= ops.FOURSTEP_MIN_N
         self.mesh = mesh
         self._shards = None          # the device of each "b" shard, or None
+        self._kdevs = None           # the device of each "k" shard (s > 1), or None
         if mesh is not None:
             bad = set(mesh.axis_names) - {"b", "k"}
             if bad:
@@ -333,21 +424,20 @@ class EvalPlan:
                     f"EvalPlan: unknown mesh axis name(s) {sorted(bad)} — the "
                     "scale-out convention shards the ciphertext batch axis over "
                     "'b' and the RNS prime axis over 'k'")
-            if mesh.shape.get("k", 1) > 1:
-                raise NotImplementedError(
-                    f"EvalPlan: a 'k' mesh axis of size {mesh.shape['k']} (the RNS "
-                    "prime axis split over devices) is not ported yet; see "
-                    "ROADMAP.md Queue 1")
+            # a shard on the plan's own device uses the plan's tables
+            here = canonical(self.device)
+            local = lambda ds: tuple(self.device if canonical(d) == here else d
+                                     for d in ds)
             if "b" in mesh.axis_names:
-                # a shard on the plan's own device uses the plan's tables
-                here = canonical(self.device)
-                self._shards = tuple(self.device if canonical(d) == here else d
-                                     for d in mesh.axis_devices("b"))
+                self._shards = local(mesh.axis_devices("b"))
+            if mesh.shape.get("k", 1) > 1:
+                self._kdevs = local(mesh.axis_devices("k"))
         self._keys: dict = {}        # ('relin', basis) | ('galois', g, basis)
         self._batch_keys: dict = {}  # (gs, basis, device) -> stacked, bounded LRU
         self._idx: dict = {}         # g -> (n,) int32 gather row
         self._replicas: dict = {}    # (key, device) -> a key or row on that device
         self._rescale_tables: dict = {}
+        self._kslices: dict = {}     # (key, rows, device) -> a key's rows for a "k" shard
         # signature -> _Graph on the card; None runs every program eagerly
         self._graphs: dict | None = {} if self.device.type == "cuda" else None
         self._pools: dict = {}       # device -> the memory pool its graphs share
@@ -367,6 +457,7 @@ class EvalPlan:
 
     def reset_stats(self):
         self.stats = {"dispatches": 0, "key_switches": 0, "decomposes": 0}
+        self.k_programs = 0
         return self
 
     @staticmethod
@@ -429,13 +520,92 @@ class EvalPlan:
         parts = [self._program(name, fn, *args(d, slice(i * per, (i + 1) * per)), key,
                                shard=i, **span)
                  for i, d in enumerate(self._shards)]
-        return tuple(torch.cat([p[j] if d == self.device else p[j].to(self.device)
-                                for p, d in zip(parts, self._shards)], dim=out_axis)
+        return self._collect(parts, out_axis)
+
+    def _collect(self, parts, axis: int) -> tuple:
+        """The shards' outputs ``parts`` (a tuple each, in shard order)
+        concatenated along ``axis`` on the plan's device."""
+        return tuple(torch.cat([self._on(p[j], self.device) for p in parts], dim=axis)
                      for j in range(len(parts[0])))
 
     def _on(self, x: torch.Tensor, device) -> torch.Tensor:
-        """``x``, a tensor on the plan's device, on a shard's ``device``."""
-        return x if device == self.device else x.to(device)
+        """``x`` on ``device``: itself if it lies there, else a copy."""
+        return x if canonical(x.device) == canonical(device) else x.to(device)
+
+    # ------------------------------------------------ the "k" axis
+
+    def _over_k(self, basis: tuple[int, ...]) -> bool:
+        """Whether a program at ``basis`` runs over the "k" axis: the prime
+        count must be a multiple of its size (the reference's rule)."""
+        return self._kdevs is not None and len(basis) % len(self._kdevs) == 0
+
+    def _kshards(self, basis: tuple[int, ...], rescale: bool = False):
+        """(j, device, rows, shard basis) of each "k" shard with output
+        rows: shard j of s owns the rows ``rows`` (a slice) of the block
+        [j*m, (j+1)*m) (m = k/s) that the program keeps (a rescale keeps
+        all but the last), and its shard basis is their primes followed by
+        the prime the program drops."""
+        k, s = len(basis), len(self._kdevs)
+        m = k // s
+        keep, drop = (k - 1, basis[-1]) if rescale else (k, self.ctx.special)
+        for j, d in enumerate(self._kdevs):
+            rows = slice(j * m, min((j + 1) * m, keep))
+            if rows.start < rows.stop:
+                yield j, d, rows, basis[rows] + (drop,)
+
+    def _kslice(self, key, value, rows: slice, device):
+        """The rows of a (k, k+1, ...) key stack ``value`` (cached under
+        ``key``) that the "k" shard owning ``rows`` reads: every digit, its
+        block's primes and P (row k), on ``device``, made once."""
+        ckey = (key, rows.start, rows.stop, str(device))
+        if ckey not in self._kslices:
+            k = value[0].shape[0]
+            self._kslices[ckey] = tuple(
+                torch.cat([v[:, rows], v[:, k:k + 1]], dim=1).to(device) for v in value)
+        return self._kslices[ckey]
+
+    def _run_k(self, name: str, front, back, basis, args, *, axis: int = 0, **span):
+        """A key-switch program over the "k" axis (module docstring,
+        "Scale-out").  ``args(device, rows)`` gives a shard's (front
+        inputs, back inputs): its block's rows on ``device``, and what its
+        back reads besides the exchanged digits and the front's other
+        outputs.  Every front runs, then the exchange, then every back;
+        graphs are keyed by (basis, shard basis).  Returns the outputs
+        concatenated along the prime axis ``axis`` on the plan's device."""
+        shards = []
+        for j, d, rows, sb in self._kshards(basis):
+            fin, bin_ = args(d, rows)
+            tables = self._packs(sb, d)
+            out = self._program(f"{name}/front", front, fin, tables, (basis, sb),
+                                kshard=j, **span)
+            shards.append((j, d, sb, tables, out, bin_))
+        # the exchange: every shard's (m, B, n) coefficient digits, as one
+        # (k, B, n) stack on each shard's device
+        digits = [out[-1] for *_, out, _ in shards]
+        gathered = {d: torch.cat([self._on(c, d) for c in digits])
+                    for d in dict.fromkeys(d for _, d, *_ in shards)}
+        # the digits' primes: the whole basis, as a (k,) column on each device
+        parts = [self._program(f"{name}/back", back, (gathered[d], *out[:-1], *bin_),
+                               (rns.scalar_pack(basis, d)["qs"], *tables), (basis, sb),
+                               kshard=j, **span)
+                 for j, d, sb, tables, out, bin_ in shards]
+        self.k_programs += 1
+        return self._collect(parts, axis)
+
+    def _rescale_k(self, name: str, fn, basis, halves, *, axis: int, **span):
+        """A rescale over the "k" axis: each shard mod-downs its rows of the
+        halves (their prime axis ``axis``) by the dropped prime, whose rows
+        it takes as an input.  No exchange."""
+        k = len(basis)
+        parts = []
+        for j, d, rows, sb in self._kshards(basis, rescale=True):
+            ins = tuple(self._on(torch.cat([h.narrow(axis, rows.start, rows.stop - rows.start),
+                                            h.narrow(axis, k - 1, 1)], dim=axis), d)
+                        for h in halves)
+            parts.append(self._program(name, fn, ins, self._packs(sb, d), (basis, sb),
+                                       kshard=j, **span))
+        self.k_programs += 1
+        return self._collect(parts, axis)
 
     @staticmethod
     def _stack(arrs) -> torch.Tensor:
@@ -486,22 +656,26 @@ class EvalPlan:
                                     if isinstance(value, tuple) else value.to(device))
         return self._replicas[rkey]
 
-    def _stacked(self, key, make, device):
+    def _stacked(self, key, make, device, rows):
         if key not in self._keys:
             evk = make()
             self._keys[key] = (torch.stack([p[0].data for p in evk]),
                                torch.stack([p[1].data for p in evk]))
+        if rows is not None:
+            return self._kslice(key, self._keys[key], rows, device)
         return self._replica(key, self._keys[key], device)
 
-    def relin_key(self, basis: tuple[int, ...], device=None):
-        """(k, k+1, n) stacked relinearization key digit tensors."""
+    def relin_key(self, basis: tuple[int, ...], device=None, rows=None):
+        """(k, k+1, n) stacked relinearization key digit tensors; with
+        ``rows`` (a "k" shard's block) the (k, m+1, n) rows it reads."""
         return self._stacked(("relin", basis),
-                             lambda: self.ctx.relin_keys(basis), device)
+                             lambda: self.ctx.relin_keys(basis), device, rows)
 
-    def galois_key(self, g: int, basis: tuple[int, ...], device=None):
-        """(k, k+1, n) stacked Galois key digit tensors for sigma_g."""
+    def galois_key(self, g: int, basis: tuple[int, ...], device=None, rows=None):
+        """(k, k+1, n) stacked Galois key digit tensors for sigma_g (a "k"
+        shard's rows with ``rows``)."""
         return self._stacked(("galois", g, basis),
-                             lambda: self.ctx.galois_keys(g, basis), device)
+                             lambda: self.ctx.galois_keys(g, basis), device, rows)
 
     # A mixed batch's stacked keys are (k, k+1, B, n) x2 per pattern of
     # group elements, so their cache is a bounded LRU: traffic that
@@ -509,17 +683,19 @@ class EvalPlan:
     _BATCH_KEY_CACHE_MAX = 32
 
     def _galois_batch_key(self, gs: tuple[int, ...], basis: tuple[int, ...],
-                          device=None):
+                          device=None, rows=None):
         """(k, k+1, B, n) per-ciphertext key stacks + (B, n) gather rows
         for a batch of automorphisms gs on ``device`` (the plan's by
-        default), cached per (gs, basis, device)."""
-        key = (gs, basis, str(self.device if device is None else device))
+        default), cached per (gs, basis, device, rows); with ``rows`` (a
+        "k" shard's block) the key rows that shard reads."""
+        key = (gs, basis, str(self.device if device is None else device),
+               None if rows is None else (rows.start, rows.stop))
         if key in self._batch_keys:
             self._batch_keys[key] = self._batch_keys.pop(key)   # LRU touch
         else:
             if len(self._batch_keys) >= self._BATCH_KEY_CACHE_MAX:
                 self._batch_keys.pop(next(iter(self._batch_keys)))
-            keys = [self.galois_key(g, basis, device) for g in gs]
+            keys = [self.galois_key(g, basis, device, rows) for g in gs]
             self._batch_keys[key] = (
                 torch.stack([kb for kb, _ in keys], dim=2),    # (k, k+1, B, n)
                 torch.stack([ka for _, ka in keys], dim=2),
@@ -557,8 +733,9 @@ class EvalPlan:
         ``batch_sizes`` (a serving engine's padded group sizes; uniform and
         mixed Galois), ``rotate_hoisted`` per set, and each matvec's whole
         composite.  One prepare covers one basis.  On a mesh the tables,
-        keys and gather rows are also copied to every shard's device.  The
-        counters are reset on exit."""
+        keys and gather rows are also copied to every shard's device (over
+        a "k" axis, the rows each shard reads, and its shard bases'
+        tables).  The counters are reset on exit."""
         basis = tuple(basis if basis is not None else self.ctx.qs)
         gs = [g for g in (self.rotation_group_element(r) for r in rotations)
               if g != 1]
@@ -576,6 +753,7 @@ class EvalPlan:
             for g in gs + sorted(hoist_gs - set(gs)):
                 self.galois_key(g, basis, d)
                 self.eval_idx(g, d)
+        self._prepare_k(basis, gs + sorted(hoist_gs - set(gs)), relin)
         warm = warm_jit and self._graphs is not None
         if warm:
             z = RnsPoly(torch.zeros((len(basis), self.n), dtype=torch.int32,
@@ -608,6 +786,9 @@ class EvalPlan:
                     if g != 1:
                         self.galois_key(g, mv_basis, d)
                         self.eval_idx(g, d)
+            self._prepare_k(mv_basis, {self.rotation_group_element(r)
+                                       for r in set(M.baby_set) | set(M.giant_set)} - {1},
+                            relin=False)
             if warm:
                 # the whole composite on a zero ciphertext: the hoisted baby
                 # pass, the MAC, the giant rotate_many and the final sum, as
@@ -618,17 +799,40 @@ class EvalPlan:
                 linalg.matvec(self, M, Ciphertext(z, z, 1.0))
         return self.reset_stats()
 
+    def _prepare_k(self, basis, gs, relin: bool):
+        """The "k" shards' tables, key rows and gather rows at ``basis``
+        (the keys drawn already), when programs there run over "k"."""
+        if not self._over_k(basis):
+            return
+        for _, d, rows, sb in self._kshards(basis):
+            self._packs(sb, d)
+            rns.scalar_pack(basis, d)
+            if relin:
+                self.relin_key(basis, d, rows)
+            for g in gs:
+                self.galois_key(g, basis, d, rows)
+                self.eval_idx(g, d)
+        if len(basis) > 1:
+            for _, d, _, sb in self._kshards(basis, rescale=True):
+                self._packs(sb, d)
+
     # ------------------------------------------------------- scheme ops
 
     def multiply(self, a: Ciphertext, b: Ciphertext) -> Ciphertext:
         check_same_basis("multiply", a, b)
         check_level("multiply", a)
         basis = a.primes
-        t, fsp = self.keyswitch_tables(basis)
-        eb, ea = self.relin_key(basis)
-        c0, c1 = self._program("multiply", multiply_banks,
-                               (a.c0.data, a.c1.data, b.c0.data, b.c1.data, eb, ea),
-                               (t, fsp), basis)
+        if self._over_k(basis):
+            def args(d, rows):
+                return (tuple(self._on(x.data[rows], d) for x in (a.c0, a.c1, b.c0, b.c1)),
+                        self.relin_key(basis, d, rows))
+            c0, c1 = self._run_k("multiply", multiply_front, multiply_back, basis, args)
+        else:
+            t, fsp = self.keyswitch_tables(basis)
+            eb, ea = self.relin_key(basis)
+            c0, c1 = self._program("multiply", multiply_banks,
+                                   (a.c0.data, a.c1.data, b.c0.data, b.c1.data, eb, ea),
+                                   (t, fsp), basis)
         self._count(1, key_switches=1, decomposes=1)
         return Ciphertext(RnsPoly(c0, basis, True), RnsPoly(c1, basis, True),
                           a.scale * b.scale)
@@ -636,9 +840,13 @@ class EvalPlan:
     def rescale(self, a: Ciphertext) -> Ciphertext:
         check_level("rescale", a, need=1)
         basis = a.primes
-        t, fsp = self.rescale_tables(basis)
-        c0, c1 = self._program("rescale", rescale_banks, (a.c0.data, a.c1.data),
-                               (t, fsp), basis)
+        if self._over_k(basis):
+            c0, c1 = self._rescale_k("rescale", rescale_banks, basis,
+                                     (a.c0.data, a.c1.data), axis=0)
+        else:
+            t, fsp = self.rescale_tables(basis)
+            c0, c1 = self._program("rescale", rescale_banks, (a.c0.data, a.c1.data),
+                                   (t, fsp), basis)
         self._count(1)
         rest = basis[:-1]
         return Ciphertext(RnsPoly(c0, rest, True), RnsPoly(c1, rest, True),
@@ -668,12 +876,18 @@ class EvalPlan:
         Ap, Bp = self._pad_batch(As), self._pad_batch(Bs)
         halves = [self._stack([ct.c0.data for ct in Ap]), self._stack([ct.c1.data for ct in Ap]),
                   self._stack([ct.c0.data for ct in Bp]), self._stack([ct.c1.data for ct in Bp])]
-
-        def args(d, rows):
-            return ((*(self._on(h[rows], d) for h in halves), *self.relin_key(basis, d)),
-                    self.keyswitch_tables(basis, d))
-        c0, c1 = self._run("multiply_many", multiply_many_banks, len(Ap), args, basis,
-                           n=len(As))
+        if self._shards is None and self._over_k(basis):
+            def kargs(d, rows):
+                return (tuple(self._on(h[:, rows].contiguous(), d) for h in halves),
+                        self.relin_key(basis, d, rows))
+            c0, c1 = self._run_k("multiply_many", multiply_many_front, multiply_many_back,
+                                 basis, kargs, axis=1, n=len(As))
+        else:
+            def args(d, rows):
+                return ((*(self._on(h[rows], d) for h in halves), *self.relin_key(basis, d)),
+                        self.keyswitch_tables(basis, d))
+            c0, c1 = self._run("multiply_many", multiply_many_banks, len(Ap), args, basis,
+                               n=len(As))
         self._count(1, key_switches=len(As), decomposes=len(As))
         return [Ciphertext(RnsPoly(r0, basis, True), RnsPoly(r1, basis, True),
                            a.scale * b.scale)
@@ -689,11 +903,14 @@ class EvalPlan:
         basis = self._common_basis("rescale_many", cts)
         pad = self._pad_batch(cts)
         halves = [self._stack([ct.c0.data for ct in pad]), self._stack([ct.c1.data for ct in pad])]
-
-        def args(d, rows):
-            return tuple(self._on(h[rows], d) for h in halves), self.rescale_tables(basis, d)
-        c0, c1 = self._run("rescale_many", rescale_many_banks, len(pad), args, basis,
-                           n=len(cts))
+        if self._shards is None and self._over_k(basis):
+            c0, c1 = self._rescale_k("rescale_many", rescale_many_banks, basis, halves,
+                                     axis=1, n=len(cts))
+        else:
+            def args(d, rows):
+                return tuple(self._on(h[rows], d) for h in halves), self.rescale_tables(basis, d)
+            c0, c1 = self._run("rescale_many", rescale_many_banks, len(pad), args, basis,
+                               n=len(cts))
         self._count(1)
         rest = basis[:-1]
         return [Ciphertext(RnsPoly(r0, rest, True), RnsPoly(r1, rest, True),
@@ -716,16 +933,24 @@ class EvalPlan:
         halves = [self._stack([ct.c0.data for ct in pad]), self._stack([ct.c1.data for ct in pad])]
         uniform = len(set(pad_gs)) == 1
 
-        def args(d, rows):
+        def keys(d, gs, rows=None):
             if uniform:
-                eb, ea = self.galois_key(pad_gs[0], basis, d)
-                idx = self.eval_idx(pad_gs[0], d)
-            else:
-                eb, ea, idx = self._galois_batch_key(tuple(pad_gs[rows]), basis, d)
-            return ((*(self._on(h[rows], d) for h in halves), idx, eb, ea),
-                    self.keyswitch_tables(basis, d))
-        c0, c1 = self._run("galois_ks_many", galois_ks_many_banks, len(pad), args, basis,
-                           n=len(cts))
+                return (*self.galois_key(gs[0], basis, d, rows), self.eval_idx(gs[0], d))
+            return self._galois_batch_key(tuple(gs), basis, d, rows)
+        if self._shards is None and self._over_k(basis):
+            def kargs(d, rows):
+                eb, ea, idx = keys(d, pad_gs, rows)
+                return ((*(self._on(h[:, rows].contiguous(), d) for h in halves), idx),
+                        (eb, ea))
+            c0, c1 = self._run_k("galois_ks_many", galois_ks_many_front, galois_ks_many_back,
+                                 basis, kargs, axis=1, n=len(cts))
+        else:
+            def args(d, rows):
+                eb, ea, idx = keys(d, pad_gs[rows])
+                return ((*(self._on(h[rows], d) for h in halves), idx, eb, ea),
+                        self.keyswitch_tables(basis, d))
+            c0, c1 = self._run("galois_ks_many", galois_ks_many_banks, len(pad), args, basis,
+                               n=len(cts))
         self._count(1, key_switches=len(cts), decomposes=len(cts))
         return [Ciphertext(RnsPoly(r0, basis, True), RnsPoly(r1, basis, True),
                            ct.scale)
@@ -734,11 +959,17 @@ class EvalPlan:
     def apply_galois(self, a: Ciphertext, g: int) -> Ciphertext:
         check_level("apply_galois", a)
         basis = a.primes
-        t, fsp = self.keyswitch_tables(basis)
-        eb, ea = self.galois_key(g, basis)
-        c0, c1 = self._program("galois_ks", galois_ks_banks,
-                               (a.c0.data, a.c1.data, self.eval_idx(g), eb, ea),
-                               (t, fsp), basis)
+        if self._over_k(basis):
+            def args(d, rows):
+                return ((self._on(a.c0.data[rows], d), self._on(a.c1.data[rows], d),
+                         self.eval_idx(g, d)), self.galois_key(g, basis, d, rows))
+            c0, c1 = self._run_k("galois_ks", galois_ks_front, galois_ks_back, basis, args)
+        else:
+            t, fsp = self.keyswitch_tables(basis)
+            eb, ea = self.galois_key(g, basis)
+            c0, c1 = self._program("galois_ks", galois_ks_banks,
+                                   (a.c0.data, a.c1.data, self.eval_idx(g), eb, ea),
+                                   (t, fsp), basis)
         self._count(1, key_switches=1, decomposes=1)
         return Ciphertext(RnsPoly(c0, basis, True), RnsPoly(c1, basis, True),
                           a.scale)
@@ -765,14 +996,21 @@ class EvalPlan:
         check_level("hoisted_galois", a)
         basis = a.primes
         pad_gs = tuple(self._pad_batch(gs))
-
-        def args(d, rows):
-            # the rotations split; every shard takes the whole ciphertext
-            eb, ea, idx = self._galois_batch_key(pad_gs[rows], basis, d)
-            return ((self._on(a.c0.data, d), self._on(a.c1.data, d), idx, eb, ea),
-                    self.keyswitch_tables(basis, d))
-        c0, c1 = self._run("hoisted_galois", hoisted_rotations_banks, len(pad_gs), args,
-                           basis, out_axis=1, n=len(gs))
+        if self._shards is None and self._over_k(basis):
+            def kargs(d, rows):
+                eb, ea, idx = self._galois_batch_key(pad_gs, basis, d, rows)
+                return ((self._on(a.c1.data[rows], d),),
+                        (self._on(a.c0.data[rows], d), idx, eb, ea))
+            c0, c1 = self._run_k("hoisted_galois", hoisted_front, hoisted_back, basis, kargs,
+                                 n=len(gs))
+        else:
+            def args(d, rows):
+                # the rotations split; every shard takes the whole ciphertext
+                eb, ea, idx = self._galois_batch_key(pad_gs[rows], basis, d)
+                return ((self._on(a.c0.data, d), self._on(a.c1.data, d), idx, eb, ea),
+                        self.keyswitch_tables(basis, d))
+            c0, c1 = self._run("hoisted_galois", hoisted_rotations_banks, len(pad_gs), args,
+                               basis, out_axis=1, n=len(gs))
         self._count(1, key_switches=len(gs), decomposes=1)
         return [Ciphertext(RnsPoly(r0, basis, True), RnsPoly(r1, basis, True),
                            a.scale)

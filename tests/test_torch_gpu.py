@@ -674,14 +674,14 @@ def test_single_prime_ops_round_trip_and_odd_words(cuda):
 
 # ------------------------------------------------ EvalPlan's CUDA graphs
 
-def _graphed(device, n=1 << 10, seed=5):
+def _graphed(device, n=1 << 10, seed=5, levels=2):
     """A context on the card with keys for rotations 1-3, conjugation and
-    an 8 x 4 matvec, two ciphertexts, and the plan's eager twin (the same
+    an 8 x 4 matvec, three ciphertexts, and the plan's eager twin (the same
     tables and keys, every program run eagerly)."""
     import copy
     from repro_torch.fhe import linalg
     from repro_torch.fhe.ckks import CkksContext
-    ctx = CkksContext(n=n, levels=2, scale_bits=28, seed=seed, device=device)
+    ctx = CkksContext(n=n, levels=levels, scale_bits=28, seed=seed, device=device)
     rng = np.random.default_rng(seed)
     M = linalg.PtMatrix.encode(ctx, rng.uniform(-1, 1, (8, 4)) / 4)
     plan = ctx.plan()
@@ -851,7 +851,55 @@ def test_mesh_over_two_cards_equals_the_unsharded_plan(cuda):
     got = _sharded_programs(sharded, M, cts)
     for name in want:
         assert _same_cts(got[name], want[name]), name
-    assert {sig[2] for sig in sharded._graphs} == {str(ctx.device), "cuda:1"}
+    assert {sig[2] for sig in sharded._graphs} == {"cuda:0", "cuda:1"}
+
+
+# ------------------------------------------------ the "k" mesh on the card
+
+@pytest.mark.parametrize("copies", [2, 4])
+def test_k_mesh_on_the_card_equals_the_unsharded_plan(cuda, copies):
+    """A "k" mesh of the card twice and four times at 2^14 with 4 primes:
+    every program split over "k" (and the rescaled ones, at 3 primes,
+    unsharded) and the matvec equal the unsharded plan's words, on the
+    capturing call and on a replay; each shard captures graphs of its own
+    (their keys name its block), and every kernel of the rotation path
+    launched."""
+    from repro_torch.fhe.evalplan import EvalPlan
+    from repro_torch.mesh import make_mesh
+    ctx, plan, _, M, cts = _graphed(cuda, 1 << 14, levels=3)
+    kplan = EvalPlan(ctx, mesh=make_mesh([cuda] * copies, ("k",)))
+    want = _programs(plan, M, cts)
+    low = plan.rescale_many(cts)
+    want_low = [plan.rotate(low[0], 1), plan.rescale(low[1])]
+    K.reset_counts()
+    for round_ in range(2):
+        got = _programs(kplan, M, cts)
+        for name in want:
+            assert _same_cts(got[name], want[name]), (round_, name)
+        assert _same_cts([kplan.rotate(low[0], 1), kplan.rescale(low[1])], want_low), round_
+    assert kplan.k_programs > 0
+    fronts = {sig[1] for sig in kplan._graphs if sig[0] == "multiply/front"}
+    assert len(fronts) == copies
+    counts = K.snapshot()
+    for name in ("ntt_fwd_banks", "ntt_inv_banks", "twiddle_mul_banks", "dyadic_inner_banks",
+                 "galois_banks", "galois_banks_multi", "galois_digits"):
+        assert counts[name]["launches"] > 0 and counts[name]["plain_calls"] == 0, name
+
+
+def test_k_mesh_over_two_cards_equals_the_unsharded_plan(cuda):
+    """Prime shards on two distinct cards: each card's graphs, the digit
+    exchange as peer copies, outputs copied back to the plan's card."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip(f"needs two CUDA devices, found {torch.cuda.device_count()}")
+    from repro_torch.fhe.evalplan import EvalPlan
+    from repro_torch.mesh import make_mesh
+    ctx, plan, _, M, cts = _graphed(cuda, 1 << 14, levels=3)
+    kplan = EvalPlan(ctx, mesh=make_mesh(["cuda:0", "cuda:1"], ("k",)))
+    want = _programs(plan, M, cts)
+    got = _programs(kplan, M, cts)
+    for name in want:
+        assert _same_cts(got[name], want[name]), name
+    assert {sig[2] for sig in kplan._graphs} == {"cuda:0", "cuda:1"}
 
 
 def test_fourstep_sharded_on_the_card(cuda):

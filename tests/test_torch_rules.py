@@ -413,6 +413,37 @@ def test_every_signature_names_a_launcher_of_its_source(source):
     assert launchers == set(build.SIGNATURES[source])
 
 
+# a variable a function keeps from one call to the next: `static`, a type,
+# a name, its array dimensions, then `=` or `;` (not a function or cast)
+STATIC_STATE = re.compile(r"^\s*static\s+(?:const\s+)?[\w:]+\s+(\w+)\s*((?:\[[^\]]*\])*)\s*[=;]",
+                          re.M)
+CSRC_FILES = sorted(build.CSRC.glob("*.cu")) + sorted(build.CSRC.glob("*.cuh"))
+
+
+@pytest.mark.parametrize("path", CSRC_FILES, ids=lambda p: p.name)
+def test_launchers_keep_no_state_for_the_whole_process(path):
+    """What a launcher keeps between launches (the shared-memory opt-in
+    above 48 KB, resident blocks a SM, the SM count) holds for one card,
+    since cudaFuncSetAttribute and the occupancy and attribute queries act
+    on the current device only: every such static is an array indexed
+    first by the device, and a source that opts in keeps its flag so."""
+    text = path.read_text()
+    state = dict(STATIC_STATE.findall(text))
+    for name, dims in state.items():
+        assert dims.startswith(("[host::kMaxDevices]", "[kMaxDevices]")), (name, dims)
+    if "cudaFuncSetAttribute(" in text:
+        assert state.get("opted_in", "").startswith("[host::kMaxDevices]")
+
+
+def test_every_launcher_state_is_seen():
+    """The pattern above finds every per-card state of the sources, so the
+    per-file rule has something to hold."""
+    found = {(f.name, name) for f in CSRC_FILES for name, _ in STATIC_STATE.findall(f.read_text())}
+    assert found == {("host.cuh", "sms"), ("galois.cu", "opted_in"), ("ntt.cu", "opted_in"),
+                     ("ntt.cu", "per_sm"), ("ntt.cu", "sizes"), ("ntt_banks.cu", "cached_per_sm"),
+                     ("ntt_banks.cu", "cached_smem")}
+
+
 def _mixed_calls(device):
     """Each lane-generic wrapper given an int16 pack and an int32 tensor."""
     r = from_reference(ring_table_pack(MLKEM_RING), device)

@@ -157,21 +157,26 @@ def test_mesh_of_one_is_sharded_and_counts_as_one_device(pair):
 
 def test_k_axis(pair):
     """A "k" axis of size 1 changes nothing (alone: unsharded; beside "b":
-    the "b" shards); a larger one raises rather than run on one device."""
+    the "b" shards); a larger one equals the unsharded plan too: at 3
+    primes, which 2 does not divide, unsharded, and a rescale at 2 primes
+    split over "k" (tests/test_torch_kshard.py holds every program)."""
     _, port, _, pc, *_ = pair
     konly = EvalPlan(port, mesh=make_mesh(["cpu"], ("k",)))
     assert konly._shards is None and konly.mesh_devices == 1
     bk = EvalPlan(port, mesh=make_mesh(["cpu"] * 2, ("b", "k"), shape=(2, 1)))
     assert bk.mesh_devices == 2
+    k2 = EvalPlan(port, mesh=make_mesh(["cpu"] * 2, ("k",)))
+    bk22 = EvalPlan(port, mesh=make_mesh(["cpu"] * 4, ("b", "k"), shape=(2, 2)))
+    assert (k2.mesh_devices, bk22.mesh_devices) == (1, 2)
     want = port.plan().multiply_many(pc[:3], pc[3:])
-    for plan in (konly, bk):
+    low = port.plan().rescale(pc[0])
+    for plan in (konly, bk, k2, bk22):
         got = plan.multiply_many(pc[:3], pc[3:])
         assert all(torch.equal(a.c0.data, b.c0.data) and torch.equal(a.c1.data, b.c1.data)
                    for a, b in zip(want, got))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        EvalPlan(port, mesh=make_mesh(["cpu"] * 2, ("k",)))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        EvalPlan(port, mesh=make_mesh(["cpu"] * 4, ("b", "k"), shape=(2, 2)))
+        a, b = port.plan().rescale(low), plan.rescale(low)
+        assert torch.equal(a.c0.data, b.c0.data) and torch.equal(a.c1.data, b.c1.data)
+        assert plan.k_programs == (plan in (k2, bk22))
 
 
 def test_axis_devices_of_a_two_axis_mesh():
