@@ -1,5 +1,7 @@
 """Choosing the device an entry point runs on, moving uint32 and uint16
-host arrays onto it, and the reference's state across into the port.
+host arrays onto it, and the reference's state across into the port:
+integer packs through ``from_reference``, model weights through
+``params_from_reference``.
 
 The lane rule: residues and the full-word constants are stored as
 ``torch.int32`` tensors that hold the uint32 bit pattern
@@ -86,3 +88,32 @@ def from_reference(tree, device):
     if arr.dtype == np.uint16:
         return u16_to_tensor(arr, device)
     return u32_to_tensor(arr, device)
+
+
+def params_from_reference(tree, device, dtype=None) -> dict[str, torch.Tensor]:
+    """The reference's float parameter tree (``Model.init``'s nest of
+    dicts, each block leaf stacked over layers, groups or tail) as the
+    port's ``models.model.Model`` state: a flat dict keyed by the tree's
+    paths joined with dots, for ``Model.load_state_dict``.  Each leaf
+    keeps its float dtype (bfloat16 included) unless ``dtype`` names
+    another.  Integer leaves are refused: those are ``from_reference``'s."""
+    out: dict[str, torch.Tensor] = {}
+
+    def walk(node, path):
+        if isinstance(node, dict):
+            for k, v in node.items():
+                walk(v, path + (str(k),))
+            return
+        arr = np.asarray(node)
+        if arr.dtype.name == "bfloat16":
+            t = torch.from_numpy(np.ascontiguousarray(arr).view(np.int16).copy())
+            t = t.view(torch.bfloat16)
+        elif arr.dtype.kind == "f":
+            t = torch.from_numpy(np.ascontiguousarray(arr).copy())
+        else:
+            raise TypeError(f"params_from_reference: {'.'.join(path)} is "
+                            f"{arr.dtype}, not a float array")
+        out[".".join(path)] = t.to(device=device, dtype=dtype or t.dtype)
+
+    walk(tree, ())
+    return out

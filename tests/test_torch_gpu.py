@@ -17,8 +17,10 @@ view, and its plan() against the CPU emulation's), and the single-prime transfor
 uneven row counts, the row body below it and on unaligned views, the
 one-prime bank above 4096, with ops' any-leading-shape rows); and rotate,
 rotate_many, rotate_hoisted and the matvec at 2^16 against the port's
-CPU run.  Marked ``gpu``: they skip where no CUDA device is present.  On
-a GPU machine:
+CPU run; and the LM substrate (smollm-135m at full width and every arch
+at smoke size, float32 with TF32 off, against the CPU; smollm-135m in
+bf16 against the CPU's float32; the serving engine in bf16).  Marked
+``gpu``: they skip where no CUDA device is present.  On a GPU machine:
 
     PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_gpu.py
 """
@@ -947,3 +949,117 @@ def test_serve_batch_is_measured_on_the_card(cuda, monkeypatch, tmp_path):
     assert inside == autotune.DEFAULT_TILE
     assert counters.get("autotune.measurements", 0) == 0
     assert counters["autotune.resolve.default"] == 1
+
+
+# ------------------------------------------------------- the LM substrate
+
+def _lm_twins(cfg, cuda, seed):
+    """A model on the card from a card generator, and its copy on the CPU."""
+    import copy
+    from repro_torch.models.model import build_model
+    model = build_model(cfg, device=cuda,
+                        generator=torch.Generator(device=cuda).manual_seed(seed))
+    return model, copy.deepcopy(model).to("cpu")
+
+
+def _lm_inputs(cfg, rng, b, s):
+    if cfg.embeds_input:
+        return {"embeds": torch.from_numpy(
+            rng.standard_normal((b, s, cfg.d_model)).astype(np.float32))}
+    return {"tokens": torch.from_numpy(rng.integers(0, cfg.vocab, (b, s)))}
+
+
+def _lm_prefill_decode(card, cpu, cfg, rng, b, s, max_len, steps):
+    """Prefill + ``steps`` decode steps on both copies with the same
+    inputs; yields (card logits, cpu logits) of each step."""
+    batch = _lm_inputs(cfg, rng, b, s)
+    got, ccache = card.prefill({k: v.cuda() for k, v in batch.items()} | {"max_len": max_len})
+    want, pcache = cpu.prefill(batch | {"max_len": max_len})
+    yield got, want
+    for _ in range(steps):
+        batch = _lm_inputs(cfg, rng, b, 1)
+        got, ccache = card.decode_step(ccache, {k: v.cuda() for k, v in batch.items()})
+        want, pcache = cpu.decode_step(pcache, batch)
+        yield got, want
+
+
+@pytest.fixture
+def float32_matmuls():
+    """TF32 off for the card's float32 products, restored after."""
+    saved = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    yield
+    torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = saved
+
+
+LM_TOL = 1e-5          # float32 on the card (TF32 off) against the CPU
+LM_BF16_TOL = 5e-2     # bf16 on the card against the CPU's float32
+
+
+def test_smollm_full_width_on_the_card_equals_the_cpu(cuda, float32_matmuls):
+    """smollm-135m at its published width, float32 compute: a 300-token
+    prompt (past attn_chunk = 256) and 3 decode steps; every step's
+    logits within LM_TOL of the largest |logit| of the CPU's (a limit
+    that TF32 products break, as chip_smoke.py's control shows)."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    cfg = dataclasses.replace(get_config("smollm-135m"), compute_dtype="float32")
+    card, cpu = _lm_twins(cfg, cuda, seed=1)
+    for got, want in _lm_prefill_decode(card, cpu, cfg, np.random.default_rng(2),
+                                        2, 300, 320, 3):
+        err = float((got.cpu() - want).abs().max())
+        assert err <= LM_TOL * float(want.abs().max()), err
+
+
+def test_smollm_bf16_on_the_card_near_the_cpu_float32(cuda, float32_matmuls):
+    """The served precision: smollm-135m at full width in bf16 on the card
+    against the CPU's float32 twin of the same weights, on the same inputs
+    (a 300-token prompt, 3 decode steps): every step's logits within
+    LM_BF16_TOL of the largest |logit|, and a greedy token differs only
+    where the CPU's top-2 margin is below that bound."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import build_model
+    cfg = get_config("smollm-135m")
+    card, _ = _lm_twins(cfg, cuda, seed=1)
+    cpu = build_model(dataclasses.replace(cfg, compute_dtype="float32"), device="cpu")
+    cpu.load_state_dict(card.state_dict())
+    for got, want in _lm_prefill_decode(card, cpu, cfg, np.random.default_rng(2),
+                                        2, 300, 320, 3):
+        got, want = got.cpu()[:, :cfg.vocab], want[:, :cfg.vocab]
+        scale = float(want.abs().max())
+        assert float((got - want).abs().max()) <= LM_BF16_TOL * scale
+        top2 = torch.topk(want, 2, dim=-1).values
+        for row in torch.nonzero(got.argmax(-1) != want.argmax(-1)).flatten().tolist():
+            assert float(top2[row, 0] - top2[row, 1]) < LM_BF16_TOL * scale, row
+
+
+@pytest.mark.parametrize("arch", ["musicgen-large", "nemotron-4-340b", "smollm-135m",
+                                  "qwen3-32b", "minicpm-2b", "recurrentgemma-9b",
+                                  "chameleon-34b", "mamba2-370m", "qwen3-moe-30b-a3b",
+                                  "kimi-k2-1t-a32b"])
+def test_smoke_archs_on_the_card_equal_the_cpu(cuda, float32_matmuls, arch):
+    """Every arch at smoke size (float32): prefill of 40 (past the chunk
+    and the hybrid's window) and 4 decode steps, atol = rtol = 1e-4."""
+    from repro_torch.configs import smoke_config
+    cfg = smoke_config(arch)
+    card, cpu = _lm_twins(cfg, cuda, seed=3)
+    for got, want in _lm_prefill_decode(card, cpu, cfg, np.random.default_rng(4),
+                                        2, 40, 48, 4):
+        np.testing.assert_allclose(got.cpu().numpy(), want.numpy(), atol=1e-4, rtol=1e-4)
+
+
+def test_lm_serve_engine_on_the_card(cuda):
+    """The engine at full width in bf16: every request gets its tokens,
+    all inside the vocabulary, and the card's parameters stay on the card."""
+    from repro_torch.configs import get_config
+    from repro_torch.serve.engine import Request, ServeEngine
+    cfg = get_config("smollm-135m")
+    model, _ = _lm_twins(cfg, cuda, seed=5)
+    rng = np.random.default_rng(6)
+    reqs = [Request(rid=i, prompt=rng.integers(0, cfg.vocab, n).astype(np.int32), max_new=4)
+            for i, n in enumerate((260, 8, 30, 17, 5))]
+    out = ServeEngine(model, batch_size=4, max_len=288).run(reqs)
+    assert sorted(out) == list(range(5))
+    assert all(len(v) == 4 and all(0 <= t < cfg.vocab for t in v) for v in out.values())
+    assert model.device.type == "cuda"
