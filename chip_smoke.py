@@ -148,6 +148,30 @@ Phases (any mismatch raises, so the exit code is non-zero):
                difference, which must fall where the CPU's top-2 margin is
                below LM_BF16_TOL x max |logit|; then the nine other archs at
                smoke size (prefill + 4 decode steps, 1e-4)
+  3j. train    the training path (optim/, train/, data/, ckpt/, launch/):
+               smollm-135m at its published width, float32 params and bf16
+               compute, trained by train_loop with examples/train_smollm.py's
+               settings (wsd, lr 3e-4, 20 warm-up steps, remat "full") at
+               B = 8 x 512 for 40 steps, checkpointing every 20; the last
+               loss below the first; a run stopped at 20 and resumed to 40
+               equal to the straight run bit for bit (losses 20-39, params,
+               optimizer state); the last checkpoint restored into a fresh
+               model, one wave of 4 requests served by ServeEngine (its
+               tokens the CPU's float32 greedy tokens from the same weights
+               up to a top-2 margin below LM_BF16_TOL) and its logits
+               through the encrypted 64 x 16 head within 1e-2 of x @ W, the
+               head's six kernels launched (PATH_KERNELS["train"]); the
+               median step time and training tokens/s; the gradients under
+               remat "full" and "dots" equal to "none" bit for bit and the
+               peak memory of one step under each ("full" below "none");
+               float32 parity with the CPU at B = 2 x 128 (TF32 off: the
+               loss and every gradient leaf within TRAIN_TOL of its largest,
+               the params after two AdamW steps too but where the first
+               gradient is within that limit; TF32 on, a control that must
+               break TRAIN_TOL); launch.train.main for 3 steps on the card;
+               one train step of each of the nine other archs at smoke size
+               against the CPU (TRAIN_SMOKE_TOL); a train step in the
+               profiler pass
   4. times     per kernel (CUDA events around a CUDA-graph replay, so the
                device time) beside its memory bound (the NTT banks and the
                single-prime transforms also beside an integer-instruction
@@ -168,8 +192,8 @@ Phases (any mismatch raises, so the exit code is non-zero):
                latency of that request and of the n = 4096 product, and a
                torch.profiler breakdown of one request's device time (one
                decaps at b = 256 and one NTT-128 batch among them, each CKKS
-               request graphed and eager, and the LM phase's decode step,
-               prefill and encrypted head)
+               request graphed and eager, the LM phase's decode step,
+               prefill and encrypted head, and a train step)
 
     python3 chip_smoke.py --seed N     # another seed for every phase
 
@@ -187,9 +211,11 @@ import dataclasses
 import hashlib
 import json
 import os
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -283,6 +309,19 @@ LM_SMOKE_TOL = 1e-4              # smoke archs: |d| <= atol + rtol * |cpu|, both
 LM_SMOKE_B, LM_SMOKE_S, LM_SMOKE_MAX, LM_SMOKE_STEPS = 2, 40, 48, 4
 PI_TOKENS, PI_DIM, PI_OUT = 16, 64, 16   # the head: first 64 logits -> 16 outputs
 PI_ROUNDS = 10                   # timed private-inference requests (median)
+# phase 3j: smollm-135m trained at its published width with
+# examples/train_smollm.py's settings (wsd, lr 3e-4, 20 warm-up steps,
+# remat "full"), float32 params and bf16 compute, at a card's batch
+TRAIN_B, TRAIN_S = 8, 512
+TRAIN_STEPS, TRAIN_CKPT_EVERY = 40, 20
+TRAIN_TIMED = 10                 # timed steps after the run (median)
+TRAIN_PARITY_B, TRAIN_PARITY_S = 2, 128
+# float32 card vs CPU: max |d grad| <= TRAIN_TOL * max |grad| per leaf, set
+# between the float32 reading and TF32's, which must break it
+TRAIN_TOL = 1e-4
+TRAIN_SMOKE_TOL = 1e-4           # the nine other archs at smoke size, per leaf
+TRAIN_PROMPTS = (64, 16, 40, 24)  # one wave of the trained model's serving
+TRAIN_LAUNCH_STEPS = 3
 
 REPLACES = {
     "ntt_fwd_banks": "src/repro/kernels/ntt_kernel.py:306",
@@ -338,6 +377,9 @@ PATH_KERNELS["kshard"] = PATH_KERNELS["rotation"]
 # weight-row multiply, the digit MAC and the staged gathers
 PATH_KERNELS["lm"] = ("ntt_fwd_banks", "ntt_inv_banks", "twiddle_mul_banks",
                       "dyadic_inner_banks", "galois_banks_multi", "galois_digits")
+# training launches none of the port's kernels; its trained model's
+# logits go through the same encrypted head
+PATH_KERNELS["train"] = PATH_KERNELS["lm"]
 # launches per ML-KEM entry point at any batch: (u16 forward NTTs, u16
 # inverse NTTs, basecase products), as pq/mlkem.py issues them
 MLKEM_LAUNCHES = {"keygen": (1, 0, 1), "encaps": (1, 2, 2), "decaps": (2, 3, 3)}
@@ -2330,7 +2372,295 @@ def phase_lm(rot: dict) -> dict:
     log(f"[lm] phase {time.perf_counter() - t_phase:.1f} s")
     return {"counts": counts, "prefill_tps": prefill_tps, "decode_tps": decode_tps,
             "pi_err": pi_err, "parity": par, "smoke_worst": smoke_worst,
-            "profiles": profiles}
+            "profiles": profiles, "head": {"ctx": ctx, "plan": plan, "M": M, "W": W}}
+
+
+# ----------------------------------------------------------- phase 3j
+
+def train_grads(model, batch):
+    """(loss, gradients in the parameter tree's sorted-leaf order) of
+    ``model.loss_fn`` on ``batch``, by autograd."""
+    from repro_torch import tree as T
+    loss, _ = model.loss_fn(batch)
+    return loss.detach(), torch.autograd.grad(loss, T.leaves(model.tree()))
+
+
+def grads_worst(got, want) -> float:
+    """The largest over leaves of max |got - want| / max |want|."""
+    worst = 0.0
+    for g, w in zip(got, want):
+        scale = float(w.abs().max())
+        if scale:
+            worst = max(worst, float((g.cpu() - w.cpu()).abs().max()) / scale)
+    return worst
+
+
+def _max(t: torch.Tensor) -> float:
+    return float(t.max()) if t.numel() else 0.0
+
+
+def train_twins_check(card, cpu, batch, tcfg, tol: float, steps: int, label: str,
+                      cpu_grads=None) -> dict:
+    """``card`` against ``cpu`` (the same weights): the loss and every
+    gradient leaf within ``tol`` x the leaf's largest |gradient|, then
+    ``steps`` train steps on each: every parameter within ``tol`` x its
+    leaf's largest |value|, except where the CPU's first gradient is
+    within ``tol`` of its leaf's largest (Adam's first update is about
+    sign(g) there, which rounding may flip), and those within 4 x the sum
+    of the steps' learning rates, the most Adam's update can move them.
+    ``cpu_grads``: the CPU's (loss, gradients), where already computed."""
+    from repro_torch import tree as T
+    from repro_torch.train.step import init_train_state, make_train_step
+    on_card = {k: v.cuda() for k, v in batch.items()}
+    loss_card, g_card = train_grads(card, on_card)
+    loss_cpu, g_cpu = cpu_grads or train_grads(cpu, batch)
+    dloss = abs(float(loss_card) - float(loss_cpu)) / abs(float(loss_cpu))
+    gworst = grads_worst(g_card, g_cpu)
+    if not all(bool(torch.all(torch.isfinite(g))) for g in g_card):
+        raise AssertionError(f"train {label}: a gradient on the card is not finite")
+    if dloss > tol or gworst > tol:
+        raise AssertionError(f"train {label}: loss {dloss:.3e}, gradients {gworst:.3e} "
+                             f"of their largest, limit {tol:g}")
+    st_card = init_train_state(card, card.tree(), tcfg)
+    st_cpu = init_train_state(cpu, cpu.tree(), tcfg)
+    step_card, step_cpu = make_train_step(card, tcfg), make_train_step(cpu, tcfg)
+    lrs = 0.0
+    for _ in range(steps):
+        st_card, m_card = step_card(st_card, on_card)
+        st_cpu, m_cpu = step_cpu(st_cpu, batch)
+        lrs += float(m_cpu["lr"])
+    pworst, flips, moved = 0.0, 0, 0.0
+    for p, q, g in zip(T.leaves(card.tree()), T.leaves(cpu.tree()), g_cpu):
+        q = q.detach()
+        d = (p.detach().cpu() - q).abs()
+        small = g.abs() <= tol * float(g.abs().max())
+        pworst = max(pworst, _max(d[~small]) / float(q.abs().max()))
+        flips += int((d[small] > tol * float(q.abs().max())).sum())
+        moved = max(moved, _max(d[small]))
+    if pworst > tol or moved > 4 * lrs:
+        raise AssertionError(f"train {label}: params after {steps} steps {pworst:.3e} of "
+                             f"their largest (limit {tol:g}); where the first gradient is "
+                             f"within the limit, {moved:.3e} (limit {4 * lrs:.3e})")
+    return {"loss": dloss, "grads": gworst, "params": pworst, "flips": flips, "moved": moved}
+
+
+def phase_train(head: dict) -> dict:
+    """smollm-135m trained at its published width on the card, resumed
+    from its checkpoint, served, and its logits through the encrypted
+    head; then parity with the CPU, remat, step times, the launcher and
+    the nine other archs at smoke size."""
+    from repro_torch import kernels as K
+    from repro_torch import tree as T
+    from repro_torch.ckpt import checkpoint as ckpt
+    from repro_torch.configs import ARCHS, get_config, smoke_config
+    from repro_torch.data.pipeline import DataConfig, TokenPipeline
+    from repro_torch.fhe import linalg
+    from repro_torch.launch import train as launch_train
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.serve.engine import Request, ServeEngine
+    from repro_torch.train.loop import LoopConfig, train_loop
+    from repro_torch.train.step import TrainConfig, make_train_step
+    t_phase = time.perf_counter()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = get_config(LM_ARCH)
+    tcfg = TrainConfig(opt=AdamWConfig(lr=3e-4, schedule="wsd", warmup_steps=20,
+                                       total_steps=TRAIN_STEPS), remat_policy="full")
+    dcfg = DataConfig(vocab=cfg.vocab, seq_len=TRAIN_S, global_batch=TRAIN_B, seed=SEED)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_train_")
+    loop = lambda steps, d: LoopConfig(steps=steps, ckpt_every=TRAIN_CKPT_EVERY,
+                                       ckpt_dir=os.path.join(tmp, d), log_every=10)
+    try:
+        # the counted run: train, resume, serve, the encrypted head
+        K.reset_counts()
+        model = build_lm(cfg)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, state, losses = train_loop(model, tcfg, loop(TRAIN_STEPS, "a"), dcfg,
+                                           seed=SEED, verbose=False)
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t0
+        if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+            raise AssertionError(f"train: loss {losses[0]} -> {losses[-1]} does not fall")
+        log(f"[train] {cfg.name} at full width, B = {TRAIN_B} x {TRAIN_S}, wsd lr 3e-4 "
+            f"(20 warm-up), remat full, {cfg.param_dtype} params, {cfg.compute_dtype} "
+            f"compute: loss {losses[0]:.4f} -> {losses[-1]:.4f} over {TRAIN_STEPS} steps "
+            f"({run_s:.2f} s with 2 checkpoints); checkpoints {ckpt.list_steps(os.path.join(tmp, 'a'))}")
+
+        first = build_lm(cfg)
+        _, _, head_losses = train_loop(first, tcfg, loop(TRAIN_CKPT_EVERY, "b"), dcfg,
+                                       seed=SEED, verbose=False)
+        resumed = build_lm(cfg)
+        p_res, s_res, tail_losses = train_loop(resumed, tcfg, loop(TRAIN_STEPS, "b"), dcfg,
+                                               seed=SEED, verbose=False)
+        if head_losses + tail_losses != losses:
+            raise AssertionError("train resume: the losses of the stopped and resumed run "
+                                 "differ from the straight run's")
+        for a, b in zip(T.leaves({"p": params, "s": state}), T.leaves({"p": p_res, "s": s_res})):
+            if not torch.equal(a, b):
+                raise AssertionError("train resume: params or state differ from the "
+                                     "straight run's")
+        log(f"[train] stopped at {TRAIN_CKPT_EVERY} and resumed to {TRAIN_STEPS}: losses "
+            f"{TRAIN_CKPT_EVERY}-{TRAIN_STEPS - 1}, final params and state == the straight "
+            f"run, bit for bit")
+        del first, resumed, p_res, s_res
+
+        # the last checkpoint into a fresh model, served, then the head
+        served = build_lm(cfg)
+        step, restored = ckpt.restore(os.path.join(tmp, "a"), {"params": served.tree()})
+        served.load_state_dict({".".join(p): v for p, v in
+                                T.flatten_with_path(restored["params"])})
+        rng = np.random.default_rng(SEED + 27)
+        reqs = [Request(rid=i, prompt=rng.integers(0, cfg.vocab, n).astype(np.int32),
+                        max_new=LM_NEW) for i, n in enumerate(TRAIN_PROMPTS)]
+        engine = ServeEngine(served, batch_size=LM_BATCH, max_len=LM_MAX_LEN)
+        out = engine.run(reqs)
+        wave = engine.waves[0]
+        ctx, plan, M, W = head["ctx"], head["plan"], head["M"], head["W"]
+        toks = torch.from_numpy(rng.integers(0, cfg.vocab, (1, PI_TOKENS))).cuda()
+        with torch.no_grad():
+            logits, _ = served({"tokens": toks})
+        x = logits[0, -1, :PI_DIM].double().cpu().numpy()
+        if not np.all(np.isfinite(x)):
+            raise AssertionError("train: the trained model's logits are not finite")
+        x = x / (np.max(np.abs(x)) + 1e-9)
+        y = linalg.matvec(plan, M, ctx.encrypt(linalg.encode_vector(ctx, x, PI_OUT)))
+        got = ctx.decrypt_decode(y).real[:PI_OUT]
+        torch.cuda.synchronize()
+        counts = K.snapshot()
+        check_counts("train", counts)
+        pi_err = float(np.max(np.abs(got - x @ W)))
+        if not np.all(np.isfinite(got)) or pi_err >= SLOT_TOL:
+            raise AssertionError(f"train: encrypted head error {pi_err} >= {SLOT_TOL}")
+        cpu32 = build_lm(dataclasses.replace(cfg, compute_dtype="float32")).to("cpu")
+        cpu32.load_state_dict(served.state_dict())
+        margins = lm_served_vs_cpu(out, lm_cpu_trace(cpu32, reqs), LM_BF16_TOL)
+        del cpu32
+        log(f"[train] checkpoint {step} restored into a fresh model and served: "
+            f"{len(reqs)} requests, prefill {wave['prefill_s'] * 1e3:.3f} ms, "
+            f"{wave['steps']} decode steps {wave['decode_s'] * 1e3:.3f} ms; {len(margins)} "
+            f"requests leave the CPU's greedy tokens (top-2 margins {margins}); its logits "
+            f"through the encrypted {PI_DIM} x {PI_OUT} head: max |decrypted - x @ W| "
+            f"{pi_err:.3e} (limit {SLOT_TOL:g}); launches "
+            f"{ {k: v['launches'] for k, v in counts.items() if v['launches']} }")
+
+        # step time and memory under each policy, from the trained state
+        batch = {k: torch.from_numpy(v).cuda()
+                 for k, v in TokenPipeline(dcfg).batch_at(TRAIN_STEPS).items()}
+        step_fn = make_train_step(model, tcfg)
+        times = []
+        for _ in range(TRAIN_TIMED):
+            t0 = time.perf_counter()
+            state, metrics = step_fn(state, batch)
+            float(metrics["loss"])
+            times.append((time.perf_counter() - t0) * 1e3)
+        step_ms = statistics.median(times)
+        q = statistics.quantiles(times, n=4)
+        tokens_s = TRAIN_B * TRAIN_S / (step_ms / 1e3)
+        log(f"[train] step (remat full, B = {TRAIN_B} x {TRAIN_S}): median {step_ms:.3f} ms "
+            f"({q[0]:.3f}-{q[2]:.3f}) over {TRAIN_TIMED}, {tokens_s:.1f} training tokens/s")
+        snapshot = {k: v.detach().clone() for k, v in model.state_dict().items()}
+        grads, peaks = {}, {}
+        for policy in ("none", "full", "dots"):
+            model.load_state_dict(snapshot)
+            model.remat_policy = policy
+            grads[policy] = train_grads(model, batch)[1]
+            st = T.map_tree(torch.clone, state)
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            policy_step = make_train_step(model, dataclasses.replace(tcfg, remat_policy=policy))
+            policy_step(st, batch)
+            torch.cuda.synchronize()
+            peaks[policy] = (base, torch.cuda.max_memory_allocated())
+            del st
+        model.load_state_dict(snapshot)
+        model.remat_policy = "full"
+        for policy in ("full", "dots"):
+            if not all(torch.equal(a, b) for a, b in zip(grads[policy], grads["none"])):
+                raise AssertionError(f"train remat: the gradients under {policy!r} differ "
+                                     "from those under 'none'")
+        if not peaks["full"][1] < peaks["none"][1]:
+            raise AssertionError(f"train remat: peak memory under 'full' {peaks['full'][1]} "
+                                 f"is not below 'none' {peaks['none'][1]}")
+        gib = lambda b: f"{b / 2**30:.3f} GiB"
+        log("[train] remat: gradients under 'full' and 'dots' == 'none' bit for bit; peak "
+            "allocated in one step (before it): " + ", ".join(
+                f"{p} {gib(peak)} ({gib(base)})" for p, (base, peak) in peaks.items()))
+        del grads, snapshot
+        profiles = [(lambda: step_fn(state, batch), step_ms,
+                     f"train step, B={TRAIN_B} x {TRAIN_S}, remat full")]
+
+        # float32 parity at full width, with TF32 on as the control
+        cfg32 = dataclasses.replace(cfg, compute_dtype="float32")
+        card32 = build_lm(cfg32)
+        cpu32 = copy.deepcopy(card32).to("cpu")
+        pdata = DataConfig(vocab=cfg.vocab, seq_len=TRAIN_PARITY_S, global_batch=TRAIN_PARITY_B,
+                           seed=SEED + 1)
+        pbatch = {k: torch.from_numpy(v) for k, v in TokenPipeline(pdata).batch_at(0).items()}
+        ptcfg = dataclasses.replace(tcfg, remat_policy="none")
+        t0 = time.perf_counter()
+        torch.backends.cuda.matmul.allow_tf32 = True
+        try:
+            _, g_tf32 = train_grads(card32, {k: v.cuda() for k, v in pbatch.items()})
+        finally:
+            torch.backends.cuda.matmul.allow_tf32 = False
+        want = train_grads(cpu32, pbatch)
+        tf32 = grads_worst(g_tf32, want[1])
+        par = train_twins_check(card32, cpu32, pbatch, ptcfg, TRAIN_TOL, 2, "parity",
+                                cpu_grads=want)
+        if tf32 <= TRAIN_TOL:
+            raise AssertionError(f"train parity: the TF32 control's {tf32:.3e} is within "
+                                 f"TRAIN_TOL = {TRAIN_TOL:g}, so the limit does not tell "
+                                 "float32 from TF32")
+        log(f"[train] float32 parity at full width, B = {TRAIN_PARITY_B} x {TRAIN_PARITY_S}: "
+            f"loss {par['loss']:.3e}, gradients {par['grads']:.3e} of each leaf's largest "
+            f"(limit {TRAIN_TOL:g}; TF32 on, the control: {tf32:.3e}); params after 2 AdamW "
+            f"steps {par['params']:.3e}, {par['flips']} elements past the limit where the "
+            f"first gradient is within it, moved at most {par['moved']:.3e} "
+            f"({time.perf_counter() - t0:.1f} s)")
+        del card32, cpu32
+
+        # the launcher, in process
+        t0 = time.perf_counter()
+        launched = launch_train.main(
+            ["--arch", LM_ARCH, "--steps", str(TRAIN_LAUNCH_STEPS), "--seq", "128",
+             "--batch", "4", "--ckpt-every", str(TRAIN_LAUNCH_STEPS), "--device", "cuda",
+             "--ckpt-dir", os.path.join(tmp, "launch")])
+        if len(launched) != TRAIN_LAUNCH_STEPS or not all(np.isfinite(launched)):
+            raise AssertionError(f"train launcher: losses {launched}")
+        log(f"[train] launch.train.main: {TRAIN_LAUNCH_STEPS} steps on the card "
+            f"({time.perf_counter() - t0:.1f} s)")
+
+        # the nine other archs at smoke size, one train step each
+        smoke_worst = 0.0
+        for arch in ARCHS:
+            if arch == LM_ARCH:
+                continue
+            scfg = smoke_config(arch)
+            card = build_lm(scfg)
+            cpu = copy.deepcopy(card).to("cpu")
+            srng = np.random.default_rng(SEED + 28)
+            sbatch = {"labels": torch.from_numpy(
+                srng.integers(0, scfg.vocab, (LM_SMOKE_B, LM_SMOKE_S)).astype(np.int32))}
+            if scfg.embeds_input:
+                sbatch["embeds"] = torch.from_numpy(srng.standard_normal(
+                    (LM_SMOKE_B, LM_SMOKE_S, scfg.d_model)).astype(np.float32))
+            else:
+                sbatch["tokens"] = torch.from_numpy(
+                    srng.integers(0, scfg.vocab, (LM_SMOKE_B, LM_SMOKE_S)).astype(np.int32))
+            r = train_twins_check(card, cpu, sbatch, tcfg, TRAIN_SMOKE_TOL, 1, arch)
+            log(f"[train] {arch} ({scfg.family}) at smoke size, one step (remat full): "
+                f"loss {r['loss']:.3e}, gradients {r['grads']:.3e}, params {r['params']:.3e} "
+                f"({r['flips']} near-zero-gradient elements past the limit, moved at most "
+                f"{r['moved']:.3e})")
+            smoke_worst = max(smoke_worst, r["grads"])
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    log(f"[train] phase {time.perf_counter() - t_phase:.1f} s")
+    return {"counts": counts, "losses": (losses[0], losses[-1]), "step_ms": step_ms,
+            "tokens_s": tokens_s, "peaks": peaks, "pi_err": pi_err, "parity": par,
+            "tf32": tf32, "smoke_worst": smoke_worst, "profiles": profiles}
 
 
 # ------------------------------------------------------------ phase 4
@@ -2672,12 +3002,13 @@ def main() -> int:
     ntt_in, ntt_out, ncounts, ntt_per_op = phase_ntt128()
     phase_ntt128_cpu_parity(ntt_in, ntt_out)
     lm = phase_lm({"ctx": rctx, "M": M, "cts": rcts})
+    train = phase_train(lm["head"])
     per_op = {"multiply + rescale": {k: v for k, v in per_op.items() if v},
               **rot_per_op, **{f"mlkem {op}": c for op, c in mlkem_per_op.items()},
               **ntt_per_op}
     counts = {"multiply": counts, "rotation": rcounts, "rot16": r16counts,
               "serve": scounts, "scaleout": gcounts, "kshard": kcounts, "mlkem": mcounts,
-              "ntt128": ncounts, "lm": lm["counts"]}
+              "ntt128": ncounts, "lm": lm["counts"], "train": train["counts"]}
     with SmClock() as clock:
         kernels, profiles = phase_times(ctx, cts, fs_pack, ks_pack, per_op, counts,
                                         errs, {"ctx": rctx, "M": M, "cts": rcts})
@@ -2689,7 +3020,8 @@ def main() -> int:
     log(f"[clock] SM clock during the timings: highest of {clock.samples} readings "
         f"{clock.mhz:.0f} MHz")
     apply_int_bounds(kernels, clock.mhz)
-    for req, lat_ms, label in profiles + mlkem_profiles + ntt_profiles + lm["profiles"]:
+    for req, lat_ms, label in (profiles + mlkem_profiles + ntt_profiles + lm["profiles"]
+                               + train["profiles"]):
         profile_request(req, lat_ms, label)
     log(f"[done] {time.perf_counter() - t_start:.1f} s, slot error "
         f"{slot_err:.3e} (multiply path), {rot_err:.3e} (rotation path); "
@@ -2697,7 +3029,10 @@ def main() -> int:
         f"NTT-128s and the products exact; {LM_ARCH} prefill {lm['prefill_tps']:.1f} / "
         f"decode {lm['decode_tps']:.1f} tokens/s, float32 parity "
         f"{lm['parity']['worst']:.3e} (TF32 control {lm['parity']['tf32_worst']:.3e}), "
-        f"bf16 {lm['parity']['bf16_worst']:.3e}, encrypted head {lm['pi_err']:.3e}")
+        f"bf16 {lm['parity']['bf16_worst']:.3e}, encrypted head {lm['pi_err']:.3e}; "
+        f"trained: loss {train['losses'][0]:.4f} -> {train['losses'][1]:.4f}, "
+        f"{train['tokens_s']:.1f} tokens/s, float32 gradients {train['parity']['grads']:.3e} "
+        f"(TF32 control {train['tf32']:.3e}), its head {train['pi_err']:.3e}")
     log(f"[gpu] {gpu_line()}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -1,7 +1,8 @@
 """Choosing the device an entry point runs on, moving uint32 and uint16
 host arrays onto it, and the reference's state across into the port:
 integer packs through ``from_reference``, model weights through
-``params_from_reference``.
+``params_from_reference``, a train state through
+``train_state_from_reference``.
 
 The lane rule: residues and the full-word constants are stored as
 ``torch.int32`` tensors that hold the uint32 bit pattern
@@ -117,3 +118,19 @@ def params_from_reference(tree, device, dtype=None) -> dict[str, torch.Tensor]:
 
     walk(tree, ())
     return out
+
+
+def train_state_from_reference(tree, device) -> dict:
+    """The reference's train state (``init_train_state``'s or a train
+    step's nest of dicts: ``opt`` with ``step``, the moments ``m`` / ``v``
+    as float32 arrays or int8 ``{"q", "scale"}``, and ``err`` under
+    ``int8_ef``) as the same nest of tensors on ``device``, each leaf
+    keeping its dtype (int32, float32, int8), so the port's train step
+    continues from it."""
+    if isinstance(tree, dict):
+        return {k: train_state_from_reference(v, device) for k, v in tree.items()}
+    arr = np.asarray(tree)
+    if arr.dtype not in (np.float32, np.int32, np.int8):
+        raise TypeError(f"train_state_from_reference: a {arr.dtype} leaf; the "
+                        "state holds float32, int32 and int8 arrays")
+    return torch.from_numpy(np.array(arr, order="C")).to(device)   # 0-d stays 0-d

@@ -8,13 +8,24 @@ over the groups of the hybrid pattern and over its tail, so its
 ``convert.params_from_reference`` loads the reference's own weights.
 The layer loops run eagerly, one layer's slice of the stack at a time.
 ``prefill`` and ``decode_step`` write the KV / state cache in place.
+
+``forward`` and ``loss_fn`` are differentiable end to end; autograd's
+gradients reach the stacked parameters through the per-layer views.
+``remat_policy`` rematerialises each unit of the reference's scans (one
+block for dense, moe and ssm; one group of the hybrid pattern; one tail
+sublayer) with ``torch.utils.checkpoint``: "full" keeps only the unit's
+inputs (``checkpoint_policies.nothing_saveable``), "dots" also keeps the
+outputs of its matrix products (``checkpoint_policies.checkpoint_dots``).
 """
 from __future__ import annotations
 
+import functools
 from typing import Any
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from repro_torch.convert import resolve_device
 from repro_torch.models.common import ModelConfig, MeshCtx, truncated_normal_init
@@ -120,6 +131,18 @@ def init_params(cfg: ModelConfig, generator: torch.Generator) -> dict:
     return params
 
 
+REMAT_POLICIES = ("none", "full", "dots")
+# what a matrix product dispatches to here: ``@`` and ``einsum`` reach
+# these through ``matmul``'s decomposition
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.bmm.default,
+         torch.ops.aten.addmm.default, torch.ops.aten.baddbmm.default)
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    return (CheckpointPolicy.MUST_SAVE if op in _DOTS
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
 def _layer(tree, i: int):
     """Layer ``i``'s slice of a stacked parameter tree (views)."""
     if isinstance(tree, dict):
@@ -157,10 +180,6 @@ class Model(ParamTree):
     def __init__(self, cfg: ModelConfig, mctx: MeshCtx | None = None,
                  remat_policy: str = "none", *, device=None,
                  generator: torch.Generator | None = None):
-        if remat_policy != "none":
-            raise NotImplementedError(
-                f"remat_policy={remat_policy!r}: activation rematerialisation "
-                "comes with training (port slice 14); serving takes 'none'")
         device = resolve_device(device)
         if generator is None:
             generator = torch.Generator(device=device).manual_seed(0)
@@ -169,6 +188,27 @@ class Model(ParamTree):
         self.cfg = cfg
         self.mctx = mctx or MeshCtx()
         self.remat_policy = remat_policy
+
+    @property
+    def remat_policy(self) -> str:
+        return self._remat_policy
+
+    @remat_policy.setter
+    def remat_policy(self, policy: str) -> None:
+        if policy not in REMAT_POLICIES:
+            raise ValueError(f"remat_policy={policy!r}: one of {REMAT_POLICIES}")
+        self._remat_policy = policy
+
+    # ---------------------------------------------------------- remat
+    def _maybe_remat(self, fn):
+        """``fn`` as one rematerialised unit under the model's policy."""
+        if self.remat_policy == "none":
+            return fn
+        kw = {}
+        if self.remat_policy == "dots":
+            kw["context_fn"] = functools.partial(create_selective_checkpoint_contexts,
+                                                 _save_dots)
+        return functools.partial(checkpoint, fn, use_reentrant=False, **kw)
 
     @property
     def device(self) -> torch.device:
@@ -200,24 +240,43 @@ class Model(ParamTree):
         positions = self._positions(B, S)
         aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
 
+        # each unit slices its layer inside, so a rematerialised unit
+        # recomputes the views from the stacked parameters
         if cfg.family == "dense":
+            def body(x, i):
+                return _dense_block(_layer(params["blocks"], i), x, cfg, mctx, positions)[0]
+            body = self._maybe_remat(body)
             for i in range(cfg.n_layers):
-                x, _ = _dense_block(_layer(params["blocks"], i), x, cfg, mctx, positions)
+                x = body(x, i)
         elif cfg.family == "moe":
+            def body(x, aux, i):
+                y, a, _ = _moe_block(_layer(params["blocks"], i), x, cfg, mctx, positions)
+                return y, aux + a
+            body = self._maybe_remat(body)
             for i in range(cfg.n_layers):
-                x, a, _ = _moe_block(_layer(params["blocks"], i), x, cfg, mctx, positions)
-                aux_total = aux_total + a
+                x, aux_total = body(x, aux_total, i)
         elif cfg.family == "ssm":
+            def body(x, i):
+                return _ssm_block(_layer(params["blocks"], i), x, cfg, mctx)[0]
+            body = self._maybe_remat(body)
             for i in range(cfg.n_layers):
-                x, _, _ = _ssm_block(_layer(params["blocks"], i), x, cfg, mctx)
+                x = body(x, i)
         elif cfg.family == "hybrid":
             hy = cfg.hybrid
-            for gi in range(hy.n_groups):
+
+            def gbody(x, gi):
                 gp = _layer(params["groups"], gi)
                 for i, kind in enumerate(hy.pattern):
                     x = self._hybrid_sublayer(gp[f"sub{i}_{kind}"], x, kind, positions)
+                return x
+
+            def tbody(x, ti):
+                return self._hybrid_sublayer(_layer(params["tail"], ti), x, "rec", positions)
+            gbody, tbody = self._maybe_remat(gbody), self._maybe_remat(tbody)
+            for gi in range(hy.n_groups):
+                x = gbody(x, gi)
             for ti in range(len(hy.tail)):
-                x = self._hybrid_sublayer(_layer(params["tail"], ti), x, "rec", positions)
+                x = tbody(x, ti)
         return self._logits(params, x), {"moe_aux": aux_total}
 
     def _hybrid_sublayer(self, sp, x, kind, positions):
@@ -452,8 +511,9 @@ class Model(ParamTree):
 
 
 def build_model(cfg: ModelConfig, mctx: MeshCtx | None = None, device=None,
-                generator: torch.Generator | None = None) -> Model:
+                generator: torch.Generator | None = None,
+                remat_policy: str = "none") -> Model:
     """A ``Model`` with parameters drawn from ``generator`` (a fresh one
     seeded 0 on ``device`` if none is given) on ``device`` (the card
     unless the caller names another)."""
-    return Model(cfg, mctx, device=device, generator=generator)
+    return Model(cfg, mctx, remat_policy, device=device, generator=generator)

@@ -73,7 +73,12 @@ def _ssd_chunked(xh, dt, A, Bm, Cm, chunk: int):
     # L[t,s] = exp(acs[t] - acs[s]) * (t >= s), score = C_t . B_s * dt_s
     seg = acs[:, :, :, None, :] - acs[:, :, None, :, :]          # (B,nc,t,s,H)
     tri = torch.tril(torch.ones((chunk, chunk), dtype=torch.bool, device=xh.device))
-    L = torch.where(tri[None, None, :, :, None], torch.exp(seg), 0.0)
+    # above the diagonal seg is positive and grows with the chunk: exp of
+    # it overflows at mamba2-370m's chunk of 256, and the masked product's
+    # backward is then 0 * inf = NaN.  exp of -inf there gives the same
+    # forward values and a finite gradient (the reference takes exp(seg))
+    tri = tri[None, None, :, :, None]
+    L = torch.where(tri, torch.exp(torch.where(tri, seg, -torch.inf)), 0.0)
     scores = torch.einsum("bctn,bcsn->bcts", Cc, Bc)             # (B,nc,t,s)
     y_diag = torch.einsum("bcts,bctsh,bcsh,bcshp->bcthp", scores, L, dtc, xc)
     # chunk state: states[c] = sum_s exp(acs[last]-acs[s]) dt_s B_s x_s

@@ -19,7 +19,10 @@ one-prime bank above 4096, with ops' any-leading-shape rows); and rotate,
 rotate_many, rotate_hoisted and the matvec at 2^16 against the port's
 CPU run; and the LM substrate (smollm-135m at full width and every arch
 at smoke size, float32 with TF32 off, against the CPU; smollm-135m in
-bf16 against the CPU's float32; the serving engine in bf16).  Marked
+bf16 against the CPU's float32; the serving engine in bf16); and
+training (a float32 train step of every arch at smoke size against the
+CPU, remat gradients equal to none's, a checkpoint of card tensors
+restored on the CPU).  Marked
 ``gpu``: they skip where no CUDA device is present.  On a GPU machine:
 
     PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_gpu.py
@@ -1063,3 +1066,100 @@ def test_lm_serve_engine_on_the_card(cuda):
     assert sorted(out) == list(range(5))
     assert all(len(v) == 4 and all(0 <= t < cfg.vocab for t in v) for v in out.values())
     assert model.device.type == "cuda"
+
+
+# ------------------------------------------------------------ training
+
+TRAIN_TOL = 1e-4       # a gradient or parameter leaf, card against CPU, of its largest
+TRAIN_ARCHS = ["musicgen-large", "nemotron-4-340b", "smollm-135m", "qwen3-32b", "minicpm-2b",
+               "recurrentgemma-9b", "chameleon-34b", "mamba2-370m", "qwen3-moe-30b-a3b",
+               "kimi-k2-1t-a32b"]
+
+
+def _train_batch(cfg, rng, b=2, s=40):
+    batch = _lm_inputs(cfg, rng, b, s)
+    batch["labels"] = torch.from_numpy(rng.integers(0, cfg.vocab, (b, s)))
+    return batch
+
+
+def _grads(model, batch):
+    from repro_torch import tree as T
+    loss, _ = model.loss_fn(batch)
+    return loss.detach(), torch.autograd.grad(loss, T.leaves(model.tree()))
+
+
+@pytest.mark.parametrize("arch", TRAIN_ARCHS)
+def test_train_step_on_the_card_equals_the_cpu(cuda, float32_matmuls, arch):
+    """Every arch at smoke size, float32 with TF32 off: the loss and each
+    gradient leaf within TRAIN_TOL of the CPU's, then one train step
+    (remat "full"): each parameter within TRAIN_TOL of its leaf's
+    largest, except where the CPU's gradient is within TRAIN_TOL of its
+    leaf's largest (Adam's first update is about sign(g) there), which
+    moves at most 2 x lr."""
+    from repro_torch import tree as T
+    from repro_torch.configs import smoke_config
+    from repro_torch.train.step import TrainConfig, init_train_state, make_train_step
+    cfg = smoke_config(arch)
+    card, cpu = _lm_twins(cfg, cuda, seed=8)
+    batch = _train_batch(cfg, np.random.default_rng(9))
+    on_card = {k: v.cuda() for k, v in batch.items()}
+    loss_card, g_card = _grads(card, on_card)
+    loss_cpu, g_cpu = _grads(cpu, batch)
+    assert abs(float(loss_card) - float(loss_cpu)) <= TRAIN_TOL * abs(float(loss_cpu))
+    for g, w in zip(g_card, g_cpu):
+        assert bool(torch.all(torch.isfinite(g)))
+        assert float((g.cpu() - w).abs().max()) <= TRAIN_TOL * float(w.abs().max())
+    tcfg = TrainConfig()
+    _, m = make_train_step(card, tcfg)(init_train_state(card, card.tree(), tcfg), on_card)
+    make_train_step(cpu, tcfg)(init_train_state(cpu, cpu.tree(), tcfg), batch)
+    lr = float(m["lr"])
+    for p, q, g in zip(T.leaves(card.tree()), T.leaves(cpu.tree()), g_cpu):
+        q = q.detach()
+        d = (p.detach().cpu() - q).abs()
+        small = g.abs() <= TRAIN_TOL * float(g.abs().max())
+        if (~small).any():
+            assert float(d[~small].max()) <= TRAIN_TOL * float(q.abs().max())
+        if small.any():
+            assert float(d[small].max()) <= 2 * lr * (1 + 1e-3)
+
+
+@pytest.mark.parametrize("arch", ["smollm-135m", "qwen3-moe-30b-a3b", "mamba2-370m",
+                                  "recurrentgemma-9b"])
+def test_remat_grads_equal_on_the_card(cuda, arch):
+    """The gradients under remat "full" and "dots" equal those under
+    "none" bit for bit on the card (the recompute runs the same kernels)."""
+    from repro_torch.configs import smoke_config
+    cfg = smoke_config(arch)
+    card, _ = _lm_twins(cfg, cuda, seed=10)
+    batch = {k: v.cuda() for k, v in _train_batch(cfg, np.random.default_rng(11)).items()}
+    loss0, g0 = _grads(card, batch)
+    for policy in ("full", "dots"):
+        card.remat_policy = policy
+        loss1, g1 = _grads(card, batch)
+        assert torch.equal(loss0, loss1)
+        assert all(torch.equal(a, b) for a, b in zip(g0, g1)), policy
+
+
+def test_checkpoint_from_the_card_restores_on_the_cpu(cuda, tmp_path):
+    """A train state of card tensors (float32, int32, int8 codes, a bf16
+    leaf) saved, sync and async, restores bit for bit on the CPU."""
+    from repro_torch import tree as T
+    from repro_torch.ckpt import checkpoint as ckpt
+    from repro_torch.optim import adamw
+    g = torch.Generator(device=cuda).manual_seed(12)
+    w = torch.randn(64, 96, generator=g, device=cuda)
+    tree = {"params": {"w": w, "h": w[:8].to(torch.bfloat16)},
+            "state": {"opt": {"step": torch.tensor(7, dtype=torch.int32, device=cuda),
+                              "m": adamw._q8_encode(w * 1e-3)}}}
+    host = T.map_tree(lambda x: x.cpu(), tree)
+    ckpt.save(str(tmp_path / "sync"), 7, tree)
+    saver = ckpt.AsyncCheckpointer(str(tmp_path / "async"))
+    saver.save_async(7, tree)
+    w.zero_()                       # the snapshot was taken before the thread
+    saver.wait()
+    for d in ("sync", "async"):
+        step, got = ckpt.restore(str(tmp_path / d), host, device="cpu")
+        assert step == 7
+        for (path, a), (_, b) in zip(T.flatten_with_path(got), T.flatten_with_path(host)):
+            assert a.device.type == "cpu" and a.dtype == b.dtype, path
+            assert torch.equal(a, b), (d, path)

@@ -65,10 +65,14 @@ def test_truncated_normal_init_stays_in_two_sigma():
 
 
 def test_remat_and_mesh_are_refused():
+    """A remat policy other than the reference's three is refused (the
+    three run since the training slice), and so is a mesh."""
+    from repro_torch.models.model import Model
     cfg = smoke_config("smollm-135m")
-    with pytest.raises(NotImplementedError, match="slice 14"):
-        from repro_torch.models.model import Model
-        Model(cfg, remat_policy="full", device="cpu")
+    with pytest.raises(ValueError, match="remat_policy"):
+        Model(cfg, remat_policy="everything", device="cpu")
+    for policy in ("none", "full", "dots"):
+        assert Model(cfg, remat_policy=policy, device="cpu").remat_policy == policy
     with pytest.raises(NotImplementedError, match="one device"):
         MeshCtx(mesh=object())
     x = torch.ones(2)
