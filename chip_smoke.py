@@ -172,6 +172,22 @@ Phases (any mismatch raises, so the exit code is non-zero):
                one train step of each of the nine other archs at smoke size
                against the CPU (TRAIN_SMOKE_TOL); a train step in the
                profiler pass
+  3k. mesh     the models on a ("data", "model") = (2, 2) mesh of the card
+               listed four times (the shards run in turn): qwen3-moe-30b-a3b
+               at its published widths, depth cut to 4 layers, float32 logits
+               and one step's gradients at B = 2 x 128 against the CPU's run
+               of the same mesh (LM_TOL, TRAIN_TOL), the capacity form's
+               moe_ffn against the unsharded one per dp shard and the
+               dropless form's model against the unsharded model (MESH_TOL),
+               a bf16 forward at B = 4 x 512 timed on the mesh and
+               unsharded; recurrentgemma-9b at its published widths and
+               depth, a float32 prefill at B = 2 x 2048 through the
+               two-level scan against the unsharded one (MESH_TOL) and bf16
+               prefills timed both ways; launch.train.main --mesh pod1 over
+               the card listed 256 times for 2 steps; the quickstart,
+               fhe_serve_demo and distributed_ntt example twins on the card,
+               their answers held as the reference examples hold them and
+               their kernels launched (PATH_KERNELS["examples"])
   4. times     per kernel (CUDA events around a CUDA-graph replay, so the
                device time) beside its memory bound (the NTT banks and the
                single-prime transforms also beside an integer-instruction
@@ -322,6 +338,22 @@ TRAIN_TOL = 1e-4
 TRAIN_SMOKE_TOL = 1e-4           # the nine other archs at smoke size, per leaf
 TRAIN_PROMPTS = (64, 16, 40, 24)  # one wave of the trained model's serving
 TRAIN_LAUNCH_STEPS = 3
+# phase 3k: the models on a ("data", "model") = (2, 2) mesh of the card
+# listed four times (its shards run in turn); qwen3-moe-30b-a3b at its
+# published widths with its depth cut to 4 layers (all 48 are ~116 GiB
+# of float32 parameters), recurrentgemma-9b at its published widths and
+# depth, the production mesh in the launcher and the three FHE example
+# twins
+MESH_SHAPE = (2, 2)
+MOE_ARCH, MOE_LAYERS = "qwen3-moe-30b-a3b", 4
+MOE_CHECK_B, MOE_CHECK_S = 2, 128        # float32 logits and gradients, card vs CPU
+MOE_TIME_B, MOE_TIME_S = 4, 512          # bf16 forward, mesh vs unsharded
+RG_ARCH = "recurrentgemma-9b"
+RG_B, RG_S = 2, 2048                     # float32 prefill: sequence shards of 1024
+MESH_TOL = 1e-5                          # mesh vs unsharded on the card, of the largest |value|
+MESH_ROUNDS = 5                          # timed rounds, mesh and unsharded in turns (median)
+MESH_LAUNCH_STEPS = 2
+FHE_EXAMPLES = ("quickstart", "fhe_serve_demo", "distributed_ntt")
 
 REPLACES = {
     "ntt_fwd_banks": "src/repro/kernels/ntt_kernel.py:306",
@@ -380,6 +412,10 @@ PATH_KERNELS["lm"] = ("ntt_fwd_banks", "ntt_inv_banks", "twiddle_mul_banks",
 # training launches none of the port's kernels; its trained model's
 # logits go through the same encrypted head
 PATH_KERNELS["train"] = PATH_KERNELS["lm"]
+# the FHE example twins of phase 3k: CKKS multiply -> rescale at 2^9,
+# rotations at 2^10 and the four-step round trip at 2^14
+PATH_KERNELS["examples"] = ("ntt_fwd_banks", "ntt_inv_banks", "twiddle_mul_banks",
+                            "dyadic_inner_banks")
 # launches per ML-KEM entry point at any batch: (u16 forward NTTs, u16
 # inverse NTTs, basecase products), as pq/mlkem.py issues them
 MLKEM_LAUNCHES = {"keygen": (1, 0, 1), "encaps": (1, 2, 2), "decaps": (2, 3, 3)}
@@ -2663,6 +2699,237 @@ def phase_train(head: dict) -> dict:
             "tf32": tf32, "smoke_worst": smoke_worst, "profiles": profiles}
 
 
+# ----------------------------------------------------------- phase 3k
+
+def _rel(got: torch.Tensor, want: torch.Tensor) -> float:
+    """max |got - want| / max |want|, on the host."""
+    got, want = got.detach().float().cpu(), want.detach().float().cpu()
+    return float((got - want).abs().max()) / float(want.abs().max())
+
+
+def _mesh_times(model, card_mesh, fn) -> dict:
+    """Median host-clock ms of ``fn()`` with ``model`` on the mesh and
+    unsharded, taken in turns (``interleaved_host_ms``)."""
+    from repro_torch.models.common import MeshCtx
+
+    def on(mctx):
+        def run():
+            model.mctx = mctx
+            return fn()
+        return run
+    with torch.no_grad():
+        times = interleaved_host_ms({"mesh": on(card_mesh), "unsharded": on(MeshCtx())},
+                                    MESH_ROUNDS)
+    return {k: statistics.median(v) for k, v in times.items()}
+
+
+def _load_example(name: str):
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        f"{name}_torch", os.path.join(ROOT, "examples", f"{name}_torch.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def mesh_moe(card_mesh, cpu_mesh) -> dict:
+    """qwen3-moe-30b-a3b (4 layers, published widths) on the mesh of the
+    card: (a) float32 logits and gradients against the CPU's run of the
+    same mesh, (b) the capacity form's moe_ffn against the unsharded one
+    per dp shard, (c) the dropless form's model against the unsharded
+    model; then the bf16 forward timed on the mesh and unsharded."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import moe as MOE
+    from repro_torch.models.common import MeshCtx
+    from repro_torch.models.model import build_model
+    base = dataclasses.replace(get_config(MOE_ARCH), n_layers=MOE_LAYERS)
+    cfg32 = dataclasses.replace(base, compute_dtype="float32")
+    card = build_model(cfg32, card_mesh, device="cuda",
+                       generator=torch.Generator("cuda").manual_seed(SEED + 40))
+    nparam = sum(p.numel() for p in card.parameters())
+    log(f"[mesh] {MOE_ARCH}: {MOE_LAYERS} of {get_config(MOE_ARCH).n_layers} layers at "
+        f"d_model {cfg32.d_model}, {cfg32.moe.n_experts} experts top-{cfg32.moe.top_k}, "
+        f"d_expert {cfg32.moe.d_expert}: {nparam / 1e9:.3f} B parameters "
+        f"({nparam * 4 / 2**30:.1f} GiB float32) on the ('data', 'model') = "
+        f"{MESH_SHAPE} mesh of the card")
+    rng = np.random.default_rng(SEED + 41)
+    batch = {k: torch.from_numpy(rng.integers(0, cfg32.vocab, (MOE_CHECK_B, MOE_CHECK_S))
+                                 .astype(np.int32)) for k in ("tokens", "labels")}
+    on_card = {k: v.cuda() for k, v in batch.items()}
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        logits_card = card(on_card)[0]
+    loss_card, g_card = train_grads(card, on_card)
+    t_card = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    cpu = build_model(cfg32, cpu_mesh, device="meta").to_empty(device="cpu")
+    cpu.load_state_dict({k: v.cpu() for k, v in card.state_dict().items()})
+    with torch.no_grad():
+        logits_cpu = cpu(batch)[0]
+    loss_cpu, g_cpu = train_grads(cpu, batch)
+    t_cpu = time.perf_counter() - t0
+    r = {"logits": _rel(logits_card, logits_cpu),
+         "loss": abs(float(loss_card) - float(loss_cpu)) / abs(float(loss_cpu)),
+         "grads": grads_worst(g_card, g_cpu)}
+    del cpu, g_cpu, g_card, logits_cpu
+    log(f"[mesh] (a) float32 at B = {MOE_CHECK_B} x {MOE_CHECK_S}, card mesh vs CPU mesh: "
+        f"logits {r['logits']:.3e} of the largest (limit {LM_TOL:g}), loss {r['loss']:.3e}, "
+        f"gradients {r['grads']:.3e} of each leaf's largest (limit {TRAIN_TOL:g}); "
+        f"card {t_card:.1f} s, CPU {t_cpu:.1f} s")
+    if not (r["logits"] <= LM_TOL and r["loss"] <= TRAIN_TOL and r["grads"] <= TRAIN_TOL):
+        raise AssertionError(f"mesh {MOE_ARCH}: card vs CPU {r}")
+    if not torch.all(torch.isfinite(logits_card)):
+        raise AssertionError(f"mesh {MOE_ARCH}: logits not finite")
+
+    # (b) the capacity form on the mesh = unsharded per dp shard
+    layer0 = {k: v.detach()[0] for k, v in card.tree()["blocks"]["moe"].items()}
+    g = torch.Generator("cuda").manual_seed(SEED + 42)
+    x = torch.randn((MOE_CHECK_B, MOE_CHECK_S, cfg32.d_model), generator=g, device="cuda")
+    with torch.no_grad():
+        got, aux = MOE.moe_ffn(layer0, x, cfg32, card_mesh)
+        parts = [MOE.moe_ffn(layer0, xs, cfg32, MeshCtx())
+                 for xs in x.chunk(card_mesh.mesh.shape["data"], dim=0)]
+    r["capacity"] = _rel(got, torch.cat([o for o, _ in parts]))
+    r["aux"] = _rel(aux, torch.stack([a for _, a in parts]).mean())
+    log(f"[mesh] (b) capacity moe_ffn (layer 0) on the mesh vs unsharded per dp shard: "
+        f"{r['capacity']:.3e}, aux {r['aux']:.3e} (limit {MESH_TOL:g})")
+    if r["capacity"] > MESH_TOL or r["aux"] > MESH_TOL:
+        raise AssertionError(f"mesh {MOE_ARCH}: capacity form {r}")
+
+    # (c) the dropless form: the mesh's model = the unsharded model
+    card.cfg = dataclasses.replace(cfg32, moe=dataclasses.replace(cfg32.moe, impl="ragged"))
+    with torch.no_grad():
+        mesh_logits = card(on_card)[0]
+        card.mctx = MeshCtx()
+        one_logits = card(on_card)[0]
+    r["dropless"] = _rel(mesh_logits, one_logits)
+    log(f"[mesh] (c) dropless model on the mesh vs unsharded, float32 logits: "
+        f"{r['dropless']:.3e} (limit {MESH_TOL:g})")
+    if r["dropless"] > MESH_TOL:
+        raise AssertionError(f"mesh {MOE_ARCH}: dropless form {r}")
+    del mesh_logits, one_logits, logits_card
+
+    # bf16 forward at the published compute dtype, mesh and unsharded
+    card.cfg = base
+    tb = {"tokens": torch.from_numpy(rng.integers(0, base.vocab, (MOE_TIME_B, MOE_TIME_S))
+                                     .astype(np.int32)).cuda()}
+    r["times"] = times = _mesh_times(card, card_mesh, lambda: card(tb))
+    log(f"[mesh] {MOE_ARCH} bf16 forward at B = {MOE_TIME_B} x {MOE_TIME_S} (median of "
+        f"{MESH_ROUNDS} rounds in turns): mesh {times['mesh']:.3f} ms, unsharded "
+        f"{times['unsharded']:.3f} ms; peak allocated "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.1f} GiB")
+    del card
+    torch.cuda.empty_cache()
+    return r
+
+
+def mesh_rglru(card_mesh) -> dict:
+    """recurrentgemma-9b at its published widths and depth: a float32
+    prefill on the mesh (the two-level scan over sequence shards) against
+    the unsharded one on the card, the scan alone with long-memory gates,
+    then bf16 prefills timed both ways."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import rglru as RG
+    from repro_torch.models.common import MeshCtx
+    from repro_torch.models.model import build_model
+    base = get_config(RG_ARCH)
+    cfg32 = dataclasses.replace(base, compute_dtype="float32")
+    model = build_model(cfg32, MeshCtx(), device="cuda",
+                        generator=torch.Generator("cuda").manual_seed(SEED + 43))
+    nparam = sum(p.numel() for p in model.parameters())
+    rng = np.random.default_rng(SEED + 44)
+    batch = {"tokens": torch.from_numpy(rng.integers(0, base.vocab, (RG_B, RG_S))
+                                        .astype(np.int32)).cuda()}
+    model.mctx = card_mesh
+    logits_mesh, cache_mesh = model.prefill(batch)
+    model.mctx = MeshCtx()
+    logits_one, cache_one = model.prefill(batch)
+    r = {"logits": _rel(logits_mesh, logits_one),
+         "states": max(_rel(cache_mesh[k], cache_one[k]) for k in ("g_state", "t_state"))}
+    log(f"[mesh] {RG_ARCH}: {cfg32.n_layers} layers, {nparam / 1e9:.3f} B parameters "
+        f"({nparam * 4 / 2**30:.1f} GiB float32); float32 prefill at B = {RG_B} x {RG_S} "
+        f"on the mesh (sequence shards of {RG_S // card_mesh.mesh.shape['model']}) vs "
+        f"unsharded: logits {r['logits']:.3e}, RG-LRU states {r['states']:.3e} of the "
+        f"largest (limit {MESH_TOL:g})")
+    if not (r["logits"] <= MESH_TOL and r["states"] <= MESH_TOL):
+        raise AssertionError(f"mesh {RG_ARCH}: {r}")
+    if not torch.all(torch.isfinite(logits_mesh)):
+        raise AssertionError(f"mesh {RG_ARCH}: logits not finite")
+    del logits_mesh, cache_mesh, logits_one, cache_one
+    # the drawn weights give gates a below 1e-6 (the reference's init: a =
+    # exp(-8 r softplus(lam)) with lam of 4-9), so the model's prefix
+    # barely crosses a shard; the scan alone at the prefill's shape with
+    # a in [0.9, 1) carries it across
+    w = cfg32.hybrid.lru_width or cfg32.d_model
+    g = torch.Generator("cuda").manual_seed(SEED + 45)
+    a = 0.9 + 0.1 * torch.rand((RG_B, RG_S, w), generator=g, device="cuda")
+    gx = torch.randn((RG_B, RG_S, w), generator=g, device="cuda")
+    r["scan"] = _rel(RG._seq_scan(a, gx, cfg32, card_mesh), RG._seq_scan(a, gx, cfg32, MeshCtx()))
+    log(f"[mesh] two-level scan at ({RG_B}, {RG_S}, {w}) with a in [0.9, 1), mesh vs "
+        f"unsharded: {r['scan']:.3e} (limit {MESH_TOL:g})")
+    if r["scan"] > MESH_TOL:
+        raise AssertionError(f"mesh {RG_ARCH}: two-level scan {r['scan']:.3e}")
+    del a, gx
+    model.cfg = base
+    r["times"] = times = _mesh_times(model, card_mesh, lambda: model.prefill(batch))
+    log(f"[mesh] {RG_ARCH} bf16 prefill at B = {RG_B} x {RG_S} (median of {MESH_ROUNDS} "
+        f"rounds in turns): mesh {times['mesh']:.3f} ms, unsharded "
+        f"{times['unsharded']:.3f} ms; peak allocated "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.1f} GiB")
+    del model
+    torch.cuda.empty_cache()
+    return r
+
+
+def phase_mesh() -> dict:
+    """The models on a mesh of the card (its shards in turn), the
+    launcher on the production mesh and the three FHE example twins."""
+    from repro_torch import kernels as K
+    from repro_torch.launch import train as launch_train
+    from repro_torch.mesh import make_mesh
+    from repro_torch.models.common import MeshCtx
+    t_phase = time.perf_counter()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.cuda.reset_peak_memory_stats()
+    card_mesh = MeshCtx(mesh=make_mesh(["cuda"] * 4, ("data", "model"), MESH_SHAPE))
+    cpu_mesh = MeshCtx(mesh=make_mesh(["cpu"] * 4, ("data", "model"), MESH_SHAPE))
+    moe = mesh_moe(card_mesh, cpu_mesh)
+    torch.cuda.reset_peak_memory_stats()
+    rg = mesh_rglru(card_mesh)
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_mesh_")
+    try:
+        losses = launch_train.main(["--mesh", "pod1", "--device", "cuda", "--smoke",
+                                    "--steps", str(MESH_LAUNCH_STEPS), "--seq", "64",
+                                    "--batch", "16", "--ckpt-dir", tmp])
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    if len(losses) != MESH_LAUNCH_STEPS or not all(np.isfinite(losses)):
+        raise AssertionError(f"launch.train --mesh pod1: losses {losses}")
+
+    K.reset_counts()
+    ex = {name: _load_example(name).main([]) for name in FHE_EXAMPLES}
+    torch.cuda.synchronize()
+    counts = K.snapshot()
+    check_counts("examples", counts)
+    if not (ex["quickstart"]["match"] and ex["quickstart"]["ckks_err"] < 1e-3):
+        raise AssertionError(f"quickstart twin: {ex['quickstart']}")
+    fs = ex["fhe_serve_demo"]
+    if not (fs["exact"] and fs["err"] < 1e-2 and fs["fresh_traces"] == 0 and not fs["failed"]):
+        raise AssertionError(f"fhe_serve_demo twin: {fs}")
+    dn = ex["distributed_ntt"]
+    if not (dn["roundtrip"] and [d for d, _, ok in dn["table"] if ok] == [1, 2, 4, 8]):
+        raise AssertionError(f"distributed_ntt twin: {dn}")
+    launched = {k: v["launches"] for k, v in counts.items() if v["launches"]}
+    log(f"[mesh] launch.train --mesh pod1 over the card x 256: losses {losses}; example "
+        f"twins on the card: quickstart CKKS error {ex['quickstart']['ckks_err']:.3e}, "
+        f"fhe_serve_demo exact with slot error {fs['err']:.3e}, distributed_ntt exact at "
+        f"1, 2, 4, 8 shards; launches {launched}")
+    log(f"[mesh] phase {time.perf_counter() - t_phase:.1f} s")
+    return {"counts": counts, "moe": moe, "rg": rg}
+
+
 # ------------------------------------------------------------ phase 4
 
 def phase_times(ctx, cts, fs_pack, ks_pack, per_op, counts, errs, rot) -> list:
@@ -3003,12 +3270,14 @@ def main() -> int:
     phase_ntt128_cpu_parity(ntt_in, ntt_out)
     lm = phase_lm({"ctx": rctx, "M": M, "cts": rcts})
     train = phase_train(lm["head"])
+    mesh = phase_mesh()
     per_op = {"multiply + rescale": {k: v for k, v in per_op.items() if v},
               **rot_per_op, **{f"mlkem {op}": c for op, c in mlkem_per_op.items()},
               **ntt_per_op}
     counts = {"multiply": counts, "rotation": rcounts, "rot16": r16counts,
               "serve": scounts, "scaleout": gcounts, "kshard": kcounts, "mlkem": mcounts,
-              "ntt128": ncounts, "lm": lm["counts"], "train": train["counts"]}
+              "ntt128": ncounts, "lm": lm["counts"], "train": train["counts"],
+              "examples": mesh["counts"]}
     with SmClock() as clock:
         kernels, profiles = phase_times(ctx, cts, fs_pack, ks_pack, per_op, counts,
                                         errs, {"ctx": rctx, "M": M, "cts": rcts})
@@ -3032,7 +3301,9 @@ def main() -> int:
         f"bf16 {lm['parity']['bf16_worst']:.3e}, encrypted head {lm['pi_err']:.3e}; "
         f"trained: loss {train['losses'][0]:.4f} -> {train['losses'][1]:.4f}, "
         f"{train['tokens_s']:.1f} tokens/s, float32 gradients {train['parity']['grads']:.3e} "
-        f"(TF32 control {train['tf32']:.3e}), its head {train['pi_err']:.3e}")
+        f"(TF32 control {train['tf32']:.3e}), its head {train['pi_err']:.3e}; on the "
+        f"mesh: {MOE_ARCH} gradients {mesh['moe']['grads']:.3e}, {RG_ARCH} prefill "
+        f"{mesh['rg']['logits']:.3e}")
     log(f"[gpu] {gpu_line()}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

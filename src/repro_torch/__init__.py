@@ -1,5 +1,6 @@
 """PyTorch/CUDA port of the SCE-NTT system for NVIDIA Hopper.
 
 Same layout as the JAX reference package (``core/``, ``kernels/``,
-``fhe/``); imports torch, numpy and the standard library only.
+``fhe/``, ``models/``, ``runtime/`` ...); imports torch, numpy and the
+standard library only.
 """

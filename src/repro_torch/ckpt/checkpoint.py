@@ -2,6 +2,11 @@
 async save, an integrity manifest and placement on load: the reference's
 layout, so a checkpoint written by either package restores in the other.
 
+A sharded restore (``shardings=``) places each leaf by its
+``NamedSharding``: the port holds a sharded tensor whole on its mesh's
+first device and cuts each shard's block from it where a shard branch
+runs, so a checkpoint carries no mesh and reshards on load.
+
 Layout:  <dir>/step_000123/  manifest.json + leaf_<i>.npy
 The leaves are numbered in sorted-key order and each manifest entry
 carries the leaf's ``jax.tree_util.keystr`` path (``['params']['ln_f']
@@ -156,24 +161,32 @@ def _to_tensor(arr: np.ndarray, dtype: str, device) -> torch.Tensor:
     return torch.from_numpy(arr).to(device)
 
 
-def restore(ckpt_dir: str, target_tree, step: int | None = None, device=None):
+def restore(ckpt_dir: str, target_tree, step: int | None = None, device=None,
+            shardings=None):
     """Restore into the structure of ``target_tree`` -> (step, tree of
-    tensors).  Each leaf goes to ``device``, or to its target leaf's
-    device where none is given.  Skips corrupt checkpoints (descending) —
-    the fault-tolerant resume path — and raises FileNotFoundError where
-    none is valid."""
-    found = restore_latest(ckpt_dir, target_tree, step, device)
+    tensors).  ``shardings``: a tree of the target's structure whose
+    leaves are ``repro_torch.mesh.NamedSharding``s or ``None`` (e.g.
+    ``runtime.sharding.to_named`` of a model's specs); a leaf with a
+    sharding is placed by it (whole, on its mesh's first device, as the
+    port holds a sharded tensor), with its values bit for bit, whatever
+    mesh or none the checkpoint was written from.  Any other leaf goes to
+    ``device``, or to its target leaf's device where none is given.
+    Skips corrupt checkpoints (descending) — the fault-tolerant resume
+    path — and raises FileNotFoundError where none is valid."""
+    found = restore_latest(ckpt_dir, target_tree, step, device, shardings)
     if found is None:
         raise FileNotFoundError(f"no valid checkpoint in {ckpt_dir}")
     return found
 
 
-def restore_latest(ckpt_dir: str, target_tree, step: int | None = None, device=None):
+def restore_latest(ckpt_dir: str, target_tree, step: int | None = None, device=None,
+                   shardings=None):
     """``restore``, or None where no checkpoint is valid."""
     steps = list_steps(ckpt_dir)
     if step is not None:
         steps = [s for s in steps if s == step]
     flat = T.flatten_with_path(target_tree)
+    placed = {} if shardings is None else dict(T.flatten_with_path(shardings))
     for s in reversed(steps):
         path = os.path.join(ckpt_dir, f"step_{s:09d}")
         mpath = os.path.join(path, "manifest.json")
@@ -193,6 +206,10 @@ def restore_latest(ckpt_dir: str, target_tree, step: int | None = None, device=N
         for p, tgt in flat:
             entry = by_key[T.keystr(p)]
             arr = np.load(os.path.join(path, entry["file"]))
+            sharding = placed.get(p)
+            if sharding is not None:
+                leaves.append(sharding.place(_to_tensor(arr, entry["dtype"], "cpu")))
+                continue
             dev = device if device is not None else getattr(tgt, "device", "cpu")
             leaves.append(_to_tensor(arr, entry["dtype"], dev))
         return s, T.unflatten([p for p, _ in flat], leaves)

@@ -1,1 +1,2 @@
-"""Entry points: ``python -m repro_torch.launch.train``."""
+"""Entry points: ``python -m repro_torch.launch.train``, and the
+production meshes (``mesh``)."""

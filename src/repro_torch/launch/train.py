@@ -1,13 +1,15 @@
 """Training launcher: pick an assigned architecture and train it with the
 fault-tolerant loop (checkpoints/resume/watchdog) on one device — the
-card unless ``--device`` names another.
+card unless ``--device`` names another — or on a production mesh.
 
   PYTHONPATH=src python -m repro_torch.launch.train --arch smollm-135m \\
       --steps 200 --seq 128 --batch 4
 
-``main(argv)`` takes the argument list, so a script can call it in
-process.  ``--mesh pod1`` / ``pod2`` (the reference's production meshes)
-wait for the models' multi-device paths.
+``--mesh pod1`` / ``pod2`` trains on the reference's production meshes
+(``launch/mesh.py``: 16 x 16, or 2 x 16 x 16) over the visible cards,
+or over ``--device`` listed once per shard (the shards then run in turn
+on it).  ``main(argv)`` takes the argument list, so a script can call
+it in process.
 """
 from __future__ import annotations
 
@@ -16,8 +18,9 @@ import os
 import tempfile
 
 from repro_torch.configs import ARCHS, get_config, smoke_config
-from repro_torch.convert import resolve_device
 from repro_torch.data.pipeline import DataConfig
+from repro_torch.launch.mesh import make_mesh_ctx
+from repro_torch.models.common import MeshCtx
 from repro_torch.models.model import build_model
 from repro_torch.optim.adamw import AdamWConfig
 from repro_torch.train.loop import LoopConfig, train_loop
@@ -46,16 +49,19 @@ def main(argv: list[str] | None = None) -> list[float]:
                     help="use the reduced same-family config")
     ap.add_argument("--mesh", choices=["none", "pod1", "pod2"], default="none")
     ap.add_argument("--device", default=None,
-                    help="the device to train on (default: the card)")
+                    help="the device to train on (default: the card); with --mesh, "
+                         "the device every shard runs on")
     args = ap.parse_args(argv)
 
-    if args.mesh != "none":
-        raise NotImplementedError(
-            f"--mesh {args.mesh}: the models' multi-device paths are not ported "
-            "yet (ROADMAP Queue 1 item 7); train on one device with --mesh none")
-    device = resolve_device(args.device)
     cfg = smoke_config(args.arch) if args.smoke else get_config(args.arch)
-    model = build_model(cfg, device=device)
+    if args.mesh == "none":
+        mctx = MeshCtx()
+    else:
+        multi_pod = args.mesh == "pod2"
+        devices = None if args.device is None else [args.device] * (512 if multi_pod else 256)
+        mctx = make_mesh_ctx(multi_pod=multi_pod, devices=devices)
+    # on a mesh the model lives on its first device
+    model = build_model(cfg, mctx, device=None if mctx.mesh else args.device)
     tcfg = TrainConfig(
         opt=AdamWConfig(lr=args.lr, schedule=args.schedule,
                         warmup_steps=max(args.steps // 20, 5),
@@ -71,7 +77,8 @@ def main(argv: list[str] | None = None) -> list[float]:
     # a run resumed at its last step trains no step and has no losses
     first, last = (f"{losses[0]:.4f}", f"{losses[-1]:.4f}") if losses else ("-", "-")
     print(f"[train] {args.arch}: loss {first} -> {last} "
-          f"({args.steps} steps, 1 device(s))")
+          f"({args.steps} steps, {1 if mctx.mesh is None else len(mctx.mesh.devices)} "
+          "device(s))")
     return losses
 
 

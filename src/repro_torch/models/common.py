@@ -1,12 +1,15 @@
 """Model/config substrate shared by all assigned architectures: the
-config dataclasses, the benchmark shapes, the (single-device) mesh
-context, the truncated-normal initializer and a size helper."""
+config dataclasses, the benchmark shapes, the mesh context, the
+truncated-normal initializer (and its stand-in generator on ``meta``)
+and a size helper."""
 from __future__ import annotations
 
 import dataclasses
 from typing import Any
 
 import torch
+
+from repro_torch.mesh import NamedSharding, P, check_spec
 
 
 @dataclasses.dataclass(frozen=True)
@@ -100,21 +103,40 @@ SMOKE_SHAPES = {
 
 @dataclasses.dataclass(frozen=True)
 class MeshCtx:
-    """The mesh the models run on.  Only the single-device context
-    (``mesh=None``) exists so far: ``constrain`` is the identity.  The
-    reference's axis roles (``dp``, ``fsdp``, ``tp``, ``sp``) and its
-    multi-device branches (the MoE and RG-LRU shard maps, parameter
-    sharding) wait for the two-card work."""
-    mesh: Any = None
+    """Mesh + logical axis roles.  mesh=None => single-device.
 
-    def __post_init__(self):
-        if self.mesh is not None:
-            raise NotImplementedError(
-                "MeshCtx(mesh=...): the models run on one device; their "
-                "multi-device paths are not ported yet")
+    ``mesh`` is a ``repro_torch.mesh.Mesh`` (a device may repeat): the
+    models' shard branches (``moe.moe_ffn``, ``rglru._seq_scan``) run
+    each shard in turn on its device, the parameters stay whole on the
+    mesh's first device."""
+    mesh: Any = None
+    dp: tuple[str, ...] = ("data",)      # batch/token axes (+ 'pod' multi-pod)
+    fsdp: str | None = "data"            # weight-shard axis (ZeRO-3 style)
+    tp: str | None = "model"             # tensor-parallel axis
+    sp: str | None = "model"             # sequence axis for long KV caches
+
+    def named(self, *spec) -> NamedSharding | None:
+        if self.mesh is None:
+            return None
+        return NamedSharding(self.mesh, P(*spec))
 
     def constrain(self, x, *spec):
+        """``x`` itself: a sharding constraint places a value and never
+        changes it, and the port keeps every activation whole.  Raises
+        where ``spec`` names an axis the mesh does not have."""
+        if self.mesh is not None:
+            check_spec(self.mesh, spec)
         return x
+
+
+class MetaGenerator(torch.Generator):
+    """Stands in for a generator on the ``meta`` device: the parameters
+    get their shapes and dtypes, and nothing is drawn or allocated (the
+    reference's ``jax.eval_shape(model.init, key)``)."""
+
+    @property
+    def device(self) -> torch.device:
+        return torch.device("meta")
 
 
 def truncated_normal_init(generator: torch.Generator, shape, dtype,

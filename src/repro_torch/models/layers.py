@@ -166,6 +166,7 @@ def attention(p, x, cfg: ModelConfig, mctx: MeshCtx, *, positions,
         xk = rms_norm(xk, p["k_norm"]["w"], cfg.norm_eps)
     xq = apply_rope(xq, positions, cfg.rope_theta)
     xk = apply_rope(xk, positions, cfg.rope_theta)
+    xq = mctx.constrain(xq, mctx.dp, None, mctx.tp, None)
 
     if cache is not None:
         k_all = write_slice(cache["k"], xk, cache_len)
@@ -176,7 +177,8 @@ def attention(p, x, cfg: ModelConfig, mctx: MeshCtx, *, positions,
     else:
         out = flash_attention(xq, xk, xv, q_offset=0, chunk=cfg.attn_chunk,
                               window=window)
-    return merge_heads(out, p["wo"].to(cd)), cache
+    res = merge_heads(out, p["wo"].to(cd))
+    return mctx.constrain(res, mctx.dp, None, None), cache
 
 
 # ------------------------------------------------------------- MLPs
@@ -195,6 +197,7 @@ def init_mlp(generator, cfg: ModelConfig, dtype, d_ff: int | None = None, lead=(
 def mlp(p, x, cfg: ModelConfig, mctx: MeshCtx):
     cd = cfg.cdtype
     h = x @ p["w_up"].to(cd)
+    h = mctx.constrain(h, mctx.dp, None, mctx.tp)
     if cfg.act == "silu":
         g = x @ p["w_gate"].to(cd)
         h = F.silu(g) * h
@@ -204,4 +207,5 @@ def mlp(p, x, cfg: ModelConfig, mctx: MeshCtx):
         h = F.gelu(h, approximate="tanh")
     else:
         raise ValueError(cfg.act)
-    return h @ p["w_down"].to(cd)
+    out = h @ p["w_down"].to(cd)
+    return mctx.constrain(out, mctx.dp, None, None)

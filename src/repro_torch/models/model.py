@@ -28,7 +28,8 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
 from repro_torch.convert import resolve_device
-from repro_torch.models.common import ModelConfig, MeshCtx, truncated_normal_init
+from repro_torch.models.common import (ModelConfig, MeshCtx, MetaGenerator,
+                                       truncated_normal_init)
 from repro_torch.models import layers as L
 from repro_torch.models import moe as MOE
 from repro_torch.models import ssm as SSM
@@ -180,13 +181,18 @@ class Model(ParamTree):
     def __init__(self, cfg: ModelConfig, mctx: MeshCtx | None = None,
                  remat_policy: str = "none", *, device=None,
                  generator: torch.Generator | None = None):
+        mctx = mctx or MeshCtx()
+        if device is None and mctx.mesh is not None:
+            device = mctx.mesh.devices[0]
         device = resolve_device(device)
-        if generator is None:
+        if device.type == "meta":
+            generator = MetaGenerator()
+        elif generator is None:
             generator = torch.Generator(device=device).manual_seed(0)
         super().__init__(init_params(cfg, generator))
         self.to(device)
         self.cfg = cfg
-        self.mctx = mctx or MeshCtx()
+        self.mctx = mctx
         self.remat_policy = remat_policy
 
     @property
@@ -218,14 +224,17 @@ class Model(ParamTree):
     def _embed_in(self, params, batch):
         cfg = self.cfg
         if cfg.embeds_input:
-            return batch["embeds"].to(cfg.cdtype)
-        return params["embed"][batch["tokens"].long()].to(cfg.cdtype)
+            x = batch["embeds"].to(cfg.cdtype)
+        else:
+            x = params["embed"][batch["tokens"].long()].to(cfg.cdtype)
+        return self.mctx.constrain(x, self.mctx.dp, None, None)
 
     def _logits(self, params, x):
         cfg = self.cfg
         x = L.rms_norm(x, params["ln_f"]["w"], cfg.norm_eps)
         head = (params["embed"].T if cfg.tie_embeddings else params["lm_head"])
-        return (x @ head.to(cfg.cdtype)).float()
+        logits = (x @ head.to(cfg.cdtype)).float()
+        return self.mctx.constrain(logits, self.mctx.dp, None, self.mctx.tp)
 
     def _positions(self, B, S):
         return torch.arange(S, device=self.device).expand(B, S)
@@ -514,6 +523,8 @@ def build_model(cfg: ModelConfig, mctx: MeshCtx | None = None, device=None,
                 generator: torch.Generator | None = None,
                 remat_policy: str = "none") -> Model:
     """A ``Model`` with parameters drawn from ``generator`` (a fresh one
-    seeded 0 on ``device`` if none is given) on ``device`` (the card
-    unless the caller names another)."""
+    seeded 0 on ``device`` if none is given) on ``device``: the mesh's
+    first device where ``mctx`` has a mesh, else the card, unless the
+    caller names another.  On ``device="meta"`` nothing is drawn or
+    allocated: the parameters have their shapes and dtypes only."""
     return Model(cfg, mctx, remat_policy, device=device, generator=generator)

@@ -1,9 +1,16 @@
-"""Mixture-of-Experts FFN on one device: top-k routing with a stable
-sort of the routed slots by expert, then either the fixed-capacity
-grouped product (``_moe_local_capacity``, the default ``impl``: slots
-past an expert's capacity C are dropped) or the dropless grouped
-product over contiguous expert groups (``_moe_local``).  The
-multi-device branches (expert and FSDP sharding) are not ported yet.
+"""Mixture-of-Experts FFN: top-k routing with a stable sort of the
+routed slots by expert, then either the fixed-capacity grouped product
+(``_moe_local_capacity``, the default ``impl``: slots past an expert's
+capacity C are dropped) or the dropless grouped product over contiguous
+expert groups (``_moe_local``).
+
+Parallelism (``moe_ffn`` on a mesh, the reference's two ``shard_map``
+branches, run shard by shard as ``repro_torch.mesh`` sets out): tokens
+split over dp; the capacity form is expert-parallel (experts over tp,
+the D / F dims all-gathered over fsdp, each tp shard dispatching only
+its E/tp experts, the outputs summed over tp); the dropless form is
+FSDP (the expert dim all-gathered over fsdp, F split over tp, the
+tp-partial outputs summed).  The aux loss is averaged over dp.
 """
 from __future__ import annotations
 
@@ -13,6 +20,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from repro_torch.mesh import all_gather, axis_index, pmean, psum
 from repro_torch.models.common import ModelConfig, MeshCtx, truncated_normal_init
 
 
@@ -70,30 +78,38 @@ def _moe_local(x2d, router, w_up, w_gate, w_down, cfg: ModelConfig):
     return out, aux
 
 
-def _moe_local_capacity(x2d, router, w_up, w_gate, w_down, cfg: ModelConfig):
+def _moe_local_capacity(x2d, router, w_up, w_gate, w_down, cfg: ModelConfig,
+                        e_start: int = 0, e_local: int | None = None):
     """Fixed-capacity grouped product (GShard): every expert takes at most
     C slots, in the stable sort's order; the rest go to the drop column C,
-    which is cut off, and add nothing."""
+    which is cut off, and add nothing.
+
+    Expert-parallel form: when (e_start, e_local) are given, this shard
+    dispatches only experts [e_start, e_start+e_local), positions still
+    counted over all experts, and the weights hold those experts only."""
     m = cfg.moe
     cd = cfg.cdtype
     T, D = x2d.shape
     E = m.n_experts
+    El = e_local or E
     C = max(8, int(-(-T * m.top_k * m.capacity_factor // E)))
     se, st, sw, aux = _route(x2d, router, m)
-    # position of each routed slot within its expert
+    # position of each routed slot within its (global) expert
     gs = torch.bincount(se, minlength=E)
     offs = torch.cumsum(gs, dim=0) - gs
     pos = torch.arange(se.shape[0], device=x2d.device) - offs[se]
-    keep = pos < C
+    sel = se - e_start                                      # local expert id
+    keep = (pos < C) & (sel >= 0) & (sel < El)
+    e_c = torch.clamp(sel, 0, El - 1)
     pos_c = torch.where(keep, pos, C)                       # C = drop slot
-    xe = torch.zeros((E, C + 1, D), dtype=cd, device=x2d.device)
-    xe[se, pos_c] = x2d[st].to(cd)
-    xe = xe[:, :C]                                          # (E, C, D)
+    xe = torch.zeros((El, C + 1, D), dtype=cd, device=x2d.device)
+    xe[e_c, pos_c] = x2d[st].to(cd)
+    xe = xe[:, :C]                                          # (El, C, D)
     up = torch.bmm(xe, w_up.to(cd))
     gate = torch.bmm(xe, w_gate.to(cd))
     h = F.silu(gate) * up
-    y = torch.bmm(h, w_down.to(cd))                         # (E, C, D)
-    gathered = y[se, torch.clamp(pos, max=C - 1)]           # (T*k, D)
+    y = torch.bmm(h, w_down.to(cd))                         # (El, C, D)
+    gathered = y[e_c, torch.clamp(pos, max=C - 1)]          # (T*k, D)
     gathered = gathered * (sw * keep)[:, None].to(cd)
     out = torch.zeros_like(x2d).index_add_(0, st, gathered.to(x2d.dtype))
     return out, aux
@@ -105,6 +121,34 @@ def moe_ffn(p, x, cfg: ModelConfig, mctx: MeshCtx):
     x2d = x.reshape(B * S, D)
     local_fn = (_moe_local_capacity if cfg.moe.impl == "capacity"
                 else _moe_local)
-    out, aux = local_fn(x2d, p["router"], p["w_up"], p["w_gate"],
-                        p["w_down"], cfg)
-    return out.reshape(B, S, D), aux
+    if mctx.mesh is None:
+        out, aux = local_fn(x2d, p["router"], p["w_up"], p["w_gate"],
+                            p["w_down"], cfg)
+        return out.reshape(B, S, D), aux
+
+    mesh, fsdp, tp = mctx.mesh, mctx.fsdp, mctx.tp
+    xl = mctx.named(mctx.dp, None).blocks(x2d)
+    router = mctx.named(None, None).blocks(p["router"])
+
+    if cfg.moe.impl == "capacity":
+        # EXPERT-PARALLEL: experts sharded over tp, FSDP on the D/F dims.
+        # Each tp shard dispatches only its E/tp experts; the combine is
+        # the tp psum.
+        e_local = cfg.moe.n_experts // mesh.shape[tp]
+        w_up = all_gather(mctx.named(tp, fsdp, None).blocks(p["w_up"]), mesh, fsdp, 1)
+        w_gate = all_gather(mctx.named(tp, fsdp, None).blocks(p["w_gate"]), mesh, fsdp, 1)
+        w_down = all_gather(mctx.named(tp, None, fsdp).blocks(p["w_down"]), mesh, fsdp, 2)
+        res = [_moe_local_capacity(xl[i], router[i], w_up[i], w_gate[i], w_down[i], cfg,
+                                   axis_index(mesh, tp, i) * e_local, e_local)
+               for i in range(len(mesh.devices))]
+    else:
+        # gather FSDP-sharded expert dim (weights arrive (E/fsdp, D, F/tp))
+        w_up = all_gather(mctx.named(fsdp, None, tp).blocks(p["w_up"]), mesh, fsdp, 0)
+        w_gate = all_gather(mctx.named(fsdp, None, tp).blocks(p["w_gate"]), mesh, fsdp, 0)
+        w_down = all_gather(mctx.named(fsdp, tp, None).blocks(p["w_down"]), mesh, fsdp, 0)
+        res = [local_fn(xl[i], router[i], w_up[i], w_gate[i], w_down[i], cfg)
+               for i in range(len(mesh.devices))]
+    out = psum([o for o, _ in res], mesh, tp)      # combine expert / F shards
+    aux = pmean([a for _, a in res], mesh, mctx.dp)
+    out = mctx.named(mctx.dp, None).assemble(out, x.device)
+    return out.reshape(B, S, D), aux[0].to(x.device)

@@ -2,7 +2,8 @@
 
 Sequence mode runs the input-gated linear recurrence
 h_t = a_t * h_{t-1} + b_t as a scan over the sequence (a Hillis-Steele
-doubling scan with ``_combine``); decode mode is the single-step update.
+doubling scan with ``_combine``; on a mesh, the reference's two-level
+scan over sequence shards); decode mode is the single-step update.
 The hybrid block pattern (rec, rec, attn) lives in model.py.
 """
 from __future__ import annotations
@@ -13,6 +14,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from repro_torch.mesh import all_gather, axis_index
 from repro_torch.models.common import ModelConfig, MeshCtx, truncated_normal_init
 from repro_torch.models.ssm import _causal_conv
 
@@ -59,10 +61,10 @@ def _combine(c1, c2):
     return a1 * a2, a2 * b1 + b2
 
 
-def _seq_scan(a, gx, cfg: ModelConfig, mctx: MeshCtx):
-    """h_t = a_t h_{t-1} + gx_t over the sequence axis (dim 1), on one
-    device: log2(S) doubling steps, each composing every position with
-    the one 2^j before it (the identity (1, 0) before the start)."""
+def _scan(a, gx):
+    """The inclusive scan of ``_combine`` over dim 1: log2(S) doubling
+    steps, each composing every position with the one 2^j before it (the
+    identity (1, 0) before the start).  -> (prod a, h)."""
     S = a.shape[1]
     step = 1
     while step < S:
@@ -70,7 +72,36 @@ def _seq_scan(a, gx, cfg: ModelConfig, mctx: MeshCtx):
         prev_b = F.pad(gx[:, :-step], (0, 0, step, 0), value=0.0)
         a, gx = _combine((prev_a, prev_b), (a, gx))
         step *= 2
-    return gx
+    return a, gx
+
+
+def _seq_scan(a, gx, cfg: ModelConfig, mctx: MeshCtx):
+    """h_t = a_t h_{t-1} + gx_t over the sequence axis (dim 1).
+
+    Single device: one scan.  On a mesh: the two-level scan — a local
+    scan per sequence shard (S over tp, B over dp), the shards' (B, W)
+    aggregates gathered over tp, each shard's exclusive prefix folded over
+    the shards j < its index in ascending j, and that prefix composed
+    into its local scan."""
+    if mctx.mesh is None or mctx.tp is None or a.shape[1] % mctx.mesh.shape[mctx.tp] != 0:
+        return _scan(a, gx)[1]
+
+    mesh, tp = mctx.mesh, mctx.tp
+    nsh = mesh.shape[tp]
+    spec = mctx.named(mctx.dp, tp, None)
+    local = [_scan(al, gl) for al, gl in zip(spec.blocks(a), spec.blocks(gx))]
+    aggs_a = all_gather([ha[:, -1] for ha, _ in local], mesh, tp, tiled=False)  # (nsh, B, W)
+    aggs_b = all_gather([hb[:, -1] for _, hb in local], mesh, tp, tiled=False)
+    out = []
+    for i, (ha, hb) in enumerate(local):
+        idx = axis_index(mesh, tp, i)
+        pa, pb = torch.ones_like(ha[:, -1]), torch.zeros_like(hb[:, -1])
+        for j in range(nsh):
+            if j < idx:
+                pa, pb = pa * aggs_a[i][j], aggs_a[i][j] * pb + aggs_b[i][j]
+        # compose the incoming prefix state pb into the local scan
+        out.append(ha * pb[:, None, :] + hb)
+    return spec.assemble(out, a.device)
 
 
 def rglru_block(p, x, cfg: ModelConfig, mctx: MeshCtx, *, state=None, conv_buf=None):
@@ -79,6 +110,9 @@ def rglru_block(p, x, cfg: ModelConfig, mctx: MeshCtx, *, state=None, conv_buf=N
     k = cfg.hybrid.conv_k
     xb = x @ p["in_x"].to(cd)
     gate = x @ p["in_gate"].to(cd)
+    # sequence-parallel recurrent block: S sharded, W whole
+    xb = mctx.constrain(xb, mctx.dp, mctx.tp, None)
+    gate = mctx.constrain(gate, mctx.dp, mctx.tp, None)
     if state is None:
         xb = _causal_conv(xb, p["conv_w"].to(cd), p["conv_b"].to(cd), k)
         new_conv_buf = None   # primed separately via rglru_prime_conv_buf
@@ -98,7 +132,7 @@ def rglru_block(p, x, cfg: ModelConfig, mctx: MeshCtx, *, state=None, conv_buf=N
 
     out = h.to(cd) * F.gelu(gate, approximate="tanh")
     out = out @ p["out_proj"].to(cd)
-    return out, new_state, new_conv_buf
+    return mctx.constrain(out, mctx.dp, None, None), new_state, new_conv_buf
 
 
 def rglru_prime_conv_buf(p, x, cfg: ModelConfig):

@@ -119,6 +119,7 @@ def ssm_block(p, x, cfg: ModelConfig, mctx: MeshCtx, *, state=None, conv_buf=Non
         conv = F.silu(conv)
         xr, Bm, Cm = torch.split(conv, [d_inner, s.d_state, s.d_state], dim=-1)
         xh = xr.reshape(B, S, nheads, s.headdim)
+        xh = mctx.constrain(xh, mctx.dp, None, mctx.tp, None)
         # pad S to a chunk multiple; dt=0 on pads => identity state update
         ch = min(s.chunk, S)
         pad = (-S) % ch
@@ -151,4 +152,4 @@ def ssm_block(p, x, cfg: ModelConfig, mctx: MeshCtx, *, state=None, conv_buf=Non
     y = y.reshape(B, S, d_inner).to(cd)
     y = rms_norm(y * F.silu(z), p["norm_w"], cfg.norm_eps)    # gated norm
     out = y @ p["out_proj"].to(cd)
-    return out, hT, new_conv_buf
+    return mctx.constrain(out, mctx.dp, None, None), hT, new_conv_buf

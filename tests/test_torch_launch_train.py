@@ -1,7 +1,10 @@
 """The port's training launcher (``launch/train.py``) on the CPU:
 ``main([... "--smoke", "--device", "cpu", ...])`` trains and prints the
 reference launcher's last line, a second call with more steps resumes
-from its checkpoint, and ``--mesh pod1`` / ``pod2`` refuse to run."""
+from its checkpoint, ``--mesh pod1`` / ``pod2`` train over the CPU listed
+once per shard (256 / 512) and report the mesh's device count, and
+``--mesh`` without ``--device`` and without enough cards raises and
+names ``devices=``."""
 import re
 
 import pytest
@@ -51,6 +54,17 @@ def test_main_options(tmp_path, capsys, remat, compression, mb):
 
 
 @pytest.mark.parametrize("mesh", ["pod1", "pod2"])
-def test_mesh_raises(tmp_path, mesh):
-    with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
-        train.main(args(tmp_path, 2, "--mesh", mesh))
+def test_mesh_raises(tmp_path, capsys, mesh, monkeypatch):
+    """Over the CPU repeated, the mesh trains 2 steps, reports its devices
+    and loses what one device loses (a dense model has no shard branch);
+    over the visible cards (none here) it raises."""
+    losses = train.main(args(tmp_path, 2, "--mesh", mesh))
+    m = LAST_LINE.match(last_line(capsys))
+    assert m and m.group(5) == ("512" if mesh == "pod2" else "256") and len(losses) == 2
+    assert losses == train.main(args(tmp_path / "one", 2))
+    argv = args(tmp_path, 2, "--mesh", mesh)
+    i = argv.index("--device")
+    del argv[i:i + 2]
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 0)
+    with pytest.raises(RuntimeError, match="devices="):
+        train.main(argv)

@@ -6,7 +6,8 @@ experts chosen and their stable order exactly equal) and both expert
 paths (capacity with drops, dropless), the chunked SSD against a
 step-by-step recurrence, the RG-LRU scan against a loop, and the
 hybrid's attention ring past its window; also `build_model`, the
-weight loader and the refusals.  The arch-level parity and the shared
+weight loader, the refusals and ``MeshCtx``'s roles and its ``constrain``
+on a mesh (the identity; an axis the mesh lacks refused).  The arch-level parity and the shared
 helpers are in ``test_torch_models.py``; the tolerance is the one stated
 there unless a case states its own."""
 import dataclasses
@@ -66,17 +67,25 @@ def test_truncated_normal_init_stays_in_two_sigma():
 
 def test_remat_and_mesh_are_refused():
     """A remat policy other than the reference's three is refused (the
-    three run since the training slice), and so is a mesh."""
+    three run since the training slice).  A mesh is taken, with the
+    reference's axis roles; ``constrain`` returns its tensor itself, and
+    refuses a spec naming an axis the mesh does not have."""
+    from repro_torch.mesh import make_mesh
     from repro_torch.models.model import Model
     cfg = smoke_config("smollm-135m")
     with pytest.raises(ValueError, match="remat_policy"):
         Model(cfg, remat_policy="everything", device="cpu")
     for policy in ("none", "full", "dots"):
         assert Model(cfg, remat_policy=policy, device="cpu").remat_policy == policy
-    with pytest.raises(NotImplementedError, match="one device"):
-        MeshCtx(mesh=object())
     x = torch.ones(2)
     assert MeshCtx().constrain(x, "data", None) is x
+    mctx = MeshCtx(mesh=make_mesh(["cpu"] * 4, ("data", "model"), (2, 2)))
+    assert (mctx.dp, mctx.fsdp, mctx.tp, mctx.sp) == (("data",), "data", "model", "model")
+    assert mctx.constrain(x, mctx.dp, mctx.tp) is x
+    with pytest.raises(ValueError, match="unknown axes"):
+        mctx.constrain(x, ("pod", "data"), None)
+    assert MeshCtx().named("data") is None
+    assert mctx.named(None, "model").shard_shape((3, 4)) == (3, 2)
 
 
 def test_params_from_reference_refuses_integers_and_keeps_bf16():

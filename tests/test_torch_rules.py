@@ -20,7 +20,8 @@ from repro_torch.fhe.ckks import CkksContext
 from repro_torch.kernels import build, dyadic_kernel, galois_kernel, ntt_kernel, ops
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
-PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+PORT_FILES = (sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+              + sorted((ROOT / "examples").glob("*_torch.py")))
 FORBIDDEN = ("jax", "repro")
 
 
