@@ -188,6 +188,19 @@ Phases (any mismatch raises, so the exit code is non-zero):
                fhe_serve_demo and distributed_ntt example twins on the card,
                their answers held as the reference examples hold them and
                their kernels launched (PATH_KERNELS["examples"])
+  3l. dryrun   the dry run (launch/dryrun.py) against the card, on a mesh
+               of one card: smollm-135m's train step at phase 3j's shapes
+               (B = 8 x 512, remat "full", bf16), its predicted peak
+               (argument + output + temp - alias) against the bytes the
+               card allocates from before the step's arguments to its end;
+               keyswitch_16k cut to one device (B = 1024 at 2^14, 8 + 1
+               primes): its argument and output bytes equal to the real
+               tensors', its peak against the card's, the count's kernel
+               launches equal to kernels.COUNTS' for the same call (its
+               kernels launched, PATH_KERNELS["dryrun"]), two batch rows
+               equal to the CPU's, and the call's time over the roofline's
+               dominant term printed.  A peak ratio outside DRY_PEAK_RANGE
+               fails the phase
   4. times     per kernel (CUDA events around a CUDA-graph replay, so the
                device time) beside its memory bound (the NTT banks and the
                single-prime transforms also beside an integer-instruction
@@ -239,29 +252,17 @@ sys.path.insert(0, os.path.join(ROOT, "src"))
 
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
+# the H100's rates and the kernels' integer model, which the dry run
+# (launch/dryrun.py) reads too
+from repro_torch.runtime.roofline import (BASEMUL_OPS, INT32_LANES,  # noqa: E402
+                                          banks_int_ops)
+from repro_torch.runtime.roofline import HBM_BW as HBM_BYTES_PER_S  # noqa: E402
 
 SEED = 20250821
 N = 1 << 14
 LEVELS = 7                       # L+1 = 8 ciphertext primes + special P
 BATCH = 8
 SLOT_TOL = 1e-2
-HBM_BYTES_PER_S = 3.35e12        # H100 SXM memory rate (NVIDIA data sheet)
-INT32_LANES = 132 * 64           # H100 SXM: 132 SMs x 64 INT32 lanes a clock
-# integer instructions of the reference's op sequence as sm_90a compiles
-# it (ntt_regs::Arith, counted by tools/sass_ntt_banks.py's probe): a lazy
-# u32 butterfly is 8 (IMAD.HI, IMAD, IMAD for the Shoup product; IMAD.IADD,
-# VIADDMNMX for the add; ISETP, SEL, IADD3 for the subtract), the u16
-# lane's 9 (its product is IMAD, SHF, IMAD, IMAD), eager ones 1 more (the
-# product's band reduce).  A pre-weight or epilogue multiply is the
-# product (and its band reduce when eager), a final reduce one VIADDMNMX.
-# Keys: (bytes a word, lazy).
-BFLY_OPS = {(4, True): 8, (4, False): 9, (2, True): 9, (2, False): 10}
-MUL_OPS = {(4, True): 3, (4, False): 4, (2, True): 4, (2, False): 5}
-BAND_OPS = 1
-# integer-ALU instructions a pair of the basecase product's vector body
-# at k = 1 (its item loop of 2 pairs, index arithmetic included, as
-# tools/time_basemul.py --sass counts them in the built library), by lazy
-BASEMUL_OPS = {True: 57, False: 58}
 REPS = 25                        # timing repetitions, median reported
 LAT_ROUNDS = 20                  # interleaved rounds of the request latencies
 PROFILE_TRIES = 3                # profiles of a request before its breakdown is "not measured"
@@ -354,6 +355,14 @@ MESH_TOL = 1e-5                          # mesh vs unsharded on the card, of the
 MESH_ROUNDS = 5                          # timed rounds, mesh and unsharded in turns (median)
 MESH_LAUNCH_STEPS = 2
 FHE_EXAMPLES = ("quickstart", "fhe_serve_demo", "distributed_ntt")
+# phase 3l: the dry run (launch/dryrun.py) against the card on a mesh of
+# one card: smollm-135m at phase 3j's step and keyswitch_16k cut to one
+# device (B = 1024 at 2^14, 8 + 1 primes).  The measured peak over the
+# predicted one must fall in DRY_PEAK_RANGE (set before the first chip
+# run from the CPU's prediction, PERF.md section 6)
+DRY_PEAK_RANGE = (0.9, 1.1)
+DRY_KS_CPU_ROWS = 2              # batch rows of the card's key switch held against the CPU
+DRY_TIME_REPS = 5
 
 REPLACES = {
     "ntt_fwd_banks": "src/repro/kernels/ntt_kernel.py:306",
@@ -416,6 +425,8 @@ PATH_KERNELS["train"] = PATH_KERNELS["lm"]
 # rotations at 2^10 and the four-step round trip at 2^14
 PATH_KERNELS["examples"] = ("ntt_fwd_banks", "ntt_inv_banks", "twiddle_mul_banks",
                             "dyadic_inner_banks")
+# the dry run's key switch on the card: the banks and the digit MAC
+PATH_KERNELS["dryrun"] = ("ntt_fwd_banks", "ntt_inv_banks", "dyadic_inner_banks")
 # launches per ML-KEM entry point at any batch: (u16 forward NTTs, u16
 # inverse NTTs, basecase products), as pq/mlkem.py issues them
 MLKEM_LAUNCHES = {"keygen": (1, 0, 1), "encaps": (1, 2, 2), "decaps": (2, 3, 3)}
@@ -448,22 +459,6 @@ def residues(rng, qs, shape, band=1):
 
 def max_abs_err(a, b) -> int:
     return int((a.long() - b.long()).abs().max().item()) if a.numel() else 0
-
-
-def banks_int_ops(x, stages: int, *, fwd: bool, negacyclic: bool, lazy: bool,
-                  reduce_out: bool) -> int:
-    """Integer instructions the reference's op sequence needs for one
-    banks transform of x (k, B, n): the butterflies, the pre-weight or
-    epilogue multiply and the final reduce (BFLY_OPS, MUL_OPS, BAND_OPS)."""
-    w = x.element_size()
-    words = x.numel()
-    ops = words // 2 * stages * BFLY_OPS[(w, lazy)]
-    if fwd:
-        ops += (words * MUL_OPS[(w, lazy)] if negacyclic else 0) + \
-            (BAND_OPS * words if lazy and reduce_out else 0)
-    else:
-        ops += words * MUL_OPS[(w, lazy and not reduce_out)]
-    return ops
 
 
 class SmClock:
@@ -2930,6 +2925,149 @@ def phase_mesh() -> dict:
     return {"counts": counts, "moe": moe, "rg": rg}
 
 
+def _peak_bytes(mem: dict) -> int:
+    """A dry-run record's predicted peak: argument + output + temp - alias."""
+    return (mem["argument_bytes_per_device"] + mem["output_bytes_per_device"]
+            + mem["temp_bytes_per_device"] - mem["alias_bytes_per_device"])
+
+
+def _held_peak(label: str, predicted: int, measured: int) -> float:
+    ratio = measured / predicted
+    log(f"[dryrun] {label}: predicted peak {predicted} B ({predicted / 2**30:.3f} GiB), "
+        f"measured {measured} B ({measured / 2**30:.3f} GiB), measured / predicted "
+        f"{ratio:.4f}")
+    if not DRY_PEAK_RANGE[0] <= ratio <= DRY_PEAK_RANGE[1]:
+        raise AssertionError(f"dryrun {label}: measured / predicted peak {ratio:.4f} "
+                             f"outside {DRY_PEAK_RANGE}")
+    return ratio
+
+
+def _measure_peak(make_args, call):
+    """``call(*make_args())`` on the card: the most bytes allocated from
+    before its arguments were built to its end (the arguments plus the
+    call's own peak), and the call's result."""
+    import gc
+    torch.cuda.synchronize()
+    gc.collect()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    args = make_args()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    out = call(*args)
+    torch.cuda.synchronize()
+    return torch.cuda.max_memory_allocated() - base, args, out
+
+
+def phase_dryrun() -> dict:
+    """The dry run (launch/dryrun.py, launch/dryrun_fhe.py) held against
+    the card on a mesh of one card: (a) smollm-135m's train step at phase
+    3j's shapes, the predicted peak against the card's; (b) keyswitch_16k
+    cut to one device, its argument and output bytes against the real
+    tensors', its peak against the card's, the count's launches against
+    kernels.COUNTS' and its dominant roofline term against the call's
+    time.  Builds no new kernel."""
+    from repro_torch import kernels as K
+    from repro_torch.configs import get_config
+    from repro_torch.fhe import batched as FB
+    from repro_torch.fhe import rns
+    from repro_torch.launch import dryrun, dryrun_fhe
+    from repro_torch.mesh import make_mesh
+    from repro_torch.models.common import MeshCtx, ShapeCfg
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.train.step import TrainConfig, init_train_state, make_train_step
+    t_phase = time.perf_counter()
+
+    # (a) smollm-135m at phase 3j's step: B = 8 x 512, remat "full", bf16
+    cfg = get_config(LM_ARCH)
+    opt = AdamWConfig(lr=3e-4, schedule="wsd", warmup_steps=20, total_steps=TRAIN_STEPS)
+    tcfg = TrainConfig(opt=opt, remat_policy="full")
+    t0 = time.perf_counter()
+    rec = dryrun.count_cell(LM_ARCH, "train", MeshCtx(mesh=make_mesh(["meta"], ("data", "model"),
+                                                                      (1, 1))),
+                            shape=ShapeCfg("3j", "train", TRAIN_S, TRAIN_B), opt=opt)
+    count_s = time.perf_counter() - t0
+
+    def lm_args():
+        model = build_lm(cfg)
+        gen = torch.Generator(device="cuda").manual_seed(SEED + 31)
+        batch = {k: torch.randint(0, cfg.vocab, (TRAIN_B, TRAIN_S), generator=gen,
+                                  device="cuda", dtype=torch.int32)
+                 for k in ("labels", "tokens")}
+        return make_train_step(model, tcfg), init_train_state(model, model.tree(), tcfg), batch
+    measured, _, (_, metrics) = _measure_peak(lm_args, lambda step, st, b: step(st, b))
+    if not np.isfinite(float(metrics["loss"])):
+        raise AssertionError(f"dryrun (a): loss {float(metrics['loss'])}")
+    lm_ratio = _held_peak(f"(a) {LM_ARCH} train step B = {TRAIN_B} x {TRAIN_S} (counted in "
+                          f"{count_s:.1f} s)", _peak_bytes(rec["memory"]), measured)
+    m = rec["memory"]
+    log(f"[dryrun] (a) record: argument {m['argument_bytes_per_device']}, output "
+        f"{m['output_bytes_per_device']}, temp {m['temp_bytes_per_device']}, alias "
+        f"{m['alias_bytes_per_device']} B; roofline {rec['roofline']['dominant']} "
+        f"({rec['roofline']['memory_s'] * 1e3:.3f} ms memory, "
+        f"{rec['roofline']['compute_s'] * 1e3:.3f} ms compute)")
+
+    # (b) keyswitch_16k on one device: B = 1024 at 2^14, 8 + 1 primes
+    frec = dryrun_fhe.count("keyswitch_16k", MeshCtx(mesh=make_mesh(["meta"], ("b",)),
+                                                      dp=("b",), fsdp=None, tp=None, sp=None))
+    primes = rns.make_primes(N, LEVELS + 2)
+    ks_primes = primes[1:] + primes[:1]
+    k = LEVELS + 1
+    rng = np.random.default_rng(SEED + 32)
+
+    def ks_args():
+        t = FB.build_table_pack(ks_primes, N, "cuda")
+        d2 = residues(rng, ks_primes[:k], (1024, N))
+        evk_b, evk_a = (residues(rng, ks_primes, (k, N)).transpose(0, 1).contiguous()
+                        for _ in range(2))
+        return d2, evk_b, evk_a, t
+    K.reset_counts()
+    measured, (d2, evk_b, evk_a, t), (ks0, ks1) = _measure_peak(ks_args, FB.batched_keyswitch)
+    counts = K.snapshot()
+    check_counts("dryrun", counts)
+    launched = {name: c["launches"] for name, c in counts.items() if c["launches"]}
+    if launched != frec["kernels"]:
+        raise AssertionError(f"dryrun (b): the count's launches {frec['kernels']} != the "
+                             f"card's {launched}")
+    real = {"d2": d2, "evk_b": evk_b, "evk_a": evk_a, **{f"t.{n}": v for n, v in t.items()}}
+    nbytes = lambda v: v.numel() * v.element_size()
+    arg_b = sum(nbytes(v) for name, v in real.items() if name not in frec["unread"])
+    out_b = nbytes(ks0) + nbytes(ks1) + 2 * dryrun_fhe.TUPLE_ENTRY_BYTES
+    m = frec["memory"]
+    if (arg_b, out_b) != (m["argument_bytes_per_device"], m["output_bytes_per_device"]):
+        raise AssertionError(f"dryrun (b): argument / output bytes {arg_b} / {out_b} of the "
+                             f"real tensors != the count's {m['argument_bytes_per_device']} / "
+                             f"{m['output_bytes_per_device']}")
+    ks_ratio = _held_peak("(b) keyswitch_16k, B = 1024 at 2^14, 8 + 1 primes",
+                          _peak_bytes(m), measured)
+    rows = slice(0, DRY_KS_CPU_ROWS)
+    cpu = FB.batched_keyswitch(d2[:, rows].cpu(), evk_b.cpu(), evk_a.cpu(),
+                               {n: v.cpu() for n, v in t.items()})
+    if not all(torch.equal(a[:, rows].cpu(), b) for a, b in zip((ks0, ks1), cpu)):
+        raise AssertionError("dryrun (b): the card's key switch differs from the CPU's")
+    times = []
+    for _ in range(DRY_TIME_REPS):
+        start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        FB.batched_keyswitch(d2, evk_b, evk_a, t)
+        stop.record()
+        stop.synchronize()
+        times.append(start.elapsed_time(stop))
+    call_ms = statistics.median(times)
+    rl = frec["roofline"]
+    dom_ms = rl[f"{rl['dominant']}_s"] * 1e3
+    log(f"[dryrun] (b) argument {arg_b} B and output {out_b} B == the real tensors' (the "
+        f"output with the reference's 8-byte tuple entries), unread {frec['unread']}; "
+        f"launches {launched} == the count's; rows 0-{DRY_KS_CPU_ROWS - 1} == the CPU's; "
+        f"call {call_ms:.3f} ms (median of {DRY_TIME_REPS}) against the roofline's "
+        f"dominant term ({rl['dominant']}) {dom_ms:.3f} ms: ratio {call_ms / dom_ms:.3f}")
+    del d2, evk_b, evk_a, t, ks0, ks1
+    torch.cuda.empty_cache()
+    log(f"[dryrun] phase {time.perf_counter() - t_phase:.1f} s")
+    return {"counts": counts, "lm_ratio": lm_ratio, "ks_ratio": ks_ratio,
+            "time_ratio": call_ms / dom_ms}
+
+
 # ------------------------------------------------------------ phase 4
 
 def phase_times(ctx, cts, fs_pack, ks_pack, per_op, counts, errs, rot) -> list:
@@ -3271,13 +3409,14 @@ def main() -> int:
     lm = phase_lm({"ctx": rctx, "M": M, "cts": rcts})
     train = phase_train(lm["head"])
     mesh = phase_mesh()
+    dry = phase_dryrun()
     per_op = {"multiply + rescale": {k: v for k, v in per_op.items() if v},
               **rot_per_op, **{f"mlkem {op}": c for op, c in mlkem_per_op.items()},
               **ntt_per_op}
     counts = {"multiply": counts, "rotation": rcounts, "rot16": r16counts,
               "serve": scounts, "scaleout": gcounts, "kshard": kcounts, "mlkem": mcounts,
               "ntt128": ncounts, "lm": lm["counts"], "train": train["counts"],
-              "examples": mesh["counts"]}
+              "examples": mesh["counts"], "dryrun": dry["counts"]}
     with SmClock() as clock:
         kernels, profiles = phase_times(ctx, cts, fs_pack, ks_pack, per_op, counts,
                                         errs, {"ctx": rctx, "M": M, "cts": rcts})
@@ -3303,7 +3442,9 @@ def main() -> int:
         f"{train['tokens_s']:.1f} tokens/s, float32 gradients {train['parity']['grads']:.3e} "
         f"(TF32 control {train['tf32']:.3e}), its head {train['pi_err']:.3e}; on the "
         f"mesh: {MOE_ARCH} gradients {mesh['moe']['grads']:.3e}, {RG_ARCH} prefill "
-        f"{mesh['rg']['logits']:.3e}")
+        f"{mesh['rg']['logits']:.3e}; dry run: measured / predicted peak "
+        f"{dry['lm_ratio']:.4f} ({LM_ARCH} step), {dry['ks_ratio']:.4f} (key switch), "
+        f"call / dominant term {dry['time_ratio']:.3f}")
     log(f"[gpu] {gpu_line()}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

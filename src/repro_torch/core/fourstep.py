@@ -29,6 +29,7 @@ from repro_torch.core.params import (NTTParams, bitrev_perm, gen_ntt_primes,
                                      make_ntt_params, root_of_unity,
                                      shoup_table)
 from repro_torch.kernels import ops
+from repro_torch.runtime import op_cost
 
 
 def ntt_natural(x, p: NTTParams):
@@ -179,6 +180,7 @@ def fourstep_ntt_sharded(a2d, fsp: FourStepParams, mesh, axis: str = "model",
         xt = ops.ntt_banks(x.t().contiguous()[None], fp["pack1"],
                            negacyclic=False)[0][:, ops._brev(n1, d)]
         blocks.append(weighted(xt.t(), "tw"))
+    op_cost.record_collective("all-to-all", op_cost.nbytes(blocks[0]), D)
     rows = []
     for j, d in enumerate(devices):
         fp = _banks_pack(n1, n2, fsp.q, str(d))

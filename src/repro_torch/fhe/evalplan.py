@@ -94,6 +94,7 @@ from repro_torch.fhe.batched import mod_down_banks
 from repro_torch.fhe.rns import RnsPoly
 from repro_torch.kernels import ops
 from repro_torch.mesh import canonical
+from repro_torch.runtime import op_cost
 
 
 @dataclasses.dataclass
@@ -584,6 +585,8 @@ class EvalPlan:
         digits = [out[-1] for *_, out, _ in shards]
         gathered = {d: torch.cat([self._on(c, d) for c in digits])
                     for d in dict.fromkeys(d for _, d, *_ in shards)}
+        op_cost.record_collective("all-gather", op_cost.nbytes(next(iter(gathered.values()))),
+                                  len(shards))
         # the digits' primes: the whole basis, as a (k,) column on each device
         parts = [self._program(f"{name}/back", back, (gathered[d], *out[:-1], *bin_),
                                (rns.scalar_pack(basis, d)["qs"], *tables), (basis, sb),

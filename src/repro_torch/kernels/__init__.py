@@ -3,7 +3,10 @@ entry points over both.
 
 Dispatch rule, in every wrapper: a tensor on the CPU goes to the plain
 version; a CUDA tensor launches the kernel or raises.  Nothing catches
-a build or launch failure to fall back.
+a build or launch failure to fall back.  A ``meta`` tensor (shapes only,
+a dry run's) passes the CUDA branch's checks and gets an empty output,
+recorded in ``runtime.op_cost``'s counter and not in ``COUNTS``: nothing
+is computed, so it is no fallback.
 
 ``COUNTS`` records, per kernel, how many times its wrapper launched it
 (``launches``) and how many times its plain version ran

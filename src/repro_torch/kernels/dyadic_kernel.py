@@ -11,7 +11,8 @@ lane; its launcher takes 2 pairs a thread in 32-bit words where n/2 is
 even and every operand and gamma row is 4-byte aligned, and one pair a
 thread otherwise (``csrc/dyadic_basemul.cu`` ``plan()``).
 A CPU tensor goes to the plain version; a CUDA tensor launches the
-kernel or raises.
+kernel or raises; a ``meta`` tensor passes the same checks and is
+recorded as one launch (``ntt_kernel.meta_launch``).
 
 ``dyadic_mul`` / ``dyadic_mac`` (``csrc/dyadic.cu``) replace the
 single-prime TPU kernels of the same names: a * b mod q and
@@ -27,8 +28,9 @@ import torch
 
 from repro_torch.kernels import COUNTS, KernelRefusal, build, ref
 from repro_torch.kernels.ntt_kernel import (check_lane, check_shape,
-                                            check_tensors, check_u32, raise_on,
-                                            stream)
+                                            check_tensors, check_u32, meta_launch,
+                                            raise_on, stream)
+from repro_torch.runtime.roofline import BASEMUL_OPS
 
 
 def dyadic_inner_banks(ext, evk, qs, mus, *, lazy: bool):
@@ -36,7 +38,6 @@ def dyadic_inner_banks(ext, evk, qs, mus, *, lazy: bool):
     (d, k, B, n) per batch row; qs/mus (k,).  Returns (k, B, n)."""
     if ext.device.type == "cpu":
         return ref.dyadic_inner_banks_ref(ext, evk, qs, mus, lazy=lazy)
-    lib = build.load("dyadic_inner")
     where = "dyadic_inner_banks"
     if ext.ndim != 4 or evk.ndim not in (3, 4):
         raise KernelRefusal(f"{where}: ext (d, k, B, n) and evk (d, k, [B,] n) "
@@ -49,6 +50,9 @@ def dyadic_inner_banks(ext, evk, qs, mus, *, lazy: bool):
     check_shape(where, "evk", evk, (d, k, b, n) if per_batch else (d, k, n))
     check_shape(where, "qs", qs, (k,))
     check_shape(where, "mus", mus, (k,))
+    if ext.device.type == "meta":
+        return meta_launch(where, ext.new_empty((k, b, n)), [ext, evk, qs, mus])
+    lib = build.load("dyadic_inner")
     out = torch.empty((k, b, n), dtype=torch.int32, device=ext.device)
     if out.numel() == 0:
         return out
@@ -72,7 +76,6 @@ def dyadic_basemul_banks(a, b, qs, mus, gamma, gammap, *, lazy: bool):
                             f"(uint16) lane only, got {lane}")
     if a.device.type == "cpu":
         return ref.dyadic_basemul_banks_ref(a, b, qs, mus, gamma, gammap, lazy=lazy)
-    lib = build.load("dyadic_basemul")
     if a.ndim != 3:
         raise KernelRefusal(f"{where}: a must be (k, B, n), got {tuple(a.shape)}")
     k, bb, n = a.shape
@@ -86,6 +89,10 @@ def dyadic_basemul_banks(a, b, qs, mus, gamma, gammap, *, lazy: bool):
     check_shape(where, "gamma", gamma, (k, n // 2))
     check_shape(where, "gammap", gammap, (k, n // 2))
     out = torch.empty_like(a)
+    if a.device.type == "meta":
+        return meta_launch(where, out, [a, b, qs, mus, gamma, gammap],
+                           a.numel() // 2 * BASEMUL_OPS[lazy])
+    lib = build.load("dyadic_basemul")
     if out.numel() == 0:
         return out
     rc = lib.dyadic_basemul_banks(a.data_ptr(), b.data_ptr(), out.data_ptr(),
@@ -115,9 +122,11 @@ def dyadic_mul(a, b, *, q: int, mu: int, lazy: bool):
     _check_pointwise(where, mu, a=a, b=b)
     if a.device.type == "cpu":
         return ref.dyadic_mul_ref(a, b, q, mu, lazy=lazy)
-    lib = build.load("dyadic")
     check_tensors(where, a.device, a=a, b=b)
     out = torch.empty_like(a)
+    if a.device.type == "meta":
+        return meta_launch(where, out, [a, b])
+    lib = build.load("dyadic")
     if out.numel() == 0:
         return out
     rc = lib.dyadic_mul(a.data_ptr(), b.data_ptr(), out.data_ptr(), q, mu,
@@ -134,9 +143,11 @@ def dyadic_mac(acc, a, b, *, q: int, mu: int, lazy: bool):
     _check_pointwise(where, mu, acc=acc, a=a, b=b)
     if a.device.type == "cpu":
         return ref.dyadic_mac_ref(acc, a, b, q, mu, lazy=lazy)
-    lib = build.load("dyadic")
     check_tensors(where, a.device, acc=acc, a=a, b=b)
     out = torch.empty_like(a)
+    if a.device.type == "meta":
+        return meta_launch(where, out, [acc, a, b])
+    lib = build.load("dyadic")
     if out.numel() == 0:
         return out
     rc = lib.dyadic_mac(acc.data_ptr(), a.data_ptr(), b.data_ptr(),

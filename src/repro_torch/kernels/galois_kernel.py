@@ -6,7 +6,9 @@ TPU kernels ``galois_banks_pallas`` / ``galois_banks_multi_pallas`` /
 the NTT-domain automorphism as a lane gather, with one shared index row,
 one per batch element, or one per batch element applied to every digit
 of a key-switch decomposition.  A CPU tensor goes to the plain version in
-``kernels.ref``; a CUDA tensor launches the kernel or raises.  Rows of
+``kernels.ref``; a CUDA tensor launches the kernel or raises; a ``meta``
+tensor passes the same checks and is recorded as one launch
+(``ntt_kernel.meta_launch``).  Rows of
 any length run: ``galois_banks`` splits every output row across blocks
 that gather straight from device memory; the other two copy a source row
 into a block's shared memory by bulk copies, whole up to ``MAX_ROW``
@@ -24,7 +26,7 @@ import torch
 
 from repro_torch.kernels import COUNTS, KernelRefusal, build, ref
 from repro_torch.kernels.ntt_kernel import (check_shape, check_tensors,
-                                            raise_on, stream)
+                                            meta_launch, raise_on, stream)
 
 # the longest row that galois_banks_multi / galois_digits stage whole in
 # one block's 227 KB of shared memory, less its 32 bytes of barriers
@@ -42,7 +44,6 @@ def _banks(where: str, x, idx, idx_shape):
     ``where`` on x (k, B, n) with an idx of ``idx_shape(b, n)``."""
     if x.device.type == "cpu":
         return ref.galois_banks_ref(x, idx)
-    lib = build.load("galois")
     if x.ndim != 3:
         raise KernelRefusal(f"{where}: x must be (k, B, n), got {tuple(x.shape)}")
     k, b, n = x.shape
@@ -50,6 +51,9 @@ def _banks(where: str, x, idx, idx_shape):
     check_tensors(where, x.device, x=x, idx=idx)
     check_shape(where, "idx", idx, idx_shape(b, n))
     out = torch.empty_like(x)
+    if x.device.type == "meta":
+        return meta_launch(where, out, [x, idx])
+    lib = build.load("galois")
     if x.numel() == 0:
         return out
     rc = getattr(lib, where)(x.data_ptr(), idx.data_ptr(), out.data_ptr(), k, b,
@@ -81,7 +85,6 @@ def galois_digits(x, idx, *, shared: bool):
     with the index rule of ``galois_banks``.  Returns (d, k, B, n)."""
     if x.device.type == "cpu":
         return ref.galois_digits_banks_ref(x, idx)
-    lib = build.load("galois")
     where = "galois_digits"
     if x.ndim != 4 or idx.ndim != 2:
         raise KernelRefusal(f"{where}: x (d, k, B, n) and idx (B, n) expected, "
@@ -93,6 +96,9 @@ def galois_digits(x, idx, *, shared: bool):
     check_shape(where, "x", x, (d, k, 1 if shared else bi, n))
     check_shape(where, "idx", idx, (bi, n))
     out = x.new_empty((d, k, bi, n))
+    if x.device.type == "meta":
+        return meta_launch(where, out, [x, idx])
+    lib = build.load("galois")
     if out.numel() == 0:
         return out
     rc = lib.galois_digits(x.data_ptr(), idx.data_ptr(), out.data_ptr(), d, k,

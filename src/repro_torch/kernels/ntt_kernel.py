@@ -5,7 +5,10 @@ and the single-prime transforms (``csrc/ntt.cu``).
 TPU kernels ``ntt_fwd_banks_pallas`` / ``ntt_inv_banks_pallas`` /
 ``twiddle_mul_banks_pallas`` of the reference's ``kernels/ntt_kernel.py``.
 A CPU tensor goes to the plain version in ``kernels.ref``; a CUDA tensor
-launches the kernel on the current stream or raises.  Each wrapper checks
+launches the kernel on the current stream or raises; a ``meta`` tensor
+(shapes only: a dry run, ``runtime.op_cost``) passes the same checks and
+gets an empty output of the kernel's shape, recorded as one launch with
+its bytes and integer instructions (``meta_launch``).  Each wrapper checks
 device, dtype, shape and contiguity, allocates its output with
 ``torch.empty`` and counts its launches in ``kernels.COUNTS``.
 
@@ -43,6 +46,8 @@ import torch
 from repro_torch.convert import u32_to_tensor
 from repro_torch.core.ntt import device_tables
 from repro_torch.kernels import COUNTS, KernelRefusal, LaunchError, build, ref
+from repro_torch.runtime import op_cost
+from repro_torch.runtime.roofline import MUL_OPS, banks_int_ops
 
 MAX_N = 1 << 17       # banks, u32 lane: two passes of at most 32 and 4096 words
 MAX_N_ROW = 4096      # the largest ring one launch transforms (no scratch)
@@ -57,8 +62,9 @@ LANES = {torch.int32: "uint32", torch.int16: "uint16"}
 def check_tensors(where: str, device: torch.device, *,
                   dtype: torch.dtype = torch.int32, **tensors) -> None:
     """Every tensor of ``dtype`` (int32 or int16 bit patterns),
-    contiguous and on ``device`` (a CUDA device)."""
-    if device.type != "cuda":
+    contiguous and on ``device`` (a CUDA device, or ``meta`` for a
+    wrapper's meta branch)."""
+    if device.type not in ("cuda", "meta"):
         raise KernelRefusal(f"{where}: CUDA tensors expected, got device {device}")
     for name, t in tensors.items():
         if t.device != device:
@@ -106,6 +112,17 @@ def _check_geometry(where: str, x: torch.Tensor, stages: int) -> tuple[int, int,
     return k, b, n
 
 
+def meta_launch(where: str, out: torch.Tensor, reads, int_ops: int = 0,
+                extra_bytes: int = 0) -> torch.Tensor:
+    """A wrapper's meta branch, after the checks its CUDA branch makes:
+    ``out`` (empty, the kernel's output shape and dtype) recorded in the
+    op counter as one launch of ``where`` that reads ``reads`` and writes
+    ``out`` once.  Shapes only: nothing is computed, and a CUDA or CPU
+    tensor never reaches this."""
+    op_cost.record_kernel(where, reads, [out], int_ops, extra_bytes)
+    return out
+
+
 def raise_on(where: str, rc: int) -> None:
     if rc != 0:
         raise LaunchError(f"{where}: kernel launch failed with CUDA error {rc}")
@@ -118,6 +135,12 @@ def stream() -> int:
 def _scratch(x: torch.Tensor) -> torch.Tensor | None:
     """The two-pass route's scratch tensor, for rings above ``MAX_N_ROW``."""
     return torch.empty_like(x) if x.shape[-1] > MAX_N_ROW else None
+
+
+def _scratch_bytes(scratch: torch.Tensor | None) -> int:
+    """The two-pass route's traffic through its scratch: written by the
+    first pass, read by the second."""
+    return 0 if scratch is None else 2 * scratch.numel() * scratch.element_size()
 
 
 def _ptr(t: torch.Tensor | None) -> int:
@@ -134,7 +157,6 @@ def ntt_fwd_banks(x, qs, tw, twp, psi, psip, *, negacyclic: bool,
     if x.device.type == "cpu":
         return ref.ntt_fwd_banks_ref(x, qs, tw, twp, psi, psip, negacyclic,
                                      lazy=lazy, reduce_out=reduce_out)
-    lib = build.load("ntt_banks")
     where = "ntt_fwd_banks" + ("_u16" if lane == torch.int16 else "")
     stages = tw.shape[1] if tw.ndim == 3 else -1
     k, b, n = _check_geometry(where, x, stages)
@@ -146,6 +168,13 @@ def ntt_fwd_banks(x, qs, tw, twp, psi, psip, *, negacyclic: bool,
     for name, t in (("psi", psi), ("psip", psip)):
         check_shape(where, name, t, (k, n))
     out = torch.empty_like(x)
+    if x.device.type == "meta":
+        scratch = _scratch(x)
+        return meta_launch(where, out, [x, qs, tw, twp] + ([psi, psip] if negacyclic else []),
+                           banks_int_ops(x, stages, fwd=True, negacyclic=negacyclic,
+                                         lazy=lazy, reduce_out=reduce_out),
+                           _scratch_bytes(scratch))
+    lib = build.load("ntt_banks")
     if x.numel() == 0:
         return out
     scratch = _scratch(x)
@@ -168,7 +197,6 @@ def ntt_inv_banks(x, qs, ninv, ninv_p, itw, itwp, post, postp, *,
         return ref.ntt_inv_banks_ref(x, qs, ninv, ninv_p, itw, itwp, post,
                                      postp, negacyclic, lazy=lazy,
                                      reduce_out=reduce_out)
-    lib = build.load("ntt_banks")
     where = "ntt_inv_banks" + ("_u16" if lane == torch.int16 else "")
     stages = itw.shape[1] if itw.ndim == 3 else -1
     k, b, n = _check_geometry(where, x, stages)
@@ -181,6 +209,15 @@ def ntt_inv_banks(x, qs, ninv, ninv_p, itw, itwp, post, postp, *,
     for name, t in (("post", post), ("postp", postp)):
         check_shape(where, name, t, (k, n))
     out = torch.empty_like(x)
+    if x.device.type == "meta":
+        # the epilogue reads the weight rows (negacyclic) or n^-1
+        epi = [post, postp] if negacyclic else [ninv, ninv_p]
+        scratch = _scratch(x)
+        return meta_launch(where, out, [x, qs, itw, itwp] + epi,
+                           banks_int_ops(x, stages, fwd=False, negacyclic=negacyclic,
+                                         lazy=lazy, reduce_out=reduce_out),
+                           _scratch_bytes(scratch))
+    lib = build.load("ntt_banks")
     if x.numel() == 0:
         return out
     scratch = _scratch(x)
@@ -199,7 +236,6 @@ def twiddle_mul_banks(x, qs, w, wp, *, lazy: bool):
     rows + Shoup companions; qs (k,).  out = x * w mod q per prime row."""
     if x.device.type == "cpu":
         return ref.twiddle_mul_banks_ref(x, qs, w, wp, lazy=lazy)
-    lib = build.load("ntt_banks")
     where = "twiddle_mul_banks"
     if x.ndim != 3:
         raise KernelRefusal(f"{where}: x must be (k, B, n), got {tuple(x.shape)}")
@@ -209,6 +245,9 @@ def twiddle_mul_banks(x, qs, w, wp, *, lazy: bool):
     check_shape(where, "w", w, (k, n))
     check_shape(where, "wp", wp, (k, n))
     out = torch.empty_like(x)
+    if x.device.type == "meta":
+        return meta_launch(where, out, [x, qs, w, wp], x.numel() * MUL_OPS[(4, lazy)])
+    lib = build.load("ntt_banks")
     if x.numel() == 0:
         return out
     rc = lib.twiddle_mul_banks(x.data_ptr(), out.data_ptr(), qs.data_ptr(),
@@ -287,6 +326,22 @@ def on_banks(x: torch.Tensor) -> bool:
     return not MIN_N_STREAM <= n <= MAX_N_SINGLE or x.data_ptr() % 16 != 0
 
 
+def _meta_single(where: str, x, p, *, fwd: bool, negacyclic: bool, lazy: bool):
+    """The meta branch of ``ntt_fwd`` / ``ntt_inv``: recorded under the
+    kernel the card would launch (the banks where the ring is outside the
+    row stream's), reading x and the prime's tables (the stage tables and
+    the weight rows or n^-1), which the wrapper holds itself."""
+    check_tensors(where, x.device, x=x)
+    n = x.shape[-1]
+    name = where if MIN_N_STREAM <= n <= MAX_N_SINGLE else where + "_banks"
+    stages = n.bit_length() - 1
+    tables = 2 * stages * (n // 2) + (2 * n if negacyclic else 2 * (not fwd)) + 1
+    return meta_launch(name, torch.empty_like(x), [x],
+                       banks_int_ops(x, stages, fwd=fwd, negacyclic=negacyclic,
+                                     lazy=lazy, reduce_out=True),
+                       extra_bytes=4 * tables)
+
+
 def ntt_fwd(x, p, *, negacyclic: bool, lazy: bool):
     """x: (B, n) int32 in [0, p.q); p: the prime's ``NTTParams``.
     Returns the forward transform in bitrev order, in [0, q) either way.
@@ -297,6 +352,8 @@ def ntt_fwd(x, p, *, negacyclic: bool, lazy: bool):
     if x.device.type == "cpu":
         return ref.ntt_fwd_ref(x, p, negacyclic, lazy=lazy)
     b, n = _check_single(where, x, p)
+    if x.device.type == "meta":
+        return _meta_single(where, x, p, fwd=True, negacyclic=negacyclic, lazy=lazy)
     if on_banks(x):
         t = single_prime_bank(p, x.device)
         return ntt_fwd_banks(x[None], t["qs"], t["tw"], t["twp"], t["psi"],
@@ -328,6 +385,8 @@ def ntt_inv(x, p, *, negacyclic: bool, lazy: bool):
     if x.device.type == "cpu":
         return ref.ntt_inv_ref(x, p, negacyclic, lazy=lazy)
     b, n = _check_single(where, x, p)
+    if x.device.type == "meta":
+        return _meta_single(where, x, p, fwd=False, negacyclic=negacyclic, lazy=lazy)
     if on_banks(x):
         t = single_prime_bank(p, x.device)
         return ntt_inv_banks(x[None], t["qs"], t["ninv"], t["ninv_p"], t["itw"],

@@ -18,6 +18,8 @@ import math
 import numpy as np
 import torch
 
+from repro_torch.runtime import op_cost
+
 
 def canonical(device) -> torch.device:
     """``device`` with its index filled in: a CUDA device without one is
@@ -77,7 +79,9 @@ def make_mesh(devices, axis_names=("b",), shape=None) -> Mesh:
 # shard order, a ``psum`` a sum in ascending shard index along the axes,
 # a ``pmean`` that sum over the axes' size, and ``axis_index`` the
 # shard's index along the axes.  Every helper takes and returns one value
-# per shard, in the mesh's row-major device order.
+# per shard, in the mesh's row-major device order.  ``all_gather`` and
+# ``psum`` record one collective each in an active ``runtime.op_cost``
+# counter: its bytes per device and the axes' size.
 
 class P(tuple):
     """A partition spec, the counterpart of ``jax.sharding.PartitionSpec``:
@@ -159,6 +163,7 @@ def all_gather(vals: list, mesh: Mesh, axes, dim: int = 0, tiled: bool = True) -
         d = mesh.devices[i]
         parts = [vals[j].to(d) for j in axis_group(mesh, axes, i)]
         out.append(torch.cat(parts, dim=dim) if tiled else torch.stack(parts))
+    op_cost.record_collective("all-gather", op_cost.nbytes(out[0]), axis_size(mesh, axes))
     return out
 
 
@@ -166,6 +171,7 @@ def psum(vals: list, mesh: Mesh, axes) -> list:
     """Each shard's value: the sum of its group's values along ``axes``,
     added in ascending shard index (((v_0 + v_1) + v_2) + ...), on the
     shard's device.  A group's sum is computed once."""
+    op_cost.record_collective("all-reduce", op_cost.nbytes(vals[0]), axis_size(mesh, axes))
     sums: dict[tuple, torch.Tensor] = {}
     out = []
     for i in range(len(vals)):

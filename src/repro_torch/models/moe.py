@@ -11,6 +11,17 @@ the D / F dims all-gathered over fsdp, each tp shard dispatching only
 its E/tp experts, the outputs summed over tp); the dropless form is
 FSDP (the expert dim all-gathered over fsdp, F split over tp, the
 tp-partial outputs summed).  The aux loss is averaged over dp.
+
+On ``meta`` tensors (a dry run, ``runtime.op_cost``: shapes, no values)
+routing has no counts to take, so it assumes balanced routing: the
+dropless form gives each expert T*top_k/E of the T*top_k routed rows
+(the first T*top_k mod E experts one more), which is the reference's
+``ragged_dot`` row count under balanced routing; the capacity form's
+shapes do not depend on the counts (C = max(8, ceil(T*top_k*cf/E)) with
+T a dp shard's tokens).  On a mesh every shard's work then has the same
+shapes, so the meta branch runs shard 0's once, counted for every shard
+(``op_cost.repeated_call``), and records the collectives each shard
+makes.  CPU and CUDA tensors are routed by their values as before.
 """
 from __future__ import annotations
 
@@ -20,8 +31,9 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from repro_torch.mesh import all_gather, axis_index, pmean, psum
+from repro_torch.mesh import all_gather, axis_index, axis_size, pmean, psum
 from repro_torch.models.common import ModelConfig, MeshCtx, truncated_normal_init
+from repro_torch.runtime import op_cost
 
 
 def init_moe(generator, cfg: ModelConfig, dtype, lead=()):
@@ -57,6 +69,15 @@ def _route(x2d, router, m):
     return flat_e[order], flat_t[order], flat_w[order], aux
 
 
+def _group_sizes(se, n_experts: int) -> torch.Tensor:
+    """Routed slots per expert: counted from ``se`` on a real device,
+    balanced on ``meta`` (see the module docstring)."""
+    if se.device.type == "meta":
+        q, r = divmod(se.shape[0], n_experts)
+        return torch.tensor([q + (e < r) for e in range(n_experts)])
+    return torch.bincount(se, minlength=n_experts)
+
+
 def _moe_local(x2d, router, w_up, w_gate, w_down, cfg: ModelConfig):
     """Dropless expert compute with full expert weights: each expert's
     contiguous group of sorted slots through its own products. x2d: (T, D)."""
@@ -64,7 +85,7 @@ def _moe_local(x2d, router, w_up, w_gate, w_down, cfg: ModelConfig):
     cd = cfg.cdtype
     se, st, sw, aux = _route(x2d, router, m)
     xs = x2d[st].to(cd)                                     # (T*k, D)
-    sizes = torch.bincount(se, minlength=m.n_experts).tolist()
+    sizes = _group_sizes(se, m.n_experts).tolist()
     y = torch.empty((xs.shape[0], w_down.shape[-1]), dtype=cd, device=x2d.device)
     start = 0
     for e, size in enumerate(sizes):
@@ -95,7 +116,7 @@ def _moe_local_capacity(x2d, router, w_up, w_gate, w_down, cfg: ModelConfig,
     C = max(8, int(-(-T * m.top_k * m.capacity_factor // E)))
     se, st, sw, aux = _route(x2d, router, m)
     # position of each routed slot within its (global) expert
-    gs = torch.bincount(se, minlength=E)
+    gs = _group_sizes(se, E).to(se.device)
     offs = torch.cumsum(gs, dim=0) - gs
     pos = torch.arange(se.shape[0], device=x2d.device) - offs[se]
     sel = se - e_start                                      # local expert id
@@ -126,6 +147,10 @@ def moe_ffn(p, x, cfg: ModelConfig, mctx: MeshCtx):
                             p["w_down"], cfg)
         return out.reshape(B, S, D), aux
 
+    if x.device.type == "meta":
+        out, aux = _moe_ffn_meta(p, x2d, cfg, mctx, local_fn)
+        return out.reshape(B, S, D), aux
+
     mesh, fsdp, tp = mctx.mesh, mctx.fsdp, mctx.tp
     xl = mctx.named(mctx.dp, None).blocks(x2d)
     router = mctx.named(None, None).blocks(p["router"])
@@ -152,3 +177,30 @@ def moe_ffn(p, x, cfg: ModelConfig, mctx: MeshCtx):
     aux = pmean([a for _, a in res], mesh, mctx.dp)
     out = mctx.named(mctx.dp, None).assemble(out, x.device)
     return out.reshape(B, S, D), aux[0].to(x.device)
+
+
+def _moe_ffn_meta(p, x2d, cfg: ModelConfig, mctx: MeshCtx, local_fn):
+    """``moe_ffn``'s mesh branch on ``meta``: shard 0's blocks (its
+    tokens, its experts gathered over fsdp) through its local function,
+    counted once per device; one all-gather per weight over fsdp, the
+    output's psum over tp and the aux loss's pmean over dp recorded as
+    each device makes them."""
+    mesh, fsdp, tp = mctx.mesh, mctx.fsdp, mctx.tp
+
+    def shard0(x, *spec):
+        return x[mctx.named(*spec).index(0, x.shape)]
+    xl = shard0(x2d, mctx.dp, None)
+    if cfg.moe.impl == "capacity":
+        e_local = cfg.moe.n_experts // mesh.shape[tp]
+        ws = [shard0(p[w], tp, None, None) for w in ("w_up", "w_gate", "w_down")]
+        fn = lambda *a: _moe_local_capacity(*a, cfg, 0, e_local)
+    else:
+        ws = [shard0(p["w_up"], None, None, tp), shard0(p["w_gate"], None, None, tp),
+              shard0(p["w_down"], None, tp, None)]
+        fn = lambda *a: local_fn(*a, cfg)
+    for w in ws:
+        op_cost.record_collective("all-gather", op_cost.nbytes(w), axis_size(mesh, fsdp))
+    out, aux = op_cost.repeated_call(len(mesh.devices), fn, xl, p["router"], *ws)
+    op_cost.record_collective("all-reduce", op_cost.nbytes(out), axis_size(mesh, tp))
+    op_cost.record_collective("all-reduce", op_cost.nbytes(aux), axis_size(mesh, mctx.dp))
+    return out.repeat(x2d.shape[0] // xl.shape[0], 1), aux

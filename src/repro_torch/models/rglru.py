@@ -5,6 +5,11 @@ h_t = a_t * h_{t-1} + b_t as a scan over the sequence (a Hillis-Steele
 doubling scan with ``_combine``; on a mesh, the reference's two-level
 scan over sequence shards); decode mode is the single-step update.
 The hybrid block pattern (rec, rec, attn) lives in model.py.
+
+On a mesh of ``meta`` tensors (a dry run, ``runtime.op_cost``) every
+shard's scan has the same shapes, so the two-level scan runs one shard
+(the middle one along tp, whose prefix fold is the mean) counted once
+per device, and records the two aggregate all-gathers each shard makes.
 """
 from __future__ import annotations
 
@@ -17,6 +22,7 @@ import torch.nn.functional as F
 from repro_torch.mesh import all_gather, axis_index
 from repro_torch.models.common import ModelConfig, MeshCtx, truncated_normal_init
 from repro_torch.models.ssm import _causal_conv
+from repro_torch.runtime import op_cost
 
 _C = 8.0  # paper's fixed scalar on the recurrence gate
 
@@ -89,6 +95,8 @@ def _seq_scan(a, gx, cfg: ModelConfig, mctx: MeshCtx):
     mesh, tp = mctx.mesh, mctx.tp
     nsh = mesh.shape[tp]
     spec = mctx.named(mctx.dp, tp, None)
+    if a.device.type == "meta":
+        return _seq_scan_meta(a, gx, spec, nsh)
     local = [_scan(al, gl) for al, gl in zip(spec.blocks(a), spec.blocks(gx))]
     aggs_a = all_gather([ha[:, -1] for ha, _ in local], mesh, tp, tiled=False)  # (nsh, B, W)
     aggs_b = all_gather([hb[:, -1] for _, hb in local], mesh, tp, tiled=False)
@@ -102,6 +110,28 @@ def _seq_scan(a, gx, cfg: ModelConfig, mctx: MeshCtx):
         # compose the incoming prefix state pb into the local scan
         out.append(ha * pb[:, None, :] + hb)
     return spec.assemble(out, a.device)
+
+
+def _seq_scan_meta(a, gx, spec, nsh: int):
+    """``_seq_scan``'s two-level scan on ``meta``: one shard's (its local
+    scan, the fold of the nsh // 2 shards before it, the composition),
+    counted once per device."""
+    idx = nsh // 2
+
+    def shard(al, gl):
+        ha, hb = _scan(al, gl)
+        aggs_a = torch.stack([ha[:, -1]] * nsh)
+        aggs_b = torch.stack([hb[:, -1]] * nsh)
+        for agg in (aggs_a, aggs_b):
+            op_cost.record_collective("all-gather", op_cost.nbytes(agg), nsh)
+        pa, pb = torch.ones_like(ha[:, -1]), torch.zeros_like(hb[:, -1])
+        for j in range(idx):
+            pa, pb = pa * aggs_a[j], aggs_a[j] * pb + aggs_b[j]
+        return (ha * pb[:, None, :] + hb,)
+
+    blocks = [x[spec.index(0, x.shape)] for x in (a, gx)]
+    out, = op_cost.repeated_call(len(spec.mesh.devices), shard, *blocks)
+    return out.repeat(a.shape[0] // out.shape[0], a.shape[1] // out.shape[1], 1)
 
 
 def rglru_block(p, x, cfg: ModelConfig, mctx: MeshCtx, *, state=None, conv_buf=None):

@@ -67,21 +67,28 @@ def test_context_without_a_card_raises(monkeypatch):
 N = 16
 PRIMES = tuple(rns.make_primes(N, 3))
 P1 = make_ntt_params(N)                 # one 30-bit prime: the single-prime ops
+P64 = make_ntt_params(64)               # the row stream's smallest ring
 
 
-def _wrapper_calls(device):
-    """(kernel name, call) for each wrapper on small tensors on ``device``."""
+def _wrapper_calls(device, fake=None):
+    """(kernel name, call) for each wrapper on small tensors on ``device``;
+    with ``fake`` (a tensor subclass reporting another device), on meta
+    tensors of that class, the single-prime ones at a ring of the row
+    stream (whose launcher is loaded before its tables are built)."""
+    as_ = (lambda v: v) if fake is None else (lambda v: v.as_subclass(fake))
     t = TB.build_table_pack(PRIMES, N, "cpu")
-    t = {k: v.to(device) for k, v in t.items()}
+    t = {k: as_(v.to(device)) for k, v in t.items()}
     k = len(PRIMES)
-    x = torch.zeros((k, 2, N), dtype=torch.int32, device=device)
-    ext = torch.zeros((2, k, 2, N), dtype=torch.int32, device=device)
-    evk = torch.zeros((2, k, N), dtype=torch.int32, device=device)
+    x = as_(torch.zeros((k, 2, N), dtype=torch.int32, device=device))
+    ext = as_(torch.zeros((2, k, 2, N), dtype=torch.int32, device=device))
+    evk = as_(torch.zeros((2, k, N), dtype=torch.int32, device=device))
     row = torch.arange(N, dtype=torch.int32, device=device)
-    rows = torch.stack([row, row.flip(0)])
+    rows = as_(torch.stack([row, row.flip(0)]))
+    row = as_(row)
     flags = dict(negacyclic=True, lazy=True, reduce_out=True)
-    r = from_reference(ring_table_pack(MLKEM_RING), device)
-    x16 = torch.zeros((1, 3, MLKEM_RING.n), dtype=torch.int16, device=device)
+    r = {k: as_(v) for k, v in from_reference(ring_table_pack(MLKEM_RING), device).items()}
+    x16 = as_(torch.zeros((1, 3, MLKEM_RING.n), dtype=torch.int16, device=device))
+    p1 = P1 if fake is None else P64
     rflags = dict(negacyclic=False, lazy=True, reduce_out=True)
     return [
         ("ntt_fwd_banks", lambda: ntt_kernel.ntt_fwd_banks(
@@ -104,8 +111,8 @@ def _wrapper_calls(device):
             r["ipsin"], r["ipsinp"], **rflags)),
         ("dyadic_basemul_banks", lambda: dyadic_kernel.dyadic_basemul_banks(
             x16, x16, r["qs"], r["mu"], r["gamma"], r["gammap"], lazy=True)),
-        *_single_prime_calls(torch.zeros((2, N), dtype=torch.int32, device=device),
-                             P1).items(),
+        *_single_prime_calls(as_(torch.zeros((2, p1.n), dtype=torch.int32, device=device)),
+                             p1).items(),
     ]
 
 
@@ -144,7 +151,7 @@ def no_nvcc(monkeypatch, tmp_path):
 
 @pytest.mark.parametrize("i", WRAPPERS)
 def test_launch_without_nvcc_raises(no_nvcc, i):
-    name, call = _wrapper_calls("meta")[i]
+    name, call = _wrapper_calls("meta", _FakeCuda)[i]
     K.reset_counts()
     with pytest.raises(build.BuildError, match="nvcc not found"):
         call()
@@ -161,7 +168,7 @@ class _NoLaunch:
 @pytest.mark.parametrize("i", WRAPPERS)
 def test_non_cuda_tensor_is_refused_not_computed(monkeypatch, i):
     monkeypatch.setattr(build, "load", lambda name: _NoLaunch())
-    name, call = _wrapper_calls("meta")[i]
+    name, call = _wrapper_calls("meta", _FakeOther)[i]
     K.reset_counts()
     with pytest.raises(ValueError, match="CUDA tensors expected"):
         call()
@@ -230,6 +237,15 @@ class _FakeCuda(torch.Tensor):
     @property
     def device(self):
         return torch.device("cuda", 0)
+
+
+class _FakeOther(_FakeCuda):
+    """A meta tensor that reports a device that is neither the CPU, a
+    card nor meta: a wrapper must refuse it."""
+
+    @property
+    def device(self):
+        return torch.device("xpu", 0)
 
 
 class _Recorder:
