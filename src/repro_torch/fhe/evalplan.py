@@ -33,7 +33,17 @@ one capture covers every rotation amount and every pattern of group
 elements at that shape, and no graph reads a tensor a cache may free;
 only the basis's tables are captured as they are.  A plan's graphs on
 one device share one memory pool (they replay in order on one stream
-and their outputs are cloned out).  ``EvalPlan.trace_count()`` counts
+and their outputs are cloned out).
+
+Spans (``obs``, one flag check each while it is off): every program
+call is ``plan.args`` (checks, padding, key, gather-row and table
+lookups, moves to a shard's device), ``plan.stack`` (the batch's
+stacks), ``plan.program`` and ``plan.unpack`` (the ``Ciphertext`` list
+built from the outputs).  In a graphed ``plan.program``, ``plan.capture``
+(a new signature's warm-up and capture) and, at every call,
+``plan.copy_in`` (the inputs into the graph's static buffers, keys
+included), ``plan.launch`` (the replay) and ``plan.copy_out`` (the
+outputs cloned out).  ``EvalPlan.trace_count()`` counts
 the captures in the process, and ``prepare(warm_jit=True,
 batch_sizes=...)`` captures ahead of traffic.  A capture or replay that fails raises; nothing falls back
 to the eager program.  On the CPU the programs run eagerly.
@@ -383,12 +393,15 @@ class _Graph:
                 c.launches = before[k]
 
     def replay(self, inputs: tuple) -> tuple:
-        for s, x in zip(self.inputs, inputs):
-            s.copy_(x)
-        self.graph.replay()
-        for k, n in self.launches.items():
-            K.COUNTS[k].launches += n
-        return tuple(o.clone() for o in self.outputs)
+        with obs.span("plan.copy_in", n=len(inputs)):
+            for s, x in zip(self.inputs, inputs):
+                s.copy_(x)
+        with obs.span("plan.launch"):
+            self.graph.replay()
+            for k, n in self.launches.items():
+                K.COUNTS[k].launches += n
+        with obs.span("plan.copy_out", n=len(self.outputs)):
+            return tuple(o.clone() for o in self.outputs)
 
 
 class EvalPlan:
@@ -494,11 +507,12 @@ class EvalPlan:
                    tuple((tuple(x.shape), x.dtype) for x in inputs))
             graph = self._graphs.get(sig)
             if graph is None:
-                pool = self._pools.get(str(device))
-                if pool is None:
-                    pool = self._pools[str(device)] = torch.cuda.graph_pool_handle()
-                graph = self._graphs[sig] = _Graph(name, fn, inputs, consts, pool)
-                EvalPlan._traces += 1
+                with obs.span("plan.capture", program=name):
+                    pool = self._pools.get(str(device))
+                    if pool is None:
+                        pool = self._pools[str(device)] = torch.cuda.graph_pool_handle()
+                    graph = self._graphs[sig] = _Graph(name, fn, inputs, consts, pool)
+                    EvalPlan._traces += 1
             return graph.replay(inputs)
 
     def _program(self, name: str, fn, inputs: tuple, consts: tuple, key, **span):
@@ -516,11 +530,15 @@ class EvalPlan:
         ``_pad_batch``), shard i's rows run on its device, and the outputs
         are concatenated along ``out_axis`` on the plan's device."""
         if self._shards is None:
-            return self._program(name, fn, *args(self.device, slice(None)), key, **span)
+            with obs.span("plan.args", program=name):
+                inputs, consts = args(self.device, slice(None))
+            return self._program(name, fn, inputs, consts, key, **span)
         per = count // len(self._shards)
-        parts = [self._program(name, fn, *args(d, slice(i * per, (i + 1) * per)), key,
-                               shard=i, **span)
-                 for i, d in enumerate(self._shards)]
+        parts = []
+        for i, d in enumerate(self._shards):
+            with obs.span("plan.args", program=name, shard=i):
+                inputs, consts = args(d, slice(i * per, (i + 1) * per))
+            parts.append(self._program(name, fn, inputs, consts, key, shard=i, **span))
         return self._collect(parts, out_axis)
 
     def _collect(self, parts, axis: int) -> tuple:
@@ -575,8 +593,9 @@ class EvalPlan:
         concatenated along the prime axis ``axis`` on the plan's device."""
         shards = []
         for j, d, rows, sb in self._kshards(basis):
-            fin, bin_ = args(d, rows)
-            tables = self._packs(sb, d)
+            with obs.span("plan.args", program=name, kshard=j):
+                fin, bin_ = args(d, rows)
+                tables = self._packs(sb, d)
             out = self._program(f"{name}/front", front, fin, tables, (basis, sb),
                                 kshard=j, **span)
             shards.append((j, d, sb, tables, out, bin_))
@@ -602,11 +621,12 @@ class EvalPlan:
         k = len(basis)
         parts = []
         for j, d, rows, sb in self._kshards(basis, rescale=True):
-            ins = tuple(self._on(torch.cat([h.narrow(axis, rows.start, rows.stop - rows.start),
-                                            h.narrow(axis, k - 1, 1)], dim=axis), d)
-                        for h in halves)
-            parts.append(self._program(name, fn, ins, self._packs(sb, d), (basis, sb),
-                                       kshard=j, **span))
+            with obs.span("plan.args", program=name, kshard=j):
+                ins = tuple(self._on(torch.cat([h.narrow(axis, rows.start, rows.stop - rows.start),
+                                                h.narrow(axis, k - 1, 1)], dim=axis), d)
+                            for h in halves)
+                tables = self._packs(sb, d)
+            parts.append(self._program(name, fn, ins, tables, (basis, sb), kshard=j, **span))
         self.k_programs += 1
         return self._collect(parts, axis)
 
@@ -822,38 +842,46 @@ class EvalPlan:
     # ------------------------------------------------------- scheme ops
 
     def multiply(self, a: Ciphertext, b: Ciphertext) -> Ciphertext:
-        check_same_basis("multiply", a, b)
-        check_level("multiply", a)
-        basis = a.primes
-        if self._over_k(basis):
+        with obs.span("plan.args", program="multiply"):
+            check_same_basis("multiply", a, b)
+            check_level("multiply", a)
+            basis = a.primes
+            over_k = self._over_k(basis)
+            if not over_k:
+                tables = self.keyswitch_tables(basis)
+                eb, ea = self.relin_key(basis)
+        if over_k:
             def args(d, rows):
                 return (tuple(self._on(x.data[rows], d) for x in (a.c0, a.c1, b.c0, b.c1)),
                         self.relin_key(basis, d, rows))
             c0, c1 = self._run_k("multiply", multiply_front, multiply_back, basis, args)
         else:
-            t, fsp = self.keyswitch_tables(basis)
-            eb, ea = self.relin_key(basis)
             c0, c1 = self._program("multiply", multiply_banks,
                                    (a.c0.data, a.c1.data, b.c0.data, b.c1.data, eb, ea),
-                                   (t, fsp), basis)
+                                   tables, basis)
         self._count(1, key_switches=1, decomposes=1)
-        return Ciphertext(RnsPoly(c0, basis, True), RnsPoly(c1, basis, True),
-                          a.scale * b.scale)
+        with obs.span("plan.unpack", program="multiply"):
+            return Ciphertext(RnsPoly(c0, basis, True), RnsPoly(c1, basis, True),
+                              a.scale * b.scale)
 
     def rescale(self, a: Ciphertext) -> Ciphertext:
-        check_level("rescale", a, need=1)
-        basis = a.primes
-        if self._over_k(basis):
+        with obs.span("plan.args", program="rescale"):
+            check_level("rescale", a, need=1)
+            basis = a.primes
+            over_k = self._over_k(basis)
+            if not over_k:
+                tables = self.rescale_tables(basis)
+        if over_k:
             c0, c1 = self._rescale_k("rescale", rescale_banks, basis,
                                      (a.c0.data, a.c1.data), axis=0)
         else:
-            t, fsp = self.rescale_tables(basis)
             c0, c1 = self._program("rescale", rescale_banks, (a.c0.data, a.c1.data),
-                                   (t, fsp), basis)
+                                   tables, basis)
         self._count(1)
         rest = basis[:-1]
-        return Ciphertext(RnsPoly(c0, rest, True), RnsPoly(c1, rest, True),
-                          a.scale / basis[-1])
+        with obs.span("plan.unpack", program="rescale"):
+            return Ciphertext(RnsPoly(c0, rest, True), RnsPoly(c1, rest, True),
+                              a.scale / basis[-1])
 
     def _common_basis(self, op: str, cts) -> tuple[int, ...]:
         basis = cts[0].primes
@@ -872,11 +900,12 @@ class EvalPlan:
             raise ValueError(f"multiply_many: {len(As)} lhs vs {len(Bs)} rhs")
         if not As:
             return []
-        for a, b in zip(As, Bs):
-            check_same_basis("multiply_many", a, b)
-            check_level("multiply_many", a)
-        basis = self._common_basis("multiply_many", list(As) + list(Bs))
-        Ap, Bp = self._pad_batch(As), self._pad_batch(Bs)
+        with obs.span("plan.args", program="multiply_many", n=len(As)):
+            for a, b in zip(As, Bs):
+                check_same_basis("multiply_many", a, b)
+                check_level("multiply_many", a)
+            basis = self._common_basis("multiply_many", list(As) + list(Bs))
+            Ap, Bp = self._pad_batch(As), self._pad_batch(Bs)
         halves = [self._stack([ct.c0.data for ct in Ap]), self._stack([ct.c1.data for ct in Ap]),
                   self._stack([ct.c0.data for ct in Bp]), self._stack([ct.c1.data for ct in Bp])]
         if self._shards is None and self._over_k(basis):
@@ -892,19 +921,21 @@ class EvalPlan:
             c0, c1 = self._run("multiply_many", multiply_many_banks, len(Ap), args, basis,
                                n=len(As))
         self._count(1, key_switches=len(As), decomposes=len(As))
-        return [Ciphertext(RnsPoly(r0, basis, True), RnsPoly(r1, basis, True),
-                           a.scale * b.scale)
-                for r0, r1, a, b in zip(c0, c1, As, Bs)]
+        with obs.span("plan.unpack", program="multiply_many", n=len(As)):
+            return [Ciphertext(RnsPoly(r0, basis, True), RnsPoly(r1, basis, True),
+                               a.scale * b.scale)
+                    for r0, r1, a, b in zip(c0, c1, As, Bs)]
 
     def rescale_many(self, cts) -> list[Ciphertext]:
         """Rescale B ciphertexts (one basis) as one fused mod-down over
         all 2B halves."""
         if not cts:
             return []
-        for ct in cts:
-            check_level("rescale_many", ct, need=1)
-        basis = self._common_basis("rescale_many", cts)
-        pad = self._pad_batch(cts)
+        with obs.span("plan.args", program="rescale_many", n=len(cts)):
+            for ct in cts:
+                check_level("rescale_many", ct, need=1)
+            basis = self._common_basis("rescale_many", cts)
+            pad = self._pad_batch(cts)
         halves = [self._stack([ct.c0.data for ct in pad]), self._stack([ct.c1.data for ct in pad])]
         if self._shards is None and self._over_k(basis):
             c0, c1 = self._rescale_k("rescale_many", rescale_many_banks, basis, halves,
@@ -916,9 +947,10 @@ class EvalPlan:
                                n=len(cts))
         self._count(1)
         rest = basis[:-1]
-        return [Ciphertext(RnsPoly(r0, rest, True), RnsPoly(r1, rest, True),
-                           ct.scale / basis[-1])
-                for r0, r1, ct in zip(c0, c1, cts)]
+        with obs.span("plan.unpack", program="rescale_many", n=len(cts)):
+            return [Ciphertext(RnsPoly(r0, rest, True), RnsPoly(r1, rest, True),
+                               ct.scale / basis[-1])
+                    for r0, r1, ct in zip(c0, c1, cts)]
 
     def galois_ks_many(self, cts, gs) -> list[Ciphertext]:
         """B automorphisms (one basis, group elements gs, possibly mixed)
@@ -929,12 +961,13 @@ class EvalPlan:
             raise ValueError(f"galois_ks_many: {len(cts)} cts vs {len(gs)} gs")
         if not cts:
             return []
-        for ct in cts:
-            check_level("galois_ks_many", ct)
-        basis = self._common_basis("galois_ks_many", cts)
-        pad, pad_gs = self._pad_batch(cts), self._pad_batch(gs)
+        with obs.span("plan.args", program="galois_ks_many", n=len(cts)):
+            for ct in cts:
+                check_level("galois_ks_many", ct)
+            basis = self._common_basis("galois_ks_many", cts)
+            pad, pad_gs = self._pad_batch(cts), self._pad_batch(gs)
+            uniform = len(set(pad_gs)) == 1
         halves = [self._stack([ct.c0.data for ct in pad]), self._stack([ct.c1.data for ct in pad])]
-        uniform = len(set(pad_gs)) == 1
 
         def keys(d, gs, rows=None):
             if uniform:
@@ -955,27 +988,32 @@ class EvalPlan:
             c0, c1 = self._run("galois_ks_many", galois_ks_many_banks, len(pad), args, basis,
                                n=len(cts))
         self._count(1, key_switches=len(cts), decomposes=len(cts))
-        return [Ciphertext(RnsPoly(r0, basis, True), RnsPoly(r1, basis, True),
-                           ct.scale)
-                for r0, r1, ct in zip(c0, c1, cts)]
+        with obs.span("plan.unpack", program="galois_ks_many", n=len(cts)):
+            return [Ciphertext(RnsPoly(r0, basis, True), RnsPoly(r1, basis, True),
+                               ct.scale)
+                    for r0, r1, ct in zip(c0, c1, cts)]
 
     def apply_galois(self, a: Ciphertext, g: int) -> Ciphertext:
-        check_level("apply_galois", a)
-        basis = a.primes
-        if self._over_k(basis):
+        with obs.span("plan.args", program="galois_ks"):
+            check_level("apply_galois", a)
+            basis = a.primes
+            over_k = self._over_k(basis)
+            if not over_k:
+                tables = self.keyswitch_tables(basis)
+                eb, ea = self.galois_key(g, basis)
+                idx = self.eval_idx(g)
+        if over_k:
             def args(d, rows):
                 return ((self._on(a.c0.data[rows], d), self._on(a.c1.data[rows], d),
                          self.eval_idx(g, d)), self.galois_key(g, basis, d, rows))
             c0, c1 = self._run_k("galois_ks", galois_ks_front, galois_ks_back, basis, args)
         else:
-            t, fsp = self.keyswitch_tables(basis)
-            eb, ea = self.galois_key(g, basis)
             c0, c1 = self._program("galois_ks", galois_ks_banks,
-                                   (a.c0.data, a.c1.data, self.eval_idx(g), eb, ea),
-                                   (t, fsp), basis)
+                                   (a.c0.data, a.c1.data, idx, eb, ea), tables, basis)
         self._count(1, key_switches=1, decomposes=1)
-        return Ciphertext(RnsPoly(c0, basis, True), RnsPoly(c1, basis, True),
-                          a.scale)
+        with obs.span("plan.unpack", program="galois_ks"):
+            return Ciphertext(RnsPoly(c0, basis, True), RnsPoly(c1, basis, True),
+                              a.scale)
 
     def rotate(self, a: Ciphertext, r: int) -> Ciphertext:
         g = self.rotation_group_element(r)
@@ -996,9 +1034,10 @@ class EvalPlan:
         gs = tuple(gs)
         if not gs:
             return []
-        check_level("hoisted_galois", a)
-        basis = a.primes
-        pad_gs = tuple(self._pad_batch(gs))
+        with obs.span("plan.args", program="hoisted_galois", n=len(gs)):
+            check_level("hoisted_galois", a)
+            basis = a.primes
+            pad_gs = tuple(self._pad_batch(gs))
         if self._shards is None and self._over_k(basis):
             def kargs(d, rows):
                 eb, ea, idx = self._galois_batch_key(pad_gs, basis, d, rows)
@@ -1015,9 +1054,10 @@ class EvalPlan:
             c0, c1 = self._run("hoisted_galois", hoisted_rotations_banks, len(pad_gs), args,
                                basis, out_axis=1, n=len(gs))
         self._count(1, key_switches=len(gs), decomposes=1)
-        return [Ciphertext(RnsPoly(r0, basis, True), RnsPoly(r1, basis, True),
-                           a.scale)
-                for r0, r1, _ in zip(c0.unbind(1), c1.unbind(1), gs)]
+        with obs.span("plan.unpack", program="hoisted_galois", n=len(gs)):
+            return [Ciphertext(RnsPoly(r0, basis, True), RnsPoly(r1, basis, True),
+                               a.scale)
+                    for r0, r1, _ in zip(c0.unbind(1), c1.unbind(1), gs)]
 
     def rotate_hoisted(self, a: Ciphertext, rs) -> list[Ciphertext]:
         """Rotate one ciphertext by every amount in ``rs`` with the
@@ -1056,17 +1096,19 @@ class EvalPlan:
     def plain_mac(self, b0, b1, M):
         """``plain_mac_banks`` of the baby halves b0/b1 (R, k, n) with the
         ``fhe.linalg.PtMatrix`` pack M's diagonals: (G, k, n) stacks."""
-        diags, rows, group, gis = M.mac_pack()
-        qs, mus = rns._basis_consts(M.basis, self.device)
-        groups = len(gis)
+        with obs.span("plan.args", program="plain_mac"):
+            diags, rows, group, gis = M.mac_pack()
+            qs, mus = rns._basis_consts(M.basis, self.device)
+            groups = len(gis)
         return self._program("plain_mac",
                              functools.partial(plain_mac_banks, groups=groups),
                              (b0, b1, diags, rows, group), (qs, mus), (M.basis, groups))
 
     def accumulate(self, parts0, parts1, basis: tuple[int, ...]):
         """``accumulate_banks``: the modular sums of L (k, n) halves."""
-        qs = rns._basis_consts(basis, self.device)[0]
-        L = len(parts0)
+        with obs.span("plan.args", program="accumulate"):
+            qs = rns._basis_consts(basis, self.device)[0]
+            L = len(parts0)
         return self._program("accumulate",
                              lambda *xs: accumulate_banks(xs[:L], xs[L:], qs),
                              (*parts0, *parts1), (), basis)

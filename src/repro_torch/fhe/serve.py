@@ -209,10 +209,17 @@ class CkksServeEngine:
     Both drains report ``latency_us`` (p50/p99/mean/max/count, arrival ->
     drained; empty on a drain of no requests), the async drain also
     ``max_queue`` (peak pending depth).  With ``obs`` enabled a drain also
-    records its phase spans (``serve.screen`` / ``serve.group`` /
-    ``serve.dispatch`` / ``serve.block`` under ``serve.run``), queue-depth
-    gauge samples, per-request lifecycle histograms and the stats as
-    ``serve.*`` counters."""
+    records its phase spans, queue-depth gauge samples, per-request
+    lifecycle histograms and the stats as ``serve.*`` counters.  The
+    spans, all under ``serve.run`` (the whole drain): ``serve.open`` (the
+    preamble), ``serve.screen`` (admission), ``serve.group``,
+    ``serve.dispatch`` (one group's host work and launches; a matvec
+    group's requests each in ``serve.matvec``), ``serve.block`` (the
+    wait for a group), ``serve.deliver`` (its answers handed out and
+    accounted) and ``serve.close`` (latencies and stats).  A group's
+    dispatch, block and deliver carry ``group`` (its sequence number in
+    the drain) and ``n`` (its requests), so its wait and delivery, a
+    cycle later in the ping-pong drain, join its dispatch."""
 
     def __init__(self, plan: EvalPlan, batch_tile: int | None = None,
                  max_batch: int | None = None):
@@ -306,16 +313,25 @@ class CkksServeEngine:
             raise ValueError(
                 f"_dispatch: cross-scheme batch {sorted(schemes)} — "
                 f"CKKS and ML-KEM requests never batch together")
-        with obs.span("serve.dispatch", kind=kind, n=len(reqs)):
-            reqs = _pad(reqs, self.group_tile)
-            if kind in MLKEM_OPS:
-                return self._mlkem_dispatch(kind, reqs)
-            if kind == "multiply":
-                return plan.multiply_many([r.ct for r in reqs], [r.other for r in reqs])
-            if kind == "rescale":
-                return plan.rescale_many([r.ct for r in reqs])
-            return plan.galois_ks_many([r.ct for r in reqs],   # may mix g
-                                       [self._g_of(r) for r in reqs])
+        reqs = _pad(reqs, self.group_tile)
+        if kind in MLKEM_OPS:
+            return self._mlkem_dispatch(kind, reqs)
+        if kind == "multiply":
+            return plan.multiply_many([r.ct for r in reqs], [r.other for r in reqs])
+        if kind == "rescale":
+            return plan.rescale_many([r.ct for r in reqs])
+        return plan.galois_ks_many([r.ct for r in reqs],   # may mix g
+                                   [self._g_of(r) for r in reqs])
+
+    def _dispatch_group(self, gid: int, kind: str, reqs: list, failed: dict):
+        """Group ``gid`` of the drain in the ``serve.dispatch`` span: a matvec
+        group request by request, any other as one batched dispatch.
+        Returns the requests that ride it and their outputs (pad rows
+        after them)."""
+        with obs.span("serve.dispatch", kind=kind, n=len(reqs), group=gid):
+            if kind == "matvec":
+                return self._matvec_group(reqs, failed)
+            return reqs, self._dispatch(kind, reqs)
 
     def _mlkem_dispatch(self, kind: str, reqs: list) -> list:
         """One batched ML-KEM dispatch of a (padded) same-op group on the
@@ -347,12 +363,22 @@ class CkksServeEngine:
         return event
 
     @staticmethod
-    def _block_outs(outs: list, event) -> None:
-        """Wait for a dispatched group: its event, recorded after its
-        dispatch (ML-KEM answers are host arrays already)."""
-        with obs.span("serve.block", n=len(outs)):
+    def _block(event, gid: int, n: int) -> None:
+        """Wait for group ``gid`` (n requests): its event, recorded after
+        its dispatch (None on the CPU)."""
+        with obs.span("serve.block", group=gid, n=n):
             if event is not None:
                 event.synchronize()
+
+    def _deliver(self, gid: int, kind: str, reqs: list, outs: list, out: dict,
+                 done_t: dict, t0: float, stats: dict) -> None:
+        """Hand out group ``gid``'s answers and account for it."""
+        with obs.span("serve.deliver", group=gid, n=len(reqs)):
+            done = time.perf_counter() - t0
+            for req, ct in zip(reqs, outs):          # zip drops pad rows
+                out[req.rid] = ct
+                done_t[req.rid] = done
+            self._account_group(stats, kind, reqs)
 
     def _matvec_group(self, reqs: list, failed: dict):
         """Per-request matvec composites (no padding).  An exception a
@@ -362,7 +388,8 @@ class CkksServeEngine:
         kept, outs = [], []
         for req in reqs:
             try:
-                outs.append(linalg.matvec(self.plan, req.matrix, req.ct))
+                with obs.span("serve.matvec", rid=req.rid):
+                    outs.append(linalg.matvec(self.plan, req.matrix, req.ct))
                 kept.append(req)
             except Exception as e:
                 if is_device_fault(e):
@@ -438,39 +465,35 @@ class CkksServeEngine:
         group, largest group first, waiting for each group before the
         next.  Invalid requests are left out of the result and reported
         in ``stats['failed']``."""
-        self._check_rids(requests)
-        t0 = time.perf_counter()
-        before = dict(self.plan.stats)
-        traces_before = self.plan.trace_count()
         with obs.span("serve.run", mode="sync", n=len(requests)):
+            with obs.span("serve.open", n=len(requests)):
+                self._check_rids(requests)
+                t0 = time.perf_counter()
+                before = dict(self.plan.stats)
+                traces_before = self.plan.trace_count()
             groups, out, failed = self._group(requests)
             stats = self._init_stats("sync", failed)
             stats["identity"] = len(out)
             # answered at screening; a backlog's arrivals are all t0
             now = time.perf_counter() - t0
             done_t = {rid: now for rid in (*out, *failed)}
-            for (kind, basis), reqs in sorted(groups.items(), key=lambda kv: -len(kv[1])):
+            ordered = sorted(groups.items(), key=lambda kv: -len(kv[1]))
+            for gid, ((kind, basis), reqs) in enumerate(ordered):
                 if kind == "galois":
                     # canonical g order: the batch-key cache's pattern does
                     # not depend on arrival order
                     reqs = sorted(reqs, key=self._g_of)
-                if kind == "matvec":
-                    reqs, outs = self._matvec_group(reqs, failed)
-                    if not reqs:
-                        continue   # every request failed: nothing dispatched
-                else:
-                    outs = self._dispatch(kind, reqs)
-                self._block_outs(outs, self._dispatched())
-                done = time.perf_counter() - t0
-                for req, ct in zip(reqs, outs):   # zip drops pad rows
-                    out[req.rid] = ct
-                    done_t[req.rid] = done
-                self._account_group(stats, kind, reqs)
-            now = time.perf_counter() - t0
-            for rid in failed:     # matvec failures surface mid-drain
-                done_t.setdefault(rid, now)
-            stats["latency_us"] = self._latency_summary({}, done_t)
-        self._finish_stats(stats, before, traces_before, t0)
+                reqs, outs = self._dispatch_group(gid, kind, reqs, failed)
+                if not reqs:
+                    continue   # every matvec failed: nothing dispatched
+                self._block(self._dispatched(), gid, len(reqs))
+                self._deliver(gid, kind, reqs, outs, out, done_t, t0, stats)
+            with obs.span("serve.close", n=len(requests)):
+                now = time.perf_counter() - t0
+                for rid in failed:     # matvec failures surface mid-drain
+                    done_t.setdefault(rid, now)
+                stats["latency_us"] = self._latency_summary({}, done_t)
+                self._finish_stats(stats, before, traces_before, t0)
         return out
 
     # ------------------------------------------- continuous-batch drain
@@ -495,13 +518,9 @@ class CkksServeEngine:
 
     def _drain(self, batch, out, done_t, t0, stats):
         """Wait for an in-flight batch and deliver its answers."""
-        kind, reqs, outs, event = batch
-        self._block_outs(outs, event)
-        done = time.perf_counter() - t0
-        for req, ct in zip(reqs, outs):          # zip drops pad rows
-            out[req.rid] = ct
-            done_t[req.rid] = done
-        self._account_group(stats, kind, reqs)
+        gid, kind, reqs, outs, event = batch
+        self._block(event, gid, len(reqs))
+        self._deliver(gid, kind, reqs, outs, out, done_t, t0, stats)
 
     def run_async(self, requests: list[FheRequest],
                   arrivals: list[float] | None = None) -> dict[int, Ciphertext]:
@@ -518,34 +537,35 @@ class CkksServeEngine:
         None is a backlog (everything available at t = 0).  Answers equal
         ``run``'s bit for bit whatever the arrival order: grouping only
         changes which dispatch a request rides."""
-        self._check_rids(requests)
         n = len(requests)
-        if arrivals is not None and len(arrivals) != n:
-            raise ValueError(f"run_async: {n} requests vs {len(arrivals)} arrivals")
-        t0 = time.perf_counter()
-        before = dict(self.plan.stats)
-        traces_before = self.plan.trace_count()
-        out: dict[int, Ciphertext] = {}
-        failed: dict[int, str] = {}
-        stats = self._init_stats("async", failed)
-        stats["max_queue"] = 0
-        if arrivals is None:
-            sched = [(0.0, req) for req in requests]
-        else:
-            sched = sorted(zip(arrivals, requests), key=lambda ar: ar[0])
-        arr_t = {req.rid: a for a, req in sched}
-        done_t: dict[int, float] = {}
-        pending: deque = deque()
-        inflight = None                 # (kind, reqs, outs, event): one batch
-        i = 0                           # next arrival not yet admitted
-        # per-request lifecycle times (arrival -> admitted -> grouped ->
-        # dispatched -> drained), kept only while obs is on
-        track = obs.enabled()
-        adm_t: dict[int, float] = {}
-        grp_t: dict[int, float] = {}
-        disp_t: dict[int, float] = {}
-
         with obs.span("serve.run", mode="async", n=n):
+            with obs.span("serve.open", n=n):
+                self._check_rids(requests)
+                if arrivals is not None and len(arrivals) != n:
+                    raise ValueError(f"run_async: {n} requests vs {len(arrivals)} arrivals")
+                t0 = time.perf_counter()
+                before = dict(self.plan.stats)
+                traces_before = self.plan.trace_count()
+                out: dict[int, Ciphertext] = {}
+                failed: dict[int, str] = {}
+                stats = self._init_stats("async", failed)
+                stats["max_queue"] = 0
+                if arrivals is None:
+                    sched = [(0.0, req) for req in requests]
+                else:
+                    sched = sorted(zip(arrivals, requests), key=lambda ar: ar[0])
+                arr_t = {req.rid: a for a, req in sched}
+                done_t: dict[int, float] = {}
+                pending: deque = deque()
+                inflight = None         # (gid, kind, reqs, outs, event): one batch
+                i = 0                   # next arrival not yet admitted
+                gid = 0                 # the next group's sequence number
+                # per-request lifecycle times (arrival -> admitted ->
+                # grouped -> dispatched -> drained), kept only while obs is on
+                track = obs.enabled()
+                adm_t: dict[int, float] = {}
+                grp_t: dict[int, float] = {}
+                disp_t: dict[int, float] = {}
             while i < n or pending or inflight:
                 now = time.perf_counter() - t0
                 if i < n and sched[i][0] <= now:
@@ -571,10 +591,7 @@ class CkksServeEngine:
                             grp_t[req.rid] = tg
                     if kind == "galois":
                         reqs = sorted(reqs, key=self._g_of)   # canonical g
-                    if kind == "matvec":
-                        reqs, outs = self._matvec_group(reqs, failed)
-                    else:
-                        outs = self._dispatch(kind, reqs)
+                    reqs, outs = self._dispatch_group(gid, kind, reqs, failed)
                     event = self._dispatched()
                     if track and reqs:
                         td = time.perf_counter() - t0
@@ -585,7 +602,8 @@ class CkksServeEngine:
                     if reqs:
                         if inflight is not None:
                             self._drain(inflight, out, done_t, t0, stats)
-                        inflight = (kind, reqs, outs, event)
+                        inflight = (gid, kind, reqs, outs, event)
+                    gid += 1
                 elif inflight is not None:
                     self._drain(inflight, out, done_t, t0, stats)
                     inflight = None
@@ -595,20 +613,21 @@ class CkksServeEngine:
                     wait = sched[i][0] - (time.perf_counter() - t0)
                     if wait > 0:
                         time.sleep(min(wait, 5e-4))
-            if track:
-                for rid in done_t:
-                    a = arr_t.get(rid, 0.0)
-                    ta = adm_t.get(rid)
-                    if ta is None:
-                        continue
-                    obs.observe("serve.lifecycle.admitted_us", (ta - a) * 1e6)
-                    tg = grp_t.get(rid)
-                    if tg is None:
-                        continue
-                    obs.observe("serve.lifecycle.grouped_us", (tg - ta) * 1e6)
-                    td = disp_t.get(rid)
-                    if td is not None:
-                        obs.observe("serve.lifecycle.dispatched_us", (td - tg) * 1e6)
-            stats["latency_us"] = self._latency_summary(arr_t, done_t)
-        self._finish_stats(stats, before, traces_before, t0)
+            with obs.span("serve.close", n=n):
+                if track:
+                    for rid in done_t:
+                        a = arr_t.get(rid, 0.0)
+                        ta = adm_t.get(rid)
+                        if ta is None:
+                            continue
+                        obs.observe("serve.lifecycle.admitted_us", (ta - a) * 1e6)
+                        tg = grp_t.get(rid)
+                        if tg is None:
+                            continue
+                        obs.observe("serve.lifecycle.grouped_us", (tg - ta) * 1e6)
+                        td = disp_t.get(rid)
+                        if td is not None:
+                            obs.observe("serve.lifecycle.dispatched_us", (td - tg) * 1e6)
+                stats["latency_us"] = self._latency_summary(arr_t, done_t)
+                self._finish_stats(stats, before, traces_before, t0)
         return out

@@ -23,9 +23,20 @@ splits into its screen / group / dispatch / block phases on a timeline.
 
 Every span is also a latency sample: on exit its duration goes to the
 metrics registry's histogram ``<name>.us``.
+
+While enabled, a ``gc.callbacks`` hook also records each of Python's
+collections as a ``host.gc`` span (cat ``host``, its ``generation`` in
+the args; forwarded like any span), so the pauses the collector takes
+have a name on the timeline.  A collection may start inside any
+allocation, also one made while this module holds its lock, so the hook
+never waits on it: an event it cannot append at once waits in a side
+queue that the next holder of the lock appends first.  ``host.gc`` feeds
+no histogram (the registry's lock may be the one held).  ``disable()``
+removes the hook.
 """
 from __future__ import annotations
 
+import gc
 import threading
 import time
 from collections import deque
@@ -43,6 +54,7 @@ _LOCK = threading.Lock()
 _TLS = threading.local()
 _EPOCH_NS = time.perf_counter_ns()      # trace time zero (µs offsets)
 _DROPPED = 0                            # events lost to the maxlen bound
+_GC_PENDING: deque = deque()            # host.gc events the hook could not append
 
 
 def enabled() -> bool:
@@ -55,26 +67,46 @@ def enable(*, forward_to_profiler: bool = False) -> None:
     global _ENABLED, _FORWARD
     _FORWARD = bool(forward_to_profiler)
     _ENABLED = True
+    if _GC_HOOK not in gc.callbacks:
+        gc.callbacks.append(_GC_HOOK)
 
 
 def disable() -> None:
     global _ENABLED, _FORWARD
     _ENABLED = False
     _FORWARD = False
+    if _GC_HOOK in gc.callbacks:
+        gc.callbacks.remove(_GC_HOOK)
 
 
 def clear() -> None:
     """Drop every recorded event (a fresh capture)."""
     global _DROPPED
     with _LOCK:
+        _GC_PENDING.clear()
         _EVENTS.clear()
         _DROPPED = 0
+
+
+def _flush_gc() -> None:
+    """Append the events the gc hook left waiting (``_LOCK`` held)."""
+    while _GC_PENDING:
+        _append(_GC_PENDING.popleft())
+
+
+def _append(ev: tuple) -> None:
+    """Append one event to the bounded buffer (``_LOCK`` held)."""
+    global _DROPPED
+    if len(_EVENTS) == MAX_EVENTS:
+        _DROPPED += 1
+    _EVENTS.append(ev)
 
 
 def events() -> list[dict]:
     """The event buffer as plain dicts, oldest first: name, cat, ts_us,
     dur_us, tid, depth, args."""
     with _LOCK:
+        _flush_gc()
         return [{"name": name, "cat": cat, "ts_us": ts, "dur_us": dur,
                  "tid": tid, "depth": depth, "args": args}
                 for (name, cat, ts, dur, tid, depth, args) in _EVENTS]
@@ -129,7 +161,6 @@ class _Span:
         return self
 
     def __exit__(self, exc_type, exc, tb):
-        global _DROPPED
         t1 = time.perf_counter_ns()
         if self._range is not None:
             self._range.__exit__(exc_type, exc, tb)
@@ -141,10 +172,9 @@ class _Span:
         ts_us = (self.t0 - _EPOCH_NS) / 1e3
         dur_us = (t1 - self.t0) / 1e3
         with _LOCK:
-            if len(_EVENTS) == MAX_EVENTS:
-                _DROPPED += 1
-            _EVENTS.append((self.name, self.cat, ts_us, dur_us,
-                            threading.get_ident(), self.depth, self.args))
+            _flush_gc()
+            _append((self.name, self.cat, ts_us, dur_us,
+                     threading.get_ident(), self.depth, self.args))
         from repro_torch.obs import metrics
         metrics.observe(f"{self.name}.us", dur_us)
         return False                # never swallow the exception
@@ -157,3 +187,41 @@ def span(name: str, cat: str = "repro_torch", **args):
     if not _ENABLED:
         return NOOP_SPAN
     return _Span(name, cat, args)
+
+
+class _GcSpan:
+    """The ``gc.callbacks`` hook: a collection, from its ``start`` to its
+    ``stop``, as a ``host.gc`` span of the thread that triggered it (one
+    collection runs at a time).  It takes no lock it would wait for."""
+
+    def __init__(self):
+        self.t0 = None
+        self.depth = 0
+        self.range = None
+
+    def __call__(self, phase: str, info: dict) -> None:
+        if phase == "start":
+            self.depth = len(_stack())
+            if _FORWARD:
+                self.range = torch.profiler.record_function("host.gc")
+                self.range.__enter__()
+            self.t0 = time.perf_counter_ns()
+        elif self.t0 is not None:
+            t1 = time.perf_counter_ns()
+            if self.range is not None:
+                self.range.__exit__(None, None, None)
+                self.range = None
+            ev = ("host.gc", "host", (self.t0 - _EPOCH_NS) / 1e3, (t1 - self.t0) / 1e3,
+                  threading.get_ident(), self.depth, {"generation": info["generation"]})
+            self.t0 = None
+            if _LOCK.acquire(blocking=False):
+                try:
+                    _flush_gc()
+                    _append(ev)
+                finally:
+                    _LOCK.release()
+            else:
+                _GC_PENDING.append(ev)
+
+
+_GC_HOOK = _GcSpan()

@@ -736,6 +736,44 @@ def test_graph_replays_equal_the_eager_programs(cuda, logn):
     assert eager._graphs is None
 
 
+def test_graph_replay_spans(cuda):
+    """With obs on, a graphed program's ``plan.program`` holds its
+    ``plan.copy_in``, ``plan.launch`` and ``plan.copy_out``;
+    ``plan.capture`` appears once, inside the first call of a new
+    signature, and never on a replay."""
+    from repro_torch import obs
+    _, plan, _, _, cts = _graphed(cuda)
+    a, b, _ = cts
+    obs.enable()
+    obs.clear()
+    try:
+        for _ in range(3):
+            plan.multiply(a, b)
+            plan.rotate_many(cts, [1, 1, 1])
+        torch.cuda.synchronize()
+        evs = obs.events()
+    finally:
+        obs.disable()
+        obs.clear()
+        obs.reset()
+
+    def inside(child, parent):
+        return (parent["depth"] < child["depth"] and parent["ts_us"] <= child["ts_us"]
+                and child["ts_us"] + child["dur_us"] <= parent["ts_us"] + parent["dur_us"] + 1e-3)
+
+    by = lambda name: [e for e in evs if e["name"] == name]
+    for program in ("multiply", "galois_ks_many"):
+        calls = [e for e in by("plan.program") if e["args"]["program"] == program]
+        captures = [e for e in by("plan.capture") if e["args"]["program"] == program]
+        assert len(calls) == 3 and len(captures) == 1, program
+        assert inside(captures[0], calls[0])
+        for name in ("plan.copy_in", "plan.launch", "plan.copy_out"):
+            steps = [e for e in by(name) if any(inside(e, c) for c in calls)]
+            assert len(steps) == 3, (program, name)
+            for e, call in zip(steps, calls):
+                assert inside(e, call), (program, name)
+
+
 def test_fresh_traces_zero_after_a_covering_prepare(cuda):
     """An engine's drain on an unprepared plan captures graphs inside its
     latency window (fresh_traces > 0); after a prepare that covers both

@@ -2,9 +2,16 @@
 reference's (``repro.obs``): the same API, span semantics (per-thread
 nesting, exception safety, the bounded buffer, the shared no-op span when
 disabled), histogram bucket rules, and the same Chrome trace-event and
-metrics-snapshot formats for the same calls; the profiler forwarding; and
-the port's serve ``stats`` contract with instrumentation on (both drains,
-every phase span, the mirrored counters)."""
+metrics-snapshot formats for the same calls; the profiler forwarding; the
+port's serve ``stats`` contract with instrumentation on (both drains,
+every phase span, the mirrored counters); the span tree of a drain
+(groups joined by id, the plan's steps inside their dispatch); and the
+port's ``host.gc`` spans of Python's collections.
+
+Automatic collections are off in this file: each would add a ``host.gc``
+event between the ones the reference comparisons count.  The ``host.gc``
+tests collect explicitly."""
+import gc
 import json
 import threading
 
@@ -32,9 +39,13 @@ def _reset():
 
 @pytest.fixture(autouse=True)
 def _obs_clean():
+    automatic = gc.isenabled()
+    gc.disable()
     _reset()
     yield
     _reset()
+    if automatic:
+        gc.enable()
 
 
 @pytest.fixture(params=list(OBS))
@@ -326,3 +337,193 @@ def test_sync_latency_counts_failures_and_identity():
                       FheRequest(2, "rescale", low)])
     assert set(out) == {0, 1} and engine.stats["identity"] == 1
     assert list(engine.stats["failed"]) == [2] and engine.stats["latency_us"]["count"] == 3
+
+
+# ----------------------------------------------------- the drain's span tree
+
+def _inside(child, parents) -> bool:
+    """Whether event ``child`` lies within one of ``parents``, deeper."""
+    end = child["ts_us"] + child["dur_us"]
+    return any(p["depth"] < child["depth"] and p["ts_us"] <= child["ts_us"]
+               and end <= p["ts_us"] + p["dur_us"] + 1e-3 for p in parents)
+
+
+@pytest.mark.parametrize("drain", ["run", "run_async"])
+def test_a_drain_span_tree(drain):
+    """``serve.run`` holds the whole drain, ``serve.open`` and
+    ``serve.close`` inside it; each group's dispatch, wait and delivery
+    share its id and size; the plan's host steps lie inside a dispatch; a
+    matvec request is its own ``serve.matvec``; answers do not change
+    with obs on."""
+    from repro_torch.fhe import linalg
+    from repro_torch.fhe.serve import CkksServeEngine, synthetic_trace
+    ctx = _ctx()
+    M = linalg.PtMatrix.encode(ctx, np.random.default_rng(3).uniform(-0.5, 0.5, (8, 4)))
+    reqs, _ = synthetic_trace(ctx, 16, seed=7, matrix=M)
+    assert "matvec" in {r.op for r in reqs}
+    engine = CkksServeEngine(ctx.plan(), batch_tile=2, max_batch=4)
+    off = getattr(engine, drain)(list(reqs))
+    port_obs.enable()
+    on = getattr(engine, drain)(list(reqs))
+    port_obs.disable()
+    assert set(on) == set(off) and all(_same(off[r], on[r]) for r in off)
+    assert not engine.stats["failed"]
+    evs = port_obs.events()
+    by = lambda name: [e for e in evs if e["name"] == name]
+    (run,) = by("serve.run")
+    assert run["depth"] == 0 and run["args"]["mode"] == ("sync" if drain == "run" else "async")
+    for name in ("serve.open", "serve.close"):
+        (e,) = by(name)
+        assert e["depth"] == 1 and _inside(e, [run])
+    assert by("serve.open")[0]["ts_us"] <= min(e["ts_us"] for e in evs if e is not run
+                                               and e["name"] != "serve.open")
+    assert max(e["ts_us"] + e["dur_us"] for e in evs if e is not run) <= \
+        by("serve.close")[0]["ts_us"] + by("serve.close")[0]["dur_us"] + 1e-3
+    dispatches = by("serve.dispatch")
+    groups = [e["args"]["group"] for e in dispatches]
+    assert sorted(groups) == list(range(len(groups))) == list(range(engine.stats["dispatches"]))
+    for d in dispatches:
+        for name in ("serve.block", "serve.deliver"):
+            (e,) = [e for e in by(name) if e["args"]["group"] == d["args"]["group"]]
+            assert e["args"]["n"] == d["args"]["n"], name
+            assert e["ts_us"] >= d["ts_us"] + d["dur_us"] - 1e-3      # after its dispatch
+    assert len(by("serve.block")) == len(by("serve.deliver")) == len(dispatches)
+    assert sum(d["args"]["n"] for d in dispatches) == engine.stats["batched_ops"]
+    for name in ("plan.args", "plan.stack", "plan.unpack", "plan.program"):
+        assert by(name) and all(_inside(e, dispatches) for e in by(name)), name
+    matvecs = by("serve.matvec")
+    assert len(matvecs) == sum(r.op == "matvec" for r in reqs)
+    mv = [d for d in dispatches if d["args"]["kind"] == "matvec"]
+    assert all(_inside(e, mv) for e in matvecs)
+
+
+def test_a_drain_with_obs_off_records_nothing():
+    from repro_torch.fhe.serve import CkksServeEngine, synthetic_trace
+    ctx = _ctx()
+    reqs, _ = synthetic_trace(ctx, 6, seed=2)
+    engine = CkksServeEngine(ctx.plan(), batch_tile=2)
+    engine.run_async(reqs)
+    engine.run(reqs)
+    assert port_obs.events() == [] and port_obs.snapshot()["histograms"] == {}
+
+
+# ------------------------------------------------------ Python's collections
+
+def test_collections_are_host_gc_spans_while_enabled():
+    """A collection while obs is on is one ``host.gc`` span (its
+    generation in the args, nested at the depth it interrupted); after
+    ``disable()`` the hook is gone and a collection records nothing."""
+    port_obs.enable()
+    assert port_trace._GC_HOOK in gc.callbacks
+    with port_obs.span("outer"):
+        gc.collect()
+    gc.collect(0)
+    port_obs.disable()
+    assert port_trace._GC_HOOK not in gc.callbacks
+    gc.collect()
+    evs = port_obs.events()
+    assert [e["name"] for e in evs] == ["host.gc", "outer", "host.gc"]
+    first, outer, second = evs
+    assert first["args"] == {"generation": 2} and second["args"] == {"generation": 0}
+    assert first["cat"] == "host" and (first["depth"], second["depth"]) == (1, 0)
+    assert _inside(first, [outer])
+    # the hook feeds no histogram: the registry's lock may be the one held
+    assert "host.gc.us" not in port_obs.snapshot()["histograms"]
+    port_obs.enable()
+    port_obs.enable()
+    assert gc.callbacks.count(port_trace._GC_HOOK) == 1
+
+
+def test_a_collection_under_obs_locks_does_not_deadlock():
+    """Collections forced while obs's own locks are held (the span
+    buffer's, the registry's) return, and their spans are recorded once
+    the lock is free; so do those of a collection forced in a thread
+    while another holds the lock."""
+    from repro_torch.obs import metrics as port_metrics
+    port_obs.enable()
+    done = []
+
+    def collect_under_locks():
+        with port_trace._LOCK:
+            gc.collect()
+        with port_metrics._LOCK:
+            gc.collect()
+        with port_obs.span("s"):
+            with port_trace._LOCK:
+                gc.collect()
+        done.append(True)
+
+    t = threading.Thread(target=collect_under_locks, daemon=True)
+    t.start()
+    t.join(timeout=60)
+    assert not t.is_alive() and done, "a collection under obs's lock deadlocked"
+    held = threading.Event()
+    release = threading.Event()
+
+    def holder():
+        with port_trace._LOCK:
+            held.set()
+            release.wait(timeout=60)
+
+    h = threading.Thread(target=holder, daemon=True)
+    h.start()
+    assert held.wait(timeout=60)
+    gc.collect()                   # the lock is another thread's: no wait
+    release.set()
+    h.join(timeout=60)
+    names = [e["name"] for e in port_obs.events()]
+    assert names.count("host.gc") == 4 and names.count("s") == 1
+    assert names.index("s") > 2    # the third collection ended inside "s"
+
+
+def test_spans_and_collections_from_many_threads_lose_nothing():
+    """More threads than cores open spans and force collections, switching
+    every microsecond: every span is recorded once, every recorded
+    collection is whole, and nothing is left waiting."""
+    import sys
+    port_obs.enable()
+    n_threads, n_iters = 16, 40
+    calls = []
+    barrier = threading.Barrier(n_threads)
+
+    def work(tid):
+        barrier.wait()
+        for i in range(n_iters):
+            with port_obs.span("t", tid=tid):
+                with port_obs.span("t.in"):
+                    if i % 5 == 0:
+                        gc.collect()
+                        calls.append(tid)
+
+    interval = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        threads = [threading.Thread(target=work, args=(i,), daemon=True)
+                   for i in range(n_threads)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=120)
+    finally:
+        sys.setswitchinterval(interval)
+    assert not any(t.is_alive() for t in threads)
+    evs = port_obs.events()
+    assert not port_trace._GC_PENDING
+    spans = [e for e in evs if e["name"] != "host.gc"]
+    assert len(spans) == n_threads * n_iters * 2
+    gcs = [e for e in evs if e["name"] == "host.gc"]
+    # a collect() that finds another thread's collection running returns
+    # at once and records nothing
+    assert 1 <= len(gcs) <= len(calls) == n_threads * n_iters // 5
+    assert all(e["args"] == {"generation": 2} and e["depth"] == 2 for e in gcs)
+
+
+def test_host_gc_forwards_to_the_profiler():
+    from torch.profiler import ProfilerActivity, profile
+    port_obs.enable(forward_to_profiler=True)
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        with port_obs.span("serve.forwarded"):
+            gc.collect()
+    port_obs.disable()
+    names = [e.name for e in prof.events()]
+    assert "host.gc" in names and "serve.forwarded" in names
