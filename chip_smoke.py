@@ -21,6 +21,18 @@ Phases (any mismatch raises, so the exit code is non-zero):
                indices drawn from [-2n, 2n) (a negative one counts from
                the end of the row, one outside [-n, n) gives all ones);
                lazy and eager throughout; results must be bit-identical
+  2b. basis    the key switch's base conversions (csrc/basis.cu): the
+               mod-up of 8 digits onto 8 + 1 primes and a mod-down's d = 1
+               extension, and the mod-down tail with c0 added (batch-leading
+               and prime-major, over every or half the columns, and none), at
+               the key-switch cell's group (B = 32, n = 2^14), on random and
+               edge residues (0, 1, (q-1)/2, (q+1)/2, q-1 of the source and
+               destination primes, a destination prime below q_src / 2) and
+               on rows of odd length one word off alignment, against their
+               plain versions bit for bit; then each kernel's device time
+               beside its byte bound (each input and output once at 3.35
+               TB/s).  Alone: python3 -c "import chip_smoke as c;
+               c.phase_build(); c.phase_basis()"
   3. slice     CkksContext(n=2^14, levels=7) on the card: encrypt 8 slot
                vectors, answer 4 single multiply -> rescale requests and one
                multiply_many -> rescale_many batch of 8, decrypt_decode every
@@ -298,6 +310,7 @@ SERVE_N = 32                     # requests of the serving phase's trace
 SERVE_TILE = 8                   # the engine's batch tile (the reference's default)
 SERVE_SIZES = (8, 16, 24, 32)    # padded group sizes up to max_batch = 4 tiles
 SERVE_CPU = 8                    # the seeded subset of the trace the CPU drains again
+KS_GROUP = 32                    # the key-switch cell's group: B of one galois_ks_many
 SERVE_DECAPS = 4                 # ML-KEM decaps at b = 1 in the mixed queue
 POISSON_LOAD = 0.5               # Poisson arrivals at this share of the backlog rate
 SCALE_SHARDS = 2                 # the "b" mesh of phase 3g: the card twice
@@ -379,6 +392,9 @@ REPLACES = {
     "ntt_inv": "src/repro/kernels/ntt_kernel.py:227",
     "dyadic_mul": "src/repro/kernels/dyadic_kernel.py:129",
     "dyadic_mac": "src/repro/kernels/dyadic_kernel.py:136",
+    # no TPU kernel: the reference's XLA elementwise ops
+    "extend_centered": "none (src/repro/fhe/batched.py:194, XLA)",
+    "mod_down_tail": "none (src/repro/fhe/batched.py:251, XLA)",
 }
 SOURCE = {
     "ntt_fwd_banks": "src/repro_torch/csrc/ntt_banks.cu",
@@ -395,18 +411,22 @@ SOURCE = {
     "ntt_inv": "src/repro_torch/csrc/ntt.cu",
     "dyadic_mul": "src/repro_torch/csrc/dyadic.cu",
     "dyadic_mac": "src/repro_torch/csrc/dyadic.cu",
+    "extend_centered": "src/repro_torch/csrc/basis.cu",
+    "mod_down_tail": "src/repro_torch/csrc/basis.cu",
 }
 MLKEM_KERNELS = ("ntt_fwd_banks_u16", "ntt_inv_banks_u16", "dyadic_basemul_banks")
 # the kernels each path must launch: multiply -> rescale runs the key
 # switch; the rotation path runs the key switch and all three gathers;
 # ML-KEM runs the u16 transforms and the basecase product; the NTT-128
 # path the four single-prime kernels
+# every key switch runs its mod-up and mod-down tails (BASIS_KERNELS)
+BASIS_KERNELS = ("extend_centered", "mod_down_tail")
 PATH_KERNELS = {
     "multiply": ("ntt_fwd_banks", "ntt_inv_banks", "twiddle_mul_banks",
-                 "dyadic_inner_banks"),
+                 "dyadic_inner_banks") + BASIS_KERNELS,
     "rotation": ("ntt_fwd_banks", "ntt_inv_banks", "twiddle_mul_banks",
                  "dyadic_inner_banks", "galois_banks", "galois_banks_multi",
-                 "galois_digits"),
+                 "galois_digits") + BASIS_KERNELS,
     "mlkem": MLKEM_KERNELS,
     "ntt128": NTT128_KERNELS,
 }
@@ -417,16 +437,19 @@ PATH_KERNELS["kshard"] = PATH_KERNELS["rotation"]
 # the private-inference head's hoisted BSGS matvec: the banks, the
 # weight-row multiply, the digit MAC and the staged gathers
 PATH_KERNELS["lm"] = ("ntt_fwd_banks", "ntt_inv_banks", "twiddle_mul_banks",
-                      "dyadic_inner_banks", "galois_banks_multi", "galois_digits")
+                      "dyadic_inner_banks", "galois_banks_multi",
+                      "galois_digits") + BASIS_KERNELS
 # training launches none of the port's kernels; its trained model's
 # logits go through the same encrypted head
 PATH_KERNELS["train"] = PATH_KERNELS["lm"]
 # the FHE example twins of phase 3k: CKKS multiply -> rescale at 2^9,
 # rotations at 2^10 and the four-step round trip at 2^14
 PATH_KERNELS["examples"] = ("ntt_fwd_banks", "ntt_inv_banks", "twiddle_mul_banks",
-                            "dyadic_inner_banks")
-# the dry run's key switch on the card: the banks and the digit MAC
-PATH_KERNELS["dryrun"] = ("ntt_fwd_banks", "ntt_inv_banks", "dyadic_inner_banks")
+                            "dyadic_inner_banks") + BASIS_KERNELS
+# the dry run's key switch on the card: the banks, the digit MAC and the
+# base conversions
+PATH_KERNELS["dryrun"] = ("ntt_fwd_banks", "ntt_inv_banks",
+                          "dyadic_inner_banks") + BASIS_KERNELS
 # launches per ML-KEM entry point at any batch: (u16 forward NTTs, u16
 # inverse NTTs, basecase products), as pq/mlkem.py issues them
 MLKEM_LAUNCHES = {"keygen": (1, 0, 1), "encaps": (1, 2, 2), "decaps": (2, 3, 3)}
@@ -436,7 +459,8 @@ DEVICE_FUNCTIONS = ("ntt_rows_kernel", "ntt_cols_kernel",
                     "galois_split_kernel", "galois_bulk_kernel",
                     "basemul_vec_kernel", "basemul_pair_kernel",
                     "ntt_stream_kernel", "dyadic_mul_kernel",
-                    "dyadic_mac_kernel")
+                    "dyadic_mac_kernel", "extend_centered_kernel",
+                    "mod_down_tail_kernel")
 
 
 def log(msg: str) -> None:
@@ -740,6 +764,118 @@ def check_gathers(check, rng, ct_primes) -> None:
                   ref.galois_digits_banks_ref(x, mixed),
                   f"x {tuple(x.shape)} shared={shared} indices in [-2n, 2n)")
 
+
+
+# ----------------------------------------------------------- phase 2b
+
+def basis_inputs(rng, qs, dst=None) -> dict:
+    """The key-switch cell's base conversions at one group (KS_GROUP
+    ciphertexts, 8 + 1 primes, n = 2^14): the 8 digits its mod-up extends
+    onto the 9 primes (dst, if given, instead), the accumulator and
+    extension its mod-down tails read, and c0, batch-leading as
+    galois_ks_many_back adds it."""
+    k = len(qs) - 1
+    return {"ci": residues(rng, qs[:k], (KS_GROUP, N)),
+            "dst": torch.tensor(np.array(dst or qs, np.uint32).view(np.int32)).cuda(),
+            "last": residues(rng, qs[k:], (KS_GROUP, N)),
+            "acc": residues(rng, qs, (KS_GROUP, N)),
+            "extn": residues(rng, qs[:k], (KS_GROUP, N)),
+            "c0": residues(rng, qs[:k], (KS_GROUP, N)).transpose(0, 1)}
+
+
+def basis_cases(x: dict, t: dict) -> dict:
+    """time_kernels' cases of the two base conversions at the cell's
+    shapes: (kernel, plain, library, shape, bytes), each input and output
+    once.  extend_centered runs 3 times a key switch (the mod-up of every
+    digit, here, and d = 1 in each mod-down), mod_down_tail twice (ks0
+    with c0 added, as timed, and ks1)."""
+    from repro_torch.kernels import basis_kernel, ref
+    k = x["extn"].shape[0]
+    src = t["qs"][:k]
+    tail = (x["acc"][:k], x["extn"], t["qs"][:k], t["pinv"], t["pinv_p"], x["c0"])
+    ext_bytes = (x["ci"].numel() * (1 + x["dst"].numel()) + k + x["dst"].numel()) * 4
+    tail_bytes = (4 * x["extn"].numel() + 3 * k) * 4
+    return {
+        "extend_centered": (
+            lambda: basis_kernel.extend_centered(x["ci"], src, x["dst"]),
+            lambda: ref.extend_centered_ref(x["ci"], src, x["dst"]),
+            None, tuple(x["ci"].shape), ext_bytes),
+        "mod_down_tail": (
+            lambda: basis_kernel.mod_down_tail(*tail, batch_leading=True),
+            lambda: ref.mod_down_tail_ref(*tail, batch_leading=True),
+            None, tuple(x["extn"].shape), tail_bytes),
+    }
+
+
+def phase_basis() -> dict:
+    """The key switch's base conversions (csrc/basis.cu) against their
+    plain versions at the key-switch cell's shapes and at edge residues
+    (0, 1, (q-1)/2, (q+1)/2, q-1 of the source and destination primes, a
+    destination prime below q_src / 2, views of odd length one word off
+    alignment), then each kernel's device time beside its byte bound."""
+    from repro_torch.fhe import rns
+    from repro_torch.kernels import basis_kernel, ref
+    rng = np.random.default_rng(SEED + 5)
+    primes = rns.make_primes(N, LEVELS + 2)
+    qs = primes[1:] + primes[:1]
+    k = len(qs) - 1
+    t = rns.scalar_pack(tuple(qs), torch.device("cuda"))
+    err = {}
+
+    def check(name, got, want, what):
+        torch.cuda.synchronize()
+        e = max_abs_err(got, want)
+        err[name] = max(err.get(name, 0), e)
+        if not torch.equal(got, want):
+            raise AssertionError(f"{name} {what}: kernel != plain version "
+                                 f"(max abs err {e})")
+
+    def edges(x, rows):
+        # the first words of batch row 0: every pair of a prime's edges
+        for j, q in enumerate(rows):
+            e = [0, 1, (q - 1) // 2, (q + 1) // 2, q - 1]
+            x[j, 0, :25] = torch.tensor([a for a in e for _ in e], dtype=torch.int32)
+        return x
+
+    for what, dst in (("random", None), ("edges", [12289, 3329] + qs[2:])):
+        x = basis_inputs(rng, qs, dst)
+        if dst is not None:
+            edges(x["ci"], qs[:k])
+            edges(x["acc"], qs[:k])
+            for j, q in enumerate(qs[:k]):
+                e = [0, 1, (q - 1) // 2, (q + 1) // 2, q - 1]
+                x["extn"][j, 0, :25] = torch.tensor(e * 5, dtype=torch.int32)
+        src = t["qs"][:k]
+        check("extend_centered", basis_kernel.extend_centered(x["ci"], src, x["dst"]),
+              ref.extend_centered_ref(x["ci"], src, x["dst"]), f"{what} d={k} onto "
+              f"{x['dst'].numel()} primes, B={KS_GROUP}")
+        last = x["last"]
+        check("extend_centered", basis_kernel.extend_centered(last, t["qs"][k:], src),
+              ref.extend_centered_ref(last, t["qs"][k:], src), f"{what} mod-down d=1")
+        for leading, add in ((True, x["c0"]), (False, x["c0"].transpose(0, 1)),
+                             (False, None), (False, x["c0"].transpose(0, 1)[:, :KS_GROUP // 2])):
+            args = (x["acc"][:k], x["extn"], t["qs"][:k], t["pinv"], t["pinv_p"], add)
+            check("mod_down_tail", basis_kernel.mod_down_tail(*args, batch_leading=leading),
+                  ref.mod_down_tail_ref(*args, batch_leading=leading),
+                  f"{what} batch_leading={leading} addend "
+                  f"{None if add is None else tuple(add.shape)}")
+        # rows of odd length one word off alignment: the one-word bodies
+        ci = x["ci"][:, :3, 1:-2]
+        check("extend_centered", basis_kernel.extend_centered(ci.contiguous(), src, x["dst"]),
+              ref.extend_centered_ref(ci, src, x["dst"]), f"{what} odd rows")
+        args = (x["acc"][:k, :3, 1:-2], x["extn"][:, :3, 1:-2].contiguous(), t["qs"][:k],
+                t["pinv"], t["pinv_p"], x["c0"][:3, :, 1:-2])
+        check("mod_down_tail", basis_kernel.mod_down_tail(*args, batch_leading=True),
+              ref.mod_down_tail_ref(*args, batch_leading=True), f"{what} unaligned views")
+    log(f"[basis] both kernels == plain at d={k}, {k}+1 primes, B={KS_GROUP}, n={N}, "
+        f"edges and unaligned views: max abs err {err}")
+    for name, (kern, plain, _, shape, nbytes) in basis_cases(basis_inputs(rng, qs), t).items():
+        ms = graph_ms(kern)
+        bound = nbytes / HBM_BYTES_PER_S * 1e3
+        log(f"[basis] {name} {shape}: kernel {ms:.6f} ms, bound {bound:.6f} ms "
+            f"({nbytes} bytes, {100 * bound / ms:.1f}% of it), plain "
+            f"{graph_ms(plain, inner=1):.4f} ms")
+    return err
 
 
 # ------------------------------------------------------------ phase 3
@@ -3141,6 +3277,8 @@ def phase_times(ctx, cts, fs_pack, ks_pack, per_op, counts, errs, rot) -> list:
         lambda: ref.galois_digits_banks_ref(dig, rows),
         lambda: torch.index_select(dig.view(k * kp1, N), 1, rows.view(-1)),
         tuple(dig.shape), ((1 + BATCH) * dig.numel() + rows.numel()) * w)
+    cases.update(basis_cases(basis_inputs(rng, qlist), rns.scalar_pack(tuple(qlist),
+                                                                       torch.device("cuda"))))
     out = time_kernels(cases, counts, errs)
     log("[times] library: index_select / gather at the kernel's shape for the "
         "three gathers; none for the NTT banks, the Shoup weight-row multiply "
@@ -3385,6 +3523,7 @@ def main() -> int:
         f"{time.perf_counter() - t0:.2f} s")
 
     errs = phase_kernels(fs_pack, ks_primes)
+    errs.update(phase_basis())
     rng = np.random.default_rng(SEED + 1)
     zs = [rng.uniform(-1, 1, N // 2) + 1j * rng.uniform(-1, 1, N // 2)
           for _ in range(BATCH)]

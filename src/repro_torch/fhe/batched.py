@@ -34,7 +34,7 @@ import torch
 from repro_torch.convert import from_reference
 from repro_torch.core.fourstep import make_fourstep_params
 from repro_torch.core.modmath import (barrett_precompute, mulmod_shoup,
-                                      shoup_precompute, submod, u32)
+                                      shoup_precompute, u32)
 from repro_torch.core.ntt import cg_intt, cg_ntt
 from repro_torch.core.params import fourstep_split, make_ntt_params
 from repro_torch.kernels import ops
@@ -204,12 +204,9 @@ def ntt_inv_i(x, t: dict, i):
 def extend_centered(coeffs, src_q, dst_qs):
     """EXACT single-prime base conversion (alpha=1 mod-up).
     coeffs: (..., n) int32 mod src_q -> (k, ..., n) int32 mod each of the
-    k ``dst_qs``; src_q a 0-d (or 1-element) tensor."""
-    c = coeffs.long()
-    sq = u32(src_q).reshape(())
-    c = torch.where(c > sq // 2, c - sq, c)
-    qd = u32(dst_qs).reshape((-1,) + (1,) * c.ndim)
-    return torch.remainder(c.unsqueeze(0), qd).int()
+    k ``dst_qs``; src_q a 0-d (or 1-element) tensor.  One digit of
+    ``ops.extend_centered_banks``."""
+    return ops.extend_centered_banks(coeffs[None], src_q.reshape(1), dst_qs)[:, 0]
 
 
 def _fwd_banks(x, pack, fpk, lazy):
@@ -222,23 +219,25 @@ def _inv_banks(x, pack, fpk, lazy):
             else ops.intt_banks(x, pack, lazy=lazy))
 
 
-def mod_down_banks(acc, t: dict, *, fsp: dict | None = None, lazy: bool = True):
+def mod_down_banks(acc, t: dict, *, fsp: dict | None = None, lazy: bool = True,
+                   addend=None, batch_leading: bool = False):
     """RNS floor by the *last* prime of ``t``'s basis, fully batched — the
     paper's Fig 22 stage 4 (INTT + base-ext + NTT + MS).
 
     acc: (k+1, B, n) NTT form over t's k+1 primes; returns (k, B, n) over
-    the first k.  Serves both the key-switch mod-down by the special
-    prime P and the ciphertext rescale by q_l.  ``fsp`` routes every
-    transform through the four-step pipeline."""
+    the first k, or (B, k, n) with ``batch_leading``.  Serves both the
+    key-switch mod-down by the special prime P and the ciphertext rescale
+    by q_l.  ``fsp`` routes every transform through the four-step
+    pipeline.  ``addend`` (in the output's layout, over its first batch
+    columns) is added mod q_j inside the tail, as ``ops.mod_down_tail_banks``
+    takes it."""
     k = acc.shape[0] - 1
     fs_last = slice_fourstep_pack(fsp, slice(k, k + 1)) if fsp is not None else None
     lastc = _inv_banks(acc[k:], slice_pack(t, slice(k, k + 1)), fs_last, lazy)
-    ext = extend_centered(lastc[0], t["qs"][k], t["qs"][:k])
+    ext = ops.extend_centered_banks(lastc, t["qs"][k:k + 1], t["qs"][:k])[:, 0]
     extn = _fwd_banks(ext, slice_pack(t, slice(0, k)), fsp, lazy)
-    qcol = u32(t["qs"][:k])[:, None, None]
-    d = submod(acc[:k].long(), extn.long(), qcol)
-    return mulmod_shoup(d, u32(t["pinv"])[:, None, None],
-                        u32(t["pinv_p"])[:, None, None], qcol).int()
+    return ops.mod_down_tail_banks(acc, extn, t, addend=addend,
+                                   batch_leading=batch_leading)
 
 
 def decompose_intt(d2, t: dict, *, fsp: dict | None = None, lazy: bool = True):
@@ -261,10 +260,9 @@ def decompose_extend(ci, src_qs, t: dict, *, fsp: dict | None = None,
     need not be t's primes: a "k" shard extends every digit onto its own
     block); t: the pack of the kt primes extended onto.  Returns
     (d, kt, B, n): NTT-domain digit extensions, digit axis first."""
-    ext = torch.stack([extend_centered(ci[i], src_qs[i], t["qs"])
-                       for i in range(ci.shape[0])])            # (d, kt, B, n)
+    ext = ops.extend_centered_banks(ci, src_qs, t["qs"])         # (kt, d, B, n)
     # NTT banks: the digit axis folds into the batch
-    y = _fwd_banks(ext.transpose(0, 1), t, fsp, lazy)           # (kt, d, B, n)
+    y = _fwd_banks(ext, t, fsp, lazy)                           # (kt, d, B, n)
     return y.transpose(0, 1)                                    # (digit, prime, B, n)
 
 
@@ -281,17 +279,22 @@ def decompose_banks(d2, t: dict, *, fsp: dict | None = None, lazy: bool = True):
 
 
 def keyswitch_digits(ci, src_qs, evk_b, evk_a, t: dict, *,
-                     fsp: dict | None = None, lazy: bool = True):
+                     fsp: dict | None = None, lazy: bool = True, add0=None,
+                     add1=None, batch_leading: bool = False):
     """The key switch from the coefficient digits on: ``decompose_extend``
     onto t's kt primes (the last the special P), the two digit MACs and
     the mod-downs by P.  ci: (d, B, n) digits mod ``src_qs``; evk_b/evk_a:
     (d, kt, n) or (d, kt, B, n) key digits over t's primes.  Returns
-    (ks0, ks1): (kt - 1, B, n)."""
+    (ks0, ks1): (kt - 1, B, n), or (B, kt - 1, n) with ``batch_leading``;
+    ``add0``/``add1`` (in that layout) are added to them mod q_j inside
+    the mod-downs' tails."""
     y = decompose_extend(ci, src_qs, t, fsp=fsp, lazy=lazy)    # (digit, prime, B, n)
     acc0 = ops.dyadic_inner_banks(y, evk_b, t, lazy=lazy)       # MM/MA arrays
     acc1 = ops.dyadic_inner_banks(y, evk_a, t, lazy=lazy)
-    return (mod_down_banks(acc0, t, fsp=fsp, lazy=lazy),
-            mod_down_banks(acc1, t, fsp=fsp, lazy=lazy))
+    return (mod_down_banks(acc0, t, fsp=fsp, lazy=lazy, addend=add0,
+                           batch_leading=batch_leading),
+            mod_down_banks(acc1, t, fsp=fsp, lazy=lazy, addend=add1,
+                           batch_leading=batch_leading))
 
 
 def batched_keyswitch(d2, evk_b, evk_a, t: dict, *, fsp: dict | None = None,

@@ -169,25 +169,23 @@ def _tensor_product(a0, a1, b0, b1, q, mu):
 def multiply_front(a0, a1, b0, b1, t, fsp=None):
     """A multiply up to its one cross-prime step: the tensor product and
     the digit iNTTs of d2.  a0/a1/b0/b1: (k, n) NTT-form halves over t's
-    first k primes.  Returns (d0, d1, ci): the int64 (k, n) d0 and d1 and
+    first k primes.  Returns (d0, d1, ci): the int32 (k, n) d0 and d1 and
     d2's (k, 1, n) coefficient digits."""
     k = a0.shape[0]
     q = u32(t["qs"][:k])[:, None]
     mu = u32(t["mu"][:k])[:, None]
     d0, d1, d2 = _tensor_product(a0, a1, b0, b1, q, mu)
-    return d0, d1, FB.decompose_intt(d2.int()[:, None], t, fsp=fsp)
+    return d0.int(), d1.int(), FB.decompose_intt(d2.int()[:, None], t, fsp=fsp)
 
 
 def multiply_back(ci, d0, d1, evk_b, evk_a, src_qs, t, fsp=None):
     """The rest of a multiply: the key switch of the digits ci (mod
-    ``src_qs``) onto t's primes and the sums with d0/d1.  evk_b/evk_a:
-    (d, kt, n) over t's kt primes.  Returns the (c0, c1) stacks over all
-    of them but P."""
-    k = d0.shape[0]
-    q = u32(t["qs"][:k])[:, None]
-    ks0, ks1 = FB.keyswitch_digits(ci, src_qs, evk_b, evk_a, t, fsp=fsp)
-    return (addmod(d0, ks0[:, 0].long(), q).int(),
-            addmod(d1, ks1[:, 0].long(), q).int())
+    ``src_qs``) onto t's primes, its mod-down tails adding d0/d1.
+    evk_b/evk_a: (d, kt, n) over t's kt primes.  Returns the (c0, c1)
+    stacks over all of them but P."""
+    ks0, ks1 = FB.keyswitch_digits(ci, src_qs, evk_b, evk_a, t, fsp=fsp,
+                                   add0=d0[:, None], add1=d1[:, None])
+    return ks0[:, 0], ks1[:, 0]
 
 
 def multiply_banks(a0, a1, b0, b1, evk_b, evk_a, t, fsp=None):
@@ -214,15 +212,13 @@ def multiply_many_front(a0, a1, b0, b1, t, fsp=None):
     q = u32(t["qs"][:k])[None, :, None]
     mu = u32(t["mu"][:k])[None, :, None]
     d0, d1, d2 = _tensor_product(a0, a1, b0, b1, q, mu)
-    return d0, d1, FB.decompose_intt(d2.int().transpose(0, 1).contiguous(), t, fsp=fsp)
+    return (d0.int(), d1.int(),
+            FB.decompose_intt(d2.int().transpose(0, 1).contiguous(), t, fsp=fsp))
 
 
 def multiply_many_back(ci, d0, d1, evk_b, evk_a, src_qs, t, fsp=None):
-    k = d0.shape[1]
-    q = u32(t["qs"][:k])[None, :, None]
-    ks0, ks1 = FB.keyswitch_digits(ci, src_qs, evk_b, evk_a, t, fsp=fsp)
-    return (addmod(d0, ks0.transpose(0, 1).long(), q).int(),
-            addmod(d1, ks1.transpose(0, 1).long(), q).int())
+    return FB.keyswitch_digits(ci, src_qs, evk_b, evk_a, t, fsp=fsp, add0=d0,
+                               add1=d1, batch_leading=True)
 
 
 def multiply_many_banks(a0, a1, b0, b1, evk_b, evk_a, t, fsp=None):
@@ -239,8 +235,8 @@ def rescale_many_banks(c0, c1, t, fsp=None):
     B, kp1, n = c0.shape
     acc = torch.stack([c0, c1], dim=1)                  # (B, 2, k+1, n)
     acc = acc.reshape(2 * B, kp1, n).transpose(0, 1)    # (k+1, 2B, n)
-    out = mod_down_banks(acc, t, fsp=fsp)
-    out = out.transpose(0, 1).reshape(B, 2, kp1 - 1, n)
+    out = mod_down_banks(acc, t, fsp=fsp, batch_leading=True)
+    out = out.reshape(B, 2, kp1 - 1, n)
     return out[:, 0], out[:, 1]
 
 
@@ -254,10 +250,9 @@ def galois_ks_front(c0, c1, idx, t, fsp=None):
 
 
 def galois_ks_back(ci, c0g, evk_b, evk_a, src_qs, t, fsp=None):
-    k = c0g.shape[0]
-    q = u32(t["qs"][:k])[:, None]
-    ks0, ks1 = FB.keyswitch_digits(ci, src_qs, evk_b, evk_a, t, fsp=fsp)
-    return addmod(c0g.long(), ks0[:, 0].long(), q).int(), ks1[:, 0]
+    ks0, ks1 = FB.keyswitch_digits(ci, src_qs, evk_b, evk_a, t, fsp=fsp,
+                                   add0=c0g[:, None])
+    return ks0[:, 0], ks1[:, 0]
 
 
 def galois_ks_banks(c0, c1, idx, evk_b, evk_a, t, fsp=None):
@@ -277,11 +272,8 @@ def galois_ks_many_front(c0, c1, idx, t, fsp=None):
 
 
 def galois_ks_many_back(ci, c0g, evk_b, evk_a, src_qs, t, fsp=None):
-    k = c0g.shape[1]
-    q = u32(t["qs"][:k])[None, :, None]
-    ks0, ks1 = FB.keyswitch_digits(ci, src_qs, evk_b, evk_a, t, fsp=fsp)
-    return (addmod(c0g.long(), ks0.transpose(0, 1).long(), q).int(),
-            ks1.transpose(0, 1))
+    return FB.keyswitch_digits(ci, src_qs, evk_b, evk_a, t, fsp=fsp, add0=c0g,
+                               batch_leading=True)
 
 
 def galois_ks_many_banks(c0, c1, idx, evk_b, evk_a, t, fsp=None):
@@ -302,19 +294,17 @@ def hoisted_front(c1, t, fsp=None):
 def hoisted_back(ci, c0, idx, evk_b, evk_a, src_qs, t, fsp=None):
     """The rest of ``hoisted_rotations_banks`` from c1's digits ci (mod
     ``src_qs``) onto t's primes."""
-    k = c0.shape[0]
     R = idx.shape[0]
-    q = u32(t["qs"][:k])[:, None, None]
     y = FB.decompose_extend(ci, src_qs, t, fsp=fsp)         # (d, k+1, 1, n)
     # shared-mode gathers: the one decomposition (and c0, as a single
     # "digit") fan out to the R gather rows inside the kernel
     yg = ops.galois_digits_banks(y, idx)                    # (d, k+1, R, n)
     acc0 = ops.dyadic_inner_banks(yg, evk_b, t)             # (k+1, R, n)
     acc1 = ops.dyadic_inner_banks(yg, evk_a, t)
-    ks = mod_down_banks(torch.cat([acc0, acc1], dim=1), t, fsp=fsp)
-    ks0, ks1 = ks[:, :R], ks[:, R:]
     c0g = ops.galois_digits_banks(c0[None, :, None], idx)[0]
-    return addmod(c0g.long(), ks0.long(), q).int(), ks1
+    # one mod-down over all 2R halves; its tail adds c0g to the first R
+    ks = mod_down_banks(torch.cat([acc0, acc1], dim=1), t, fsp=fsp, addend=c0g)
+    return ks[:, :R], ks[:, R:]
 
 
 def hoisted_rotations_banks(c0, c1, idx, evk_b, evk_a, t, fsp=None):

@@ -16,7 +16,9 @@ lane, ``ntt_fwd_banks_u16`` for the int16 small-ring lane, likewise the
 inverse), so a run shows which instantiation it launched.  The
 single-prime kernels (``ntt_fwd``, ``ntt_inv``, ``dyadic_mul``,
 ``dyadic_mac``: the paper's NTT-128 unit and its Barrett MM/MA) are
-counted apart from the banks kernels.
+counted apart from the banks kernels.  ``extend_centered`` and
+``mod_down_tail`` are the key switch's two RNS base conversions (the
+mod-up and the mod-down's tail), which have no TPU kernel.
 
 Faults of the device path have classes of their own (``DeviceFault``):
 a build that fails (``build.BuildError``), a launcher that returns a CUDA
@@ -37,7 +39,7 @@ KERNELS = ("ntt_fwd_banks", "ntt_inv_banks", "twiddle_mul_banks",
            "dyadic_inner_banks", "galois_banks", "galois_banks_multi",
            "galois_digits", "ntt_fwd_banks_u16", "ntt_inv_banks_u16",
            "dyadic_basemul_banks", "ntt_fwd", "ntt_inv", "dyadic_mul",
-           "dyadic_mac")
+           "dyadic_mac", "extend_centered", "mod_down_tail")
 
 
 @dataclasses.dataclass

@@ -28,7 +28,7 @@ from repro_torch.kernels import DeviceFault
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 SOURCES = ("ntt_banks", "dyadic_inner", "galois", "dyadic_basemul", "ntt",
-           "dyadic")
+           "dyadic", "basis")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -66,6 +66,12 @@ SIGNATURES = {
     "dyadic": {
         "dyadic_mul": [_P] * 3 + [_U, _U, _L, _P],
         "dyadic_mac": [_P] * 4 + [_U, _U, _L, _I, _P],
+    },
+    "basis": {
+        "extend_centered": [_P] * 4 + [_I, _I, _L, _P],
+        # acc, extn, add (+ badd), out: a pointer and its (prime, batch) strides
+        "mod_down_tail": [_P, _L, _L] * 3 + [_L, _P, _L, _L] + [_P] * 3
+                         + [_I, _L, _I, _P],
     },
 }
 

@@ -26,6 +26,11 @@ pipeline runs (two bank passes of n1- and n2-point transforms with the
 step-3 twiddle multiply between them) and NTT rows are in natural order.
 The four-step transposes and bit-reversal gathers are torch indexing, as
 they sit outside the kernels in the reference too.
+
+The key switch's two RNS base conversions run per coefficient, on either
+NTT layout: ``extend_centered_banks`` (the mod-up onto a basis) and
+``mod_down_tail_banks`` (the mod-down's subtract and P^-1 multiply, with
+the sum into a ciphertext half folded in).
 """
 from __future__ import annotations
 
@@ -36,7 +41,7 @@ import torch
 
 from repro_torch import obs
 from repro_torch.core.params import bitrev_perm
-from repro_torch.kernels import dyadic_kernel, galois_kernel, ntt_kernel
+from repro_torch.kernels import basis_kernel, dyadic_kernel, galois_kernel, ntt_kernel
 
 FOURSTEP_MIN_N = 1 << 13
 
@@ -339,3 +344,33 @@ def dyadic_basemul_banks(a, b, t: dict, *, batch_leading: bool = False,
     out = dyadic_kernel.dyadic_basemul_banks(_as3(a), _as3(b), qs, mus, gamma,
                                              gammap, lazy=lazy)
     return out.reshape(a.shape)
+
+
+@_spanned
+def extend_centered_banks(ci, src_qs, dst_qs):
+    """Centred base extension (the key switch's mod-up, alpha = 1): digit
+    i of ci (d, ..., n), a residue mod src_qs[i], read as a value in
+    (-q/2, q/2] and reduced onto each of the kt primes dst_qs.  src_qs
+    may hold more than d rows (its first d are read) and need not be
+    dst_qs's primes.  Returns (kt, d, ..., n): the prime axis first, so
+    the forward banks fold the digit axis into their batch with no copy."""
+    d = ci.shape[0]
+    out = basis_kernel.extend_centered(_as3(ci), src_qs[:d].contiguous(),
+                                       dst_qs.contiguous())
+    return out.reshape((dst_qs.shape[0],) + tuple(ci.shape))
+
+
+@_spanned
+def mod_down_tail_banks(acc, extn, t: dict, *, addend=None,
+                        batch_leading: bool = False):
+    """The end of the RNS floor by t's last prime P: (acc - extn) * P^-1
+    mod q_j for the k = extn.shape[0] first primes of t.  acc: (k', B, n)
+    with k' >= k (its first k rows are read, through any strides of its
+    first two axes); extn: (k, B, n), the extension of acc's P row in NTT
+    form.  Returns (k, B, n), or (B, k, n) with ``batch_leading``.
+    ``addend`` (in the output's layout, over the first Ba <= B batch
+    columns, any strides) is added mod q_j, as a key switch's c0 half."""
+    k = extn.shape[0]
+    return basis_kernel.mod_down_tail(acc[:k], extn.contiguous(), t["qs"][:k],
+                                      t["pinv"], t["pinv_p"], addend,
+                                      batch_leading=batch_leading)

@@ -272,3 +272,38 @@ def dyadic_basemul_banks_ref(a, b, qs, mus, gamma, gammap, lazy: bool = False):
         s1 = bar(a0, b1) + bar(a1, b0)
         c1 = torch.where(s1 >= q, s1 - q, s1)
     return _narrow(torch.cat([c0, c1], dim=-1), bits)
+
+
+# ------------------------------------------------ RNS base conversions
+
+def extend_centered_ref(ci, src_qs, dst_qs):
+    """The key switch's mod-up: digit i of ci (d, ..., n), centred about
+    src_qs[i] (a residue above q/2 becomes c - q), reduced onto each of
+    the kt dst_qs as ``torch.remainder`` does.  Returns (kt, d, ..., n)."""
+    COUNTS["extend_centered"].plain_calls += 1
+    c = ci.long()
+    sq = u32(src_qs).reshape((-1,) + (1,) * (c.ndim - 1))
+    c = torch.where(c > sq // 2, c - sq, c)
+    qd = u32(dst_qs).reshape((-1,) + (1,) * c.ndim)
+    return torch.remainder(c.unsqueeze(0), qd).int()
+
+
+def mod_down_tail_ref(acc, extn, qs, pinv, pinv_p, addend=None,
+                      batch_leading: bool = False):
+    """The mod-down's tail: (acc - extn) * P^-1 mod q_j over (k, B, n)
+    stacks, pinv/pinv_p (k,) with Shoup companions; out (k, B, n), or
+    (B, k, n) with ``batch_leading``.  ``addend``, in out's layout, is
+    added mod q_j to the first addend.shape[batch axis] batch columns."""
+    COUNTS["mod_down_tail"].plain_calls += 1
+    q = u32(qs)[:, None, None]
+    d = submod(acc.long(), extn.long(), q)
+    r = mulmod_shoup(d, u32(pinv)[:, None, None], u32(pinv_p)[:, None, None], q)
+    if batch_leading:
+        r, q = r.transpose(0, 1), q.transpose(0, 1)
+    if addend is not None:
+        axis = 0 if batch_leading else 1
+        head = r.narrow(axis, 0, addend.shape[axis])
+        r = torch.cat([addmod(addend.long(), head, q),
+                       r.narrow(axis, head.shape[axis], r.shape[axis] - head.shape[axis])],
+                      dim=axis)
+    return r.int().contiguous()

@@ -12,7 +12,8 @@ from repro_torch import kernels as K
 from repro_torch.core.params import make_ntt_params
 from repro_torch.fhe import batched as TB
 from repro_torch.fhe import rns
-from repro_torch.kernels import build, dyadic_kernel, galois_kernel, ntt_kernel
+from repro_torch.kernels import (basis_kernel, build, dyadic_kernel, galois_kernel,
+                                 ntt_kernel)
 from repro_torch.mesh import all_gather, make_mesh, psum
 from repro_torch.runtime import op_cost, roofline
 
@@ -190,6 +191,12 @@ def _calls(device, bad: bool, fake=None):
             z(2, N), z(2, n), q=p.q, mu=p.barrett_mu, lazy=True),
         "dyadic_mac": lambda: dyadic_kernel.dyadic_mac(
             z(2, N), z(2, N), z(2, n), q=p.q, mu=p.barrett_mu, lazy=True),
+        # the k digits of x onto one prime; a wrong row length comes with a
+        # source column of the wrong length
+        "extend_centered": lambda: basis_kernel.extend_centered(
+            x, z(k + 1) if bad else t["qs"], t["qs"][:1]),
+        "mod_down_tail": lambda: basis_kernel.mod_down_tail(
+            x, z(k, 2, N), t["qs"], t["qs"], t["qs"], batch_leading=False),
     }
 
 
