@@ -33,6 +33,16 @@ Phases (any mismatch raises, so the exit code is non-zero):
                beside its byte bound (each input and output once at 3.35
                TB/s).  Alone: python3 -c "import chip_smoke as c;
                c.phase_build(); c.phase_basis()"
+  2c. hybrid   hybrid key switching's fast base conversion (base_conv in
+               csrc/basis.cu) at a bootstrapping-scale group (B = 32, n =
+               2^16, L + 1 = 24, dnum = 4): the mod-up of 4 digits of 6
+               primes onto 24 + 6, the mod-down's 6 special primes onto
+               24, and a partial digit one level down, on edge residues,
+               odd rows and a view one word off alignment, against its
+               plain version bit for bit; then each case's device time
+               beside its byte and integer bounds, its plain version's
+               and an eager call's.  Alone: python3 -c "import chip_smoke
+               as c; c.phase_build(); c.phase_hybrid_basis()"
   3. slice     CkksContext(n=2^14, levels=7) on the card: encrypt 8 slot
                vectors, answer 4 single multiply -> rescale requests and one
                multiply_many -> rescale_many batch of 8, decrypt_decode every
@@ -54,6 +64,16 @@ Phases (any mismatch raises, so the exit code is non-zero):
                and a 4 x 4 matvec, checked against numpy, bit for bit
                against the same requests on device="cpu", and that every
                kernel of the rotation path launched and no plain version ran
+  3m. hybrid ks hybrid key switching through the plan: a
+               CkksContext(n=2^13, levels=4, dnum=2) (digits of 3 + 2
+               primes, K = 3 special primes) prepared for rotations by 1
+               and 5 and conjugation at the full chain and one level down:
+               rotate, conjugate, rotate_many of 4, rotate_hoisted by
+               (1, 5), multiply -> rescale and a rotation one level down
+               (digits of 3 + 1), each once with its launches counted
+               alone (base_conv's per request), checked against numpy, bit
+               for bit against the same requests on device="cpu", and that
+               every kernel of the path launched and no plain version ran
   3f. serve    the serving engine (fhe/serve.py) at full width: a third
                CkksContext(n=2^14, levels=7) and a 64 x 64 matrix pack,
                the plan prepared at the full basis and one level down with
@@ -305,6 +325,15 @@ N17 = 1 << 17                    # the longest ring the banks take
 ROT16_LEVELS = 3
 ROT16_AMOUNTS = (1, 2)
 ROT16_MV = 4                     # bsgs_split(4) = (2, 2): keys for 1 and 2
+HYB_SMOKE_N = 1 << 13            # phase 3m: hybrid key switching on the four-step path
+HYB_SMOKE_LEVELS = 4             # 5 chain primes
+HYB_SMOKE_DNUM = 2               # digits of 3 + 2 primes, K = 3 special primes
+HYB_SMOKE_AMOUNTS = (1, 5, 1, 5)  # a rotate_many group of 4 over two Galois keys
+# the unsigned conversion's overflow (a digit's u Q_j, u in [0, alpha))
+# times the key noise is a low-frequency error that a few slots gather:
+# 0.0054 at scale 2^28 and 0.032 one level down (2^26) on the CPU, where
+# the one-prime digits read 0.0005 and 0.001
+HYB_SLOT_TOL = 0.1
 NTT128_KERNELS = ("ntt_fwd", "ntt_inv", "dyadic_mul", "dyadic_mac")
 SERVE_N = 32                     # requests of the serving phase's trace
 SERVE_TILE = 8                   # the engine's batch tile (the reference's default)
@@ -395,6 +424,8 @@ REPLACES = {
     # no TPU kernel: the reference's XLA elementwise ops
     "extend_centered": "none (src/repro/fhe/batched.py:194, XLA)",
     "mod_down_tail": "none (src/repro/fhe/batched.py:251, XLA)",
+    # hybrid key switching: the reference has none
+    "base_conv": "none (no hybrid key switching in src/repro)",
 }
 SOURCE = {
     "ntt_fwd_banks": "src/repro_torch/csrc/ntt_banks.cu",
@@ -413,6 +444,7 @@ SOURCE = {
     "dyadic_mac": "src/repro_torch/csrc/dyadic.cu",
     "extend_centered": "src/repro_torch/csrc/basis.cu",
     "mod_down_tail": "src/repro_torch/csrc/basis.cu",
+    "base_conv": "src/repro_torch/csrc/basis.cu",
 }
 MLKEM_KERNELS = ("ntt_fwd_banks_u16", "ntt_inv_banks_u16", "dyadic_basemul_banks")
 # the kernels each path must launch: multiply -> rescale runs the key
@@ -434,6 +466,9 @@ PATH_KERNELS["rot16"] = PATH_KERNELS["rotation"]
 PATH_KERNELS["serve"] = PATH_KERNELS["rotation"]
 PATH_KERNELS["scaleout"] = PATH_KERNELS["rotation"]
 PATH_KERNELS["kshard"] = PATH_KERNELS["rotation"]
+# hybrid key switching: base_conv in place of the mod-up's and the
+# mod-downs' extend_centered, which only the rescale still runs
+PATH_KERNELS["hybrid"] = PATH_KERNELS["rotation"] + ("base_conv",)
 # the private-inference head's hoisted BSGS matvec: the banks, the
 # weight-row multiply, the digit MAC and the staged gathers
 PATH_KERNELS["lm"] = ("ntt_fwd_banks", "ntt_inv_banks", "twiddle_mul_banks",
@@ -460,7 +495,7 @@ DEVICE_FUNCTIONS = ("ntt_rows_kernel", "ntt_cols_kernel",
                     "basemul_vec_kernel", "basemul_pair_kernel",
                     "ntt_stream_kernel", "dyadic_mul_kernel",
                     "dyadic_mac_kernel", "extend_centered_kernel",
-                    "mod_down_tail_kernel")
+                    "mod_down_tail_kernel", "base_conv_kernel")
 
 
 def log(msg: str) -> None:
@@ -878,6 +913,98 @@ def phase_basis() -> dict:
     return err
 
 
+# ----------------------------------------------------------- phase 2c
+
+# a bootstrapping-scale hybrid basis: N = 2^16, L + 1 = 24, dnum = 4
+HYB_N = 1 << 16
+HYB_LEVELS = 23
+HYB_DNUM = 4
+
+
+def hybrid_cases(rng) -> dict:
+    """The fast base conversion's cases at a bootstrapping-scale group
+    (KS_GROUP ciphertexts, n = 2^16): (input rows, conversion table,
+    multiply-adds, words read, words written) of the mod-up (4 digits of
+    6 onto the 24 + 6 primes), the mod-down (the 6 specials onto the 24)
+    and a mod-up one level lower (19 primes: digits of 6, 6, 6 and 1)."""
+    from repro_torch.convert import from_reference
+    from repro_torch.fhe import batched as FB
+    from repro_torch.fhe.rns import make_primes
+    alpha = -(-(HYB_LEVELS + 1) // HYB_DNUM)
+    primes = make_primes(HYB_N, HYB_LEVELS + 1 + alpha)
+    Ps, qs = tuple(primes[:alpha]), tuple(primes[alpha:])
+    out = {}
+    for name, basis in (("mod-up", qs), ("partial mod-up (6 + 6 + 6 + 1)", qs[:19])):
+        groups = [[(j * alpha + i, q) for i, q in enumerate(d)]
+                  for j, d in enumerate(FB.key_digits(basis, alpha))]
+        full = basis + Ps
+        macs = sum(len(g) * (len(full) - len(g)) + len(g) for g in groups)
+        out[name] = (residues(rng, basis, (KS_GROUP, HYB_N)),
+                     from_reference(FB.conv_table_np(groups, full), "cuda"),
+                     macs, len(basis), sum(len(full) - len(g) for g in groups))
+    out["mod-down"] = (residues(rng, Ps, (KS_GROUP, HYB_N)),
+                       from_reference(FB.conv_table_np([list(enumerate(Ps))], qs), "cuda"),
+                       alpha * len(qs) + alpha, alpha, len(qs))
+    return out
+
+
+def phase_hybrid_basis() -> dict:
+    """Hybrid key switching's fast base conversion (csrc/basis.cu
+    base_conv) against its plain version at a bootstrapping-scale group
+    (B = 32, n = 2^16, alpha = 6 digits onto 24 + 6 primes; the 6 special
+    primes onto 24; a partial digit one level down), on rows that start
+    with every source prime's edge residues, on an odd row length and on
+    a view one word off alignment; then each case's device time beside
+    its byte bound (each input word read once and each converted word
+    written once, at 3.35 TB/s) and its integer bound (two INT32 lane
+    instructions a multiply-add: the low and high words of a 32 x 32
+    product summed into 64 bits) at the SM clock nvidia-smi reads."""
+    from repro_torch.kernels import basis_kernel, ref
+    rng = np.random.default_rng(SEED + 6)
+    err = {}
+    cases = hybrid_cases(rng)
+    for name, (x, conv, *_) in cases.items():
+        qs = [int(q) & 0xFFFFFFFF for q in conv["sq"].flatten().tolist()]
+        for j in range(x.shape[0]):
+            q = qs[[int(r) for r in conv["src"].flatten().tolist()].index(j)]
+            e = torch.tensor([0, 1, (q - 1) // 2, (q + 1) // 2, q - 1], dtype=torch.int32)
+            x[j, 0, :5] = e
+        views = {"": x, ", odd rows": x[:, :3, 1:-2].contiguous()}
+        buf = torch.empty(x.numel() + 1, dtype=torch.int32, device="cuda")
+        views[", a view one word off alignment"] = buf[1:].view(x.shape).copy_(x)
+        for what, v in views.items():
+            got = basis_kernel.base_conv(v, conv)
+            want = ref.base_conv_ref(v, *(conv[k] for k in basis_kernel.CONV_KEYS))
+            torch.cuda.synchronize()
+            err["base_conv"] = max(err.get("base_conv", 0), max_abs_err(got, want))
+            if not torch.equal(got, want):
+                raise AssertionError(f"base_conv {name}{what}: kernel != plain version "
+                                     f"(max abs err {max_abs_err(got, want)})")
+    log(f"[hybrid] base_conv == plain at B={KS_GROUP}, n={HYB_N}: "
+        f"{', '.join(cases)}; edges, odd rows and an unaligned view")
+    with SmClock() as clock:
+        times = {name: graph_ms(lambda x=x, conv=conv: basis_kernel.base_conv(x, conv))
+                 for name, (x, conv, *_) in cases.items()}
+    mhz = clock.mhz or 1980.0
+    for name, (x, conv, macs, reads, writes) in cases.items():
+        words = x.shape[1] * x.shape[2]
+        nbytes = (reads + writes) * words * 4
+        bound = nbytes / HBM_BYTES_PER_S * 1e3
+        ibound = int_bound_ms(2 * macs * words, mhz)
+        ms = times[name]
+        # the plain version reads its group sizes on the host, which a
+        # CUDA graph cannot capture: timed eagerly, as is the wrapper
+        plain = eager_ms(lambda x=x, conv=conv: ref.base_conv_ref(
+            x, *(conv[k] for k in basis_kernel.CONV_KEYS)), reps=5, inner=1)
+        call = eager_ms(lambda x=x, conv=conv: basis_kernel.base_conv(x, conv))
+        log(f"[hybrid] base_conv {name} {tuple(x.shape)} -> "
+            f"{tuple(conv['mat'].shape[1:2])} x {conv['src'].shape[0]} groups: kernel "
+            f"{ms:.6f} ms, byte bound {bound:.6f} ms ({100 * bound / ms:.1f}%), integer "
+            f"bound {ibound:.6f} ms at {mhz:.0f} MHz ({100 * ibound / ms:.1f}%), plain "
+            f"{plain:.4f} ms, eager call {call:.6f} ms")
+    return err
+
+
 # ------------------------------------------------------------ phase 3
 
 def run_requests(ctx, zs):
@@ -1163,6 +1290,102 @@ def phase_rot16_cpu_parity(cuda_cts, cuda_ans) -> None:
             raise AssertionError(f"rot16 {name}: cuda run != cpu run")
     log(f"[rot16 parity] cuda == cpu bit for bit: {len(cts)} ciphertexts, "
         f"{len(ans)} answers ({time.perf_counter() - t0:.1f} s on the CPU)")
+
+
+# ----------------------------------------------------------- phase 3m
+
+def hybrid_setup(device):
+    """A hybrid context at 2^13 (four-step) with 5 chain primes and dnum =
+    2 (digits of 3 + 2 primes, K = 3 special primes), its plan prepared
+    for rotations by 1 and 5 and conjugation at the full chain and one
+    level down, and the requests' ciphertexts.  Returns (context,
+    ciphertexts, slot vectors)."""
+    from repro_torch.fhe.ckks import CkksContext
+    rng = np.random.default_rng(SEED + 50)
+    zs = [rng.uniform(-1, 1, HYB_SMOKE_N // 2) + 1j * rng.uniform(-1, 1, HYB_SMOKE_N // 2)
+          for _ in range(len(HYB_SMOKE_AMOUNTS))]
+    ctx = CkksContext(n=HYB_SMOKE_N, levels=HYB_SMOKE_LEVELS, scale_bits=28,
+                      seed=SEED + 51, device=device, dnum=HYB_SMOKE_DNUM)
+    for basis in (ctx.qs, ctx.qs[:-1]):
+        ctx.plan().prepare(basis=basis, rotations=HYB_SMOKE_AMOUNTS[:2], conjugate=True,
+                           batch_sizes=(len(HYB_SMOKE_AMOUNTS),),
+                           hoisted_sets=(HYB_SMOKE_AMOUNTS[:2],))
+    return ctx, [ctx.encrypt(ctx.encode(z)) for z in zs], zs
+
+
+def hybrid_requests(ctx, cts):
+    """One request of each hybrid key switch: name -> (request, the
+    expected slots as a function of the slot vectors)."""
+    a, b = HYB_SMOKE_AMOUNTS[:2]
+    low = ctx.rescale(ctx.multiply(cts[0], cts[1]))
+    return {
+        f"rotate {a}": (lambda: ctx.rotate(cts[0], a), lambda zs: np.roll(zs[0], -a)),
+        "conjugate": (lambda: ctx.conjugate(cts[0]), lambda zs: np.conj(zs[0])),
+        f"rotate_many of {len(cts)}": (
+            lambda: ctx.rotate_many(cts, HYB_SMOKE_AMOUNTS),
+            lambda zs: [np.roll(z, -r) for z, r in zip(zs, HYB_SMOKE_AMOUNTS)]),
+        f"rotate_hoisted ({a}, {b})": (
+            lambda: ctx.rotate_hoisted(cts[0], (a, b)),
+            lambda zs: [np.roll(zs[0], -a), np.roll(zs[0], -b)]),
+        "multiply -> rescale": (lambda: ctx.rescale(ctx.multiply(cts[0], cts[1])),
+                                lambda zs: zs[0] * zs[1]),
+        f"rotate {a} one level down (digits of 3 + 1)": (
+            lambda: ctx.rotate(low, a), lambda zs: np.roll(zs[0] * zs[1], -a)),
+    }
+
+
+def phase_hybrid():
+    """Hybrid key switching through the plan on the card: each request of
+    ``hybrid_requests`` once, its launches counted alone (base_conv's
+    among them), its slots against numpy, and every kernel of the path
+    launched with no plain version run."""
+    from repro_torch import kernels as K
+    t0 = time.perf_counter()
+    ctx, cts, zs = hybrid_setup(None)
+    torch.cuda.synchronize()
+    log(f"[hybrid ks] context n={HYB_SMOKE_N}, {len(ctx.qs)} primes, dnum={ctx.dnum} "
+        f"(alpha = K = {ctx.alpha}), {len(ctx._galois)} Galois keys on {ctx.device}: "
+        f"{time.perf_counter() - t0:.2f} s")
+    total = {name: {"launches": 0, "plain_calls": 0} for name in K.COUNTS}
+    ans, per_op, worst = {}, {}, 0.0
+    for name, (req, want) in hybrid_requests(ctx, cts).items():
+        K.reset_counts()
+        got = req()
+        torch.cuda.synchronize()
+        snap = K.snapshot()
+        for k, c in snap.items():
+            for f in ("launches", "plain_calls"):
+                total[k][f] += c[f]
+        per_op[f"hybrid {name}"] = {k: v["launches"] for k, v in snap.items() if v["launches"]}
+        log(f"[hybrid ks] launches per {name}: {per_op[f'hybrid {name}']}")
+        got = got if isinstance(got, list) else [got]
+        exp = want(zs)
+        exp = exp if isinstance(exp, list) else [exp]
+        for ct, w in zip(got, exp, strict=True):
+            e = float(np.abs(ctx.decrypt_decode(ct) - w).max())
+            worst = max(worst, e)
+            if not e < HYB_SLOT_TOL:
+                raise AssertionError(f"hybrid {name}: slot error {e} >= {HYB_SLOT_TOL}")
+        ans[name] = got
+    check_counts("hybrid", total)
+    log(f"[hybrid ks] {sum(len(v) for v in ans.values())} answers, max slot error "
+        f"{worst:.3e} (limit {HYB_SLOT_TOL:g})")
+    return cts, ans, total, per_op
+
+
+def phase_hybrid_cpu_parity(cuda_cts, cuda_ans) -> None:
+    t0 = time.perf_counter()
+    ctx, cts, _ = hybrid_setup("cpu")
+    for i, (a, b) in enumerate(zip(cuda_cts, cts)):
+        if not same_ct(a, b):
+            raise AssertionError(f"hybrid ciphertext {i}: cuda run != cpu run")
+    for name, (req, _) in hybrid_requests(ctx, cts).items():
+        got = req()
+        for a, b in zip(cuda_ans[name], got if isinstance(got, list) else [got], strict=True):
+            if not same_ct(a, b):
+                raise AssertionError(f"hybrid {name}: cuda run != cpu run")
+    log(f"[hybrid ks parity] cuda == cpu bit for bit: {len(cts)} ciphertexts, "
+        f"{len(cuda_ans)} requests ({time.perf_counter() - t0:.1f} s on the CPU)")
 
 
 # ----------------------------------------------------------- phase 3f
@@ -3524,6 +3747,7 @@ def main() -> int:
 
     errs = phase_kernels(fs_pack, ks_primes)
     errs.update(phase_basis())
+    errs.update(phase_hybrid_basis())
     rng = np.random.default_rng(SEED + 1)
     zs = [rng.uniform(-1, 1, N // 2) + 1j * rng.uniform(-1, 1, N // 2)
           for _ in range(BATCH)]
@@ -3533,6 +3757,8 @@ def main() -> int:
     phase_rotation_cpu_parity(rcts, rans)
     r16_cts, r16_ans, r16counts = phase_rot16()
     phase_rot16_cpu_parity(r16_cts, r16_ans)
+    h_cts, h_ans, hcounts, h_per_op = phase_hybrid()
+    phase_hybrid_cpu_parity(h_cts, h_ans)
     sctx, sM, s_reqs, s_out, s_mixed, scounts = phase_serve()
     phase_serve_cpu_parity(s_reqs, s_out, s_mixed)
     gcounts = phase_scaleout({"ctx": rctx, "M": M, "cts": rcts},
@@ -3550,10 +3776,11 @@ def main() -> int:
     mesh = phase_mesh()
     dry = phase_dryrun()
     per_op = {"multiply + rescale": {k: v for k, v in per_op.items() if v},
-              **rot_per_op, **{f"mlkem {op}": c for op, c in mlkem_per_op.items()},
+              **rot_per_op, **h_per_op, **{f"mlkem {op}": c for op, c in mlkem_per_op.items()},
               **ntt_per_op}
     counts = {"multiply": counts, "rotation": rcounts, "rot16": r16counts,
-              "serve": scounts, "scaleout": gcounts, "kshard": kcounts, "mlkem": mcounts,
+              "hybrid": hcounts, "serve": scounts, "scaleout": gcounts, "kshard": kcounts,
+              "mlkem": mcounts,
               "ntt128": ncounts, "lm": lm["counts"], "train": train["counts"],
               "examples": mesh["counts"], "dryrun": dry["counts"]}
     with SmClock() as clock:

@@ -27,6 +27,7 @@ from __future__ import annotations
 
 import dataclasses
 import functools
+import math
 
 import numpy as np
 import torch
@@ -37,7 +38,7 @@ from repro_torch.core.modmath import (barrett_precompute, mulmod_shoup,
                                       shoup_precompute, u32)
 from repro_torch.core.ntt import cg_intt, cg_ntt
 from repro_torch.core.params import fourstep_split, make_ntt_params
-from repro_torch.kernels import ops
+from repro_torch.kernels import basis_kernel, ops
 
 _PACK_KEYS = ("qs", "tw", "twp", "itw", "itwp", "ninv", "ninv_p", "psi",
               "psip", "ipsin", "ipsinp", "mu")
@@ -169,8 +170,9 @@ def build_fourstep_pack(primes, n: int, device) -> dict:
 
 def slice_pack(t: dict, rows) -> dict:
     """View of a TablePack restricted to prime rows ``rows`` (a slice).
-    The pinv rows are basis-relative (P^-1 mod q_j) and left intact."""
-    basis_relative = ("pinv", "pinv_p")
+    The pinv rows are basis-relative (P^-1 mod q_j) and left intact, as
+    is a hybrid pack's ``conv``."""
+    basis_relative = ("pinv", "pinv_p", "conv")
     return {k: (v if k in basis_relative else v[rows]) for k, v in t.items()}
 
 
@@ -180,6 +182,83 @@ def slice_fourstep_pack(fp: dict, rows) -> dict:
     return {"pack1": slice_pack(fp["pack1"], rows),
             "pack2": slice_pack(fp["pack2"], rows),
             **{k: fp[k][rows] for k in flat}}
+
+
+# ------------------------------------------------ hybrid key switching
+
+def conv_table_np(groups, dst) -> dict:
+    """The table of a fast base conversion (``ops.base_conv_banks``), in
+    numpy uint32: ``groups`` lists, per group, its sources as (row, q)
+    pairs (the row of the input that holds the residues mod q); ``dst``
+    the kt target primes.  Per group g of product Q_g and source i:
+    w = (Q_g/q_i)^-1 mod q_i with its Shoup companion, and per target t,
+    mat = (Q_g/q_i) mod dst[t] and copy = i where dst[t] is q_i itself
+    (else -1).  A group of fewer sources than the stride is padded with
+    its first source and zero weights."""
+    dst = [int(p) for p in dst]
+    size = max(len(g) for g in groups)
+    slots = next((s for s in basis_kernel.SLOTS if s >= size), None)
+    if slots is None:
+        raise ValueError(f"conv_table_np: {size} sources a group; at most "
+                         f"{basis_kernel.SLOTS[-1]}")
+    G, kt = len(groups), len(dst)
+    src = np.zeros((G, slots), dtype=np.int64)
+    sq = np.ones((G, slots), dtype=np.int64)
+    w = np.zeros((G, slots), dtype=np.int64)
+    wp = np.zeros((G, slots), dtype=np.int64)
+    mat = np.zeros((G, kt, slots), dtype=np.int64)
+    copy = np.full((G, kt), -1, dtype=np.int64)
+    for g, group in enumerate(groups):
+        Qg = math.prod(q for _, q in group)
+        src[g] = group[0][0]
+        sq[g] = group[0][1]
+        for i, (row, q) in enumerate(group):
+            hat = Qg // q
+            src[g, i], sq[g, i] = row, q
+            w[g, i] = pow(hat % q, -1, q)
+            wp[g, i] = shoup_precompute(int(w[g, i]), q)
+            mat[g, :, i] = [hat % p for p in dst]
+            copy[g, [t for t, p in enumerate(dst) if p == q]] = i
+    u = lambda a: (a & 0xFFFFFFFF).astype(np.uint32)       # copy's -1 as 0xFFFFFFFF
+    return {"src": u(src), "sq": u(sq), "w": u(w), "wp": u(wp),
+            "cnt": np.array([len(g) for g in groups], dtype=np.uint32),
+            "mat": u(mat), "copy": u(copy), "dst": np.array(dst, dtype=np.uint32)}
+
+
+def key_digits(basis, alpha: int) -> list[tuple[int, ...]]:
+    """The key-switch digits of a basis: consecutive runs of ``alpha``
+    primes, the last possibly shorter."""
+    basis = tuple(basis)
+    return [basis[i:i + alpha] for i in range(0, len(basis), alpha)]
+
+
+@functools.lru_cache(maxsize=None)
+def hybrid_pack_np(basis: tuple[int, ...], specials: tuple[int, ...], alpha: int) -> dict:
+    """What a key switch at ``basis`` needs besides the TablePack of
+    basis + specials under hybrid key switching (numpy uint32):
+      conv.up    the mod-up: digit j (the rows j alpha ... of the
+                 coefficient stack) onto basis + specials
+      conv.down  the mod-down's conversion of the K special rows onto
+                 the basis
+      pinv/pinv_p  P^-1 mod q_j for P the product of the specials, with
+                 Shoup companions (in place of the TablePack's, which
+                 divide by one prime)"""
+    full = tuple(basis) + tuple(specials)
+    up = conv_table_np([[(j * alpha + i, q) for i, q in enumerate(d)]
+                        for j, d in enumerate(key_digits(basis, alpha))], full)
+    down = conv_table_np([list(enumerate(specials))], basis)
+    P = math.prod(specials)
+    pinv = np.array([pow(P, -1, q) for q in basis], dtype=np.uint32)
+    pinv_p = np.array([shoup_precompute(int(v), q) for v, q in zip(pinv, basis)],
+                      dtype=np.uint32)
+    return {"conv": {"up": up, "down": down}, "pinv": pinv, "pinv_p": pinv_p}
+
+
+def build_hybrid_pack(basis, specials, alpha: int, device) -> dict:
+    """``hybrid_pack_np`` as tensors on ``device``: merged into the key
+    switch's table pack ``t``, it routes ``decompose_extend`` and
+    ``mod_down_banks`` through the fast base conversion."""
+    return from_reference(hybrid_pack_np(tuple(basis), tuple(specials), alpha), device)
 
 
 # ------------------------------------------------ per-prime primitives
@@ -230,11 +309,21 @@ def mod_down_banks(acc, t: dict, *, fsp: dict | None = None, lazy: bool = True,
     by q_l.  ``fsp`` routes every transform through the four-step
     pipeline.  ``addend`` (in the output's layout, over its first batch
     columns) is added mod q_j inside the tail, as ``ops.mod_down_tail_banks``
-    takes it."""
-    k = acc.shape[0] - 1
-    fs_last = slice_fourstep_pack(fsp, slice(k, k + 1)) if fsp is not None else None
-    lastc = _inv_banks(acc[k:], slice_pack(t, slice(k, k + 1)), fs_last, lazy)
-    ext = ops.extend_centered_banks(lastc, t["qs"][k:k + 1], t["qs"][:k])[:, 0]
+    takes it.
+
+    A hybrid pack (``t["conv"]``, from ``build_hybrid_pack``) divides by
+    the product P of its K special primes, the last K rows of acc
+    instead: (acc_Q - Conv_{P->Q}(acc_P)) * P^-1 mod q_j, the K rows'
+    iNTT converted onto the k others by ``ops.base_conv_banks``."""
+    down = t["conv"]["down"] if "conv" in t else None
+    k = acc.shape[0] - 1 if down is None else down["dst"].shape[0]
+    rows = slice(k, acc.shape[0])
+    fs_last = slice_fourstep_pack(fsp, rows) if fsp is not None else None
+    lastc = _inv_banks(acc[k:], slice_pack(t, rows), fs_last, lazy)
+    if down is None:
+        ext = ops.extend_centered_banks(lastc, t["qs"][k:k + 1], t["qs"][:k])[:, 0]
+    else:
+        ext = ops.base_conv_banks(lastc, down)[:, 0]
     extn = _fwd_banks(ext, slice_pack(t, slice(0, k)), fsp, lazy)
     return ops.mod_down_tail_banks(acc, extn, t, addend=addend,
                                    batch_leading=batch_leading)
@@ -259,8 +348,15 @@ def decompose_extend(ci, src_qs, t: dict, *, fsp: dict | None = None,
     ci: (d, B, n) coefficient digits, digit i mod ``src_qs[i]`` (which
     need not be t's primes: a "k" shard extends every digit onto its own
     block); t: the pack of the kt primes extended onto.  Returns
-    (d, kt, B, n): NTT-domain digit extensions, digit axis first."""
-    ext = ops.extend_centered_banks(ci, src_qs, t["qs"])         # (kt, d, B, n)
+    (d, kt, B, n): NTT-domain digit extensions, digit axis first.
+
+    Under a hybrid pack (``t["conv"]``) ci is the (k, B, n) coefficient
+    stack of the basis instead, and each digit of alpha primes is
+    converted onto the kt primes by the fast base conversion."""
+    if "conv" in t:
+        ext = ops.base_conv_banks(ci, t["conv"]["up"])            # (kt, d, B, n)
+    else:
+        ext = ops.extend_centered_banks(ci, src_qs, t["qs"])     # (kt, d, B, n)
     # NTT banks: the digit axis folds into the batch
     y = _fwd_banks(ext, t, fsp, lazy)                           # (kt, d, B, n)
     return y.transpose(0, 1)                                    # (digit, prime, B, n)
@@ -282,8 +378,8 @@ def keyswitch_digits(ci, src_qs, evk_b, evk_a, t: dict, *,
                      fsp: dict | None = None, lazy: bool = True, add0=None,
                      add1=None, batch_leading: bool = False):
     """The key switch from the coefficient digits on: ``decompose_extend``
-    onto t's kt primes (the last the special P), the two digit MACs and
-    the mod-downs by P.  ci: (d, B, n) digits mod ``src_qs``; evk_b/evk_a:
+    onto t's kt primes (the last the special P, or P's K primes under a
+    hybrid pack), the two digit MACs and the mod-downs by P.  ci: (d, B, n) digits mod ``src_qs``; evk_b/evk_a:
     (d, kt, n) or (d, kt, B, n) key digits over t's primes.  Returns
     (ks0, ks1): (kt - 1, B, n), or (B, kt - 1, n) with ``batch_leading``;
     ``add0``/``add1`` (in that layout) are added to them mod q_j inside

@@ -5,7 +5,8 @@ Host/device split as in the paper's Fig 1: key generation, encoding
 ring op — NTT, iNTT, dyadic multiply/add, key switch, RNS floor — runs
 on the context's device.  The numpy random draws come in exactly the
 reference's order, so with the same seed keys and ciphertexts are the
-same integers.
+same integers.  Under hybrid key switching (``dnum`` below L + 1) the
+draws keep that order, one key digit per run of alpha primes.
 
 Supported here: encode/decode, public-key encryption, decryption,
 add/sub, plaintext add/multiply, multiply with relinearization, rescale, slot rotation and
@@ -15,12 +16,15 @@ conjugation through Galois automorphisms, and the batched
 """
 from __future__ import annotations
 
+import math
+
 import numpy as np
 import torch
 
 from repro_torch.convert import resolve_device
 from repro_torch.core.modmath import submod
 from repro_torch.core.params import galois_coeff_tables
+from repro_torch.fhe import batched as FB
 from repro_torch.fhe import rns
 from repro_torch.fhe.evalplan import Ciphertext, EvalPlan, check_same_basis
 from repro_torch.fhe.rns import RnsPoly
@@ -30,16 +34,38 @@ __all__ = ["Ciphertext", "CkksContext", "galois_int_coeffs", "galois_poly",
 
 
 class CkksContext:
+    """One CKKS deployment: its ring, prime chain, secret and keys.
+
+    ``dnum`` is the number of key-switch digits at the full chain.  The
+    default (``None``, or ``levels + 1``) is one prime per digit and one
+    special prime P, the paper's Fig 22 key switch.  A smaller ``dnum``
+    is hybrid key switching (Han & Ki, CT-RSA 2020): digits of alpha =
+    ceil((L + 1) / dnum) consecutive chain primes (the last digit of a
+    basis may hold fewer) and a special modulus P of K = alpha primes.
+
+    The primes are the L + 1 + K largest below 2^30 that are 1 mod 2n,
+    largest first: the first K are P's (``specials``), the rest q_0 >
+    ... > q_L (``qs``).  ``special`` is the one special prime when K = 1
+    and None otherwise."""
+
     def __init__(self, n: int = 1024, levels: int = 3, scale_bits: int = 28,
-                 sigma: float = 3.2, seed: int = 0, device=None):
+                 sigma: float = 3.2, seed: int = 0, device=None, dnum: int | None = None):
         self.device = resolve_device(device)
         self.n = n
         self.slots = n // 2
         self.scale = float(1 << scale_bits)
         self.sigma = sigma
-        primes = rns.make_primes(n, levels + 2)           # L+1 chain + special
-        self.special = primes[0]                          # largest -> P
-        self.qs = tuple(primes[1:])                       # q_0 .. q_L
+        chain = levels + 1
+        self.dnum = chain if dnum is None else dnum
+        if not 1 <= self.dnum <= chain:
+            raise ValueError(f"CkksContext: dnum = {dnum} key-switch digits for a chain of "
+                             f"{chain} primes; 1 <= dnum <= levels + 1")
+        self.alpha = -(-chain // self.dnum)               # primes a digit
+        K = self.alpha                                    # special primes
+        primes = rns.make_primes(n, chain + K)            # P's K, then the chain
+        self.specials = tuple(primes[:K])                 # the largest -> P
+        self.special = primes[0] if K == 1 else None
+        self.qs = tuple(primes[K:])                       # q_0 .. q_L
         self.rng = np.random.default_rng(seed)
         # canonical embedding index table: e_j = 5^j mod 2n
         self._ejs = np.array([pow(5, j, 2 * n) for j in range(n // 2)])
@@ -70,30 +96,38 @@ class CkksContext:
         return rns.from_int_coeffs(rns.gaussian_coeffs(self.rng, self.n, self.sigma),
                                    tuple(primes), self.n, self.device).to_ntt()
 
+    def digits(self, primes: tuple[int, ...]) -> list[tuple[int, ...]]:
+        """The key-switch digits of a basis: runs of ``alpha`` primes
+        q_i, j alpha <= i < min((j + 1) alpha, l + 1)."""
+        return FB.key_digits(primes, self.alpha)
+
     def _make_ksk(self, from_key: RnsPoly, primes: tuple[int, ...]):
-        """Digit keys: evk_i = (-a_i s + e_i + P*T_i*from_key, a_i) over
-        basis (primes..., P), T_i the CRT interpolation coefficient."""
-        full = primes + (self.special,)
+        """Digit keys: evk_j = (-a_j s + e_j + P*T_j*from_key, a_j) over
+        basis (primes..., P's primes), for each digit D_j of Q_j = prod
+        D_j, with P the product of the special primes and T_j = Q^_j
+        [Q^_j^-1]_{Q_j}, Q^_j = Q / Q_j (one prime per digit: the CRT
+        interpolation coefficient).  Each digit draws its uniform rows
+        over the full basis, then its Gaussian noise."""
+        full = primes + self.specials
         s_full = self._secret_poly(full)
-        Q = 1
-        for q in primes:
-            Q *= q
+        Q = math.prod(primes)
+        P = math.prod(self.specials)
         evk = []
-        for qi in primes:
-            Qi = Q // qi
-            Ti = Qi * pow(Qi % qi, -1, qi) % Q
-            PTi = self.special * Ti
+        for D in self.digits(primes):
+            Qj = math.prod(D)
+            hat = Q // Qj
+            PTj = P * (hat * pow(hat % Qj, -1, Qj) % Q)
             a = rns.uniform_ntt(self.rng, full, self.n, self.device)
             e = self._noise_poly(full)
             b = e.sub(a.mul(s_full))
-            gadget = from_key.mul_scalar_per_prime({q: PTi % q for q in full})
+            gadget = from_key.mul_scalar_per_prime({q: PTj % q for q in full})
             evk.append((b.add(gadget), a))
         return evk
 
     def relin_keys(self, primes: tuple[int, ...]):
         """Relinearization key digits for a basis (generated once)."""
         if primes not in self._relin:
-            s = self._secret_poly(primes + (self.special,))
+            s = self._secret_poly(primes + self.specials)
             self._relin[primes] = self._make_ksk(s.mul(s), primes)
         return self._relin[primes]
 
@@ -101,7 +135,7 @@ class CkksContext:
         """Key-switch digits from sigma_g(s) to s for a basis, drawn from
         the context's generator once per (g, basis)."""
         if (g, primes) not in self._galois:
-            full = primes + (self.special,)
+            full = primes + self.specials
             sg = self._secret_poly(
                 full, coeffs=galois_int_coeffs(self._s_coeffs, g, self.n))
             self._galois[(g, primes)] = self._make_ksk(sg, primes)
@@ -210,7 +244,9 @@ class CkksContext:
     def rotate_hoisted(self, a: Ciphertext, rs) -> list[Ciphertext]:
         """R rotations of one ciphertext with the key-switch digit
         decomposition paid once; bit-identical to
-        ``[self.rotate(a, r) for r in rs]``."""
+        ``[self.rotate(a, r) for r in rs]`` with one prime a digit (under
+        hybrid key switching the hoisted key switch's words, which
+        decrypt to the same rotations)."""
         return self.plan().rotate_hoisted(a, rs)
 
 

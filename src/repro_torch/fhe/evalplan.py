@@ -2,10 +2,13 @@
 
 An ``EvalPlan`` precomputes, per prime basis, the stacked tables the bank
 kernels consume (TablePack for single-kernel rings, FourStepPack + scalar
-pack past ``ops.FOURSTEP_MIN_N``), the stacked ``(k, k+1, n)``
-relinearization and Galois key digits and the NTT-domain Galois gather
-rows, then runs each scheme op as one program over raw (k, n) residue
-stacks:
+pack past ``ops.FOURSTEP_MIN_N``), the stacked ``(d, k+K, n)``
+relinearization and Galois key digits (d digits over the basis and the K
+special primes: d = k and K = 1 with one prime a digit, d = ceil(k /
+alpha) and K = alpha under hybrid key switching, whose tables add the
+fast base conversions', ``fhe.batched.build_hybrid_pack``) and the
+NTT-domain Galois gather rows, then runs each scheme op as one program
+over raw (k, n) residue stacks:
 
   multiply   -> ``multiply_banks``  (tensor product + fused batched_keyswitch)
   rescale    -> ``rescale_banks``   (both halves through one mod_down_banks)
@@ -65,8 +68,9 @@ each card's current stream, and their outputs are copied to the plan's
 device.  A mesh of one device is sharded too.
 
 A "k" axis of s > 1 shards splits the RNS prime axis, as the reference's
-``_shard_k`` does: a program whose ciphertext has a multiple of s primes
-runs over it, any other runs unsharded on the plan's device.  Over "k"
+``_shard_k`` does (with one prime a digit only: a hybrid context is
+refused): a program whose ciphertext has a multiple of s primes runs
+over it, any other runs unsharded on the plan's device.  Over "k"
 go ``multiply``, ``rescale`` and ``apply_galois`` always, and the
 ``*_many`` programs and ``hoisted_galois`` when the mesh has no "b" axis.
 Shard j owns the block ``basis[j*m:(j+1)*m]`` (m = k/s) and runs on its
@@ -91,6 +95,7 @@ from __future__ import annotations
 
 import dataclasses
 import functools
+import gc
 
 import torch
 
@@ -311,8 +316,11 @@ def hoisted_rotations_banks(c0, c1, idx, evk_b, evk_a, t, fsp=None):
     """R rotations of ONE ciphertext with the key-switch front half
     hoisted: c1's digit decomposition runs once, and each rotation
     gathers those digits in the evaluation domain (the automorphism
-    commutes with the per-prime decomposition, so this is bit-identical
-    to decomposing each rotated c1).
+    commutes with the per-prime decomposition, so with one prime a digit
+    this is bit-identical to decomposing each rotated c1; a hybrid
+    pack's unsigned conversion does not commute with its sign flips, so
+    there the words are the hoisted key switch's, which differ from a
+    rotation's by key-switch noise).
 
     c0/c1: (k, n); idx: (R, n) gather rows; evk_b/evk_a: (k, k+1, R, n)
     per-rotation key digits.  Returns (k, R, n) stacks, rotation r in
@@ -371,11 +379,18 @@ class _Graph:
         # capture's counts are taken back and added at every replay instead
         before = {k: c.launches for k, c in K.COUNTS.items()}
         self.graph = torch.cuda.CUDAGraph()
+        # no collection inside the capture: one that frees an older graph
+        # (or an event) destroys CUDA objects, which a capture forbids
+        collecting = gc.isenabled()
+        gc.disable()
         try:
             with torch.cuda.graph(self.graph, pool=pool):
                 self.outputs = fn(*self.inputs, *consts)
         except Exception as e:
             raise K.GraphError(f"{name}: CUDA graph capture failed: {e}") from e
+        finally:
+            if collecting:
+                gc.enable()
         self.launches = {}
         for k, c in K.COUNTS.items():
             if c.launches != before[k]:
@@ -419,6 +434,7 @@ class EvalPlan:
         self.device = ctx.device
         self.natural = self.n >= ops.FOURSTEP_MIN_N
         self.mesh = mesh
+        self.alpha = ctx.alpha       # primes a key-switch digit
         self._shards = None          # the device of each "b" shard, or None
         self._kdevs = None           # the device of each "k" shard (s > 1), or None
         if mesh is not None:
@@ -435,6 +451,12 @@ class EvalPlan:
             if "b" in mesh.axis_names:
                 self._shards = local(mesh.axis_devices("b"))
             if mesh.shape.get("k", 1) > 1:
+                if self.alpha > 1:
+                    raise NotImplementedError(
+                        f"EvalPlan: a 'k'-sharded mesh splits the key switch at one "
+                        f"prime per digit; this context has dnum = {ctx.dnum} digits of "
+                        f"{self.alpha} primes (hybrid key switching), which the 'k' "
+                        "axis does not implement: build the context with dnum=None")
                 self._kdevs = local(mesh.axis_devices("k"))
         self._keys: dict = {}        # ('relin', basis) | ('galois', g, basis)
         self._batch_keys: dict = {}  # (gs, basis, device) -> stacked, bounded LRU
@@ -442,6 +464,7 @@ class EvalPlan:
         self._replicas: dict = {}    # (key, device) -> a key or row on that device
         self._rescale_tables: dict = {}
         self._kslices: dict = {}     # (key, rows, device) -> a key's rows for a "k" shard
+        self._hybrid: dict = {}      # (basis, device) -> hybrid key-switch tables
         # signature -> _Graph on the card; None runs every program eagerly
         self._graphs: dict | None = {} if self.device.type == "cuda" else None
         self._pools: dict = {}       # device -> the memory pool its graphs share
@@ -636,10 +659,21 @@ class EvalPlan:
         return rns.basis_pack(full, self.n, device), None
 
     def keyswitch_tables(self, basis: tuple[int, ...], device=None):
-        """The key-switch tables of ``basis`` on ``device`` (the plan's by
-        default)."""
-        return self._packs(basis + (self.ctx.special,),
-                           self.device if device is None else device)
+        """The key-switch tables of ``basis`` + the special primes on
+        ``device`` (the plan's by default).  Under hybrid key switching
+        (alpha > 1) ``t`` also holds the fast base conversions' tables
+        and P^-1 for the product P of the K special primes
+        (``fhe.batched.build_hybrid_pack``)."""
+        device = self.device if device is None else device
+        tables = self._packs(basis + self.ctx.specials, device)
+        if self.alpha == 1:
+            return tables
+        key = (basis, str(device))
+        if key not in self._hybrid:
+            t, fsp = tables
+            hp = FB.build_hybrid_pack(basis, self.ctx.specials, self.alpha, device)
+            self._hybrid[key] = ({**t, **hp}, fsp)
+        return self._hybrid[key]
 
     def rescale_tables(self, basis: tuple[int, ...], device=None):
         device = self.device if device is None else device
@@ -1020,7 +1054,9 @@ class EvalPlan:
     def hoisted_galois(self, a: Ciphertext, gs) -> list[Ciphertext]:
         """Apply R automorphisms ``gs`` (need not be distinct) to ``a`` in
         one ``hoisted_rotations_banks`` pass; bit-identical to
-        ``[self.apply_galois(a, g) for g in gs]``."""
+        ``[self.apply_galois(a, g) for g in gs]`` with one prime a digit
+        (under hybrid key switching, the hoisted words: see
+        ``hoisted_rotations_banks``)."""
         gs = tuple(gs)
         if not gs:
             return []

@@ -6,8 +6,9 @@ its data lives on.  Ring ops are single vectorized modmath calls over
 the whole stack, and the NTT/iNTT go through the multi-prime banks entry
 points (``kernels.ops``), so the k rows transform in one kernel launch.
 
-Base conversions are exact because digit decomposition uses
-single-prime digits (alpha=1).
+With one prime a digit (alpha = 1) the digit decomposition's base
+conversions are exact centred lifts; hybrid key switching's digits of
+alpha primes use the fast base conversion (``fhe.batched``).
 """
 from __future__ import annotations
 

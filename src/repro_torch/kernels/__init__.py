@@ -18,7 +18,10 @@ single-prime kernels (``ntt_fwd``, ``ntt_inv``, ``dyadic_mul``,
 ``dyadic_mac``: the paper's NTT-128 unit and its Barrett MM/MA) are
 counted apart from the banks kernels.  ``extend_centered`` and
 ``mod_down_tail`` are the key switch's two RNS base conversions (the
-mod-up and the mod-down's tail), which have no TPU kernel.
+mod-up and the mod-down's tail), which have no TPU kernel; ``base_conv``
+is the fast base conversion of hybrid key switching (its mod-up and the
+mod-down's conversion of the special primes), which the reference does
+not have.
 
 Faults of the device path have classes of their own (``DeviceFault``):
 a build that fails (``build.BuildError``), a launcher that returns a CUDA
@@ -39,7 +42,7 @@ KERNELS = ("ntt_fwd_banks", "ntt_inv_banks", "twiddle_mul_banks",
            "dyadic_inner_banks", "galois_banks", "galois_banks_multi",
            "galois_digits", "ntt_fwd_banks_u16", "ntt_inv_banks_u16",
            "dyadic_basemul_banks", "ntt_fwd", "ntt_inv", "dyadic_mul",
-           "dyadic_mac", "extend_centered", "mod_down_tail")
+           "dyadic_mac", "extend_centered", "mod_down_tail", "base_conv")
 
 
 @dataclasses.dataclass

@@ -1,14 +1,19 @@
 """Wrappers of the key switch's RNS base conversions (``csrc/basis.cu``).
 
-``extend_centered`` is the mod-up: each coefficient digit, centred about
-its own prime, reduced onto each of kt primes, written as the (kt, d, B,
-n) stack the forward banks transform.  ``mod_down_tail`` is the end of
+``extend_centered`` is the mod-up of one prime per digit: each
+coefficient digit, centred about its own prime, reduced onto each of kt
+primes, written as the (kt, d, B, n) stack the forward banks transform.
+``base_conv`` is hybrid key switching's fast base conversion, from
+groups of primes (the digits, or the special primes of a mod-down) onto
+kt primes, into the same layout; its plain version computes the
+formula's exact residues.  ``mod_down_tail`` is the end of
 the mod-down: (acc - extn) * P^-1 mod q_j, with an optional addend (the
 ciphertext half a key switch's output is added to) folded in, read and
-written through (prime, batch) strides.  Neither has a TPU kernel: the
-reference runs both as XLA elementwise ops.  The plain versions in
-``kernels.ref`` are the port's former int64 PyTorch chains, and each
-kernel copies their op sequence.
+written through (prime, batch) strides.  None has a TPU kernel: the
+reference runs the first and the last as XLA elementwise ops, and has no
+hybrid key switching.  The plain versions of those two in ``kernels.ref``
+are the port's former int64 PyTorch chains, and each kernel copies their
+op sequence.
 
 A CPU tensor goes to the plain version; a CUDA tensor launches the
 kernel or raises; a ``meta`` tensor passes the same checks and is
@@ -45,6 +50,50 @@ def extend_centered(ci, src_qs, dst_qs):
         return out
     rc = lib.extend_centered(ci.data_ptr(), out.data_ptr(), src_qs.data_ptr(),
                              dst_qs.data_ptr(), d, dst_qs.shape[0], b * n, stream())
+    raise_on(where, rc)
+    COUNTS[where].launches += 1
+    return out
+
+
+CONV_KEYS = ("src", "sq", "w", "wp", "cnt", "mat", "copy", "dst")
+SLOTS = (4, 8, 16)      # the conversion tables' stride a group: the kernel's instantiations
+MAX_TARGETS = 512       # kMaxTargets
+
+
+def base_conv(x, conv: dict):
+    """x: (R, B, n) int32 residue rows; conv: a conversion table
+    (``fhe.batched.conv_table``) of ``groups`` groups onto kt targets,
+    whose source rows lie below R.  Returns (kt, groups, B, n) int32."""
+    src, sq, w, wp, cnt, mat, copy, dst = (conv[k] for k in CONV_KEYS)
+    if x.device.type == "cpu":
+        return ref.base_conv_ref(x, src, sq, w, wp, cnt, mat, copy, dst)
+    where = "base_conv"
+    if x.ndim != 3 or src.ndim != 2 or dst.ndim != 1:
+        raise KernelRefusal(f"{where}: x (R, B, n), src (groups, slots) and dst (kt,) "
+                            f"expected, got {tuple(x.shape)}, {tuple(src.shape)}, "
+                            f"{tuple(dst.shape)}")
+    _, b, n = x.shape
+    groups, slots = src.shape
+    kt = dst.shape[0]
+    check_tensors(where, x.device, x=x, src=src, sq=sq, w=w, wp=wp, cnt=cnt, mat=mat,
+                  copy=copy, dst=dst)
+    for name, t in (("sq", sq), ("w", w), ("wp", wp)):
+        check_shape(where, name, t, (groups, slots))
+    check_shape(where, "cnt", cnt, (groups,))
+    check_shape(where, "mat", mat, (groups, kt, slots))
+    check_shape(where, "copy", copy, (groups, kt))
+    if slots not in SLOTS or kt > MAX_TARGETS:
+        raise KernelRefusal(f"{where}: tables of {slots} slots a group onto {kt} targets; "
+                            f"the kernel takes {SLOTS} slots and up to {MAX_TARGETS} targets")
+    out = x.new_empty((kt, groups, b, n))
+    if x.device.type == "meta":
+        return meta_launch(where, out, [x, src, sq, w, wp, cnt, mat, copy, dst])
+    lib = build.load("basis")
+    if out.numel() == 0:
+        return out
+    rc = lib.base_conv(x.data_ptr(), out.data_ptr(), *(t.data_ptr() for t in
+                                                       (src, sq, w, wp, cnt, mat, copy, dst)),
+                       groups, slots, kt, b * n, stream())
     raise_on(where, rc)
     COUNTS[where].launches += 1
     return out

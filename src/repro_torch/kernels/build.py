@@ -69,6 +69,8 @@ SIGNATURES = {
     },
     "basis": {
         "extend_centered": [_P] * 4 + [_I, _I, _L, _P],
+        # x, out, then the conversion table's src, sq, w, wp, cnt, mat, copy, dst
+        "base_conv": [_P] * 10 + [_I, _I, _I, _L, _P],
         # acc, extn, add (+ badd), out: a pointer and its (prime, batch) strides
         "mod_down_tail": [_P, _L, _L] * 3 + [_L, _P, _L, _L] + [_P] * 3
                          + [_I, _L, _I, _P],

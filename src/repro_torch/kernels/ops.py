@@ -27,10 +27,13 @@ step-3 twiddle multiply between them) and NTT rows are in natural order.
 The four-step transposes and bit-reversal gathers are torch indexing, as
 they sit outside the kernels in the reference too.
 
-The key switch's two RNS base conversions run per coefficient, on either
-NTT layout: ``extend_centered_banks`` (the mod-up onto a basis) and
-``mod_down_tail_banks`` (the mod-down's subtract and P^-1 multiply, with
-the sum into a ciphertext half folded in).
+The key switch's RNS base conversions run per coefficient, on either
+NTT layout: ``extend_centered_banks`` (the mod-up onto a basis, one prime
+per digit), ``base_conv_banks`` (hybrid key switching's fast base
+conversion: the mod-up of digits of several primes, and the mod-down's
+conversion of the special primes) and ``mod_down_tail_banks`` (the
+mod-down's subtract and P^-1 multiply, with the sum into a ciphertext
+half folded in).
 """
 from __future__ import annotations
 
@@ -358,6 +361,19 @@ def extend_centered_banks(ci, src_qs, dst_qs):
     out = basis_kernel.extend_centered(_as3(ci), src_qs[:d].contiguous(),
                                        dst_qs.contiguous())
     return out.reshape((dst_qs.shape[0],) + tuple(ci.shape))
+
+
+@_spanned
+def base_conv_banks(x, conv: dict):
+    """Fast base conversion (hybrid key switching's mod-up, alpha > 1,
+    and its mod-down's conversion of the K special primes): x (R, ...,
+    n) coefficient residue rows, canonical in [0, q); conv a conversion
+    table (``fhe.batched.conv_table``) whose group g reads x's rows
+    src[g, :cnt[g]] and writes Conv_g(x) onto each of its kt targets.
+    Returns (kt, groups, ..., n): the prime axis first, as
+    ``extend_centered_banks``'s."""
+    out = basis_kernel.base_conv(_as3(x), conv)
+    return out.reshape((conv["dst"].shape[0], conv["src"].shape[0]) + tuple(x.shape[1:]))
 
 
 @_spanned

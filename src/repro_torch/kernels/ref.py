@@ -288,6 +288,41 @@ def extend_centered_ref(ci, src_qs, dst_qs):
     return torch.remainder(c.unsqueeze(0), qd).int()
 
 
+def base_conv_ref(x, src, sq, w, wp, cnt, mat, copy, dst):
+    """The fast base conversion of hybrid key switching.  x (R, ..., n)
+    residue rows; group g's sources are x's rows src[g, i], i < cnt[g],
+    with moduli sq[g, i] and premultipliers w[g, i] = (Q_g / q_i)^-1 mod
+    q_i (Q_g the product of the group's moduli; wp, their Shoup
+    companions, are the kernel's and unread here); mat[g, t, i] = (Q_g /
+    q_i) mod dst[t].  Returns (kt, groups, ..., n):
+
+        out[t, g] = sum_i [x_i w_i]_{q_i} mat[g, t, i]  mod dst[t]
+
+    or, where copy[g, t] = i >= 0 (target t is the group's own prime
+    q_i), x_i as it is.  Every product and sum is exact in int64, so the
+    words are the formula's residues, as the kernel's are."""
+    COUNTS["base_conv"].plain_calls += 1
+    v = u32(x)
+    nd = v.ndim
+    groups, slots = src.shape
+    kt = dst.shape[0]
+    col = lambda t: u32(t).reshape((-1,) + (1,) * (nd - 1))
+    p = col(dst)
+    out = []
+    for g in range(groups):
+        m = int(cnt[g])
+        rows = v[src[g, :m].long()]                           # (m, ..., n)
+        y = rows * col(w[g, :m]) % col(sq[g, :m])
+        acc = torch.zeros((kt,) + tuple(v.shape[1:]), dtype=torch.int64, device=v.device)
+        for i in range(m):
+            acc = (acc + y[i] * col(mat[g, :, i]) % p) % p
+        cp = copy[g].long()
+        own = (cp >= 0).reshape((-1,) + (1,) * (nd - 1))
+        acc = torch.where(own, rows[cp.clamp(min=0)], acc)
+        out.append(acc)
+    return torch.stack(out, dim=1).int()
+
+
 def mod_down_tail_ref(acc, extn, qs, pinv, pinv_p, addend=None,
                       batch_leading: bool = False):
     """The mod-down's tail: (acc - extn) * P^-1 mod q_j over (k, B, n)

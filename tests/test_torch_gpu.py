@@ -22,7 +22,9 @@ at smoke size, float32 with TF32 off, against the CPU; smollm-135m in
 bf16 against the CPU's float32; the serving engine in bf16); and
 training (a float32 train step of every arch at smoke size against the
 CPU, remat gradients equal to none's, a checkpoint of card tensors
-restored on the CPU).  Marked
+restored on the CPU); and hybrid key switching's fast base conversion
+(``base_conv``) at a bootstrapping-scale group, and a hybrid plan's graphs
+against the CPU.  Marked
 ``gpu``: they skip where no CUDA device is present.  On a GPU machine:
 
     PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_gpu.py
@@ -1201,3 +1203,72 @@ def test_checkpoint_from_the_card_restores_on_the_cpu(cuda, tmp_path):
         for (path, a), (_, b) in zip(T.flatten_with_path(got), T.flatten_with_path(host)):
             assert a.device.type == "cpu" and a.dtype == b.dtype, path
             assert torch.equal(a, b), (d, path)
+
+
+# ------------------------------------------------ hybrid key switching
+
+HYB_N, HYB_B, HYB_ALPHA = 1 << 16, 32, 6      # a bootstrapping-scale group: L + 1 = 24, dnum = 4
+
+
+def _hybrid_conv(case):
+    """(x, conversion table) of a base_conv case at a bootstrapping-scale
+    group: 24 chain primes, 6 special primes, B = 32, n = 2^16."""
+    primes = rns.make_primes(HYB_N, 24 + HYB_ALPHA)
+    Ps, qs = tuple(primes[:HYB_ALPHA]), tuple(primes[HYB_ALPHA:])
+    if case == "mod-down":
+        srcs, groups, dst = Ps, [list(enumerate(Ps))], qs
+    else:
+        basis = qs[:19] if case == "partial digit" else qs     # digits 6 + 6 + 6 + 1
+        srcs, dst = basis, basis + Ps
+        groups = [[(j * HYB_ALPHA + i, q) for i, q in enumerate(d)]
+                  for j, d in enumerate(TB.key_digits(basis, HYB_ALPHA))]
+    x = _residues(len(srcs), srcs, (HYB_B, HYB_N))
+    for j, q in enumerate(srcs):
+        x[j, 0, :5] = torch.tensor([0, 1, (q - 1) // 2, (q + 1) // 2, q - 1])
+    return x, from_reference(TB.conv_table_np(groups, dst), "cuda")
+
+
+@pytest.mark.parametrize("case", ["mod-up", "mod-down", "partial digit", "unaligned view"])
+def test_base_conv_equals_the_plain_path(cuda, case):
+    """``base_conv`` (csrc/basis.cu) equals its plain version bit for bit
+    at a bootstrapping-scale group: the mod-up of 4 digits of 6 primes onto
+    24 + 6, the mod-down of the 6 special primes onto 24, a partial last
+    digit (19 primes: 6 + 6 + 6 + 1), and a view one word off alignment
+    (the one-word body)."""
+    from repro_torch.kernels import basis_kernel
+    x, conv = _hybrid_conv("mod-up" if case == "unaligned view" else case)
+    if case == "unaligned view":
+        buf = torch.empty(x.numel() + 1, dtype=torch.int32, device=cuda)
+        x = buf[1:].view(x.shape).copy_(x)
+        assert x.data_ptr() % 16 == 4
+    K.reset_counts()
+    got = ops.base_conv_banks(x, conv)
+    want = ref.base_conv_ref(x, *(conv[k] for k in basis_kernel.CONV_KEYS))
+    assert K.snapshot()["base_conv"]["launches"] == 1
+    assert got.shape == (conv["dst"].shape[0], conv["src"].shape[0], HYB_B, HYB_N)
+    assert torch.equal(got, want)
+
+
+def test_hybrid_plan_on_the_card_equals_the_cpu(cuda):
+    """A hybrid context (n = 2^13, L + 1 = 5, dnum = 2: digits of 3 + 2
+    primes, K = 3) through the plan's CUDA graphs: rotate_many, a mixed
+    batch, rotate_hoisted, multiply and rescale then rotate equal the same
+    requests on the CPU word for word."""
+    from repro_torch.fhe.ckks import CkksContext
+    from repro_torch.fhe.evalplan import Ciphertext
+    from repro_torch.fhe.rns import RnsPoly
+    n = 1 << 13
+    outs = {}
+    for dev in ("cuda", "cpu"):
+        ctx = CkksContext(n=n, levels=4, seed=9, device=dev, dnum=2)
+        ctx.plan().prepare(rotations=(1, 2), batch_sizes=(4,), hoisted_sets=((1, 2),))
+        rng = np.random.default_rng(3)
+        cts = [Ciphertext(*(RnsPoly(torch.from_numpy(np.stack(
+            [rng.integers(0, q, n) for q in ctx.qs]).astype(np.int32)).to(dev), ctx.qs, True)
+            for _ in range(2)), ctx.scale) for _ in range(4)]
+        low = ctx.rescale(ctx.multiply(cts[0], cts[1]))
+        res = (ctx.rotate_many(cts, [1] * 4) + ctx.rotate_many(cts, [1, 2, 1, 2])
+               + ctx.rotate_hoisted(cts[2], [1, 2]) + [low, ctx.rotate(low, 1)])
+        outs[dev] = [(r.c0.data.cpu(), r.c1.data.cpu()) for r in res]
+    for (a0, a1), (b0, b1) in zip(outs["cuda"], outs["cpu"]):
+        assert torch.equal(a0, b0) and torch.equal(a1, b1)

@@ -9,6 +9,7 @@ import pytest
 import torch
 
 from repro_torch import kernels as K
+from repro_torch.convert import from_reference
 from repro_torch.core.params import make_ntt_params
 from repro_torch.fhe import batched as TB
 from repro_torch.fhe import rns
@@ -170,6 +171,8 @@ def _calls(device, bad: bool, fake=None):
     q16 = z(1, dt=torch.int16)
     p = make_ntt_params(N)
     fl = dict(negacyclic=True, lazy=True, reduce_out=True)
+    conv = from_reference(TB.conv_table_np(
+        [list(enumerate(PRIMES[:2])), [(2, PRIMES[2])]], PRIMES), "cpu")
     return {
         "ntt_fwd_banks": lambda: ntt_kernel.ntt_fwd_banks(
             x, t["qs"], t["tw"], t["twp"], t["psi"], t["psip"], **fl),
@@ -197,6 +200,11 @@ def _calls(device, bad: bool, fake=None):
             x, z(k + 1) if bad else t["qs"], t["qs"][:1]),
         "mod_down_tail": lambda: basis_kernel.mod_down_tail(
             x, z(k, 2, N), t["qs"], t["qs"], t["qs"], batch_leading=False),
+        # two digits of the k rows of x onto every prime; a wrong table
+        # comes with a digit count column of the wrong length
+        "base_conv": lambda: basis_kernel.base_conv(x, {
+            name: (as_(v.to(device)[:1]) if bad and name == "cnt" else as_(v.to(device)))
+            for name, v in conv.items()}),
     }
 
 
