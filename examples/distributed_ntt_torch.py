@@ -44,7 +44,7 @@ def demo_large_n_banks(dev) -> bool:
     rng = np.random.default_rng(0)
     x_np = np.stack([rng.integers(0, q, n, dtype=np.uint32) for q in primes])
     x = u32_to_tensor(x_np, dev)
-    y = ops.ntt_fourstep_banks(x, fp)          # 2 banks passes + twiddle kernel
+    y = ops.ntt_fourstep_banks(x, fp)          # two kernel passes on the card
     back = tensor_to_u32(ops.intt_fourstep_banks(y, fp))
     ok = bool(np.array_equal(back, x_np))
     print(f"large-N banks four-step: n={n} = {n1}x{n2}, k={k} primes -> "

@@ -28,7 +28,7 @@ from repro_torch.kernels import DeviceFault
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 SOURCES = ("ntt_banks", "dyadic_inner", "galois", "dyadic_basemul", "ntt",
-           "dyadic", "basis")
+           "dyadic", "basis", "fourstep")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -74,6 +74,11 @@ SIGNATURES = {
         # acc, extn, add (+ badd), out: a pointer and its (prime, batch) strides
         "mod_down_tail": [_P, _L, _L] * 3 + [_L, _P, _L, _L] + [_P] * 3
                          + [_I, _L, _I, _P],
+    },
+    "fourstep": {
+        # x, out, scratch, qs, then psi, tw1, tw and tw2 with their companions;
+        # k, b, n1, n2; the (prime, ring) strides of x and out; the flags
+        "ntt_fourstep_banks": [_P] * 12 + [_I] * 4 + [_L] * 4 + [_I, _I, _P],
     },
 }
 

@@ -26,6 +26,11 @@ register-resident body; a larger one (up to ``MAX_N`` = 2^17) runs two
 passes through a scratch tensor this module allocates, still one launcher
 call and one count.
 
+``ntt_fourstep_banks`` is the four-step forward transform of rings of
+2^10 .. 2^17 words on the card: two passes of ``csrc/fourstep.cu`` in
+place of the reference's chain of weight-row multiplies, bank passes,
+transposes and bit-reversal gathers (which is its plain version).
+
 ``ntt_fwd`` / ``ntt_inv`` replace the single-prime TPU kernels
 ``ntt_fwd_pallas`` / ``ntt_inv_pallas``: one prime's ``NTTParams``, a
 (B, n) int32 batch, every log2(n) stage.  Their tables go to the tensor's
@@ -54,6 +59,8 @@ MAX_N_ROW = 4096      # the largest ring one launch transforms (no scratch)
 MAX_N_U16 = 4096      # banks, u16 lane: the largest ring it has (see below)
 MIN_N_STREAM = 64     # csrc/ntt.cu: the smallest ring of a 16-byte-aligned tile row
 MAX_N_SINGLE = 4096   # csrc/ntt.cu: the largest ring of one tile row
+# csrc/fourstep.cu: the (n1, n2) splits of 2^10 .. 2^17 (core.params.fourstep_split)
+FOURSTEP_SPLITS = tuple((1 << (s - s // 2), 1 << (s // 2)) for s in range(10, 18))
 
 
 LANES = {torch.int32: "uint32", torch.int16: "uint16"}
@@ -255,6 +262,70 @@ def twiddle_mul_banks(x, qs, w, wp, *, lazy: bool):
                                int(lazy), stream())
     raise_on(where, rc)
     COUNTS["twiddle_mul_banks"].launches += 1
+    return out
+
+
+def ntt_fourstep_banks(x, fp: dict, *, negacyclic: bool, lazy: bool):
+    """x: (k, B, n) int32, row p reduced mod fp['qs'][p], contiguous rows
+    and any strides over (prime, ring); fp: a FourStepPack of at least k
+    primes with n = n1 * n2.  Returns the forward transform in natural
+    order, in [0, q): the plain chain on the CPU (``ref.fourstep_chain``);
+    on the card the two passes of ``csrc/fourstep.cu`` through a scratch
+    tensor allocated here, one count, into an output laid out as x where
+    x is dense (a batch-leading view's output is contiguous once swapped
+    back), else contiguous.  The card takes the balanced splits of 2^10
+    .. 2^17 (``FOURSTEP_SPLITS``)."""
+    if x.device.type == "cpu":
+        return ref.ntt_fourstep_banks_ref(x, fp, negacyclic, lazy=lazy)
+    where = "ntt_fourstep_banks"
+    check_u32(where, x=x)
+    n1, n2 = fp["pack1"]["tw"].shape[-1] * 2, fp["pack2"]["tw"].shape[-1] * 2
+    if (n1, n2) not in FOURSTEP_SPLITS:
+        raise KernelRefusal(f"{where}: a {n1} x {n2} split; the kernels take "
+                            f"{', '.join(f'{a} x {b}' for a, b in FOURSTEP_SPLITS)}")
+    if x.ndim != 3 or x.shape[-1] != n1 * n2:
+        raise KernelRefusal(f"{where}: x must be (k, B, {n1 * n2}), got {tuple(x.shape)}")
+    if x.stride(-1) != 1:
+        raise KernelRefusal(f"{where}: x's rows must be contiguous")
+    k, b, n = x.shape
+    # the tables the passes read, k prime rows each: psi and the step-3
+    # twiddle (k, n), the column and row passes' stage tables
+    t = {"qs": fp["qs"][:k], "psi": fp["psi"][:k], "psip": fp["psip"][:k],
+         "tw1": fp["pack1"]["tw"][:k], "twp1": fp["pack1"]["twp"][:k],
+         "tw": fp["tw"][:k], "twp": fp["twp"][:k],
+         "tw2": fp["pack2"]["tw"][:k], "twp2": fp["pack2"]["twp"][:k]}
+    check_tensors(where, x.device, **t)
+    check_shape(where, "qs", t["qs"], (k,))
+    for name in ("psi", "psip", "tw", "twp"):
+        check_shape(where, name, t[name], (k, n))
+    for name, m in (("tw1", n1), ("twp1", n1), ("tw2", n2), ("twp2", n2)):
+        check_shape(where, name, t[name], (k, m.bit_length() - 1, m // 2))
+    out = torch.empty_like(x)           # x's layout where x is dense
+    if out.stride(-1) != 1:
+        out = x.new_empty(x.shape)
+    if x.device.type == "meta":
+        # pass 1 reads x (and psi) and the tables, writes scratch; pass 2
+        # reads scratch and its tables, writes out
+        reads = [x] + [t[a] for a in ("qs", "tw1", "twp1", "tw", "twp", "tw2", "twp2")]
+        ops = (banks_int_ops(x, n1.bit_length() - 1, fwd=True, negacyclic=negacyclic,
+                             lazy=lazy, reduce_out=False)
+               + x.numel() * MUL_OPS[(4, lazy)]
+               + banks_int_ops(x, n2.bit_length() - 1, fwd=True, negacyclic=False,
+                               lazy=lazy, reduce_out=True))
+        return meta_launch(where, out, reads + ([t["psi"], t["psip"]] if negacyclic else []),
+                           ops, 2 * x.numel() * x.element_size())
+    lib = build.load("fourstep")
+    if x.numel() == 0:
+        return out
+    scratch = x.new_empty((k, b, n))
+    rc = lib.ntt_fourstep_banks(
+        x.data_ptr(), out.data_ptr(), scratch.data_ptr(),
+        *(t[a].data_ptr() for a in ("qs", "psi", "psip", "tw1", "twp1", "tw", "twp", "tw2",
+                                    "twp2")),
+        k, b, n1, n2, x.stride(0), x.stride(1), out.stride(0), out.stride(1),
+        int(negacyclic), int(lazy), stream())
+    raise_on(where, rc)
+    COUNTS[where].launches += 1
     return out
 
 

@@ -24,8 +24,11 @@ Below ``FOURSTEP_MIN_N`` the whole transform is one banks kernel and
 NTT rows are in bit-reversed order; at and above it the four-step
 pipeline runs (two bank passes of n1- and n2-point transforms with the
 step-3 twiddle multiply between them) and NTT rows are in natural order.
-The four-step transposes and bit-reversal gathers are torch indexing, as
-they sit outside the kernels in the reference too.
+On the card the forward four-step is two kernels (``csrc/fourstep.cu``)
+that carry the psi weights, the twiddle, the transposes and the
+bit-reversals themselves; the inverse's transposes and bit-reversal
+gathers are torch indexing, as they sit outside the kernels in the
+reference.
 
 The key switch's RNS base conversions run per coefficient, on either
 NTT layout: ``extend_centered_banks`` (the mod-up onto a basis, one prime
@@ -43,8 +46,8 @@ import math
 import torch
 
 from repro_torch import obs
-from repro_torch.core.params import bitrev_perm
 from repro_torch.kernels import basis_kernel, dyadic_kernel, galois_kernel, ntt_kernel
+from repro_torch.kernels.ref import brev_index as _brev
 
 FOURSTEP_MIN_N = 1 << 13
 
@@ -216,17 +219,6 @@ def galois_digits_banks(ext, idx):
                                        shared=shared)
 
 
-_BREV: dict = {}
-
-
-def _brev(n: int, device) -> torch.Tensor:
-    """Bit-reversal gather index (an involution) for ``n`` on ``device``."""
-    key = (n, str(device))
-    if key not in _BREV:
-        _BREV[key] = torch.from_numpy(bitrev_perm(n)).to(device)
-    return _BREV[key]
-
-
 def fourstep_dims(fp: dict) -> tuple[int, int]:
     """(n1, n2) of a four-step pack, read from its table shapes."""
     return fp["pack1"]["tw"].shape[-1] * 2, fp["pack2"]["tw"].shape[-1] * 2
@@ -236,36 +228,22 @@ def fourstep_dims(fp: dict) -> tuple[int, int]:
 @_ct_batch_axis
 def ntt_fourstep_banks(x, fp: dict, *, negacyclic: bool = True,
                        lazy: bool = True):
-    """Large-N forward NTT via the four-step decomposition, every pass on
-    the bank kernels (paper §IX).  x: (k, ..., n); fp: FourStepPack for at
-    least those k primes.  Output in natural frequency order
-    (A_hat[k2*n1 + k1]).  In lazy mode the inter-pass values ride in
-    [0, 2q) and pass 2's epilogue restores [0, q)."""
+    """Large-N forward NTT via the four-step decomposition (paper §IX).
+    x: (k, ..., n); fp: FourStepPack for at least those k primes.  Output
+    in natural frequency order (A_hat[k2*n1 + k1]), in [0, q).  On the
+    card two passes of ``csrc/fourstep.cu``, reading x through its strides
+    where its middle axes fold into one; on the CPU the reference's chain
+    of bank passes (``kernels.ref.fourstep_chain``), whose lazy inter-pass
+    values ride in [0, 2q) as the kernels' do."""
     k = x.shape[0]
     n1, n2 = fourstep_dims(fp)
     n = n1 * n2
     if x.shape[-1] != n:
         raise ValueError(f"ntt_fourstep_banks: rows of {x.shape[-1]} for a "
                          f"{n1}x{n2} pack")
-    qs = fp["qs"][:k]
-    shape = x.shape
-    x = x.reshape(k, -1, n)
-    b = x.shape[1]
-    if negacyclic:
-        x = twiddle_mul_banks(x, fp["psi"][:k], fp["psip"][:k], qs, lazy=lazy)
-    # pass 1: column NTT-N1 units, the N2 columns folded into the batch
-    xt = x.reshape(k, b, n1, n2).transpose(-1, -2).reshape(k, b * n2, n1)
-    xt = ntt_banks(xt, fp["pack1"], negacyclic=False, lazy=lazy,
-                   reduce_out=False)[..., _brev(n1, x.device)]
-    x = xt.reshape(k, b, n2, n1).transpose(-1, -2).reshape(k, b, n)
-    # step 3: twiddle correction
-    x = twiddle_mul_banks(x, fp["tw"][:k], fp["twp"][:k], qs, lazy=lazy)
-    # pass 2: row NTT-N2 units (epilogue restores the canonical band)
-    xr = x.reshape(k, b * n1, n2)
-    xr = ntt_banks(xr, fp["pack2"], negacyclic=False,
-                   lazy=lazy)[..., _brev(n2, x.device)]
-    # readout: A_hat[k2*n1 + k1] = D[k1, k2]
-    return xr.reshape(k, b, n1, n2).transpose(-1, -2).reshape(shape)
+    out = ntt_kernel.ntt_fourstep_banks(x.reshape(k, -1, n), fp,
+                                        negacyclic=negacyclic, lazy=lazy)
+    return out.reshape(x.shape)
 
 
 @_spanned

@@ -22,7 +22,7 @@ from repro_torch.core.modmath import (addmod, lazy_addmod, lazy_submod,
                                       mulmod_barrett, mulmod_barrett_lazy,
                                       mulmod_shoup, mulmod_shoup_lazy, submod,
                                       u16, u32)
-from repro_torch.core.params import NTTParams
+from repro_torch.core.params import NTTParams, bitrev_perm
 from repro_torch.kernels import COUNTS
 
 
@@ -103,8 +103,12 @@ def ntt_fwd_banks_ref(x, qs, tw, twp, pre, prep, negacyclic: bool,
     """Multi-prime forward constant-geometry NTT.  x: (k, ..., n) with row
     p reduced mod qs[p]; tw/twp: (k, s, n/2), s <= log2 n stages;
     pre/prep: (k, n)."""
+    COUNTS["ntt_fwd_banks_u16" if lane_bits(x) == 16 else "ntt_fwd_banks"].plain_calls += 1
+    return _fwd_banks(x, qs, tw, twp, pre, prep, negacyclic, lazy, reduce_out)
+
+
+def _fwd_banks(x, qs, tw, twp, pre, prep, negacyclic, lazy, reduce_out):
     bits = lane_bits(x)
-    COUNTS["ntt_fwd_banks_u16" if bits == 16 else "ntt_fwd_banks"].plain_calls += 1
     shoup_lazy, shoup = _shoup_pair(bits)
     nd = x.ndim
     q = _per_prime(qs, nd)
@@ -162,10 +166,67 @@ def twiddle_mul_banks_ref(x, qs, w, wp, lazy: bool = False):
     any u32 input representative is accepted (words of 2^31 and above
     arrive as negative int32 bit patterns)."""
     COUNTS["twiddle_mul_banks"].plain_calls += 1
+    return _weight_mul(x, qs, w, wp, lazy)
+
+
+def _weight_mul(x, qs, w, wp, lazy):
     nd = x.ndim
     mul = mulmod_shoup_lazy if lazy else mulmod_shoup
     return mul(u32(x), _per_prime(w, nd), _per_prime(wp, nd),
                _per_prime(qs, nd)).int()
+
+
+_BREV: dict = {}
+
+
+def brev_index(n: int, device) -> torch.Tensor:
+    """Bit-reversal gather index (an involution) for ``n`` on ``device``."""
+    key = (n, str(device))
+    if key not in _BREV:
+        _BREV[key] = torch.from_numpy(bitrev_perm(n)).to(device)
+    return _BREV[key]
+
+
+def fourstep_chain(x, fp: dict, negacyclic: bool, fwd, mul):
+    """The four-step forward transform as the reference runs it, a chain
+    of bank transforms, weight-row multiplies and PyTorch indexing: the
+    psi weights (negacyclic), a transposed copy, pass 1 over the columns,
+    its bit-reversal gather, the transpose back, the step-3 twiddle, pass
+    2 over the rows, its gather and the readout transpose.  x: (k, B, n);
+    fp: FourStepPack of at least k primes; fwd(x, pack, reduce_out) a
+    cyclic bank transform with the stage tables of ``pack`` (fp's pack1
+    or pack2), mul(x, w, wp) a weight-row multiply, both in one lazy
+    mode.  Returns (k, B, n) in natural order (A_hat[k2*n1 + k1]); in lazy
+    mode the inter-pass values ride in [0, 2q) and pass 2's epilogue
+    restores [0, q)."""
+    k, b, n = x.shape
+    n1, n2 = fp["pack1"]["tw"].shape[-1] * 2, fp["pack2"]["tw"].shape[-1] * 2
+    if negacyclic:
+        x = mul(x, fp["psi"][:k], fp["psip"][:k])
+    # pass 1: column NTT-N1 units, the N2 columns folded into the batch
+    xt = x.reshape(k, b, n1, n2).transpose(-1, -2).reshape(k, b * n2, n1)
+    xt = fwd(xt, fp["pack1"], False)[..., brev_index(n1, x.device)]
+    x = xt.reshape(k, b, n2, n1).transpose(-1, -2).reshape(k, b, n)
+    # step 3: twiddle correction
+    x = mul(x, fp["tw"][:k], fp["twp"][:k])
+    # pass 2: row NTT-N2 units (epilogue restores the canonical band)
+    xr = fwd(x.reshape(k, b * n1, n2), fp["pack2"], True)[..., brev_index(n2, x.device)]
+    # readout: A_hat[k2*n1 + k1] = D[k1, k2]
+    return xr.reshape(k, b, n1, n2).transpose(-1, -2).reshape(k, b, n)
+
+
+def ntt_fourstep_banks_ref(x, fp: dict, negacyclic: bool, lazy: bool = False):
+    """Four-step forward NTT of x (k, B, n) over FourStepPack ``fp``: the
+    reference's chain (``fourstep_chain``) on the plain transforms and
+    weight-row multiplies, counted once as ``ntt_fourstep_banks``."""
+    COUNTS["ntt_fourstep_banks"].plain_calls += 1
+    k = x.shape[0]
+    qs = fp["qs"][:k]
+    return fourstep_chain(
+        x, fp, negacyclic,
+        lambda v, t, reduce_out: _fwd_banks(v, qs, t["tw"][:k], t["twp"][:k], None, None,
+                                            False, lazy, reduce_out),
+        lambda v, w, wp: _weight_mul(v, qs, w, wp, lazy))
 
 
 def dyadic_inner_banks_ref(ext, evk, qs, mus, lazy: bool = False):

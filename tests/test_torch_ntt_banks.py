@@ -1,7 +1,8 @@
 """The port's NTT-bank entry points against the JAX reference on the CPU
 (the reference's plain path, ``use_pallas=False``): the single-kernel
 forward/inverse transforms at 2^10, the weight-row multiply, and the
-four-step pipeline at 2^10 and 2^12.  Integer outputs must be
+four-step pipeline at 2^10 and 2^12 (and the four-step kernels' wrapper
+on its CPU route at 2^13 and 2^14).  Integer outputs must be
 bit-identical, including the raw [0, 2q) representatives that
 ``reduce_out=False`` hands to a lazy consumer."""
 import numpy as np
@@ -118,6 +119,26 @@ def test_fourstep_fwd_inv_match_reference(n, lazy, negacyclic):
     p2 = TO.intt_fourstep_banks(p, port, **kw)
     assert _same(r2, p2)
     assert np.array_equal(tensor_to_u32(p2), x)
+
+
+@pytest.mark.parametrize("n", [1 << 13, 1 << 14])
+@pytest.mark.parametrize("lazy", [False, True])
+@pytest.mark.parametrize("negacyclic", [False, True])
+def test_fourstep_wrapper_cpu_route_matches_reference(n, lazy, negacyclic):
+    """The four-step kernels' wrapper on a CPU tensor (k = 3, B = 2) runs
+    the plain chain, counted once as ``ntt_fourstep_banks``, with the
+    reference's words."""
+    from repro_torch.kernels import ntt_kernel
+    primes, ref, port = _fourstep(n)
+    x = _residues(n + 2 * lazy + negacyclic, primes, (2,), n)
+    kw = dict(negacyclic=negacyclic, lazy=lazy)
+    r = RO.ntt_fourstep_banks(jnp.asarray(x), ref, use_pallas=False, **kw)
+    K.reset_counts()
+    p = ntt_kernel.ntt_fourstep_banks(u32_to_tensor(x, "cpu"), port, **kw)
+    assert _same(r, p)
+    counts = K.snapshot()
+    assert counts["ntt_fourstep_banks"]["plain_calls"] == 1
+    assert sum(c["plain_calls"] for c in counts.values()) == 1
 
 
 def test_fourstep_batch_leading():

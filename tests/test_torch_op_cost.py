@@ -134,6 +134,7 @@ def test_repeated_call_counts_forward_and_backward():
 
 N = 64
 PRIMES = tuple(rns.make_primes(N, 3))
+FOURSTEP_N = 1024     # the four-step kernels' smallest ring (32 x 32)
 
 
 class _FakeCuda(torch.Tensor):
@@ -157,6 +158,14 @@ class _NoLaunch:
         raise AssertionError(f"{fn} reached on a tensor the kernel refuses")
 
 
+FS_PRIMES = tuple(rns.make_primes(FOURSTEP_N, 3))
+
+
+def _tree_to(tree: dict, as_, device) -> dict:
+    return {key: (_tree_to(v, as_, device) if isinstance(v, dict) else as_(v.to(device)))
+            for key, v in tree.items()}
+
+
 def _calls(device, bad: bool, fake=None):
     """(kernel, call) of every wrapper on meta-sized tensors of ``device``;
     ``bad`` gives the main input a wrong last dim."""
@@ -173,6 +182,7 @@ def _calls(device, bad: bool, fake=None):
     fl = dict(negacyclic=True, lazy=True, reduce_out=True)
     conv = from_reference(TB.conv_table_np(
         [list(enumerate(PRIMES[:2])), [(2, PRIMES[2])]], PRIMES), "cpu")
+    fs = _tree_to(TB.build_fourstep_pack(FS_PRIMES, FOURSTEP_N, "cpu"), as_, device)
     return {
         "ntt_fwd_banks": lambda: ntt_kernel.ntt_fwd_banks(
             x, t["qs"], t["tw"], t["twp"], t["psi"], t["psip"], **fl),
@@ -205,6 +215,11 @@ def _calls(device, bad: bool, fake=None):
         "base_conv": lambda: basis_kernel.base_conv(x, {
             name: (as_(v.to(device)[:1]) if bad and name == "cnt" else as_(v.to(device)))
             for name, v in conv.items()}),
+        # rows of the 32 x 32 split, x batch-leading (strided over its
+        # first two axes); a wrong row length is refused
+        "ntt_fourstep_banks": lambda: ntt_kernel.ntt_fourstep_banks(
+            z(2, k, FOURSTEP_N + (2 if bad else 0)).transpose(0, 1), fs,
+            negacyclic=True, lazy=True),
     }
 
 
@@ -251,15 +266,18 @@ def test_cpu_tensor_stays_on_the_plain_path(name):
 def test_meta_keyswitch_records_the_cpu_runs_launches(fourstep):
     """A meta ``batched_keyswitch`` (k = 3 + 1 primes, B = 2, n = 64)
     records, kernel by kernel, the launches the CPU run's plain versions
-    count; on the four-step route with a FourStepPack too."""
+    count; on the four-step route with a FourStepPack too (n = 1024, the
+    smallest ring of the four-step kernels), whose forward transforms are
+    ``ntt_fourstep_banks``."""
     k, b = 3, 2
-    primes = tuple(rns.make_primes(N, k + 1))
+    n = FOURSTEP_N if fourstep else N
+    primes = tuple(rns.make_primes(n, k + 1))
     rng = np.random.default_rng(7)
-    t = TB.build_table_pack(primes, N, "cpu")
-    fsp = TB.build_fourstep_pack(primes, N, "cpu") if fourstep else None
-    d2 = torch.from_numpy(np.stack([rng.integers(0, q, (b, N)) for q in primes[:k]])
+    t = TB.build_table_pack(primes, n, "cpu")
+    fsp = TB.build_fourstep_pack(primes, n, "cpu") if fourstep else None
+    d2 = torch.from_numpy(np.stack([rng.integers(0, q, (b, n)) for q in primes[:k]])
                           .astype(np.int32))
-    evk = torch.from_numpy(rng.integers(0, primes[0], (k, k + 1, N)).astype(np.int32))
+    evk = torch.from_numpy(rng.integers(0, primes[0], (k, k + 1, n)).astype(np.int32))
     K.reset_counts()
     TB.batched_keyswitch(d2, evk, evk, t, fsp=fsp)
     cpu = {name: v["plain_calls"] for name, v in K.snapshot().items() if v["plain_calls"]}
@@ -268,6 +286,7 @@ def test_meta_keyswitch_records_the_cpu_runs_launches(fourstep):
     with op_cost.OpCounter() as c:
         ks0, ks1 = TB.batched_keyswitch(d2.to("meta"), evk.to("meta"), evk.to("meta"),
                                         to_meta(t), fsp=fsp and to_meta(fsp))
-    assert ks0.shape == ks1.shape == (k, b, N)
+    assert ks0.shape == ks1.shape == (k, b, n)
     assert c.kernels == cpu
-    assert set(cpu) >= {"ntt_fwd_banks", "ntt_inv_banks", "dyadic_inner_banks"}
+    fwd = "ntt_fourstep_banks" if fourstep else "ntt_fwd_banks"
+    assert set(cpu) >= {fwd, "ntt_inv_banks", "dyadic_inner_banks"}

@@ -12,7 +12,7 @@ import torch
 
 from repro_torch import kernels as K
 from repro_torch.convert import from_reference
-from repro_torch.core.params import make_ntt_params
+from repro_torch.core.params import fourstep_split, make_ntt_params
 from repro_torch.core.ringspec import MLKEM_RING, ring_table_pack
 from repro_torch.fhe import batched as TB
 from repro_torch.fhe import rns
@@ -342,6 +342,51 @@ def test_banks_transform_above_4096_reaches_its_launcher(monkeypatch, n):
     assert scratch == [(2, 3, n)] * 2
     c = K.snapshot()
     assert c["ntt_fwd_banks"]["launches"] == c["ntt_inv_banks"]["launches"] == 1
+
+
+def _fake_fourstep_pack(k, n):
+    n1, n2 = fourstep_split(n)
+    stages = lambda m: {"tw": _fake(k, m.bit_length() - 1, m // 2),
+                        "twp": _fake(k, m.bit_length() - 1, m // 2)}
+    return {"qs": _fake(k), "pack1": stages(n1), "pack2": stages(n2),
+            **{name: _fake(k, n) for name in ("psi", "psip", "tw", "twp")}}
+
+
+@pytest.mark.parametrize("n", [1 << 10, 1 << 14, 1 << 17])
+@pytest.mark.parametrize("batch_leading", [False, True])
+def test_fourstep_reaches_its_launcher_with_strides(monkeypatch, n, batch_leading):
+    """The four-step forward reaches its launcher once, after its twelve
+    pointers, with k, B, n1, n2 and the (prime, ring) strides of x and of
+    the output: a batch-leading view is read in place and its output laid
+    out so that the swap back is contiguous; one count, no plain version."""
+    lib = _Recorder()
+    monkeypatch.setattr(build, "load", lambda name: lib)
+    monkeypatch.setattr(ntt_kernel, "stream", lambda: 0)
+    k, b = 3, 5
+    n1, n2 = fourstep_split(n)
+    x = _fake(b, k, n).transpose(0, 1) if batch_leading else _fake(k, b, n)
+    K.reset_counts()
+    out = ntt_kernel.ntt_fourstep_banks(x, _fake_fourstep_pack(k, n), negacyclic=True,
+                                        lazy=True)
+    strides = (n, k * n) if batch_leading else (b * n, n)
+    (fn, args), = lib.calls
+    assert fn == "ntt_fourstep_banks"
+    assert len(args) == len(build.SIGNATURES["fourstep"][fn])
+    assert args[12:] == (k, b, n1, n2) + strides * 2 + (1, 1, 0)
+    assert tuple(out.shape) == (k, b, n) and out.stride()[:2] == strides
+    assert K.snapshot()[fn] == {"launches": 1, "plain_calls": 0}
+
+
+def test_fourstep_refuses_a_split_it_lacks(monkeypatch):
+    """A 16 x 16 pack, or rows of another length, is refused before the
+    launcher."""
+    monkeypatch.setattr(build, "load", lambda name: _Recorder())
+    fp = _fake_fourstep_pack(2, 1 << 10)
+    with pytest.raises(ValueError, match="x must be"):
+        ntt_kernel.ntt_fourstep_banks(_fake(2, 1, 1 << 11), fp, negacyclic=True, lazy=True)
+    with pytest.raises(ValueError, match="16 x 16 split"):
+        ntt_kernel.ntt_fourstep_banks(_fake(2, 1, 256), _fake_fourstep_pack(2, 256),
+                                      negacyclic=True, lazy=True)
 
 
 def test_banks_scratch_only_above_one_launchs_ring():

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Where one key-switch group's device time goes, step by step, on the card.
 
-    python3 tools/glue_steps.py [--src DIR] [--label NAME] [--seed N]
+    python3 tools/glue_steps.py [--src DIR] [--label NAME] [--seed N] [--n16]
 
 DIR is the ``src`` directory of a checkout (default: this repository's),
 so two trees can be read in one machine call, in turns, on one card.
@@ -9,7 +9,9 @@ The program is the key-switch cell's: ``galois_ks_many_banks`` over a
 group of 32 ciphertexts at n = 2^14 with 8 + 1 primes (the four-step
 path), one shared gather row and key, run eagerly (the plan's eager
 twin runs the same module-level program; a graph replay runs the same
-kernels).  One warm call runs under ``torch.profiler``, with a
+kernels).  ``--n16`` reads the n16-hybrid-keyswitch cell's group
+instead: n = 2^16, 24 primes and 6 special primes, hybrid key
+switching with dnum = 4 (digits of 6 primes).  One warm call runs under ``torch.profiler``, with a
 ``record_function`` range around each call of a function that names a
 step (``STEPS``); each PyTorch op's device kernels go to the innermost
 such range around the op, and the port's own kernels (the
@@ -28,9 +30,11 @@ import subprocess
 import sys
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-N = 1 << 14
-PRIMES = 9            # 8 ciphertext primes + the special P
 GROUP = 32            # the engine's full group
+# (n, ciphertext primes, special primes): the fig22 cell's group, and
+# with --n16 the n16 cell's (alpha = K = 6 primes a digit)
+FIG22 = (1 << 14, 8, 1)
+N16 = (1 << 16, 24, 6)
 
 # a function of the port -> the glue step its PyTorch ops belong to (the
 # innermost such function around an op names its step)
@@ -96,6 +100,8 @@ def main() -> int:
     ap.add_argument("--src", default=os.path.join(ROOT, "src"))
     ap.add_argument("--label", default="this tree")
     ap.add_argument("--seed", type=int, default=1)
+    ap.add_argument("--n16", action="store_true",
+                    help="the n16 cell's hybrid group (2^16, 24 + 6 primes, dnum = 4)")
     args = ap.parse_args()
     src = os.path.abspath(args.src)
     sys.path.insert(0, src)
@@ -106,11 +112,17 @@ def main() -> int:
         print("glue_steps: no CUDA device", file=sys.stderr)
         return 1
     from repro_torch.core.params import galois_eval_perm
+    from repro_torch.fhe import batched as FB
     from repro_torch.fhe import rns
     from repro_torch.fhe.evalplan import galois_ks_many_banks
 
-    primes = tuple(rns.make_primes(N, PRIMES))
-    k = PRIMES - 1
+    N, k, K = N16 if args.n16 else FIG22
+    made = rns.make_primes(N, k + K)
+    # the largest K primes are P's (fhe/ckks.py), after the ciphertext's
+    specials = tuple(made[:K]) if K > 1 else tuple(made[-1:])
+    basis = tuple(made[K:]) if K > 1 else tuple(made[:-1])
+    primes = basis + specials
+    digits = -(-k // K)
     dev = torch.device("cuda")
     rng = np.random.default_rng(args.seed)
 
@@ -118,11 +130,13 @@ def main() -> int:
         return torch.from_numpy(np.stack([rng.integers(0, q, shape) for q in qs])
                                 .astype(np.int32)).to(dev)
 
-    c0 = residues(primes[:k], (GROUP, N)).transpose(0, 1).contiguous()
-    c1 = residues(primes[:k], (GROUP, N)).transpose(0, 1).contiguous()
-    keys = [torch.stack([residues(primes, (N,)) for _ in range(k)]) for _ in range(2)]
+    c0 = residues(basis, (GROUP, N)).transpose(0, 1).contiguous()
+    c1 = residues(basis, (GROUP, N)).transpose(0, 1).contiguous()
+    keys = [torch.stack([residues(primes, (N,)) for _ in range(digits)]) for _ in range(2)]
     idx = torch.from_numpy(galois_eval_perm(5, N, natural=True).astype(np.int32)).to(dev)
     t = rns.scalar_pack(primes, dev)
+    if K > 1:
+        t = {**t, **FB.build_hybrid_pack(basis, specials, K, dev)}
     fsp = rns.fourstep_basis_pack(primes, N, dev)
     run = lambda: galois_ks_many_banks(c0, c1, idx, *keys, t, fsp)
     for _ in range(3):
@@ -165,7 +179,7 @@ def main() -> int:
     busy = sum(e.time_range.elapsed_us() for e in device)
     glue = sum(e.time_range.elapsed_us() for e in device
                if not any(f in e.name for f in ours))
-    print(f"[{args.label}] one group of {GROUP} (n = {N}, {k} + 1 primes): device busy "
+    print(f"[{args.label}] one group of {GROUP} (n = {N}, {k} + {K} primes): device busy "
           f"{busy / 1e3:.4f} ms, {busy / GROUP:.3f} us a request; PyTorch glue "
           f"{glue / 1e3:.4f} ms ({100 * glue / busy:.1f}%), of which linked to a step "
           f"{linked / 1e3:.4f} ms")
@@ -177,7 +191,7 @@ def main() -> int:
               f"{list(_frames(e))[:8]}")
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True, text=True)
-    print(json.dumps({"label": args.label, "busy_us": busy, "glue_us": glue,
+    print(json.dumps({"label": args.label, "n": N, "busy_us": busy, "glue_us": glue,
                       "linked_us": linked, "group": GROUP,
                       "steps": {s: {"launches": n, "us": us} for s, (n, us) in rows.items()},
                       "card": card.stdout.strip()}))
