@@ -8,20 +8,19 @@ special primes: d = k and K = 1 with one prime a digit, d = ceil(k /
 alpha) and K = alpha under hybrid key switching, whose tables add the
 fast base conversions', ``fhe.batched.build_hybrid_pack``) and the
 NTT-domain Galois gather rows, then runs each scheme op as one program
-over raw (k, n) residue stacks:
+over (B, k, n) leading-batch residue stacks: B ciphertexts at one basis
+ride one pass of every kernel, and a single ciphertext is a batch of one
+(``multiply``, ``rescale`` and ``apply_galois`` run the program at B = 1):
 
-  multiply   -> ``multiply_banks``  (tensor product + fused batched_keyswitch)
-  rescale    -> ``rescale_banks``   (both halves through one mod_down_banks)
-  rotate/conjugate -> ``galois_ks_banks`` (NTT-domain gather + key switch)
+  multiply   -> ``multiply_many_banks``  (tensor products + fused key switch)
+  rescale    -> ``rescale_many_banks``   (all 2B halves through one mod_down_banks)
+  rotate/conjugate -> ``galois_ks_many_banks`` (NTT-domain gather + key switch)
   R rotations of one ct -> ``hoisted_rotations_banks`` (one digit
                 decomposition, R digit gathers, R key inner products,
                 one mod-down over all 2R halves)
 
-The ``*_many`` twins take (B, k, n) leading-batch stacks: B ciphertexts
-at one basis ride one pass of every kernel, bit-identical to a loop of
-the single-ciphertext programs.  A Galois batch carries a gather row and
-key digits per ciphertext, so one pass can mix rotation amounts.
-Batching never crosses bases.
+A Galois batch carries a gather row and key digits per ciphertext, so
+one pass can mix rotation amounts.  Batching never crosses bases.
 
 Compiled programs.  The module-level functions are the plain eager
 programs.  On the card, ``EvalPlan``'s methods run each of them as a CUDA
@@ -52,7 +51,7 @@ batch_sizes=...)`` captures ahead of traffic.  A capture or replay that fails ra
 to the eager program.  On the CPU the programs run eagerly.
 
 Scale-out.  ``EvalPlan(ctx, mesh=mesh.make_mesh(devices))`` splits every
-batched program over the mesh's "b" axis, as the reference's
+program of several rows over the mesh's "b" axis, as the reference's
 ``shard_map`` twins do: ``multiply_many``, ``rescale_many`` and
 ``galois_ks_many`` cut their (B, k, n) stacks into equal shards (a mixed
 Galois batch builds each shard's own key stacks and gather rows), and
@@ -69,10 +68,11 @@ device.  A mesh of one device is sharded too.
 
 A "k" axis of s > 1 shards splits the RNS prime axis, as the reference's
 ``_shard_k`` does (with one prime a digit only: a hybrid context is
-refused): a program whose ciphertext has a multiple of s primes runs
-over it, any other runs unsharded on the plan's device.  Over "k"
-go ``multiply``, ``rescale`` and ``apply_galois`` always, and the
-``*_many`` programs and ``hoisted_galois`` when the mesh has no "b" axis.
+refused).  One rule routes every program, from its basis and its row
+count: a program that does not split over "b" (the mesh has no "b"
+axis, or the program has one row, which is never padded) runs over "k"
+when its ciphertext has a multiple of s primes, else unsharded on the
+plan's device.
 Shard j owns the block ``basis[j*m:(j+1)*m]`` (m = k/s) and runs on its
 device with the tables of its shard basis: the block, then the prime the
 program drops (P for a key switch, the last prime for a rescale), so
@@ -171,48 +171,11 @@ def _tensor_product(a0, a1, b0, b1, q, mu):
     return d0, d1, d2
 
 
-def multiply_front(a0, a1, b0, b1, t, fsp=None):
-    """A multiply up to its one cross-prime step: the tensor product and
-    the digit iNTTs of d2.  a0/a1/b0/b1: (k, n) NTT-form halves over t's
-    first k primes.  Returns (d0, d1, ci): the int32 (k, n) d0 and d1 and
-    d2's (k, 1, n) coefficient digits."""
-    k = a0.shape[0]
-    q = u32(t["qs"][:k])[:, None]
-    mu = u32(t["mu"][:k])[:, None]
-    d0, d1, d2 = _tensor_product(a0, a1, b0, b1, q, mu)
-    return d0.int(), d1.int(), FB.decompose_intt(d2.int()[:, None], t, fsp=fsp)
-
-
-def multiply_back(ci, d0, d1, evk_b, evk_a, src_qs, t, fsp=None):
-    """The rest of a multiply: the key switch of the digits ci (mod
-    ``src_qs``) onto t's primes, its mod-down tails adding d0/d1.
-    evk_b/evk_a: (d, kt, n) over t's kt primes.  Returns the (c0, c1)
-    stacks over all of them but P."""
-    ks0, ks1 = FB.keyswitch_digits(ci, src_qs, evk_b, evk_a, t, fsp=fsp,
-                                   add0=d0[:, None], add1=d1[:, None])
-    return ks0[:, 0], ks1[:, 0]
-
-
-def multiply_banks(a0, a1, b0, b1, evk_b, evk_a, t, fsp=None):
-    """Ciphertext tensor + relinearization.  a0/a1/b0/b1: (k, n) NTT-form
-    halves; evk_b/evk_a: (k, k+1, n) relin key digits; t (+ fsp) the
-    basis+special tables.  Returns the (c0, c1) stacks."""
-    d0, d1, ci = multiply_front(a0, a1, b0, b1, t, fsp)
-    return multiply_back(ci, d0, d1, evk_b, evk_a, t["qs"], t, fsp)
-
-
-def rescale_banks(c0, c1, t, fsp=None):
-    """Rescale by the last basis prime: both halves ride one fused
-    ``mod_down_banks`` as a batch of two.  t's basis is the ciphertext
-    basis itself (its last prime is the one dropped)."""
-    acc = torch.stack([c0, c1], dim=1)                 # (k+1, 2, n)
-    out = mod_down_banks(acc, t, fsp=fsp)
-    return out[:, 0], out[:, 1]
-
-
 def multiply_many_front(a0, a1, b0, b1, t, fsp=None):
-    """``multiply_front`` of B ciphertexts: a0/a1/b0/b1 (B, k, n).  Returns
-    the (B, k, n) d0 and d1 and the (k, B, n) digits."""
+    """A multiply up to its one cross-prime step: the tensor products and
+    the digit iNTTs of d2.  a0/a1/b0/b1: (B, k, n) NTT-form halves over
+    t's first k primes.  Returns the int32 (B, k, n) d0 and d1 and d2's
+    (k, B, n) coefficient digits."""
     k = a0.shape[1]
     q = u32(t["qs"][:k])[None, :, None]
     mu = u32(t["mu"][:k])[None, :, None]
@@ -222,6 +185,10 @@ def multiply_many_front(a0, a1, b0, b1, t, fsp=None):
 
 
 def multiply_many_back(ci, d0, d1, evk_b, evk_a, src_qs, t, fsp=None):
+    """The rest of a multiply: the key switch of the digits ci (mod
+    ``src_qs``) onto t's primes, its mod-down tails adding d0/d1.
+    evk_b/evk_a: (d, kt, n) over t's kt primes.  Returns the (B, kt - 1, n)
+    (c0, c1) stacks over all of them but P."""
     return FB.keyswitch_digits(ci, src_qs, evk_b, evk_a, t, fsp=fsp, add0=d0,
                                add1=d1, batch_leading=True)
 
@@ -245,32 +212,11 @@ def rescale_many_banks(c0, c1, t, fsp=None):
     return out[:, 0], out[:, 1]
 
 
-def galois_ks_front(c0, c1, idx, t, fsp=None):
-    """A rotation up to its one cross-prime step: the NTT-domain gather on
-    both halves and the digit iNTTs of the permuted c1.  c0/c1 (k, n); idx
-    (n,).  Returns (c0g, ci): the gathered c0 and c1's (k, 1, n) digits."""
-    c0g = ops.galois_banks(c0, idx)
-    c1g = ops.galois_banks(c1, idx)
-    return c0g, FB.decompose_intt(c1g[:, None], t, fsp=fsp)
-
-
-def galois_ks_back(ci, c0g, evk_b, evk_a, src_qs, t, fsp=None):
-    ks0, ks1 = FB.keyswitch_digits(ci, src_qs, evk_b, evk_a, t, fsp=fsp,
-                                   add0=c0g[:, None])
-    return ks0[:, 0], ks1[:, 0]
-
-
-def galois_ks_banks(c0, c1, idx, evk_b, evk_a, t, fsp=None):
-    """Slot rotation / conjugation: NTT-domain gather on both halves (no
-    iNTT/NTT round trip), then the key switch of the permuted c1 under
-    the Galois key.  c0/c1 (k, n); idx (n,); evk_b/evk_a (k, k+1, n)."""
-    c0g, ci = galois_ks_front(c0, c1, idx, t, fsp)
-    return galois_ks_back(ci, c0g, evk_b, evk_a, t["qs"], t, fsp)
-
-
 def galois_ks_many_front(c0, c1, idx, t, fsp=None):
-    """``galois_ks_front`` of B ciphertexts: c0/c1 (B, k, n), idx (n,) or
-    (B, n).  Returns the (B, k, n) gathered c0 and the (k, B, n) digits."""
+    """A rotation up to its one cross-prime step: the NTT-domain gather on
+    both halves and the digit iNTTs of the permuted c1.  c0/c1 (B, k, n),
+    idx (n,) or (B, n).  Returns the (B, k, n) gathered c0 and c1's
+    (k, B, n) digits."""
     c0g = ops.galois_banks(c0, idx, batch_leading=True)
     c1g = ops.galois_banks(c1, idx, batch_leading=True)
     return c0g, FB.decompose_intt(c1g.transpose(0, 1).contiguous(), t, fsp=fsp)
@@ -476,11 +422,17 @@ class EvalPlan:
         group multiplier and the tuner's ``shards=``."""
         return len(self._shards) if self._shards is not None else 1
 
+    def _over_b(self, rows: int) -> bool:
+        """Whether a program of ``rows`` rows splits over the "b" axis: the
+        mesh has one, and the program more than one row."""
+        return self._shards is not None and rows > 1
+
     def _pad_batch(self, items: list) -> list:
         """``items`` padded to a multiple of the "b" axis size by repeating
-        its last entry.  Callers zip results against the original list, so
-        pad rows are computed and dropped."""
-        return list(items) + [items[-1]] * (-len(items) % self.mesh_devices)
+        its last entry when they split over it.  Callers zip results against
+        the original list, so pad rows are computed and dropped."""
+        pad = -len(items) % self.mesh_devices if self._over_b(len(items)) else 0
+        return list(items) + [items[-1]] * pad
 
     def reset_stats(self):
         self.stats = {"dispatches": 0, "key_switches": 0, "decomposes": 0}
@@ -539,10 +491,10 @@ class EvalPlan:
         hoisted program's rotations).  ``args(device, rows)`` gives the
         (inputs, consts) of the rows ``rows`` (a slice) on ``device``.
         Unsharded, one program of every row on the plan's device; over a
-        mesh's "b" axis (``count`` a multiple of its size, see
+        mesh's "b" axis (``_over_b``; ``count`` a multiple of its size, see
         ``_pad_batch``), shard i's rows run on its device, and the outputs
         are concatenated along ``out_axis`` on the plan's device."""
-        if self._shards is None:
+        if not self._over_b(count):
             with obs.span("plan.args", program=name):
                 inputs, consts = args(self.device, slice(None))
             return self._program(name, fn, inputs, consts, key, **span)
@@ -567,8 +519,9 @@ class EvalPlan:
     # ------------------------------------------------ the "k" axis
 
     def _over_k(self, basis: tuple[int, ...]) -> bool:
-        """Whether a program at ``basis`` runs over the "k" axis: the prime
-        count must be a multiple of its size (the reference's rule)."""
+        """Whether a program at ``basis`` can run over the "k" axis: the
+        prime count must be a multiple of its size (the reference's rule).
+        It does unless it splits over "b" (``_over_b``)."""
         return self._kdevs is not None and len(basis) % len(self._kdevs) == 0
 
     def _kshards(self, basis: tuple[int, ...], rescale: bool = False):
@@ -776,13 +729,13 @@ class EvalPlan:
 
         ``warm_jit`` (on the card) also captures the CUDA graph of each
         program on a zero ciphertext, as the reference compiles them: the
-        single programs, the ``*_many`` programs at every B of
-        ``batch_sizes`` (a serving engine's padded group sizes; uniform and
-        mixed Galois), ``rotate_hoisted`` per set, and each matvec's whole
-        composite.  One prepare covers one basis.  On a mesh the tables,
-        keys and gather rows are also copied to every shard's device (over
-        a "k" axis, the rows each shard reads, and its shard bases'
-        tables).  The counters are reset on exit."""
+        multiply, rescale and rotation programs at B = 1 (a single call)
+        and at every B of ``batch_sizes`` (a serving engine's padded group
+        sizes; uniform and mixed Galois), ``rotate_hoisted`` per set, and
+        each matvec's whole composite.  One prepare covers one basis.  On
+        a mesh the tables, keys and gather rows are also copied to every
+        shard's device (over a "k" axis, the rows each shard reads, and its
+        shard bases' tables).  The counters are reset on exit."""
         basis = tuple(basis if basis is not None else self.ctx.qs)
         gs = [g for g in (self.rotation_group_element(r) for r in rotations)
               if g != 1]
@@ -866,46 +819,15 @@ class EvalPlan:
     # ------------------------------------------------------- scheme ops
 
     def multiply(self, a: Ciphertext, b: Ciphertext) -> Ciphertext:
-        with obs.span("plan.args", program="multiply"):
-            check_same_basis("multiply", a, b)
-            check_level("multiply", a)
-            basis = a.primes
-            over_k = self._over_k(basis)
-            if not over_k:
-                tables = self.keyswitch_tables(basis)
-                eb, ea = self.relin_key(basis)
-        if over_k:
-            def args(d, rows):
-                return (tuple(self._on(x.data[rows], d) for x in (a.c0, a.c1, b.c0, b.c1)),
-                        self.relin_key(basis, d, rows))
-            c0, c1 = self._run_k("multiply", multiply_front, multiply_back, basis, args)
-        else:
-            c0, c1 = self._program("multiply", multiply_banks,
-                                   (a.c0.data, a.c1.data, b.c0.data, b.c1.data, eb, ea),
-                                   tables, basis)
-        self._count(1, key_switches=1, decomposes=1)
-        with obs.span("plan.unpack", program="multiply"):
-            return Ciphertext(RnsPoly(c0, basis, True), RnsPoly(c1, basis, True),
-                              a.scale * b.scale)
+        """``multiply_many`` of one pair."""
+        check_same_basis("multiply", a, b)
+        check_level("multiply", a)
+        return self.multiply_many([a], [b])[0]
 
     def rescale(self, a: Ciphertext) -> Ciphertext:
-        with obs.span("plan.args", program="rescale"):
-            check_level("rescale", a, need=1)
-            basis = a.primes
-            over_k = self._over_k(basis)
-            if not over_k:
-                tables = self.rescale_tables(basis)
-        if over_k:
-            c0, c1 = self._rescale_k("rescale", rescale_banks, basis,
-                                     (a.c0.data, a.c1.data), axis=0)
-        else:
-            c0, c1 = self._program("rescale", rescale_banks, (a.c0.data, a.c1.data),
-                                   tables, basis)
-        self._count(1)
-        rest = basis[:-1]
-        with obs.span("plan.unpack", program="rescale"):
-            return Ciphertext(RnsPoly(c0, rest, True), RnsPoly(c1, rest, True),
-                              a.scale / basis[-1])
+        """``rescale_many`` of one ciphertext."""
+        check_level("rescale", a, need=1)
+        return self.rescale_many([a])[0]
 
     def _common_basis(self, op: str, cts) -> tuple[int, ...]:
         basis = cts[0].primes
@@ -932,7 +854,7 @@ class EvalPlan:
             Ap, Bp = self._pad_batch(As), self._pad_batch(Bs)
         halves = [self._stack([ct.c0.data for ct in Ap]), self._stack([ct.c1.data for ct in Ap]),
                   self._stack([ct.c0.data for ct in Bp]), self._stack([ct.c1.data for ct in Bp])]
-        if self._shards is None and self._over_k(basis):
+        if not self._over_b(len(Ap)) and self._over_k(basis):
             def kargs(d, rows):
                 return (tuple(self._on(h[:, rows].contiguous(), d) for h in halves),
                         self.relin_key(basis, d, rows))
@@ -961,7 +883,7 @@ class EvalPlan:
             basis = self._common_basis("rescale_many", cts)
             pad = self._pad_batch(cts)
         halves = [self._stack([ct.c0.data for ct in pad]), self._stack([ct.c1.data for ct in pad])]
-        if self._shards is None and self._over_k(basis):
+        if not self._over_b(len(pad)) and self._over_k(basis):
             c0, c1 = self._rescale_k("rescale_many", rescale_many_banks, basis, halves,
                                      axis=1, n=len(cts))
         else:
@@ -997,7 +919,7 @@ class EvalPlan:
             if uniform:
                 return (*self.galois_key(gs[0], basis, d, rows), self.eval_idx(gs[0], d))
             return self._galois_batch_key(tuple(gs), basis, d, rows)
-        if self._shards is None and self._over_k(basis):
+        if not self._over_b(len(pad)) and self._over_k(basis):
             def kargs(d, rows):
                 eb, ea, idx = keys(d, pad_gs, rows)
                 return ((*(self._on(h[:, rows].contiguous(), d) for h in halves), idx),
@@ -1018,26 +940,9 @@ class EvalPlan:
                     for r0, r1, ct in zip(c0, c1, cts)]
 
     def apply_galois(self, a: Ciphertext, g: int) -> Ciphertext:
-        with obs.span("plan.args", program="galois_ks"):
-            check_level("apply_galois", a)
-            basis = a.primes
-            over_k = self._over_k(basis)
-            if not over_k:
-                tables = self.keyswitch_tables(basis)
-                eb, ea = self.galois_key(g, basis)
-                idx = self.eval_idx(g)
-        if over_k:
-            def args(d, rows):
-                return ((self._on(a.c0.data[rows], d), self._on(a.c1.data[rows], d),
-                         self.eval_idx(g, d)), self.galois_key(g, basis, d, rows))
-            c0, c1 = self._run_k("galois_ks", galois_ks_front, galois_ks_back, basis, args)
-        else:
-            c0, c1 = self._program("galois_ks", galois_ks_banks,
-                                   (a.c0.data, a.c1.data, idx, eb, ea), tables, basis)
-        self._count(1, key_switches=1, decomposes=1)
-        with obs.span("plan.unpack", program="galois_ks"):
-            return Ciphertext(RnsPoly(c0, basis, True), RnsPoly(c1, basis, True),
-                              a.scale)
+        """``galois_ks_many`` of one ciphertext."""
+        check_level("apply_galois", a)
+        return self.galois_ks_many([a], [g])[0]
 
     def rotate(self, a: Ciphertext, r: int) -> Ciphertext:
         g = self.rotation_group_element(r)
@@ -1064,7 +969,7 @@ class EvalPlan:
             check_level("hoisted_galois", a)
             basis = a.primes
             pad_gs = tuple(self._pad_batch(gs))
-        if self._shards is None and self._over_k(basis):
+        if not self._over_b(len(pad_gs)) and self._over_k(basis):
             def kargs(d, rows):
                 eb, ea, idx = self._galois_batch_key(pad_gs, basis, d, rows)
                 return ((self._on(a.c1.data[rows], d),),

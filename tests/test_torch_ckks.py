@@ -113,21 +113,23 @@ def test_add_sub_and_checks(ring_2_10):
 def test_port_runs_on_reference_state(ring_2_10):
     """``from_reference``: the reference's packs, stacked relin key and
     ciphertext residue stacks, carried across, drive the port's
-    multiply/rescale programs to the reference's own answer."""
+    multiply/rescale programs on (1, k, n) stacks to the reference's own
+    single-ciphertext answer."""
     ref, _, _, ref_keys, _, rc, _ = ring_2_10
     plan = ref.plan()
     t, fsp = plan.keyswitch_tables(ref.qs)
     halves = [rc[0].c0.data, rc[0].c1.data, rc[1].c0.data, rc[1].c1.data]
     want = REP.multiply_banks(*halves, *ref_keys, t, fsp, use_pallas=False)
-    got = TEP.multiply_banks(*from_reference((*halves, *ref_keys), "cpu"),
-                             from_reference(t, "cpu"), None)
+    got = TEP.multiply_many_banks(*(h[None] for h in from_reference(halves, "cpu")),
+                                  *from_reference(ref_keys, "cpu"),
+                                  from_reference(t, "cpu"), None)
     for w, g in zip(want, got):
-        assert np.array_equal(np.asarray(w), tensor_to_u32(g))
+        assert g.shape[0] == 1 and np.array_equal(np.asarray(w), tensor_to_u32(g[0]))
     rt, _ = plan.rescale_tables(ref.qs)
     want_r = REP.rescale_banks(*want, rt, None, use_pallas=False)
-    got_r = TEP.rescale_banks(*got, from_reference(rt, "cpu"), None)
+    got_r = TEP.rescale_many_banks(*got, from_reference(rt, "cpu"), None)
     for w, g in zip(want_r, got_r):
-        assert np.array_equal(np.asarray(w), tensor_to_u32(g))
+        assert g.shape[0] == 1 and np.array_equal(np.asarray(w), tensor_to_u32(g[0]))
 
 
 def test_ring_2_14_end_to_end():

@@ -861,7 +861,7 @@ def test_graph_replay_spans(cuda):
                 and child["ts_us"] + child["dur_us"] <= parent["ts_us"] + parent["dur_us"] + 1e-3)
 
     by = lambda name: [e for e in evs if e["name"] == name]
-    for program in ("multiply", "galois_ks_many"):
+    for program in ("multiply_many", "galois_ks_many"):
         calls = [e for e in by("plan.program") if e["args"]["program"] == program]
         captures = [e for e in by("plan.capture") if e["args"]["program"] == program]
         assert len(calls) == 3 and len(captures) == 1, program
@@ -1022,7 +1022,7 @@ def test_k_mesh_on_the_card_equals_the_unsharded_plan(cuda, copies):
             assert _same_cts(got[name], want[name]), (round_, name)
         assert _same_cts([kplan.rotate(low[0], 1), kplan.rescale(low[1])], want_low), round_
     assert kplan.k_programs > 0
-    fronts = {sig[1] for sig in kplan._graphs if sig[0] == "multiply/front"}
+    fronts = {sig[1] for sig in kplan._graphs if sig[0] == "multiply_many/front"}
     assert len(fronts) == copies
     counts = K.snapshot()
     for name in ("ntt_fourstep_banks", "ntt_inv_banks", "twiddle_mul_banks",

@@ -153,8 +153,8 @@ def test_program_spans_name_the_k_shards(pair):
         obs.disable()
         obs.clear()
     assert [(s["program"], s.get("kshard")) for s in spans] == [
-        ("multiply/front", 0), ("multiply/front", 1), ("multiply/back", 0),
-        ("multiply/back", 1), ("multiply", None)]
+        ("multiply_many/front", 0), ("multiply_many/front", 1), ("multiply_many/back", 0),
+        ("multiply_many/back", 1), ("multiply_many", None)]
     assert plan.k_programs == 1
 
 
@@ -177,14 +177,14 @@ def test_two_shards_on_one_device_get_their_own_graphs_and_tables(pair):
     plan.rescale(cts[0])
     basis = cts[0].primes
     P = port.special
-    for name, blocks in (("multiply/front", [basis[:2] + (P,), basis[2:] + (P,)]),
-                         ("multiply/back", [basis[:2] + (P,), basis[2:] + (P,)]),
-                         ("rescale", [basis[:2] + basis[3:], basis[2:]])):
+    for name, blocks in (("multiply_many/front", [basis[:2] + (P,), basis[2:] + (P,)]),
+                         ("multiply_many/back", [basis[:2] + (P,), basis[2:] + (P,)]),
+                         ("rescale_many", [basis[:2] + basis[3:], basis[2:]])):
         shard = [c for c in calls if c[0] == name]
         assert [key for _, key, _, _ in shard] == [(basis, b) for b in blocks], name
         t = [consts[-2] for *_, consts in shard]
         assert [tuple(tensor_to_u32(x["qs"]).tolist()) for x in t] == blocks, name
-    fronts = [c for c in calls if c[0] == "multiply/front"]
+    fronts = [c for c in calls if c[0] == "multiply_many/front"]
     assert fronts[0][2] == fronts[1][2]                  # equal shapes, other keys
 
 
@@ -254,7 +254,7 @@ def test_a_failing_shard_raises(pair, monkeypatch):
 
     def broken(*args):
         raise RuntimeError("shard program failed")
-    monkeypatch.setattr(EP, "multiply_back", broken)
+    monkeypatch.setattr(EP, "multiply_many_back", broken)
     with pytest.raises(RuntimeError, match="shard program failed"):
         plan.multiply(cts[0], cts[1])
     assert plan.stats["dispatches"] == 0

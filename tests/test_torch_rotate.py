@@ -234,7 +234,8 @@ def test_linalg_checks():
 def test_port_runs_on_reference_state(ring_2_10):
     """``from_reference``: the reference's tables, stacked Galois keys,
     gather rows and ciphertext halves, carried across, drive the port's
-    rotation programs to the reference's own answers."""
+    rotation program (one ciphertext as a (1, k, n) stack, then a mixed
+    batch of three) to the reference's own answers."""
     ref, _, _, rc, _ = ring_2_10
     plan = ref.plan()
     t, _ = plan.keyswitch_tables(ref.qs)
@@ -243,10 +244,11 @@ def test_port_runs_on_reference_state(ring_2_10):
     key, idx = plan.galois_key(g, ref.qs), plan.eval_idx(g)
     halves = (rc[0].c0.data, rc[0].c1.data)
     want = REP.galois_ks_banks(*halves, idx, *key, t, None, use_pallas=False)
-    got = TEP.galois_ks_banks(*from_reference(halves, "cpu"),
-                              torch.from_numpy(np.array(idx)),
-                              *from_reference(key, "cpu"), tt, None)
-    assert all(np.array_equal(np.asarray(w), tensor_to_u32(g_)) for w, g_ in zip(want, got))
+    got = TEP.galois_ks_many_banks(*(h[None] for h in from_reference(halves, "cpu")),
+                                   torch.from_numpy(np.array(idx)),
+                                   *from_reference(key, "cpu"), tt, None)
+    assert all(g_.shape[0] == 1 and np.array_equal(np.asarray(w), tensor_to_u32(g_[0]))
+               for w, g_ in zip(want, got))
 
     gs = tuple(plan.rotation_group_element(r) for r in (1, 3, 5))
     eb, ea, rows = plan._galois_batch_key(gs, ref.qs)

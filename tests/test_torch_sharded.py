@@ -179,6 +179,41 @@ def test_k_axis(pair):
         assert plan.k_programs == (plan in (k2, bk22))
 
 
+@pytest.mark.parametrize("shape", [(2, 1), (2, 2)], ids=["b2", "b2k2"])
+def test_one_ciphertext_runs_as_a_batch_of_one(shape):
+    """multiply, rescale and rotate of one ciphertext over "b" = 2 (alone
+    and beside "k" = 2) run their batched program at B = 1: no pad row
+    and no "b" split; over "k" at 4 primes, unsharded at 3 (which 2 does
+    not divide); the answers and ``stats`` equal the unsharded plan's."""
+    ctx = CkksContext(n=N, levels=3, seed=SEED, device="cpu")
+    ctx.plan().prepare(rotations=(1,))
+    rng = np.random.default_rng(SEED)
+    cts = [ctx.encrypt(ctx.encode(rng.uniform(-1, 1, N // 2))) for _ in range(2)]
+    lows = [ctx.plan().rescale(ct) for ct in cts]
+    flat = EvalPlan(ctx)
+    plan = EvalPlan(ctx, mesh=make_mesh(["cpu"] * (shape[0] * shape[1]), ("b", "k"),
+                                        shape=shape))
+
+    def run(p):
+        return [out for a, b in (cts, lows)
+                for out in (p.multiply(a, b), p.rescale(a), p.rotate(a, 1))]
+    want = run(flat)
+    obs.enable()
+    obs.clear()
+    try:
+        got = run(plan)
+        evs = obs.events()
+    finally:
+        obs.disable()
+        obs.clear()
+    assert all(torch.equal(a.c0.data, b.c0.data) and torch.equal(a.c1.data, b.c1.data)
+               and a.primes == b.primes and a.scale == b.scale for a, b in zip(want, got))
+    assert plan.stats == flat.stats
+    assert plan.k_programs == (3 if shape[1] == 2 else 0)
+    assert {e["args"]["n"] for e in evs if e["name"] == "plan.stack"} == {1}
+    assert not any("shard" in e["args"] for e in evs if e["name"] == "plan.program")
+
+
 def test_axis_devices_of_a_two_axis_mesh():
     m = make_mesh(["cpu"] * 6, ("b", "k"), shape=(3, 2))
     assert m.shape == {"b": 3, "k": 2}
