@@ -43,16 +43,18 @@ Phases (any mismatch raises, so the exit code is non-zero):
                beside its byte and integer bounds, its plain version's
                and an eager call's.  Alone: python3 -c "import chip_smoke
                as c; c.phase_build(); c.phase_hybrid_basis()"
-  2d. fourstep the four-step forward's two kernels (csrc/fourstep.cu)
-               against the plain chain bit for bit at every ring of 2^10
-               .. 2^17 (B = 1 and 13), the fig22 group's mod-up (9, 256,
-               2^14) and the n16 group's (30, 128, 2^16), lazy and eager,
-               negacyclic and cyclic, batch-leading; then at the two path
-               shapes the device time beside the byte bound, the plain
-               chain's and the old eager chain's (bank kernels, weight-row
-               multiplies, PyTorch transposes and gathers).  Alone:
-               python3 -c "import chip_smoke as c; c.phase_build();
-               c.phase_fourstep()"
+  2d. fourstep the four-step's two kernels each way (csrc/fourstep.cu)
+               against the plain chains bit for bit at every ring of 2^10
+               .. 2^17 (B = 1 and 13) and the path shapes, lazy (inputs in
+               [0, 2q)) and eager, negacyclic and cyclic, batch-leading;
+               then at the path shapes the device time beside the byte
+               bound, the plain chain's and the old eager chain's (bank
+               transforms, weight-row multiplies, PyTorch transposes and
+               gathers): the forward at the fig22 group's mod-up (9, 256,
+               2^14) and the n16 group's (30, 128, 2^16), the inverse at
+               (9, 256, 2^14), the n16 group's front (24, 32, 2^16) and its
+               special primes' mod-downs (6, 64, 2^16).  Alone: python3 -c
+               "import chip_smoke as c; c.phase_build(); c.phase_fourstep()"
   3. slice     CkksContext(n=2^14, levels=7) on the card: encrypt 8 slot
                vectors, answer 4 single multiply -> rescale requests and one
                multiply_many -> rescale_many batch of 8, decrypt_decode every
@@ -436,8 +438,9 @@ REPLACES = {
     "mod_down_tail": "none (src/repro/fhe/batched.py:251, XLA)",
     # hybrid key switching: the reference has none
     "base_conv": "none (no hybrid key switching in src/repro)",
-    # the reference's four-step forward is XLA ops around the banks kernels
+    # the reference's four-step is XLA ops around the banks kernels
     "ntt_fourstep_banks": "none (src/repro/kernels/ops.py ntt_fourstep_banks, XLA)",
+    "intt_fourstep_banks": "none (src/repro/kernels/ops.py intt_fourstep_banks, XLA)",
 }
 SOURCE = {
     "ntt_fwd_banks": "src/repro_torch/csrc/ntt_banks.cu",
@@ -458,6 +461,7 @@ SOURCE = {
     "mod_down_tail": "src/repro_torch/csrc/basis.cu",
     "base_conv": "src/repro_torch/csrc/basis.cu",
     "ntt_fourstep_banks": "src/repro_torch/csrc/fourstep.cu",
+    "intt_fourstep_banks": "src/repro_torch/csrc/fourstep.cu",
 }
 MLKEM_KERNELS = ("ntt_fwd_banks_u16", "ntt_inv_banks_u16", "dyadic_basemul_banks")
 # the kernels each path must launch: multiply -> rescale runs the key
@@ -466,14 +470,13 @@ MLKEM_KERNELS = ("ntt_fwd_banks_u16", "ntt_inv_banks_u16", "dyadic_basemul_banks
 # path the four single-prime kernels
 # every key switch runs its mod-up and mod-down tails (BASIS_KERNELS)
 BASIS_KERNELS = ("extend_centered", "mod_down_tail")
-# (rings of 2^13 and up take the four-step: its forward is
-# ntt_fourstep_banks, its inverse the banks and the weight-row multiply)
+# (rings of 2^13 and up take the four-step: ntt_fourstep_banks and
+# intt_fourstep_banks, no bank transform and no weight-row multiply)
+FOURSTEP_KERNELS = ("ntt_fourstep_banks", "intt_fourstep_banks")
 PATH_KERNELS = {
-    "multiply": ("ntt_fourstep_banks", "ntt_inv_banks", "twiddle_mul_banks",
-                 "dyadic_inner_banks") + BASIS_KERNELS,
-    "rotation": ("ntt_fourstep_banks", "ntt_inv_banks", "twiddle_mul_banks",
-                 "dyadic_inner_banks", "galois_banks", "galois_banks_multi",
-                 "galois_digits") + BASIS_KERNELS,
+    "multiply": FOURSTEP_KERNELS + ("dyadic_inner_banks",) + BASIS_KERNELS,
+    "rotation": FOURSTEP_KERNELS + ("dyadic_inner_banks", "galois_banks",
+                                    "galois_banks_multi", "galois_digits") + BASIS_KERNELS,
     "mlkem": MLKEM_KERNELS,
     "ntt128": NTT128_KERNELS,
 }
@@ -486,16 +489,15 @@ PATH_KERNELS["kshard"] = PATH_KERNELS["rotation"]
 PATH_KERNELS["hybrid"] = PATH_KERNELS["rotation"] + ("base_conv",)
 # the private-inference head's hoisted BSGS matvec: the banks, the
 # weight-row multiply, the digit MAC and the staged gathers
-PATH_KERNELS["lm"] = ("ntt_fourstep_banks", "ntt_inv_banks", "twiddle_mul_banks",
-                      "dyadic_inner_banks", "galois_banks_multi",
-                      "galois_digits") + BASIS_KERNELS
+PATH_KERNELS["lm"] = FOURSTEP_KERNELS + ("dyadic_inner_banks", "galois_banks_multi",
+                                         "galois_digits") + BASIS_KERNELS
 # training launches none of the port's kernels; its trained model's
 # logits go through the same encrypted head
 PATH_KERNELS["train"] = PATH_KERNELS["lm"]
 # the FHE example twins of phase 3k: CKKS multiply -> rescale at 2^9,
 # rotations at 2^10 and the four-step round trip at 2^14
-PATH_KERNELS["examples"] = ("ntt_fwd_banks", "ntt_inv_banks", "twiddle_mul_banks",
-                            "dyadic_inner_banks", "ntt_fourstep_banks") + BASIS_KERNELS
+PATH_KERNELS["examples"] = ("ntt_fwd_banks", "ntt_inv_banks",
+                            "dyadic_inner_banks") + FOURSTEP_KERNELS + BASIS_KERNELS
 # the dry run's key switch on the card: the banks, the digit MAC and the
 # base conversions
 PATH_KERNELS["dryrun"] = ("ntt_fwd_banks", "ntt_inv_banks",
@@ -511,7 +513,8 @@ DEVICE_FUNCTIONS = ("ntt_rows_kernel", "ntt_cols_kernel",
                     "ntt_stream_kernel", "dyadic_mul_kernel",
                     "dyadic_mac_kernel", "extend_centered_kernel",
                     "mod_down_tail_kernel", "base_conv_kernel",
-                    "fourstep_cols_kernel", "fourstep_rows_kernel")
+                    "fourstep_cols_kernel", "fourstep_rows_kernel",
+                    "fourstep_irows_kernel", "fourstep_icols_kernel")
 
 
 def log(msg: str) -> None:
@@ -1023,28 +1026,33 @@ def phase_hybrid_basis() -> dict:
 
 # ----------------------------------------------------------- phase 2d
 
-# the four-step forward at the path's shapes: the fig22 key switch's
-# mod-up of one group (8 digits x 32 ciphertexts over 8 + 1 primes, 2^14)
-# and the n16 cell's (4 digits x 32 ciphertexts over 24 + 6 primes, 2^16)
-FOURSTEP_SHAPES = ((LEVELS + 2, 8 * KS_GROUP, N), (30, 4 * KS_GROUP, HYB_N))
+# the four-step at the path's shapes, timed: the forward at the fig22 key
+# switch's mod-up of one group (8 digits x 32 ciphertexts over 8 + 1
+# primes, 2^14) and the n16 cell's (4 digits x 32 ciphertexts over 24 + 6
+# primes, 2^16); the inverse at the first, the n16 group's front (24
+# primes x 32 ciphertexts) and its mod-downs (6 special primes x 2 halves
+# x 32)
+FOURSTEP_SHAPES = {"ntt_fourstep_banks": ((LEVELS + 2, 8 * KS_GROUP, N),
+                                          (30, 4 * KS_GROUP, HYB_N)),
+                   "intt_fourstep_banks": ((LEVELS + 2, 8 * KS_GROUP, N),
+                                           (24, KS_GROUP, HYB_N), (6, 2 * KS_GROUP, HYB_N))}
 
 
 def phase_fourstep() -> dict:
-    """The four-step forward's two kernels (csrc/fourstep.cu) against the
-    plain chain on the card: every ring of 2^10 .. 2^17 at B = 1 and an
-    odd B over 3 primes, and the two path shapes, lazy (inputs in [0, 2q))
-    and eager, negacyclic and cyclic, and batch-leading at the fig22
+    """The four-step's two kernels each way (csrc/fourstep.cu) against
+    the plain chains on the card: every ring of 2^10 .. 2^17 at B = 1 and
+    an odd B over 3 primes, and the path shapes, lazy (inputs in [0, 2q))
+    and eager, negacyclic and cyclic, and batch-leading at the first path
     shape; then at the path shapes (lazy, negacyclic) the device time
     beside the byte bound (x read and the output written once, the
-    scratch between the passes written and read once, the psi and twiddle
-    rows read once, at 3.35 TB/s), the plain chain's time and the old
-    eager chain's: the bank kernels, the weight-row multiplies and
-    PyTorch's transposes and bit-reversal gathers."""
+    scratch between the passes written and read once, the two weight rows
+    read once, at 3.35 TB/s), the plain chain's time and the old eager
+    chain's: the bank transforms, the weight-row multiplies and PyTorch's
+    transposes and bit-reversal gathers."""
     from repro_torch.fhe import batched as FB
     from repro_torch.fhe import rns
     from repro_torch.kernels import ntt_kernel, ops, ref
     rng = np.random.default_rng(SEED + 7)
-    err = 0
     packs = {}
 
     def pack(k, n):
@@ -1052,59 +1060,73 @@ def phase_fourstep() -> dict:
             packs[(k, n)] = FB.build_fourstep_pack(rns.make_primes(n, k), n, "cuda")
         return packs[(k, n)]
 
-    def check(got, want, what):
-        nonlocal err
-        torch.cuda.synchronize()
-        err = max(err, max_abs_err(got, want))
-        if not torch.equal(got, want):
-            raise AssertionError(f"ntt_fourstep_banks {what}: kernels != plain chain "
-                                 f"(max abs err {max_abs_err(got, want)})")
-
-    cases = [(3, b, 1 << s) for s in range(10, 18) for b in (1, EDGE_B)] + list(FOURSTEP_SHAPES)
-    for k, b, n in cases:
-        fp = pack(k, n)
-        qs = [int(q) & 0xFFFFFFFF for q in fp["qs"].cpu().tolist()]
-        for lazy in (False, True):
-            x = residues(rng, qs, (b, n), band=2 if lazy else 1)
-            for neg in (False, True):
-                check(ntt_kernel.ntt_fourstep_banks(x, fp, negacyclic=neg, lazy=lazy),
-                      ref.ntt_fourstep_banks_ref(x, fp, neg, lazy=lazy),
-                      f"(k, B, n)=({k}, {b}, {n}) lazy={lazy} negacyclic={neg}")
-    k, b, n = FOURSTEP_SHAPES[0]
-    fp = pack(k, n)
-    xb = residues(rng, [int(q) & 0xFFFFFFFF for q in fp["qs"].cpu().tolist()], (b, n))
-    xb = xb.transpose(0, 1).contiguous()
-    got = ops.ntt_fourstep_banks(xb, fp, batch_leading=True)
-    if not got.is_contiguous():
-        raise AssertionError("ntt_fourstep_banks batch-leading: output not contiguous")
-    check(got.transpose(0, 1), ref.ntt_fourstep_banks_ref(xb.transpose(0, 1), fp, True,
-                                                          lazy=True), "batch-leading")
-    log(f"[fourstep] ntt_fourstep_banks == plain chain at 2^10 .. 2^17 (B = 1, {EDGE_B}) "
-        f"and {FOURSTEP_SHAPES}, lazy / eager, negacyclic / cyclic, batch-leading: "
-        f"max abs err {err}")
-    for k, b, n in FOURSTEP_SHAPES:
-        fp = pack(k, n)
-        qs = fp["qs"]
-        x = residues(rng, [int(q) & 0xFFFFFFFF for q in qs.cpu().tolist()], (b, n), band=2)
-        kern = lambda x=x, fp=fp: ntt_kernel.ntt_fourstep_banks(x, fp, negacyclic=True,
-                                                                lazy=True)
-        chain = lambda x=x, fp=fp, qs=qs: ref.fourstep_chain(
+    def old_chain(name, x, fp):
+        """The eager chain the kernels replaced, lazy and negacyclic."""
+        qs = fp["qs"][:x.shape[0]]
+        if name == "ntt_fourstep_banks":
+            return ref.fourstep_chain(
+                x, fp, True,
+                lambda v, t, reduce_out: ops.ntt_banks(v, t, negacyclic=False, lazy=True,
+                                                       reduce_out=reduce_out),
+                lambda v, w, wp: ops.twiddle_mul_banks(v, w, wp, qs, lazy=True))
+        return ref.ifourstep_chain(
             x, fp, True,
-            lambda v, t, reduce_out: ops.ntt_banks(v, t, negacyclic=False, lazy=True,
-                                                   reduce_out=reduce_out),
-            lambda v, w, wp: ops.twiddle_mul_banks(v, w, wp, qs, lazy=True))
-        plain = lambda x=x, fp=fp: ref.ntt_fourstep_banks_ref(x, fp, True, lazy=True)
-        check(chain(), plain(), f"old eager chain at {(k, b, n)}")
-        ms, chain_ms = graph_ms(kern), graph_ms(chain)
-        plain_ms = graph_ms(plain, inner=1)
-        call_ms = eager_ms(kern)
-        nbytes = (4 * x.numel() + 4 * k * n) * 4
-        bound = nbytes / HBM_BYTES_PER_S * 1e3
-        log(f"[fourstep] ntt_fourstep_banks {(k, b, n)}: kernels {ms:.6f} ms, byte bound "
-            f"{bound:.6f} ms ({nbytes} bytes, {100 * bound / ms:.1f}% of it), plain "
-            f"{plain_ms:.4f} ms, old eager chain {chain_ms:.6f} ms "
-            f"({chain_ms / ms:.2f}x), eager call {call_ms:.6f} ms")
-    return {"ntt_fourstep_banks": err}
+            lambda v, t, reduce_out: ops.intt_banks(v, t, negacyclic=False, lazy=True,
+                                                    reduce_out=reduce_out),
+            lambda v, w, wp, reduce: ops.twiddle_mul_banks(v, w, wp, qs, lazy=not reduce))
+
+    errs = {}
+    for name, shapes in FOURSTEP_SHAPES.items():
+        kernels, plain = getattr(ntt_kernel, name), getattr(ref, name + "_ref")
+        err = 0
+
+        def check(got, want, what):
+            nonlocal err
+            torch.cuda.synchronize()
+            err = max(err, max_abs_err(got, want))
+            if not torch.equal(got, want):
+                raise AssertionError(f"{name} {what}: kernels != plain chain "
+                                     f"(max abs err {max_abs_err(got, want)})")
+
+        cases = [(3, b, 1 << s) for s in range(10, 18) for b in (1, EDGE_B)] + list(shapes)
+        for k, b, n in cases:
+            fp = pack(k, n)
+            qs = [int(q) & 0xFFFFFFFF for q in fp["qs"].cpu().tolist()]
+            for lazy in (False, True):
+                x = residues(rng, qs, (b, n), band=2 if lazy else 1)
+                for neg in (False, True):
+                    check(kernels(x, fp, negacyclic=neg, lazy=lazy), plain(x, fp, neg, lazy=lazy),
+                          f"(k, B, n)=({k}, {b}, {n}) lazy={lazy} negacyclic={neg}")
+        k, b, n = shapes[0]
+        fp = pack(k, n)
+        xb = residues(rng, [int(q) & 0xFFFFFFFF for q in fp["qs"].cpu().tolist()], (b, n))
+        xb = xb.transpose(0, 1).contiguous()
+        got = getattr(ops, name)(xb, fp, batch_leading=True)
+        if not got.is_contiguous():
+            raise AssertionError(f"{name} batch-leading: output not contiguous")
+        check(got.transpose(0, 1), plain(xb.transpose(0, 1), fp, True, lazy=True),
+              "batch-leading")
+        log(f"[fourstep] {name} == plain chain at 2^10 .. 2^17 (B = 1, {EDGE_B}) and "
+            f"{shapes}, lazy / eager, negacyclic / cyclic, batch-leading: max abs err {err}")
+        for k, b, n in shapes:
+            fp = pack(k, n)
+            x = residues(rng, [int(q) & 0xFFFFFFFF for q in fp["qs"].cpu().tolist()], (b, n),
+                         band=2)
+            kern = lambda x=x, fp=fp: kernels(x, fp, negacyclic=True, lazy=True)
+            chain = lambda x=x, fp=fp: old_chain(name, x, fp)
+            ref_call = lambda x=x, fp=fp: plain(x, fp, True, lazy=True)
+            check(chain(), ref_call(), f"old eager chain at {(k, b, n)}")
+            ms, chain_ms = graph_ms(kern), graph_ms(chain)
+            plain_ms = graph_ms(ref_call, inner=1)
+            call_ms = eager_ms(kern)
+            nbytes = (4 * x.numel() + 4 * k * n) * 4
+            bound = nbytes / HBM_BYTES_PER_S * 1e3
+            log(f"[fourstep] {name} {(k, b, n)}: kernels {ms:.6f} ms, byte bound "
+                f"{bound:.6f} ms ({nbytes} bytes, {100 * bound / ms:.1f}% of it), plain "
+                f"{plain_ms:.4f} ms, old eager chain {chain_ms:.6f} ms "
+                f"({chain_ms / ms:.2f}x), eager call {call_ms:.6f} ms")
+        errs[name] = err
+    return errs
 
 
 # ------------------------------------------------------------ phase 3

@@ -29,6 +29,7 @@ from repro_torch.core.params import (NTTParams, bitrev_perm, gen_ntt_primes,
                                      make_ntt_params, root_of_unity,
                                      shoup_table)
 from repro_torch.kernels import ops
+from repro_torch.kernels.ref import brev_index
 from repro_torch.runtime import op_cost
 
 
@@ -178,7 +179,7 @@ def fourstep_ntt_sharded(a2d, fsp: FourStepParams, mesh, axis: str = "model",
         if negacyclic:
             x = weighted(x, "psi")
         xt = ops.ntt_banks(x.t().contiguous()[None], fp["pack1"],
-                           negacyclic=False)[0][:, ops._brev(n1, d)]
+                           negacyclic=False)[0][:, brev_index(n1, d)]
         blocks.append(weighted(xt.t(), "tw"))
     op_cost.record_collective("all-to-all", op_cost.nbytes(blocks[0]), D)
     rows = []
@@ -186,5 +187,5 @@ def fourstep_ntt_sharded(a2d, fsp: FourStepParams, mesh, axis: str = "model",
         fp = _banks_pack(n1, n2, fsp.q, str(d))
         x = torch.cat([b[j * r:(j + 1) * r].to(d) for b in blocks], dim=1)
         x = ops.ntt_banks(x[None], fp["pack2"], negacyclic=False)[0]
-        rows.append(x[:, ops._brev(n2, d)].to(a2d.device))
+        rows.append(x[:, brev_index(n2, d)].to(a2d.device))
     return torch.cat(rows, dim=0)

@@ -21,9 +21,9 @@ counted apart from the banks kernels.  ``extend_centered`` and
 mod-up and the mod-down's tail), which have no TPU kernel; ``base_conv``
 is the fast base conversion of hybrid key switching (its mod-up and the
 mod-down's conversion of the special primes), which the reference does
-not have.  ``ntt_fourstep_banks`` is the four-step forward transform's
-two passes (one count a call), which replace the reference's chain of
-XLA ops and bank kernels.
+not have.  ``ntt_fourstep_banks`` and ``intt_fourstep_banks`` are the
+four-step forward and inverse transforms' two passes each (one count a
+call), which replace the reference's chains of XLA ops and bank kernels.
 
 Faults of the device path have classes of their own (``DeviceFault``):
 a build that fails (``build.BuildError``), a launcher that returns a CUDA
@@ -45,7 +45,7 @@ KERNELS = ("ntt_fwd_banks", "ntt_inv_banks", "twiddle_mul_banks",
            "galois_digits", "ntt_fwd_banks_u16", "ntt_inv_banks_u16",
            "dyadic_basemul_banks", "ntt_fwd", "ntt_inv", "dyadic_mul",
            "dyadic_mac", "extend_centered", "mod_down_tail", "base_conv",
-           "ntt_fourstep_banks")
+           "ntt_fourstep_banks", "intt_fourstep_banks")
 
 
 @dataclasses.dataclass

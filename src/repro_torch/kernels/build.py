@@ -79,6 +79,10 @@ SIGNATURES = {
         # x, out, scratch, qs, then psi, tw1, tw and tw2 with their companions;
         # k, b, n1, n2; the (prime, ring) strides of x and out; the flags
         "ntt_fourstep_banks": [_P] * 12 + [_I] * 4 + [_L] * 4 + [_I, _I, _P],
+        # x, out, scratch, qs, then the row pass's stage tables, n2^-1 and
+        # the inverse twiddle, the column pass's stage tables, n1^-1 and
+        # psi^-i, each with its companion; the rest as the forward's
+        "intt_fourstep_banks": [_P] * 16 + [_I] * 4 + [_L] * 4 + [_I, _I, _P],
     },
 }
 

@@ -26,10 +26,11 @@ register-resident body; a larger one (up to ``MAX_N`` = 2^17) runs two
 passes through a scratch tensor this module allocates, still one launcher
 call and one count.
 
-``ntt_fourstep_banks`` is the four-step forward transform of rings of
-2^10 .. 2^17 words on the card: two passes of ``csrc/fourstep.cu`` in
-place of the reference's chain of weight-row multiplies, bank passes,
-transposes and bit-reversal gathers (which is its plain version).
+``ntt_fourstep_banks`` / ``intt_fourstep_banks`` are the four-step
+forward and inverse transforms of rings of 2^10 .. 2^17 words on the
+card: two passes of ``csrc/fourstep.cu`` each, in place of the
+reference's chains of weight-row multiplies, bank passes, transposes and
+bit-reversal gathers (which are their plain versions).
 
 ``ntt_fwd`` / ``ntt_inv`` replace the single-prime TPU kernels
 ``ntt_fwd_pallas`` / ``ntt_inv_pallas``: one prime's ``NTTParams``, a
@@ -265,6 +266,43 @@ def twiddle_mul_banks(x, qs, w, wp, *, lazy: bool):
     return out
 
 
+def _fourstep_geometry(where: str, x, fp: dict) -> tuple[int, int, int, int, int]:
+    """(k, B, n, n1, n2) of a four-step kernel call on the card, after its
+    checks: x (k, B, n) int32 with contiguous rows, n = n1 * n2 a split the
+    kernels take."""
+    check_u32(where, x=x)
+    n1, n2 = fp["pack1"]["tw"].shape[-1] * 2, fp["pack2"]["tw"].shape[-1] * 2
+    if (n1, n2) not in FOURSTEP_SPLITS:
+        raise KernelRefusal(f"{where}: a {n1} x {n2} split; the kernels take "
+                            f"{', '.join(f'{a} x {b}' for a, b in FOURSTEP_SPLITS)}")
+    if x.ndim != 3 or x.shape[-1] != n1 * n2:
+        raise KernelRefusal(f"{where}: x must be (k, B, {n1 * n2}), got {tuple(x.shape)}")
+    if x.stride(-1) != 1:
+        raise KernelRefusal(f"{where}: x's rows must be contiguous")
+    return (*x.shape, n1, n2)
+
+
+def _fourstep_tables(where: str, x, t: dict, n1: int, n2: int) -> torch.Tensor:
+    """Check a four-step call's tables ``t`` (k prime rows each: the
+    moduli and n^-1 scalars (k,), weight rows (k, n), the column and row
+    passes' stage tables (k, log2 m, m / 2), named ``*1`` for m = n1 and
+    ``*2`` for m = n2) and return the call's output: laid out as x where x
+    is dense (a batch-leading view's output is contiguous once swapped
+    back), else contiguous."""
+    k, _, n = x.shape
+    stages = lambda m: (k, m.bit_length() - 1, m // 2)
+    shapes = {"qs": (k,), "ninv1": (k,), "ninv_p1": (k,), "ninv2": (k,), "ninv_p2": (k,),
+              **{name: (k, n) for name in ("psi", "psip", "tw", "twp", "itw", "itwp",
+                                          "ipsi", "ipsip")},
+              **{name: stages(n1) for name in ("tw1", "twp1", "itw1", "itwp1")},
+              **{name: stages(n2) for name in ("tw2", "twp2", "itw2", "itwp2")}}
+    check_tensors(where, x.device, **t)
+    for name, v in t.items():
+        check_shape(where, name, v, shapes[name])
+    out = torch.empty_like(x)
+    return out if out.stride(-1) == 1 else x.new_empty(x.shape)
+
+
 def ntt_fourstep_banks(x, fp: dict, *, negacyclic: bool, lazy: bool):
     """x: (k, B, n) int32, row p reduced mod fp['qs'][p], contiguous rows
     and any strides over (prime, ring); fp: a FourStepPack of at least k
@@ -278,31 +316,14 @@ def ntt_fourstep_banks(x, fp: dict, *, negacyclic: bool, lazy: bool):
     if x.device.type == "cpu":
         return ref.ntt_fourstep_banks_ref(x, fp, negacyclic, lazy=lazy)
     where = "ntt_fourstep_banks"
-    check_u32(where, x=x)
-    n1, n2 = fp["pack1"]["tw"].shape[-1] * 2, fp["pack2"]["tw"].shape[-1] * 2
-    if (n1, n2) not in FOURSTEP_SPLITS:
-        raise KernelRefusal(f"{where}: a {n1} x {n2} split; the kernels take "
-                            f"{', '.join(f'{a} x {b}' for a, b in FOURSTEP_SPLITS)}")
-    if x.ndim != 3 or x.shape[-1] != n1 * n2:
-        raise KernelRefusal(f"{where}: x must be (k, B, {n1 * n2}), got {tuple(x.shape)}")
-    if x.stride(-1) != 1:
-        raise KernelRefusal(f"{where}: x's rows must be contiguous")
-    k, b, n = x.shape
+    k, b, n, n1, n2 = _fourstep_geometry(where, x, fp)
     # the tables the passes read, k prime rows each: psi and the step-3
     # twiddle (k, n), the column and row passes' stage tables
     t = {"qs": fp["qs"][:k], "psi": fp["psi"][:k], "psip": fp["psip"][:k],
          "tw1": fp["pack1"]["tw"][:k], "twp1": fp["pack1"]["twp"][:k],
          "tw": fp["tw"][:k], "twp": fp["twp"][:k],
          "tw2": fp["pack2"]["tw"][:k], "twp2": fp["pack2"]["twp"][:k]}
-    check_tensors(where, x.device, **t)
-    check_shape(where, "qs", t["qs"], (k,))
-    for name in ("psi", "psip", "tw", "twp"):
-        check_shape(where, name, t[name], (k, n))
-    for name, m in (("tw1", n1), ("twp1", n1), ("tw2", n2), ("twp2", n2)):
-        check_shape(where, name, t[name], (k, m.bit_length() - 1, m // 2))
-    out = torch.empty_like(x)           # x's layout where x is dense
-    if out.stride(-1) != 1:
-        out = x.new_empty(x.shape)
+    out = _fourstep_tables(where, x, t, n1, n2)
     if x.device.type == "meta":
         # pass 1 reads x (and psi) and the tables, writes scratch; pass 2
         # reads scratch and its tables, writes out
@@ -322,6 +343,55 @@ def ntt_fourstep_banks(x, fp: dict, *, negacyclic: bool, lazy: bool):
         x.data_ptr(), out.data_ptr(), scratch.data_ptr(),
         *(t[a].data_ptr() for a in ("qs", "psi", "psip", "tw1", "twp1", "tw", "twp", "tw2",
                                     "twp2")),
+        k, b, n1, n2, x.stride(0), x.stride(1), out.stride(0), out.stride(1),
+        int(negacyclic), int(lazy), stream())
+    raise_on(where, rc)
+    COUNTS[where].launches += 1
+    return out
+
+
+def intt_fourstep_banks(x, fp: dict, *, negacyclic: bool, lazy: bool):
+    """Inverse of ``ntt_fourstep_banks``.  x: (k, B, n) int32 in natural
+    order (A_hat[k2*n1 + k1]), row p below fp['qs'][p] (below twice it
+    when lazy), contiguous rows and any strides over (prime, ring).
+    Returns the inverse transform in [0, q): the plain chain on the CPU
+    (``ref.ifourstep_chain``); on the card the two passes of
+    ``csrc/fourstep.cu`` (rows, then columns) through a scratch tensor
+    allocated here, one count, laid out as ``ntt_fourstep_banks``' output.
+    The card takes the splits ``FOURSTEP_SPLITS``."""
+    if x.device.type == "cpu":
+        return ref.intt_fourstep_banks_ref(x, fp, negacyclic, lazy=lazy)
+    where = "intt_fourstep_banks"
+    k, b, n, n1, n2 = _fourstep_geometry(where, x, fp)
+    p1, p2 = fp["pack1"], fp["pack2"]
+    # the row pass's tables (its inverse stages, n2^-1, the inverse
+    # step-3 twiddle), then the column pass's (its inverse stages, n1^-1,
+    # psi^-i), k prime rows each
+    t = {"qs": fp["qs"][:k], "itw2": p2["itw"][:k], "itwp2": p2["itwp"][:k],
+         "ninv2": p2["ninv"][:k], "ninv_p2": p2["ninv_p"][:k],
+         "itw": fp["itw"][:k], "itwp": fp["itwp"][:k],
+         "itw1": p1["itw"][:k], "itwp1": p1["itwp"][:k],
+         "ninv1": p1["ninv"][:k], "ninv_p1": p1["ninv_p"][:k],
+         "ipsi": fp["ipsi"][:k], "ipsip": fp["ipsip"][:k]}
+    out = _fourstep_tables(where, x, t, n1, n2)
+    if x.device.type == "meta":
+        # pass 1 reads x and its tables, writes scratch; pass 2 reads
+        # scratch and its tables (psi^-i when negacyclic), writes out
+        reads = [x] + [v for name, v in t.items() if name not in ("ipsi", "ipsip")]
+        ops = (banks_int_ops(x, n2.bit_length() - 1, fwd=False, negacyclic=False,
+                             lazy=lazy, reduce_out=False)
+               + x.numel() * MUL_OPS[(4, lazy)]
+               + banks_int_ops(x, n1.bit_length() - 1, fwd=False, negacyclic=False,
+                               lazy=lazy, reduce_out=not negacyclic)
+               + (x.numel() * MUL_OPS[(4, False)] if negacyclic else 0))
+        return meta_launch(where, out, reads + ([t["ipsi"], t["ipsip"]] if negacyclic else []),
+                           ops, 2 * x.numel() * x.element_size())
+    lib = build.load("fourstep")
+    if x.numel() == 0:
+        return out
+    scratch = x.new_empty((k, b, n))
+    rc = lib.intt_fourstep_banks(
+        x.data_ptr(), out.data_ptr(), scratch.data_ptr(), *(v.data_ptr() for v in t.values()),
         k, b, n1, n2, x.stride(0), x.stride(1), out.stride(0), out.stride(1),
         int(negacyclic), int(lazy), stream())
     raise_on(where, rc)

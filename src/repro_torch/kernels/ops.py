@@ -24,11 +24,11 @@ Below ``FOURSTEP_MIN_N`` the whole transform is one banks kernel and
 NTT rows are in bit-reversed order; at and above it the four-step
 pipeline runs (two bank passes of n1- and n2-point transforms with the
 step-3 twiddle multiply between them) and NTT rows are in natural order.
-On the card the forward four-step is two kernels (``csrc/fourstep.cu``)
-that carry the psi weights, the twiddle, the transposes and the
-bit-reversals themselves; the inverse's transposes and bit-reversal
-gathers are torch indexing, as they sit outside the kernels in the
-reference.
+On the card each way of the four-step is two kernels
+(``csrc/fourstep.cu``) that carry the psi (or psi^-1) weights, the
+step-3 twiddle, the transposes and the bit-reversals themselves; in the
+reference, and in the port's plain versions on the CPU, those are torch
+indexing and weight-row multiplies around the bank transforms.
 
 The key switch's RNS base conversions run per coefficient, on either
 NTT layout: ``extend_centered_banks`` (the mod-up onto a basis, one prime
@@ -47,7 +47,6 @@ import torch
 
 from repro_torch import obs
 from repro_torch.kernels import basis_kernel, dyadic_kernel, galois_kernel, ntt_kernel
-from repro_torch.kernels.ref import brev_index as _brev
 
 FOURSTEP_MIN_N = 1 << 13
 
@@ -250,37 +249,21 @@ def ntt_fourstep_banks(x, fp: dict, *, negacyclic: bool = True,
 @_ct_batch_axis
 def intt_fourstep_banks(x, fp: dict, *, negacyclic: bool = True,
                         lazy: bool = True):
-    """Inverse of ``ntt_fourstep_banks`` (natural-order input).  The two
-    sub-iNTT passes contribute 1/N1 * 1/N2; the final multiply (psi^-i,
-    or pass 1's ninv epilogue) fully reduces."""
+    """Inverse of ``ntt_fourstep_banks`` (natural-order input), in [0,
+    q).  The two sub-iNTT passes contribute 1/N1 * 1/N2; the final
+    multiply (psi^-i, or pass 1's ninv epilogue) fully reduces.  On the
+    card two passes of ``csrc/fourstep.cu``, reading x through its strides
+    where its middle axes fold into one; on the CPU the reference's chain
+    of bank inverses (``kernels.ref.ifourstep_chain``)."""
     k = x.shape[0]
     n1, n2 = fourstep_dims(fp)
     n = n1 * n2
     if x.shape[-1] != n:
         raise ValueError(f"intt_fourstep_banks: rows of {x.shape[-1]} for a "
                          f"{n1}x{n2} pack")
-    qs = fp["qs"][:k]
-    shape = x.shape
-    x = x.reshape(k, -1, n)
-    b = x.shape[1]
-    # undo the readout: D[k1, k2] from A_hat[k2*n1 + k1]
-    x = x.reshape(k, b, n2, n1).transpose(-1, -2)
-    # inverse pass 2: row iNTT-N2 banks (bitrev input order)
-    xr = x.reshape(k, b * n1, n2)[..., _brev(n2, x.device)]
-    xr = intt_banks(xr, fp["pack2"], negacyclic=False, lazy=lazy,
-                    reduce_out=False)
-    # undo the twiddle correction
-    x = twiddle_mul_banks(xr.reshape(k, b, n), fp["itw"][:k], fp["itwp"][:k],
-                          qs, lazy=lazy)
-    # inverse pass 1: column iNTT-N1 banks
-    xt = (x.reshape(k, b, n1, n2).transpose(-1, -2)
-          .reshape(k, b * n2, n1)[..., _brev(n1, x.device)])
-    xt = intt_banks(xt, fp["pack1"], negacyclic=False, lazy=lazy,
-                    reduce_out=not negacyclic)
-    x = xt.reshape(k, b, n2, n1).transpose(-1, -2).reshape(k, b, n)
-    if negacyclic:
-        x = twiddle_mul_banks(x, fp["ipsi"][:k], fp["ipsip"][:k], qs)  # full reduce
-    return x.reshape(shape)
+    out = ntt_kernel.intt_fourstep_banks(x.reshape(k, -1, n), fp,
+                                         negacyclic=negacyclic, lazy=lazy)
+    return out.reshape(x.shape)
 
 
 @_spanned

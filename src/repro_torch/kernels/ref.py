@@ -139,8 +139,13 @@ def ntt_inv_banks_ref(x, qs, ninv, ninv_p, itw, itwp, post, postp,
     then the epilogue multiply by the psi^-i * n^-1 row (negacyclic) or
     the ninv scalar (n^-1, or 2^-stages for an incomplete ring), which
     reduces fully unless ``lazy`` and not ``reduce_out``."""
+    COUNTS["ntt_inv_banks_u16" if lane_bits(x) == 16 else "ntt_inv_banks"].plain_calls += 1
+    return _inv_banks(x, qs, ninv, ninv_p, itw, itwp, post, postp, negacyclic, lazy,
+                      reduce_out)
+
+
+def _inv_banks(x, qs, ninv, ninv_p, itw, itwp, post, postp, negacyclic, lazy, reduce_out):
     bits = lane_bits(x)
-    COUNTS["ntt_inv_banks_u16" if bits == 16 else "ntt_inv_banks"].plain_calls += 1
     shoup_lazy, shoup = _shoup_pair(bits)
     nd = x.ndim
     q = _per_prime(qs, nd)
@@ -227,6 +232,51 @@ def ntt_fourstep_banks_ref(x, fp: dict, negacyclic: bool, lazy: bool = False):
         lambda v, t, reduce_out: _fwd_banks(v, qs, t["tw"][:k], t["twp"][:k], None, None,
                                             False, lazy, reduce_out),
         lambda v, w, wp: _weight_mul(v, qs, w, wp, lazy))
+
+
+def ifourstep_chain(x, fp: dict, negacyclic: bool, inv, mul):
+    """The four-step inverse transform as the reference runs it, a chain
+    of bank inverses, weight-row multiplies and PyTorch indexing: the
+    readout's transposed copy and its bit-reversal gather, the row
+    inverses over n2 (lazy epilogue), the inverse step-3 twiddle, a
+    transposed copy and its gather, the column inverses over n1, the
+    transpose back and (negacyclic) the psi^-i weights, which reduce
+    fully (else the column inverses' n1^-1 epilogue does).  x: (k, B, n)
+    in natural order (A_hat[k2*n1 + k1]); fp: FourStepPack of at least k
+    primes; inv(x, pack, reduce_out) a cyclic bank inverse with the
+    stage tables and n^-1 of ``pack`` (fp's pack1 or pack2), mul(x, w,
+    wp, reduce) a weight-row multiply, both in one lazy mode and reducing
+    fully where their flag says so.  Returns (k, B, n) in [0, q)."""
+    k, b, n = x.shape
+    n1, n2 = fp["pack1"]["tw"].shape[-1] * 2, fp["pack2"]["tw"].shape[-1] * 2
+    # undo the readout: D[k1, k2] from A_hat[k2*n1 + k1]; row iNTT-N2 units
+    # (bit-reversed input order)
+    xr = x.reshape(k, b, n2, n1).transpose(-1, -2).reshape(k, b * n1, n2)
+    xr = inv(xr[..., brev_index(n2, x.device)], fp["pack2"], False)
+    # undo the twiddle correction
+    x = mul(xr.reshape(k, b, n), fp["itw"][:k], fp["itwp"][:k], False)
+    # column iNTT-N1 units
+    xt = x.reshape(k, b, n1, n2).transpose(-1, -2).reshape(k, b * n2, n1)
+    xt = inv(xt[..., brev_index(n1, x.device)], fp["pack1"], not negacyclic)
+    x = xt.reshape(k, b, n2, n1).transpose(-1, -2).reshape(k, b, n)
+    if negacyclic:
+        x = mul(x, fp["ipsi"][:k], fp["ipsip"][:k], True)
+    return x
+
+
+def intt_fourstep_banks_ref(x, fp: dict, negacyclic: bool, lazy: bool = False):
+    """Four-step inverse NTT of x (k, B, n) over FourStepPack ``fp``: the
+    reference's chain (``ifourstep_chain``) on the plain inverses and
+    weight-row multiplies, counted once as ``intt_fourstep_banks``."""
+    COUNTS["intt_fourstep_banks"].plain_calls += 1
+    k = x.shape[0]
+    qs = fp["qs"][:k]
+    return ifourstep_chain(
+        x, fp, negacyclic,
+        lambda v, t, reduce_out: _inv_banks(v, qs, t["ninv"][:k], t["ninv_p"][:k],
+                                            t["itw"][:k], t["itwp"][:k], None, None,
+                                            False, lazy, reduce_out),
+        lambda v, w, wp, reduce: _weight_mul(v, qs, w, wp, lazy and not reduce))
 
 
 def dyadic_inner_banks_ref(ext, evk, qs, mus, lazy: bool = False):

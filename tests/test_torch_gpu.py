@@ -24,10 +24,10 @@ training (a float32 train step of every arch at smoke size against the
 CPU, remat gradients equal to none's, a checkpoint of card tensors
 restored on the CPU); and hybrid key switching's fast base conversion
 (``base_conv``) at a bootstrapping-scale group, and a hybrid plan's graphs
-against the CPU; and the four-step forward's two kernels (2^10 .. 2^17,
-k = 1, 9 and 30, B = 1 and odd, lazy and negacyclic both ways,
-batch-leading) against the plain chain, with a key-switch group's
-launches.  Marked
+against the CPU; and the four-step forward's and inverse's two kernels
+each (2^10 .. 2^17, k = 1, 9 and 30, B = 1 and odd, lazy and negacyclic
+both ways, batch-leading) against the plain chains, the round trip, and
+a key-switch group's launches.  Marked
 ``gpu``: they skip where no CUDA device is present.  On a GPU machine:
 
     PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_gpu.py
@@ -213,9 +213,10 @@ def test_twiddle_kernel_on_an_unaligned_view(cuda, lazy):
 
 # (n, k, B): every ring of the four-step kernels, B = 1 and odd batches,
 # the fig22 and n16 groups' prime counts
-FOURSTEP_CASES = [(1 << 10, 9, 33), (1 << 10, 1, 1), (1 << 13, 9, 1), (1 << 13, 30, 3),
-                  (1 << 14, 9, 1), (1 << 14, 9, 33), (1 << 14, 1, 8), (1 << 15, 9, 3),
-                  (1 << 16, 30, 1), (1 << 16, 9, 8), (1 << 17, 1, 3), (1 << 17, 9, 1)]
+FOURSTEP_CASES = [(1 << 10, 9, 33), (1 << 10, 1, 1), (1 << 11, 9, 5), (1 << 12, 30, 1),
+                  (1 << 13, 9, 1), (1 << 13, 30, 3), (1 << 14, 9, 1), (1 << 14, 9, 33),
+                  (1 << 14, 1, 8), (1 << 15, 9, 3), (1 << 16, 30, 1), (1 << 16, 9, 8),
+                  (1 << 17, 1, 3), (1 << 17, 9, 1)]
 
 
 @pytest.mark.parametrize("n,k,b", FOURSTEP_CASES)
@@ -303,6 +304,113 @@ def test_fourstep_group_launches_two_kernels_and_no_pytorch_op(cuda, monkeypatch
              if e.device_type == torch.autograd.DeviceType.CUDA]
     assert len(names) == 2 and "fourstep_cols_kernel" in names[0] \
         and "fourstep_rows_kernel" in names[1], names
+
+
+@pytest.mark.parametrize("n,k,b", FOURSTEP_CASES)
+@pytest.mark.parametrize("lazy", [False, True])
+@pytest.mark.parametrize("negacyclic", [False, True])
+def test_ifourstep_kernels_equal_plain(cuda, n, k, b, lazy, negacyclic):
+    """The four-step inverse's two kernels against the plain chain and the
+    old eager chain on the card (bank inverses, weight-row multiplies,
+    PyTorch transposes and gathers), word for word (lazy inputs from
+    [0, 2q)), one count a call and no plain version run; at n = 2^14 also
+    batch-leading, whose output is contiguous once swapped back."""
+    primes = rns.make_primes(n, k)
+    fp = TB.build_fourstep_pack(primes, n, cuda)
+    x = _residues(n + k + b + 1, primes, (b, n), band=2 if lazy else 1)
+    kw = dict(negacyclic=negacyclic, lazy=lazy)
+    K.reset_counts()
+    got = ntt_kernel.intt_fourstep_banks(x, fp, **kw)
+    assert {name: c for name, c in K.snapshot().items() if c["launches"] or c["plain_calls"]} \
+        == {"intt_fourstep_banks": {"launches": 1, "plain_calls": 0}}
+    assert torch.equal(got, ref.intt_fourstep_banks_ref(x, fp, negacyclic, lazy=lazy))
+    assert torch.equal(got, ref.ifourstep_chain(
+        x, fp, negacyclic,
+        lambda v, t, reduce_out: ops.intt_banks(v, t, negacyclic=False, lazy=lazy,
+                                                reduce_out=reduce_out),
+        lambda v, w, wp, reduce: ops.twiddle_mul_banks(v, w, wp, fp["qs"][:k],
+                                                       lazy=lazy and not reduce)))
+    if n == 1 << 14:
+        xb = x.transpose(0, 1).contiguous()
+        out = ops.intt_fourstep_banks(xb, fp, batch_leading=True, **kw)
+        assert out.is_contiguous() and torch.equal(out, got.transpose(0, 1))
+
+
+@pytest.mark.parametrize("n,k,b", [(1 << 10, 9, 33), (1 << 14, 30, 3), (1 << 17, 9, 1)])
+@pytest.mark.parametrize("negacyclic", [False, True])
+def test_fourstep_kernels_round_trip(cuda, n, k, b, negacyclic):
+    """``ops.ntt_fourstep_banks`` then ``ops.intt_fourstep_banks`` on the
+    card is the identity, each one launch of its kernels."""
+    primes = rns.make_primes(n, k)
+    fp = TB.build_fourstep_pack(primes, n, cuda)
+    x = _residues(n + 7 * k + b, primes, (b, n))
+    K.reset_counts()
+    back = ops.intt_fourstep_banks(ops.ntt_fourstep_banks(x, fp, negacyclic=negacyclic), fp,
+                                   negacyclic=negacyclic)
+    assert torch.equal(back, x)
+    assert K.COUNTS["ntt_fourstep_banks"].launches == K.COUNTS["intt_fourstep_banks"].launches == 1
+
+
+def test_ifourstep_kernels_refuse_other_splits(cuda):
+    """A split the inverse kernels do not take (16 x 16) raises on the
+    card."""
+    primes = rns.make_primes(256, 2)
+    fp = TB.build_fourstep_pack(primes, 256, cuda)
+    with pytest.raises(ValueError, match="16 x 16 split"):
+        ntt_kernel.intt_fourstep_banks(_residues(1, primes, (1, 256)), fp,
+                                       negacyclic=True, lazy=True)
+
+
+def test_ifourstep_group_launches_two_kernels_and_no_pytorch_op(cuda, monkeypatch):
+    """A 2^14 key-switch group (``galois_ks_many_banks``, 32 ciphertexts, 8
+    + 1 primes): every inverse four-step (the front's and the mod-downs')
+    is one count of the new kernels and dispatches no PyTorch op but
+    allocations and views (no gather, no copy); a call at the front's
+    shape puts exactly the two inverse kernels of ``csrc/fourstep.cu`` on
+    the device."""
+    from torch.profiler import ProfilerActivity, profile
+    from torch.utils._python_dispatch import TorchDispatchMode
+    from repro_torch.fhe.evalplan import galois_ks_many_banks
+    n, k, group = 1 << 14, 8, 32
+    primes = tuple(rns.make_primes(n, k + 1))
+    seen = []
+
+    class Ops(TorchDispatchMode):
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            if not func.is_view:
+                seen.append(func._overloadpacket.__name__)
+            return func(*args, **(kwargs or {}))
+
+    inner = ops.intt_fourstep_banks
+    calls = []
+
+    def recorded(*args, **kw):
+        calls.append(1)
+        with Ops():
+            return inner(*args, **kw)
+
+    monkeypatch.setattr(ops, "intt_fourstep_banks", recorded)
+    c0 = _residues(1, primes[:k], (group, n)).transpose(0, 1).contiguous()
+    c1 = _residues(2, primes[:k], (group, n)).transpose(0, 1).contiguous()
+    keys = [torch.stack([_residues(3 + d, primes, (n,)) for d in range(k)]) for _ in range(2)]
+    idx = torch.from_numpy(galois_eval_perm(5, n, natural=True).astype(np.int32)).to(cuda)
+    fsp = rns.fourstep_basis_pack(primes, n, cuda)
+    K.reset_counts()
+    galois_ks_many_banks(c0, c1, idx, *keys, rns.scalar_pack(primes, cuda), fsp)
+    torch.cuda.synchronize()
+    assert calls and K.COUNTS["intt_fourstep_banks"].launches == len(calls)
+    assert K.COUNTS["ntt_inv_banks"].launches == K.COUNTS["twiddle_mul_banks"].launches == 0
+    assert set(seen) <= {"empty", "empty_like", "empty_strided", "new_empty"}, set(seen)
+    x = _residues(4, primes[:k], (group, n))
+    inner(x, fsp)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        inner(x, fsp)
+        torch.cuda.synchronize()
+    names = [e.name for e in sorted(prof.events(), key=lambda e: e.time_range.start)
+             if e.device_type == torch.autograd.DeviceType.CUDA]
+    assert len(names) == 2 and "fourstep_irows_kernel" in names[0] \
+        and "fourstep_icols_kernel" in names[1], names
 
 
 @pytest.mark.parametrize("per_batch", [False, True])
@@ -975,9 +1083,11 @@ def test_mesh_on_the_card_equals_the_unsharded_plan(cuda, logn, copies):
             assert _same_cts(got[name], want[name]), (round_, name)
     assert EvalPlan.trace_count() - before == len(sharded._graphs)
     counts = K.snapshot()
-    # the forward transform: the banks below 2^13, the four-step kernels above
-    fwd = "ntt_fourstep_banks" if 1 << logn >= ops.FOURSTEP_MIN_N else "ntt_fwd_banks"
-    for name in (fwd, "ntt_inv_banks", "dyadic_inner_banks", "galois_banks",
+    # the transforms: the banks below 2^13, the four-step kernels above
+    fourstep = 1 << logn >= ops.FOURSTEP_MIN_N
+    fwd, inv = (("ntt_fourstep_banks", "intt_fourstep_banks") if fourstep
+                else ("ntt_fwd_banks", "ntt_inv_banks"))
+    for name in (fwd, inv, "dyadic_inner_banks", "galois_banks",
                  "galois_banks_multi", "galois_digits"):
         assert counts[name]["launches"] > 0 and counts[name]["plain_calls"] == 0, name
 
@@ -1025,8 +1135,8 @@ def test_k_mesh_on_the_card_equals_the_unsharded_plan(cuda, copies):
     fronts = {sig[1] for sig in kplan._graphs if sig[0] == "multiply_many/front"}
     assert len(fronts) == copies
     counts = K.snapshot()
-    for name in ("ntt_fourstep_banks", "ntt_inv_banks", "twiddle_mul_banks",
-                 "dyadic_inner_banks", "galois_banks", "galois_banks_multi", "galois_digits"):
+    for name in ("ntt_fourstep_banks", "intt_fourstep_banks", "dyadic_inner_banks",
+                 "galois_banks", "galois_banks_multi", "galois_digits"):
         assert counts[name]["launches"] > 0 and counts[name]["plain_calls"] == 0, name
 
 

@@ -1,8 +1,8 @@
 """The port's NTT-bank entry points against the JAX reference on the CPU
 (the reference's plain path, ``use_pallas=False``): the single-kernel
 forward/inverse transforms at 2^10, the weight-row multiply, and the
-four-step pipeline at 2^10 and 2^12 (and the four-step kernels' wrapper
-on its CPU route at 2^13 and 2^14).  Integer outputs must be
+four-step pipeline at 2^10 and 2^12 (and the four-step kernels'
+wrappers, forward and inverse, on their CPU route at 2^13 and 2^14).  Integer outputs must be
 bit-identical, including the raw [0, 2q) representatives that
 ``reduce_out=False`` hands to a lazy consumer."""
 import numpy as np
@@ -138,6 +138,26 @@ def test_fourstep_wrapper_cpu_route_matches_reference(n, lazy, negacyclic):
     assert _same(r, p)
     counts = K.snapshot()
     assert counts["ntt_fourstep_banks"]["plain_calls"] == 1
+    assert sum(c["plain_calls"] for c in counts.values()) == 1
+
+
+@pytest.mark.parametrize("n", [1 << 13, 1 << 14])
+@pytest.mark.parametrize("lazy", [False, True])
+@pytest.mark.parametrize("negacyclic", [False, True])
+def test_ifourstep_wrapper_cpu_route_matches_reference(n, lazy, negacyclic):
+    """The inverse four-step kernels' wrapper on a CPU tensor (k = 3, B =
+    2; lazy inputs from [0, 2q)) runs the plain chain, counted once as
+    ``intt_fourstep_banks``, with the reference's words."""
+    from repro_torch.kernels import ntt_kernel
+    primes, ref, port = _fourstep(n)
+    x = _residues(n + 3 + 2 * lazy + negacyclic, primes, (2,), n, band=2 if lazy else 1)
+    kw = dict(negacyclic=negacyclic, lazy=lazy)
+    r = RO.intt_fourstep_banks(jnp.asarray(x), ref, use_pallas=False, **kw)
+    K.reset_counts()
+    p = ntt_kernel.intt_fourstep_banks(u32_to_tensor(x, "cpu"), port, **kw)
+    assert _same(r, p)
+    counts = K.snapshot()
+    assert counts["intt_fourstep_banks"]["plain_calls"] == 1
     assert sum(c["plain_calls"] for c in counts.values()) == 1
 
 

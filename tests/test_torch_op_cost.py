@@ -220,6 +220,9 @@ def _calls(device, bad: bool, fake=None):
         "ntt_fourstep_banks": lambda: ntt_kernel.ntt_fourstep_banks(
             z(2, k, FOURSTEP_N + (2 if bad else 0)).transpose(0, 1), fs,
             negacyclic=True, lazy=True),
+        "intt_fourstep_banks": lambda: ntt_kernel.intt_fourstep_banks(
+            z(2, k, FOURSTEP_N + (2 if bad else 0)).transpose(0, 1), fs,
+            negacyclic=True, lazy=True),
     }
 
 
@@ -267,8 +270,8 @@ def test_meta_keyswitch_records_the_cpu_runs_launches(fourstep):
     """A meta ``batched_keyswitch`` (k = 3 + 1 primes, B = 2, n = 64)
     records, kernel by kernel, the launches the CPU run's plain versions
     count; on the four-step route with a FourStepPack too (n = 1024, the
-    smallest ring of the four-step kernels), whose forward transforms are
-    ``ntt_fourstep_banks``."""
+    smallest ring of the four-step kernels), whose transforms are
+    ``ntt_fourstep_banks`` and ``intt_fourstep_banks``."""
     k, b = 3, 2
     n = FOURSTEP_N if fourstep else N
     primes = tuple(rns.make_primes(n, k + 1))
@@ -288,5 +291,6 @@ def test_meta_keyswitch_records_the_cpu_runs_launches(fourstep):
                                         to_meta(t), fsp=fsp and to_meta(fsp))
     assert ks0.shape == ks1.shape == (k, b, n)
     assert c.kernels == cpu
-    fwd = "ntt_fourstep_banks" if fourstep else "ntt_fwd_banks"
-    assert set(cpu) >= {fwd, "ntt_inv_banks", "dyadic_inner_banks"}
+    fwd, inv = (("ntt_fourstep_banks", "intt_fourstep_banks") if fourstep
+                else ("ntt_fwd_banks", "ntt_inv_banks"))
+    assert set(cpu) >= {fwd, inv, "dyadic_inner_banks"}

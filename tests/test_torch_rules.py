@@ -346,10 +346,12 @@ def test_banks_transform_above_4096_reaches_its_launcher(monkeypatch, n):
 
 def _fake_fourstep_pack(k, n):
     n1, n2 = fourstep_split(n)
-    stages = lambda m: {"tw": _fake(k, m.bit_length() - 1, m // 2),
-                        "twp": _fake(k, m.bit_length() - 1, m // 2)}
+    stages = lambda m: {**{name: _fake(k, m.bit_length() - 1, m // 2)
+                           for name in ("tw", "twp", "itw", "itwp")},
+                        "ninv": _fake(k), "ninv_p": _fake(k)}
     return {"qs": _fake(k), "pack1": stages(n1), "pack2": stages(n2),
-            **{name: _fake(k, n) for name in ("psi", "psip", "tw", "twp")}}
+            **{name: _fake(k, n) for name in ("psi", "psip", "tw", "twp", "itw", "itwp",
+                                              "ipsi", "ipsip")}}
 
 
 @pytest.mark.parametrize("n", [1 << 10, 1 << 14, 1 << 17])
@@ -387,6 +389,59 @@ def test_fourstep_refuses_a_split_it_lacks(monkeypatch):
     with pytest.raises(ValueError, match="16 x 16 split"):
         ntt_kernel.ntt_fourstep_banks(_fake(2, 1, 256), _fake_fourstep_pack(2, 256),
                                       negacyclic=True, lazy=True)
+
+
+@pytest.mark.parametrize("n", [1 << 10, 1 << 14, 1 << 17])
+@pytest.mark.parametrize("batch_leading", [False, True])
+@pytest.mark.parametrize("negacyclic", [False, True])
+def test_ifourstep_reaches_its_launcher_with_strides(monkeypatch, n, batch_leading,
+                                                     negacyclic):
+    """The four-step inverse reaches its launcher once, after its sixteen
+    pointers (x, out, scratch, qs, the row pass's inverse stages, n2^-1 and
+    inverse twiddle, the column pass's inverse stages, n1^-1 and psi^-i,
+    each with its companion, in that order), with k, B, n1, n2, the
+    (prime, ring) strides of x and of the output and the flags: a
+    batch-leading view is read in place and its output laid out so that
+    the swap back is contiguous; one count, no plain version."""
+    lib = _Recorder()
+    monkeypatch.setattr(build, "load", lambda name: lib)
+    monkeypatch.setattr(ntt_kernel, "stream", lambda: 0)
+    k, b = 3, 5
+    n1, n2 = fourstep_split(n)
+    fp = _fake_fourstep_pack(k, n)
+    x = _fake(b, k, n).transpose(0, 1) if batch_leading else _fake(k, b, n)
+    K.reset_counts()
+    out = ntt_kernel.intt_fourstep_banks(x, fp, negacyclic=negacyclic, lazy=False)
+    strides = (n, k * n) if batch_leading else (b * n, n)
+    (fn, args), = lib.calls
+    assert fn == "intt_fourstep_banks"
+    assert len(args) == len(build.SIGNATURES["fourstep"][fn])
+    p1, p2 = fp["pack1"], fp["pack2"]
+    tables = (fp["qs"], p2["itw"], p2["itwp"], p2["ninv"], p2["ninv_p"], fp["itw"],
+              fp["itwp"], p1["itw"], p1["itwp"], p1["ninv"], p1["ninv_p"], fp["ipsi"],
+              fp["ipsip"])
+    assert args[0] == x.data_ptr() and args[1] == out.data_ptr()
+    assert args[3:16] == tuple(t.data_ptr() for t in tables)
+    assert args[16:] == (k, b, n1, n2) + strides * 2 + (int(negacyclic), 0, 0)
+    assert tuple(out.shape) == (k, b, n) and out.stride()[:2] == strides
+    assert K.snapshot()[fn] == {"launches": 1, "plain_calls": 0}
+
+
+def test_ifourstep_refuses_what_its_kernels_lack(monkeypatch):
+    """A 16 x 16 pack, rows of another length, a strided row or a table of
+    the wrong shape is refused before the launcher."""
+    monkeypatch.setattr(build, "load", lambda name: _Recorder())
+    fp = _fake_fourstep_pack(2, 1 << 10)
+    inv = lambda x, pack: ntt_kernel.intt_fourstep_banks(x, pack, negacyclic=True, lazy=True)
+    with pytest.raises(ValueError, match="x must be"):
+        inv(_fake(2, 1, 1 << 11), fp)
+    with pytest.raises(ValueError, match="16 x 16 split"):
+        inv(_fake(2, 1, 256), _fake_fourstep_pack(2, 256))
+    with pytest.raises(ValueError, match="rows must be contiguous"):
+        inv(_fake(2, 1, 2 << 10)[..., ::2], fp)
+    short = {**fp, "pack2": {**fp["pack2"], "ninv": _fake(1)}}
+    with pytest.raises(ValueError, match="ninv2 has shape"):
+        inv(_fake(2, 1, 1 << 10), short)
 
 
 def test_banks_scratch_only_above_one_launchs_ring():
