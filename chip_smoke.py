@@ -316,6 +316,8 @@ MV_DIM = 64                      # bsgs_split(64) = (8, 8)
 
 MLKEM_B = 256                    # a batch of handshakes (b = 1 for latency)
 MLKEM_ODD_B = 5
+MLKEM_CELL_B = 32768             # the benchmark cell's batch (mlkem768-tls-encaps)
+MLKEM_MALFORMED = [3, 100, 255]  # rows given a key that fails FIPS 203 section 7.2
 KAT_PATH = os.path.join(ROOT, "tests", "vectors", "mlkem768_kat.json")
 
 NTT128_B = 100_000               # paper §VII.C: 10^5 random NTT-128s
@@ -441,6 +443,13 @@ REPLACES = {
     # the reference's four-step is XLA ops around the banks kernels
     "ntt_fourstep_banks": "none (src/repro/kernels/ops.py ntt_fourstep_banks, XLA)",
     "intt_fourstep_banks": "none (src/repro/kernels/ops.py intt_fourstep_banks, XLA)",
+    # the reference hashes on the host
+    "keccak_hash": "none (hashlib: src/repro/pq/mlkem.py _h, _g, _j)",
+    "keccak_sample_ntt": "none (hashlib: src/repro/pq/mlkem.py _sample_ntt)",
+    "keccak_prf_cbd": "none (hashlib and numpy: src/repro/pq/mlkem.py _prf, _cbd)",
+    # the reference's codecs are host numpy
+    "mlkem_decode_check": "none (numpy: src/repro/pq/mlkem.py byte_decode)",
+    "mlkem_encaps_tail": "none (numpy: src/repro/pq/mlkem.py compress, byte_encode)",
 }
 SOURCE = {
     "ntt_fwd_banks": "src/repro_torch/csrc/ntt_banks.cu",
@@ -462,8 +471,15 @@ SOURCE = {
     "base_conv": "src/repro_torch/csrc/basis.cu",
     "ntt_fourstep_banks": "src/repro_torch/csrc/fourstep.cu",
     "intt_fourstep_banks": "src/repro_torch/csrc/fourstep.cu",
+    "keccak_hash": "src/repro_torch/csrc/keccak.cu",
+    "keccak_sample_ntt": "src/repro_torch/csrc/keccak.cu",
+    "keccak_prf_cbd": "src/repro_torch/csrc/keccak.cu",
+    "mlkem_decode_check": "src/repro_torch/csrc/mlkem_codec.cu",
+    "mlkem_encaps_tail": "src/repro_torch/csrc/mlkem_codec.cu",
 }
-MLKEM_KERNELS = ("ntt_fwd_banks_u16", "ntt_inv_banks_u16", "dyadic_basemul_banks")
+MLKEM_KERNELS = ("ntt_fwd_banks_u16", "ntt_inv_banks_u16", "dyadic_basemul_banks",
+                 "keccak_hash", "keccak_sample_ntt", "keccak_prf_cbd", "mlkem_decode_check",
+                 "mlkem_encaps_tail")
 # the kernels each path must launch: multiply -> rescale runs the key
 # switch; the rotation path runs the key switch and all three gathers;
 # ML-KEM runs the u16 transforms and the basecase product; the NTT-128
@@ -503,8 +519,11 @@ PATH_KERNELS["examples"] = ("ntt_fwd_banks", "ntt_inv_banks",
 PATH_KERNELS["dryrun"] = ("ntt_fwd_banks", "ntt_inv_banks",
                           "dyadic_inner_banks") + BASIS_KERNELS
 # launches per ML-KEM entry point at any batch: (u16 forward NTTs, u16
-# inverse NTTs, basecase products), as pq/mlkem.py issues them
-MLKEM_LAUNCHES = {"keygen": (1, 0, 1), "encaps": (1, 2, 2), "decaps": (2, 3, 3)}
+# inverse NTTs, basecase products, Keccak hashes, SampleNTT, PRF + CBD,
+# the key's decode and check, the ciphertext's encode), as pq/mlkem.py
+# issues them
+MLKEM_LAUNCHES = {"keygen": (1, 0, 1, 2, 1, 1, 0, 0), "encaps": (1, 2, 2, 2, 1, 2, 1, 1),
+                  "decaps": (2, 3, 3, 2, 1, 2, 2, 1)}
 # device function names of the port's kernels, as the profiler sees them
 DEVICE_FUNCTIONS = ("ntt_rows_kernel", "ntt_cols_kernel",
                     "twiddle_mul_banks_kernel", "dyadic_inner_banks_kernel",
@@ -514,7 +533,9 @@ DEVICE_FUNCTIONS = ("ntt_rows_kernel", "ntt_cols_kernel",
                     "dyadic_mac_kernel", "extend_centered_kernel",
                     "mod_down_tail_kernel", "base_conv_kernel",
                     "fourstep_cols_kernel", "fourstep_rows_kernel",
-                    "fourstep_irows_kernel", "fourstep_icols_kernel")
+                    "fourstep_irows_kernel", "fourstep_icols_kernel",
+                    "keccak_hash_kernel", "sample_ntt_kernel", "prf_cbd_kernel",
+                    "decode_check_kernel", "encaps_tail_kernel")
 
 
 def log(msg: str) -> None:
@@ -2011,7 +2032,8 @@ def ring_rows(rng, rows: int, band: int = 1) -> torch.Tensor:
 def phase_mlkem_kernels() -> dict:
     """The u16 transforms (lazy and eager, reduce_out both ways) and the
     basecase product (lazy and eager) against their plain versions at
-    every shape of the b = 1 and b = 256 paths and at an odd batch."""
+    every shape of the b = 1 and b = 256 paths and at an odd batch; the
+    Keccak front ends at b = 1, 5, 256 and the cell's 32768."""
     from repro_torch.kernels import dyadic_kernel, ntt_kernel, ref
     rng = np.random.default_rng(SEED + 5)
     t = mlkem_pack()
@@ -2030,7 +2052,7 @@ def phase_mlkem_kernels() -> dict:
 
     shapes = {name: sorted(set(mlkem_path_rows(1)[name] + mlkem_path_rows(MLKEM_B)[name]
                                + (MLKEM_ODD_B,)))
-              for name in MLKEM_KERNELS}
+              for name in mlkem_path_rows(1)}
     bodies = set()
     for lazy in (False, True):
         for rows in shapes["ntt_fwd_banks_u16"]:
@@ -2054,12 +2076,62 @@ def phase_mlkem_kernels() -> dict:
             bodies.add(body)
     if bodies != {"vector", "pair"}:
         raise AssertionError(f"dyadic_basemul_banks ran the bodies {bodies}, not both")
+    for b in (1, MLKEM_ODD_B, MLKEM_B, MLKEM_CELL_B):
+        for name, (kern, plain) in keccak_cases(rng, b).items():
+            check(name, kern(), plain(), f"b={b}")
+        shapes.setdefault("keccak", []).append(b)
     for name, e in err.items():
-        log(f"[mlkem kernels] {name} at B in {shapes[name]}: bit-identical to its "
-            f"plain version (max abs err {e})")
+        log(f"[mlkem kernels] {name} at B in {shapes.get(name, shapes['keccak'])}: "
+            f"bit-identical to its plain version (max abs err {e})")
     log("[mlkem kernels] dyadic_basemul_banks also at n = 4 and 2 and on a view at an "
         "odd word: both bodies (vector, pair) bit-identical to the plain version")
     return err
+
+
+def mlkem_bytes(rng, b: int, width: int) -> torch.Tensor:
+    return torch.from_numpy(rng.integers(0, 256, (b, width), dtype=np.uint8)).cuda()
+
+
+def codec_cols(out) -> tuple:
+    """The key decode's (t_hat, ok) as byte columns, to compare at once."""
+    t_hat, ok = out
+    return t_hat.view(torch.uint8).flatten(1), ok.view(torch.uint8)[:, None]
+
+
+def keccak_cases(rng, b: int) -> dict:
+    """(kernel, plain version) of each Keccak front end on an encapsulation's
+    rows at batch b: H(ek), G(m || h), J(z || c), SampleNTT transposed from
+    rho read in the key rows, PRF + CBD from the seed read in G's rows; the
+    codec's decode and check of the keys (every 37th with a field at q) and
+    its encode of random u, v and errors with K and the verdicts."""
+    from repro_torch.kernels import codec_kernel, keccak_kernel, ref
+    ek, m = mlkem_bytes(rng, b, 1184), mlkem_bytes(rng, b, 32)
+    g, ct = mlkem_bytes(rng, b, 64), mlkem_bytes(rng, b, 1088)
+    bad = ek.clone()
+    bad[::37, 0], bad[::37, 1] = 0x01, 0x0D                  # a field at q
+    u, e = ring_rows(rng, 3 * b).view(b, 3, -1), ring_rows(rng, 4 * b).view(b, 4, -1)
+    v = ring_rows(rng, b).view(b, -1)
+    ok = ref.mlkem_decode_check_ref(bad)[1]
+    h = dict(rate=136, suffix=0x06, out_len=32)
+    gg = dict(rate=72, suffix=0x06, out_len=64)
+    j = dict(rate=136, suffix=0x1F, out_len=32)
+    return {
+        "keccak_hash": (lambda: torch.cat([keccak_kernel.keccak_hash(ek, **h),
+                                           keccak_kernel.keccak_hash(m, g[:, :32], **gg),
+                                           keccak_kernel.keccak_hash(g[:, 32:], ct, **j)], 1),
+                        lambda: torch.cat([ref.keccak_hash_ref(ek, **h),
+                                           ref.keccak_hash_ref(m, g[:, :32], **gg),
+                                           ref.keccak_hash_ref(g[:, 32:], ct, **j)], 1)),
+        "keccak_sample_ntt": (lambda: keccak_kernel.sample_ntt(ek[:, 1152:], transpose=True),
+                              lambda: ref.sample_ntt_ref(ek[:, 1152:], True)),
+        "keccak_prf_cbd": (lambda: keccak_kernel.prf_cbd(g[:, 32:], n0=3, count=4),
+                           lambda: ref.prf_cbd_ref(g[:, 32:], 3, 4)),
+        "mlkem_decode_check": (lambda: torch.cat(codec_cols(codec_kernel.decode_check(bad)), 1),
+                               lambda: torch.cat(codec_cols(ref.mlkem_decode_check_ref(bad)), 1)),
+        "mlkem_encaps_tail": (
+            lambda: torch.cat(codec_kernel.encaps_tail(u, v, e, m, g, ok), 1),
+            lambda: torch.cat(ref.mlkem_encaps_tail_ref(u, v, e, m, g, ok), 1)),
+    }
 
 
 def basemul_cases(rng, t, path_rows):
@@ -2120,13 +2192,17 @@ def run_mlkem_round(d, z, m, device=None) -> dict:
     copy of every ciphertext (byte 17, bit 0 flipped)."""
     from repro_torch.pq import mlkem
     ek, dk = mlkem.keygen_batch(d, z, device=device)
-    key, ct = mlkem.encaps_batch(ek, m, device=device)
+    key, ct, ok = mlkem.encaps_batch(ek, m, device=device)
     back = mlkem.decaps_batch(dk, ct, device=device)
     bad = ct.copy()
     bad[:, 17] ^= 0x01
     rej = mlkem.decaps_batch(dk, bad, device=device)
-    return {"ek": ek, "dk": dk, "K": key, "ct": ct, "decaps": back, "bad": bad,
-            "reject": rej}
+    malformed = ek.copy()
+    malformed[MLKEM_MALFORMED, 0] = 0x01                  # coefficient 0 = 0xD01 = q
+    malformed[MLKEM_MALFORMED, 1] = (malformed[MLKEM_MALFORMED, 1] & 0xF0) | 0x0D
+    m_key, m_ct, m_ok = mlkem.encaps_batch(malformed, m, device=device)
+    return {"ek": ek, "dk": dk, "K": key, "ct": ct, "ok": ok, "decaps": back, "bad": bad,
+            "reject": rej, "malformed K": m_key, "malformed ct": m_ct, "malformed ok": m_ok}
 
 
 def phase_mlkem() -> tuple:
@@ -2134,7 +2210,7 @@ def phase_mlkem() -> tuple:
     from repro_torch.pq import mlkem
     kat = kat_vectors()
     ek, dk = mlkem.keygen_batch(kat["d"], kat["z"])
-    key, ct = mlkem.encaps_batch(kat["ek"], kat["m"])
+    key, ct, _ = mlkem.encaps_batch(kat["ek"], kat["m"])
     back = mlkem.decaps_batch(kat["dk"], kat["ct"])
     bad = kat["ct"].copy()
     bad[:, 17] ^= 0x01
@@ -2163,8 +2239,18 @@ def phase_mlkem() -> tuple:
         if out[name].shape != shape or out[name].dtype != np.uint8:
             raise AssertionError(f"ML-KEM {name}: {out[name].dtype} {out[name].shape}, "
                                  f"expected uint8 {shape}")
-    if not np.array_equal(out["decaps"], out["K"]):
+    if not np.array_equal(out["decaps"], out["K"]) or not out["ok"].all():
         raise AssertionError("ML-KEM: decaps key != encaps key")
+    rejected = np.flatnonzero(~out["malformed ok"]).tolist()
+    good = np.setdiff1d(np.arange(MLKEM_B), MLKEM_MALFORMED)
+    if (rejected != MLKEM_MALFORMED or out["malformed K"][MLKEM_MALFORMED].any()
+            or out["malformed ct"][MLKEM_MALFORMED].any()
+            or not np.array_equal(out["malformed K"][good], out["K"][good])
+            or not np.array_equal(out["malformed ct"][good], out["ct"][good])):
+        raise AssertionError(f"ML-KEM: keys failing section 7.2 at rows {MLKEM_MALFORMED}, "
+                             f"rejected {rejected}, or another row's answer changed")
+    log(f"[mlkem] rows {MLKEM_MALFORMED} with a coefficient at q: rejected alone "
+        "(zero K and ct), every other row's answer unchanged")
     want = rejection_keys(out["dk"], out["bad"])
     if not np.array_equal(out["reject"], want) or np.array_equal(want, out["K"]):
         raise AssertionError("ML-KEM: a tampered ciphertext did not give J(z || ct)")
@@ -2200,23 +2286,33 @@ def phase_mlkem_cpu_parity(inputs, cuda_out) -> None:
 
 
 def phase_mlkem_times(counts: dict, errs: dict) -> tuple:
-    """The three ML-KEM kernels at their largest b = 256 shapes, then
-    keygen, encaps and decaps latencies at b = 1 and b = 256."""
-    from repro_torch.kernels import dyadic_kernel, ntt_kernel, ref
+    """The ML-KEM kernels at the benchmark cell's encapsulation shapes (b =
+    32768: the forward and inverse transforms of 3b rows, the basecase
+    product of 9b, H(ek), SampleNTT's 9b streams, PRF + CBD of 3b), an
+    encapsulation of b = 32768 device-resident rows, then keygen, encaps
+    and decaps latencies at b = 1 and b = 256.  The codec's two kernels
+    at the cell's shapes too, with bytes bounds."""
+    from repro_torch.kernels import codec_kernel, dyadic_kernel, keccak_kernel, ntt_kernel, ref
     from repro_torch.pq import mlkem
+    from repro_torch.runtime.roofline import INT32_OPS_PER_S
     rng = np.random.default_rng(SEED + 7)
     t = mlkem_pack()
-    rows = mlkem_path_rows(MLKEM_B)
-    x_f = ring_rows(rng, rows["ntt_fwd_banks_u16"][0])
-    x_i = ring_rows(rng, rows["ntt_inv_banks_u16"][0])
-    m_a = ring_rows(rng, rows["dyadic_basemul_banks"][0])
-    m_b = ring_rows(rng, rows["dyadic_basemul_banks"][0])
+    b = MLKEM_CELL_B
+    x_f = ring_rows(rng, 3 * b)
+    x_i = ring_rows(rng, 3 * b)
+    m_a = ring_rows(rng, 9 * b)
+    m_b = ring_rows(rng, 9 * b)
     fargs = (t["qs"], t["tw"], t["twp"], t["psi"], t["psip"])
     iargs = (t["qs"], t["ninv"], t["ninv_p"], t["itw"], t["itwp"], t["ipsin"], t["ipsinp"])
     gargs = (t["qs"], t["mu"], t["gamma"], t["gammap"])
     kw = dict(negacyclic=False, lazy=True, reduce_out=True)   # the path's flags
     w = 2   # bytes per word
     tables = 2 * t["tw"].numel() * w                          # tw + twp
+    ek, seed = mlkem_bytes(rng, b, 1184), mlkem_bytes(rng, b, 64)[:, 32:]
+    perm = keccak_kernel.PERM_INT_OPS
+    u, e = ring_rows(rng, 3 * b).view(b, 3, -1), ring_rows(rng, 4 * b).view(b, 4, -1)
+    v, m, kr = ring_rows(rng, b).view(b, -1), mlkem_bytes(rng, b, 32), mlkem_bytes(rng, b, 64)
+    ok = codec_kernel.decode_check(ek)[1]
     cases = {
         "ntt_fwd_banks_u16": (
             lambda: ntt_kernel.ntt_fwd_banks(x_f, *fargs, **kw),
@@ -2234,10 +2330,48 @@ def phase_mlkem_times(counts: dict, errs: dict) -> tuple:
             None, tuple(m_a.shape),
             3 * m_a.numel() * w + 2 * t["gamma"].numel() * w + 2 * w,
             m_a.numel() // 2 * BASEMUL_OPS[True]),
+        # the floor of a permutation (keccak_kernel.PERM_INT_OPS); the plain
+        # versions timed eagerly (SampleNTT's reads its candidates' count)
+        "keccak_hash": (
+            lambda: keccak_kernel.keccak_hash(ek, rate=136, suffix=0x06, out_len=32),
+            ("eager", lambda: ref.keccak_hash_ref(ek, rate=136, suffix=0x06, out_len=32)),
+            None, tuple(ek.shape), ek.numel() + 32 * b,
+            b * keccak_kernel.sponge_perms(1184, 136, 32) * perm),
+        "keccak_sample_ntt": (
+            lambda: keccak_kernel.sample_ntt(ek[:, 1152:], transpose=True),
+            ("eager", lambda: ref.sample_ntt_ref(ek[:, 1152:], True)),
+            None, (b, 32), 32 * b + 9 * b * mlkem.N * w,
+            9 * b * keccak_kernel.SAMPLE_BLOCKS * perm),
+        "keccak_prf_cbd": (
+            lambda: keccak_kernel.prf_cbd(seed, n0=0, count=3),
+            ("eager", lambda: ref.prf_cbd_ref(seed, 0, 3)),
+            None, (b, 32), 32 * b + 3 * b * mlkem.N * w, 3 * b * perm),
+        # bytes only: the key's t̂ read, t̂ and the verdict written
+        "mlkem_decode_check": (
+            lambda: codec_kernel.decode_check(ek),
+            lambda: ref.mlkem_decode_check_ref(ek),
+            None, tuple(ek.shape), 1152 * b + 3 * mlkem.N * w * b + b),
+        # u, v, e, m, K's half of kr and the verdict read; K and ct written
+        "mlkem_encaps_tail": (
+            lambda: codec_kernel.encaps_tail(u, v, e, m, kr, ok),
+            lambda: ref.mlkem_encaps_tail_ref(u, v, e, m, kr, ok),
+            None, (b, mlkem.CT_BYTES),
+            (8 * mlkem.N * w + 32 + 32 + 1 + 32 + mlkem.CT_BYTES) * b),
     }
     out = time_kernels(cases, counts, errs)
-    log("[times] library: none for the u16 transforms and the basecase "
-        "product, which no single PyTorch call computes")
+    log("[times] library: none for the u16 transforms, the basecase product, the "
+        "Keccak front ends and the codec, which no single PyTorch call computes")
+
+    g = torch.Generator(device="cuda").manual_seed(SEED + 8)
+    coeffs = torch.randint(0, mlkem.Q, (b, mlkem.K, mlkem.N), device="cuda", generator=g)
+    ekc = torch.cat([mlkem.encode12(coeffs).flatten(1),
+                     mlkem_bytes(rng, b, 32)], 1)
+    mc = mlkem_bytes(rng, b, 32)
+    ms = eager_ms(lambda: mlkem.encaps_batch(ekc, mc), reps=7, inner=5)
+    floor = b * mlkem.PERMS["encaps"] * perm / INT32_OPS_PER_S * 1e3
+    log(f"[times] mlkem encaps of {b} device-resident rows: {ms:.4f} ms a call, "
+        f"{b * 1e3 / ms:.1f} encapsulations per second; the Keccak floor alone "
+        f"{floor:.4f} ms ({mlkem.PERMS['encaps']} permutations a row)")
 
     d1, z1, m1 = mlkem_inputs(1)
     dB, zB, mB = mlkem_inputs(MLKEM_B)
@@ -3776,13 +3910,15 @@ def apply_int_bounds(records: list, mhz: float) -> None:
 
 
 def time_kernels(cases: dict, counts: dict, errs: dict) -> list:
-    """The JSON record of each kernel: its CUDA-graph time, plain version,
-    library call (or None), byte bound and eager call at the case's
-    shape, and its launches on each path's counted run."""
+    """The JSON record of each kernel: its CUDA-graph time, plain version
+    (timed eagerly where the case gives it as ("eager", fn)), library call
+    (or None), byte bound and eager call at the case's shape, and its
+    launches on each path's counted run."""
     out = []
     for name, (kern, plain, library, shape, nbytes, *ops) in cases.items():
         ms = graph_ms(kern)
-        plain_ms = graph_ms(plain, inner=1)
+        plain_ms = (eager_ms(plain[1], reps=3, inner=1) if isinstance(plain, tuple)
+                    else graph_ms(plain, inner=1))
         wrapper_ms = eager_ms(kern)
         library_ms = graph_ms(library) if library is not None else None
         bound_ms = nbytes / HBM_BYTES_PER_S * 1e3

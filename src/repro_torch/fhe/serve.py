@@ -54,8 +54,9 @@ whole tiles.  Identity rotations (r = 0 mod slots) are answered on the
 host before any check.
 
 Failure isolation: a request that fails validation (mismatched multiply
-operands, exhausted level) or whose matvec pack raises inside its
-composite is recorded in ``stats['failed']`` and sinks no other answer.
+operands, exhausted level), whose matvec pack raises inside its
+composite, or an ML-KEM encapsulation whose key fails FIPS 203 §7.2's
+check is recorded in ``stats['failed']`` and sinks no other answer.
 A fault of the card (a kernel that does not build, launch or take its
 tensors, a CUDA graph that cannot be captured, a CUDA error of torch's,
 ``kernels.is_device_fault``) is not a request's failure: it raises out of
@@ -331,13 +332,17 @@ class CkksServeEngine:
         with obs.span("serve.dispatch", kind=kind, n=len(reqs), group=gid):
             if kind == "matvec":
                 return self._matvec_group(reqs, failed)
-            return reqs, self._dispatch(kind, reqs)
+            outs = self._dispatch(kind, reqs)
+            if kind == "mlkem_encaps":
+                return self._key_checked(reqs, outs, failed)
+            return reqs, outs
 
     def _mlkem_dispatch(self, kind: str, reqs: list) -> list:
         """One batched ML-KEM dispatch of a (padded) same-op group on the
         plan's device: payload rows stack into (b, ...) u8 arrays for the
         ``pq.mlkem`` batch entry points.  Per request: keygen -> (ek, dk),
-        encaps -> (K, ct), decaps -> K."""
+        encaps -> (K, ct), or None where the key fails FIPS 203 §7.2's
+        check, decaps -> K."""
         from repro_torch.pq import mlkem
 
         def rows(key):
@@ -348,8 +353,8 @@ class CkksServeEngine:
             ek, dk = mlkem.keygen_batch(rows("d"), rows("z"), device=device)
             return [(ek[i], dk[i]) for i in range(len(reqs))]
         if kind == "mlkem_encaps":
-            key, ct = mlkem.encaps_batch(rows("ek"), rows("m"), device=device)
-            return [(key[i], ct[i]) for i in range(len(reqs))]
+            key, ct, ok = mlkem.encaps_batch(rows("ek"), rows("m"), device=device)
+            return [(key[i], ct[i]) if ok[i] else None for i in range(len(reqs))]
         key = mlkem.decaps_batch(rows("dk"), rows("ct"), device=device)
         return [key[i] for i in range(len(reqs))]
 
@@ -379,6 +384,22 @@ class CkksServeEngine:
                 out[req.rid] = ct
                 done_t[req.rid] = done
             self._account_group(stats, kind, reqs)
+
+    @staticmethod
+    def _key_checked(reqs: list, outs: list, failed: dict):
+        """An encaps group's answers less the requests whose encapsulation
+        key failed FIPS 203 §7.2's modulus check, each recorded in
+        ``failed`` alone (pad rows after ``reqs`` are dropped)."""
+        kept, answers = [], []
+        for req, out in zip(reqs, outs):
+            if out is None:
+                failed[req.rid] = (f"request {req.rid}: mlkem_encaps: the encapsulation "
+                                   f"key fails FIPS 203 §7.2's modulus check (a 12-bit "
+                                   f"coefficient at q = 3329 or above)")
+            else:
+                kept.append(req)
+                answers.append(out)
+        return kept, answers
 
     def _matvec_group(self, reqs: list, failed: dict):
         """Per-request matvec composites (no padding).  An exception a

@@ -24,6 +24,12 @@ mod-down's conversion of the special primes), which the reference does
 not have.  ``ntt_fourstep_banks`` and ``intt_fourstep_banks`` are the
 four-step forward and inverse transforms' two passes each (one count a
 call), which replace the reference's chains of XLA ops and bank kernels.
+``keccak_hash``, ``keccak_sample_ntt`` and ``keccak_prf_cbd`` are
+Keccak-f[1600]'s sponges (ML-KEM's H, G and J; SampleNTT; PRF fused
+with CBD), which replace the reference's host ``hashlib`` calls;
+``mlkem_decode_check`` and ``mlkem_encaps_tail`` are ML-KEM's byte codecs
+around encryption (the key's decode with FIPS 203 §7.2's check; the
+ciphertext's compress and encode), which replace its host numpy.
 
 Faults of the device path have classes of their own (``DeviceFault``):
 a build that fails (``build.BuildError``), a launcher that returns a CUDA
@@ -45,7 +51,9 @@ KERNELS = ("ntt_fwd_banks", "ntt_inv_banks", "twiddle_mul_banks",
            "galois_digits", "ntt_fwd_banks_u16", "ntt_inv_banks_u16",
            "dyadic_basemul_banks", "ntt_fwd", "ntt_inv", "dyadic_mul",
            "dyadic_mac", "extend_centered", "mod_down_tail", "base_conv",
-           "ntt_fourstep_banks", "intt_fourstep_banks")
+           "ntt_fourstep_banks", "intt_fourstep_banks", "keccak_hash",
+           "keccak_sample_ntt", "keccak_prf_cbd", "mlkem_decode_check",
+           "mlkem_encaps_tail")
 
 
 @dataclasses.dataclass

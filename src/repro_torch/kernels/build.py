@@ -28,7 +28,7 @@ from repro_torch.kernels import DeviceFault
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 SOURCES = ("ntt_banks", "dyadic_inner", "galois", "dyadic_basemul", "ntt",
-           "dyadic", "basis", "fourstep")
+           "dyadic", "basis", "fourstep", "keccak", "mlkem_codec")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -83,6 +83,19 @@ SIGNATURES = {
         # the inverse twiddle, the column pass's stage tables, n1^-1 and
         # psi^-i, each with its companion; the rest as the forward's
         "intt_fourstep_banks": [_P] * 16 + [_I] * 4 + [_L] * 4 + [_I, _I, _P],
+    },
+    "keccak": {
+        # a, its row stride and length; b likewise; extra, rate, suffix;
+        # out, out_len, rows
+        "keccak_hash": [_P, _L, _I, _P, _L, _I, _I, _I, _I, _P, _I, _I, _P],
+        "keccak_sample_ntt": [_P, _L, _P, _I, _I, _P],
+        "keccak_prf_cbd": [_P, _L, _I, _I, _P, _I, _P],
+    },
+    "mlkem_codec": {
+        # ek and its row stride, t_hat, ok, rows
+        "mlkem_decode_check": [_P, _L, _P, _P, _I, _P],
+        # u, v, e, m and its stride, kr and its stride, ok, key, ct, rows
+        "mlkem_encaps_tail": [_P] * 4 + [_L, _P, _L] + [_P] * 3 + [_I, _P],
     },
 }
 

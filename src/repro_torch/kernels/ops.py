@@ -37,6 +37,13 @@ conversion: the mod-up of digits of several primes, and the mod-down's
 conversion of the special primes) and ``mod_down_tail_banks`` (the
 mod-down's subtract and P^-1 multiply, with the sum into a ciphertext
 half folded in).
+
+The ``keccak_*`` entry points are FIPS 202's sponges over rows of bytes
+(uint8 (rows, len) tensors, any row stride) and ML-KEM's two samplers
+built on them (``csrc/keccak.cu``): the hashes take the concatenation
+a[r] || b[r] (|| ``extra``, one byte) of each row.  ``mlkem_decode_check``
+and ``mlkem_encaps_tail`` are ML-KEM's byte codecs around encryption
+(``csrc/mlkem_codec.cu``).
 """
 from __future__ import annotations
 
@@ -46,7 +53,8 @@ import math
 import torch
 
 from repro_torch import obs
-from repro_torch.kernels import basis_kernel, dyadic_kernel, galois_kernel, ntt_kernel
+from repro_torch.kernels import (basis_kernel, codec_kernel, dyadic_kernel, galois_kernel,
+                                  keccak_kernel, ntt_kernel)
 
 FOURSTEP_MIN_N = 1 << 13
 
@@ -351,3 +359,60 @@ def mod_down_tail_banks(acc, extn, t: dict, *, addend=None,
     return basis_kernel.mod_down_tail(acc[:k], extn.contiguous(), t["qs"][:k],
                                       t["pinv"], t["pinv_p"], addend,
                                       batch_leading=batch_leading)
+
+
+# ------------------------------------------------------------ Keccak
+
+@_spanned
+def keccak_sha3_256(a, b=None):
+    """SHA3-256 of each row a[r] || b[r]: (rows, 32) uint8 (ML-KEM's H)."""
+    return keccak_kernel.keccak_hash(a, b, rate=136, suffix=0x06, out_len=32)
+
+
+@_spanned
+def keccak_sha3_512(a, b=None, *, extra=None):
+    """SHA3-512 of each row a[r] || b[r] || extra: (rows, 64) uint8
+    (ML-KEM's G)."""
+    return keccak_kernel.keccak_hash(a, b, extra=extra, rate=72, suffix=0x06, out_len=64)
+
+
+@_spanned
+def keccak_shake256(a, b=None, *, out_len: int):
+    """SHAKE256 of each row a[r] || b[r], ``out_len`` bytes a row
+    (ML-KEM's J at 32)."""
+    return keccak_kernel.keccak_hash(a, b, rate=136, suffix=0x1F, out_len=out_len)
+
+
+@_spanned
+def keccak_sample_ntt(rho, *, transpose: bool = False):
+    """ML-KEM's matrix from rho (b, 32) uint8: SampleNTT(rho || j || i)
+    (FIPS 203 Alg. 7, SHAKE128 with rejection below q) in the CG order of
+    ``MLKEM_RING``'s NTT domain, (b, 3, 3, 256) int16 at [r, i, j], or the
+    transpose at [r, j, i]."""
+    return keccak_kernel.sample_ntt(rho, transpose=transpose)
+
+
+@_spanned
+def keccak_prf_cbd(seed, *, n0: int, count: int):
+    """CBD_2(PRF_2(seed[r], n0 + c)) (FIPS 203 Alg. 8 over SHAKE256) for c <
+    count: (b, count, 256) int16 in [0, q), natural coefficient order."""
+    return keccak_kernel.prf_cbd(seed, n0=n0, count=count)
+
+
+# -------------------------------------------------------- ML-KEM codec
+
+@_spanned
+def mlkem_decode_check(ek):
+    """ByteDecode12 of each row's first 1152 bytes (an encapsulation key's
+    t̂, a decapsulation key's ŝ) in ``MLKEM_RING``'s CG order, mod q, and
+    FIPS 203 §7.2's modulus check: (t_hat (b, 3, 256) int16, ok (b,) bool)."""
+    return codec_kernel.decode_check(ek)
+
+
+@_spanned
+def mlkem_encaps_tail(u, v, e, m, kr=None, ok=None):
+    """The end of ML-KEM-768's encryption: ct = ByteEncode10(Compress10(u +
+    e1)) || ByteEncode4(Compress4(v + e2 + Decompress1(m))), (b, 1088)
+    uint8, and with kr, K = kr[:, :32]; rows where ok is False zeroed.
+    Returns (K or None, ct)."""
+    return codec_kernel.encaps_tail(u, v, e, m, kr, ok)

@@ -24,6 +24,7 @@ from repro_torch.core.modmath import (addmod, lazy_addmod, lazy_submod,
                                       u16, u32)
 from repro_torch.core.params import NTTParams, bitrev_perm
 from repro_torch.kernels import COUNTS
+from repro_torch.pq import codec
 
 
 def lane_bits(x: torch.Tensor) -> int:
@@ -453,3 +454,213 @@ def mod_down_tail_ref(acc, extn, qs, pinv, pinv_p, addend=None,
                        r.narrow(axis, head.shape[axis], r.shape[axis] - head.shape[axis])],
                       dim=axis)
     return r.int().contiguous()
+
+
+# ------------------------------------------------------------ Keccak
+
+def _keccak_constants():
+    """FIPS 202's round constants (the rc LFSR), rho offsets by lane
+    x + 5y, and pi's source lane of each destination lane."""
+    rc, r = [], 1
+    for _ in range(24):
+        c = 0
+        for j in range(7):
+            if r & 1:
+                c |= 1 << ((1 << j) - 1)
+            r = ((r << 1) ^ 0x71) if r & 0x80 else (r << 1)
+            r &= 0xFF
+        rc.append(c)
+    rho = [0] * 25
+    x, y = 1, 0
+    for t in range(24):
+        rho[x + 5 * y] = (t + 1) * (t + 2) // 2 % 64
+        x, y = y, (2 * x + 3 * y) % 5
+    src = [0] * 25
+    for x in range(5):
+        for y in range(5):
+            src[y + 5 * ((2 * x + 3 * y) % 5)] = x + 5 * y
+    return tuple(rc), tuple(rho), tuple(src)
+
+
+KECCAK_RC, KECCAK_RHO, KECCAK_PI_SRC = _keccak_constants()
+_M32 = 0xFFFFFFFF
+
+
+def _rotl64(lo, hi, r):
+    """Rotate 64-bit lanes held as 32-bit halves (int64 tensors below
+    2^32) left by r: a (25,) tensor of amounts, or an int."""
+    r = torch.as_tensor(r, device=lo.device)
+    swap = r >= 32
+    lo, hi = torch.where(swap, hi, lo), torch.where(swap, lo, hi)
+    s = r % 32
+    return (((lo << s) | (hi >> (32 - s))) & _M32,
+            ((hi << s) | (lo >> (32 - s))) & _M32)
+
+
+def keccak_f1600_ref(lo, hi):
+    """FIPS 202's Keccak-f[1600] on states (..., 25) of 64-bit lanes
+    (lane x + 5y) held as low and high 32-bit halves in int64 tensors,
+    as the kernel holds them in pairs of registers: torch has no
+    unsigned 64-bit shift."""
+    dev = lo.device
+    rho = torch.tensor(KECCAK_RHO, device=dev)
+    pi = torch.tensor(KECCAK_PI_SRC, device=dev)
+    for rc in KECCAK_RC:
+        a_lo, a_hi = lo.unflatten(-1, (5, 5)), hi.unflatten(-1, (5, 5))   # [y][x]
+        c_lo = a_lo[..., 0, :] ^ a_lo[..., 1, :] ^ a_lo[..., 2, :] ^ a_lo[..., 3, :] ^ a_lo[..., 4, :]
+        c_hi = a_hi[..., 0, :] ^ a_hi[..., 1, :] ^ a_hi[..., 2, :] ^ a_hi[..., 3, :] ^ a_hi[..., 4, :]
+        r_lo, r_hi = _rotl64(c_lo.roll(-1, -1), c_hi.roll(-1, -1), 1)
+        d_lo, d_hi = c_lo.roll(1, -1) ^ r_lo, c_hi.roll(1, -1) ^ r_hi
+        lo = (a_lo ^ d_lo.unsqueeze(-2)).flatten(-2)
+        hi = (a_hi ^ d_hi.unsqueeze(-2)).flatten(-2)
+        lo, hi = _rotl64(lo, hi, rho)
+        b_lo = lo.index_select(-1, pi).unflatten(-1, (5, 5))
+        b_hi = hi.index_select(-1, pi).unflatten(-1, (5, 5))
+        lo = (b_lo ^ ((b_lo.roll(-1, -1) ^ _M32) & b_lo.roll(-2, -1))).flatten(-2)
+        hi = (b_hi ^ ((b_hi.roll(-1, -1) ^ _M32) & b_hi.roll(-2, -1))).flatten(-2)
+        lo[..., 0] ^= rc & _M32
+        hi[..., 0] ^= rc >> 32
+    return lo, hi
+
+
+def _lanes(block: torch.Tensor):
+    """(S, 8m) byte values -> the (S, m) low and high halves of m lanes."""
+    w = block.reshape(block.shape[0], -1, 8) << (8 * torch.arange(8, device=block.device) % 32)
+    return w[..., :4].sum(-1), w[..., 4:].sum(-1)
+
+
+def _lane_bytes(lo, hi):
+    """(S, m) lane halves -> their (S, 8m) bytes, little-endian."""
+    sh = 8 * torch.arange(4, device=lo.device)
+    b = torch.cat([(lo.unsqueeze(-1) >> sh) & 255, (hi.unsqueeze(-1) >> sh) & 255], -1)
+    return b.flatten(-2)
+
+
+def keccak_sponge_ref(data, rate: int, suffix: int, out_len: int):
+    """The sponge of Keccak-f[1600] at ``rate`` bytes over each row of
+    ``data`` (S, L) bytes (any integer dtype), padded with the domain
+    byte ``suffix`` (0x06 SHA3, 0x1F SHAKE) and the final 0x80, squeezing
+    ``out_len`` bytes.  Returns (S, out_len) int64 byte values."""
+    rows, length = data.shape
+    dev = data.device
+    blocks = length // rate + 1
+    padded = torch.zeros((rows, blocks * rate), dtype=torch.int64, device=dev)
+    padded[:, :length] = data.long() & 255
+    padded[:, length] ^= suffix
+    padded[:, -1] ^= 0x80
+    lo = torch.zeros((rows, 25), dtype=torch.int64, device=dev)
+    hi = torch.zeros_like(lo)
+    m = rate // 8
+    for blk in range(blocks):
+        b_lo, b_hi = _lanes(padded[:, blk * rate:(blk + 1) * rate])
+        lo[:, :m] ^= b_lo
+        hi[:, :m] ^= b_hi
+        lo, hi = keccak_f1600_ref(lo, hi)
+    out = [_lane_bytes(lo[:, :m], hi[:, :m])]
+    while len(out) * rate < out_len:
+        lo, hi = keccak_f1600_ref(lo, hi)
+        out.append(_lane_bytes(lo[:, :m], hi[:, :m]))
+    return torch.cat(out, -1)[:, :out_len]
+
+
+def keccak_hash_ref(a, b=None, extra=None, *, rate: int, suffix: int, out_len: int):
+    """The plain version of ``csrc/keccak.cu`` ``keccak_hash``: the
+    sponge over each row a[r] || b[r] || extra ((rows, la) and (rows, lb)
+    uint8, ``extra`` one byte or None).  Returns (rows, out_len) uint8."""
+    COUNTS["keccak_hash"].plain_calls += 1
+    parts = [a] + ([b] if b is not None else [])
+    if extra is not None:
+        parts.append(torch.full((a.shape[0], 1), extra, dtype=torch.uint8, device=a.device))
+    data = torch.cat(parts, -1)
+    return keccak_sponge_ref(data, rate, suffix, out_len).to(torch.uint8)
+
+
+def cg_index(n: int = codec.N, device=None) -> torch.Tensor:
+    """CG position of each FIPS 203 NTT index: 2b + p -> (p << 7) | b."""
+    f = torch.arange(n, device=device)
+    return ((f & 1) << 7) | (f >> 1)
+
+
+def sample_ntt_ref(rho, transpose: bool):
+    """FIPS 203 SampleNTT(rho || j || i) of every row of rho (b, 32) uint8
+    and i, j < 3, in CG order, at [r, i, j] (or [r, j, i] with
+    ``transpose``): the plain version of ``keccak_sample_ntt``.  Squeezes
+    three SHAKE128 blocks, and more for every stream while any stream has
+    fewer than 256 candidates below q.  Returns (b, 3, 3, 256) int16."""
+    COUNTS["keccak_sample_ntt"].plain_calls += 1
+    b = rho.shape[0]
+    dev = rho.device
+    ij = torch.tensor([[j, i] for i in range(3) for j in range(3)], dtype=torch.uint8,
+                      device=dev)
+    data = torch.cat([rho.repeat_interleave(9, 0), ij.repeat(b, 1)], -1)
+    blocks = 3
+    while True:
+        buf = keccak_sponge_ref(data, 168, 0x1F, 168 * blocks).reshape(9 * b, -1, 3)
+        d1 = buf[..., 0] | ((buf[..., 1] & 15) << 8)
+        d2 = (buf[..., 1] >> 4) | (buf[..., 2] << 4)
+        cand = torch.stack([d1, d2], -1).flatten(-2)
+        ok = cand < codec.Q
+        pos = ok.cumsum(-1) - 1
+        if int(ok.sum(-1).min()) >= codec.N:
+            break
+        blocks += 1
+    keep = ok & (pos < codec.N)
+    fips = torch.zeros((9 * b, codec.N), dtype=torch.int64, device=dev)
+    rows = torch.arange(9 * b, device=dev)[:, None].expand_as(pos)
+    fips[rows[keep], pos[keep]] = cand[keep]
+    out = torch.empty_like(fips)
+    out[:, cg_index(device=dev)] = fips
+    out = out.reshape(b, 3, 3, codec.N)
+    if transpose:
+        out = out.transpose(1, 2)
+    return out.to(torch.int16).contiguous()
+
+
+def prf_cbd_ref(seed, n0: int, count: int):
+    """CBD_2(PRF_2(seed[r], n0 + c)) for c < count, every row of seed
+    (b, 32) uint8: the plain version of ``keccak_prf_cbd``.  Coefficient
+    i is nibble i of the 128-byte SHAKE256 stream, (bit0 + bit1) - (bit2
+    + bit3) mod q.  Returns (b, count, 256) int16."""
+    COUNTS["keccak_prf_cbd"].plain_calls += 1
+    b = seed.shape[0]
+    dev = seed.device
+    nonce = torch.arange(n0, n0 + count, device=dev).to(torch.uint8)[:, None]
+    data = torch.cat([seed.repeat_interleave(count, 0), nonce.repeat(b, 1)], -1)
+    buf = keccak_sponge_ref(data, 136, 0x1F, 128)
+    nib = torch.stack([buf & 15, buf >> 4], -1).flatten(-2)            # (S, 256)
+    bit = lambda k: (nib >> k) & 1
+    d = bit(0) + bit(1) - bit(2) - bit(3)
+    return (d % codec.Q).to(torch.int16).reshape(b, count, codec.N)
+
+
+# -------------------------------------------------------- ML-KEM codec
+
+def mlkem_decode_check_ref(ek):
+    """The plain version of ``csrc/mlkem_codec.cu`` ``mlkem_decode_check``:
+    ByteDecode12 of the first 1152 bytes of each row of ek (b, >= 1152)
+    uint8 (an encapsulation key's t̂, or a decapsulation key's ŝ) in CG
+    order, mod q, and FIPS 203 §7.2's modulus check a row.  Returns
+    (t_hat (b, 3, 256) int16, ok (b,) bool)."""
+    COUNTS["mlkem_decode_check"].plain_calls += 1
+    t = codec.decode12(ek[:, :3 * 384].unflatten(-1, (3, 384)))
+    return codec.mod_q(t), (t < codec.Q).flatten(1).all(1)
+
+
+def mlkem_encaps_tail_ref(u, v, e, m, kr=None, ok=None):
+    """The plain version of ``mlkem_encaps_tail``: u + e1 and v + e2 +
+    Decompress1(m) mod q (u (b, 3, 256), v (b, 256), e (b, 4, 256) int16:
+    e1 then e2; m (b, 32) uint8), Compress10 / Compress4 and ByteEncode10 /
+    ByteEncode4 into ct (b, 1088) uint8; with kr (b, >= 32), K = kr[:, :32].
+    Rows where ok (b,) bool is False are zeroed.  Returns (K or None, ct)."""
+    COUNTS["mlkem_encaps_tail"].plain_calls += 1
+    q = codec.Q
+    mu = codec.decompress(1, codec.byte_decode(1, m))
+    uu = (u.int() + e[:, :3]) % q
+    vv = (v.int() + e[:, 3] + mu) % q
+    ct = torch.cat([codec.byte_encode(10, codec.compress(10, uu)).flatten(1),
+                    codec.byte_encode(4, codec.compress(4, vv))], 1)
+    key = None if kr is None else kr[:, :32].contiguous()
+    if ok is not None:
+        ct = torch.where(ok[:, None], ct, 0)
+        key = None if key is None else torch.where(ok[:, None], key, 0)
+    return key, ct

@@ -1,172 +1,135 @@
-"""Batched ML-KEM-768 (FIPS 203) on the port's banks kernels.
+"""Batched ML-KEM-768 (FIPS 203) on the card, from input bytes to output
+bytes.
 
-The second scheme of the port: every polynomial transform and product
-routes through the SAME kernel entry points the CKKS stack uses —
-``ops.ntt_banks`` / ``ops.intt_banks`` for the incomplete n=256/q=3329
-transform (7 stages, on the int16 lane: ``ntt_fwd_banks_u16`` /
-``ntt_inv_banks_u16`` on the card) and ``ops.dyadic_basemul_banks`` for
-the degree-1 basecase products — under the ``core.ringspec.MLKEM_RING``
-descriptor.  Host numpy and ``hashlib`` handle only hashing, samplers
-and byte codecs, as in the reference.
+The second scheme of the port.  Every step of an entry point runs on its
+device as tensor work over the whole batch, with no loop over rows and
+nothing read back until the caller reads a result:
 
-Host and device: the NTT-domain algebra — transforms, basemuls, the
-K-term sums, ``+ e1``, ``+ e2 + mu`` and ``v − w`` — runs on the entry
-point's device as int16/int64 tensors.  Arrays cross between host and
-device only where a sampler's or a decoder's output goes in and where
-an encoder's input comes out.  ``device=None`` means the card;
-``device="cpu"`` runs the same code on the kernels' plain versions and
-gives the same bytes.
+  hashing  H, G, J, SampleNTT and PRF fused with CBD on Keccak-f[1600]
+           (``ops.keccak_*``; ``csrc/keccak.cu`` on the card)
+  ring     the incomplete n = 256 / q = 3329 transforms
+           (``ops.ntt_banks`` / ``ops.intt_banks`` on the int16 lane:
+           ``ntt_fwd_banks_u16`` / ``ntt_inv_banks_u16`` on the card) and
+           the degree-1 basecase products (``ops.dyadic_basemul_banks``)
+           under the ``core.ringspec.MLKEM_RING`` descriptor: the SAME
+           kernel entry points the CKKS stack uses
+  codec    the key's ByteDecode12 with the §7.2 check and the
+           ciphertext's Compress and ByteEncode (``ops.mlkem_decode_check``,
+           ``ops.mlkem_encaps_tail``; ``csrc/mlkem_codec.cu`` on the card);
+           key generation's and decryption's codecs as tensor ops
+           (``pq.codec``)
+
+Inputs and outputs: uint8 tensors (b, bytes), the results on the inputs'
+device.  Numpy arrays are taken too (the serving engine's and the
+tests'): they move to ``device`` (None: the card; ``"cpu"`` runs the same
+code on the kernels' plain versions and gives the same bytes) and the
+results come back as numpy arrays.
 
 Batching: every public entry point is batched over a leading ``(b,)``
-axis of independent requests.  All the polynomial rows of a batch — k
-vector entries, k×k matrix entries — fold into ONE kernel launch per
-algebraic step, so a b=64 keygen runs its 384 CBD polynomials through
-exactly one forward-NTT launch and its 576 matrix products through one
-basemul launch.
+axis of independent requests, and all the rows of a step fold into one
+launch: a b = 64 keygen runs its 384 CBD polynomials through one
+forward-NTT launch and its 576 matrix products through one basemul
+launch, and its 576 SampleNTT streams through one Keccak launch.
 
-Orders and domains: coefficient-domain polynomials are plain natural
-order.  The CG-network NTT emits the 128 degree-1 residues in CG pair
-order — pair j lives at (x[j], x[j+128]) with per-pair factor γ_j —
-while FIPS 203 interleaves them as adjacent pairs of a bit-reversed
-sequence.  The two orders differ by the fixed permutation
-``fips[2*b + p] = cg[(p << 7) | b]``; it is applied ONLY at the
-ByteEncode12/ByteDecode12 boundaries (and to SampleNTT output), so
-serialized keys/ciphertexts are bit-exact FIPS 203 while all internal
+Orders and domains: coefficient-domain polynomials are natural order.
+The CG-network NTT emits the 128 degree-1 residues in CG pair order —
+pair j lives at (x[j], x[j+128]) with per-pair factor γ_j — while FIPS
+203 interleaves them as adjacent pairs: ``fips[2*b + p] = cg[(p << 7) |
+b]``.  ByteDecode12 takes FIPS pair b from byte triple b, so the CG
+order is its first 12-bit fields followed by its second ones (and
+ByteEncode12 the reverse), and SampleNTT stores CG order itself: the
+serialized keys and ciphertexts are bit-exact FIPS 203 while the
 NTT-domain arithmetic stays in CG order.
 
-Only honest (self-generated) encapsulation keys are expected here; the
-FIPS 203 encaps input checks (type/modulus check on ek) are not
-re-validated per call.
+The encapsulation key check (FIPS 203 §7.2): ``encaps_batch`` checks
+every row's key, ByteEncode12(ByteDecode12(ek)) == ek, which holds
+exactly when every 12-bit coefficient of ek lies below q.  It returns
+the verdict a row, and a row that fails has zero K and ct.
+
+Observability: spans ``mlkem.keygen`` / ``mlkem.encaps`` /
+``mlkem.decaps`` (with ``b``) around an entry point, and inside them
+``mlkem.hash``, ``mlkem.sample``, ``mlkem.ring`` and ``mlkem.codec``
+around the launches of each kind (host time: nothing waits for the
+card); counters ``mlkem.rows.<op>`` and ``mlkem.keccak_perms``, the
+permutations launched at SampleNTT's least three blocks a stream (44 a
+row for encaps), counted from the shapes on the host.
 """
 from __future__ import annotations
-
-import hashlib
 
 import numpy as np
 import torch
 
+from repro_torch import obs
 from repro_torch.convert import from_reference, resolve_device
 from repro_torch.core.ringspec import MLKEM_RING, ring_table_pack
 from repro_torch.kernels import ops
+from repro_torch.kernels.keccak_kernel import SAMPLE_BLOCKS, sponge_perms
+from repro_torch.pq.codec import byte_decode, byte_encode, compress, decompress, encode12
 
-K = 3                       # ML-KEM-768 module rank
-ETA1 = 2
-ETA2 = 2
+K = 3                       # ML-KEM-768 module rank (eta1 = eta2 = 2: the CBD kernel's)
 DU = 10
 DV = 4
 N = MLKEM_RING.n            # 256
 Q = MLKEM_RING.q            # 3329
 
-EK_BYTES = 384 * K + 32     # 1184
+PKE_BYTES = 384 * K         # 1152: K encoded NTT-domain polynomials
+EK_BYTES = PKE_BYTES + 32   # 1184
 DK_BYTES = 768 * K + 96     # 2400
 CT_BYTES = 32 * (DU * K + DV)   # 1088
+U_BYTES = 32 * DU * K       # 960
+
+# Keccak permutations a row an entry point launches (SampleNTT's 9
+# streams at their least three blocks each)
+_SAMPLE_PERMS = K * K * SAMPLE_BLOCKS
+PERMS = {
+    # G(d || k), SampleNTT, PRF for s and e, H(ek)
+    "keygen": sponge_perms(33, 72, 64) + _SAMPLE_PERMS + 2 * K
+              + sponge_perms(EK_BYTES, 136, 32),
+    # H(ek), G(m || h), SampleNTT, PRF for y, e1 and e2
+    "encaps": sponge_perms(EK_BYTES, 136, 32) + sponge_perms(64, 72, 64)
+              + _SAMPLE_PERMS + 2 * K + 1,
+    # G(m' || h), J(z || c), then encryption's SampleNTT and PRF
+    "decaps": sponge_perms(64, 72, 64) + sponge_perms(32 + CT_BYTES, 136, 32)
+              + _SAMPLE_PERMS + 2 * K + 1,
+}
 
 
-def _perms():
-    perm = np.zeros(N, dtype=np.int64)
-    for b in range(N // 2):
-        for p in range(2):
-            perm[2 * b + p] = (p << 7) | b
-    return perm, np.argsort(perm)
+# ------------------------------------------------------- inputs, outputs
+
+def _bytes_in(x, width: int, name: str, device) -> torch.Tensor:
+    """(b, width) uint8 rows on ``device``: a tensor as it is, an array
+    moved there."""
+    if not isinstance(x, torch.Tensor):
+        x = torch.from_numpy(np.ascontiguousarray(x, dtype=np.uint8)).to(device)
+    if x.dtype != torch.uint8 or x.ndim != 2 or x.shape[1] != width:
+        raise ValueError(f"ML-KEM: {name} must be (b, {width}) uint8, got "
+                         f"{x.dtype} {tuple(x.shape)}")
+    if x.device != device:
+        raise ValueError(f"ML-KEM: {name} is on {x.device}, expected {device}")
+    return x
 
 
-_TO_FIPS, _TO_CG = _perms()     # fips = cg[_TO_FIPS]; cg = fips[_TO_CG]
+def _inputs(first, device):
+    """The entry point's device (a tensor's own, else ``device`` resolved)
+    and whether results go back to the host as numpy."""
+    if isinstance(first, torch.Tensor):
+        if device is not None and torch.device(device) != first.device:
+            raise ValueError(f"ML-KEM: inputs on {first.device}, device={device}")
+        return first.device, False
+    device = resolve_device(device)
+    if device.type == "cuda" and device.index is None:
+        device = torch.device("cuda", torch.cuda.current_device())
+    return device, True
 
 
-# ------------------------------------------------------------- hashing
-
-def _g(data: bytes) -> tuple[bytes, bytes]:
-    d = hashlib.sha3_512(data).digest()
-    return d[:32], d[32:]
+def _out(host: bool, *ts):
+    return tuple(t.cpu().numpy() for t in ts) if host else ts
 
 
-def _h(data: bytes) -> bytes:
-    return hashlib.sha3_256(data).digest()
-
-
-def _j(data: bytes) -> bytes:
-    return hashlib.shake_256(data).digest(32)
-
-
-def _prf(eta: int, s: bytes, b: int) -> bytes:
-    return hashlib.shake_256(s + bytes([b])).digest(64 * eta)
-
-
-# ------------------------------------------------------------ samplers
-
-def _sample_ntt(rho: bytes, j: int, i: int) -> np.ndarray:
-    """Uniform NTT-domain polynomial from XOF(rho ‖ j ‖ i), FIPS order.
-
-    Rejection-samples 12-bit candidates from SHAKE128 3 bytes at a
-    time; SHAKE's prefix property lets us re-squeeze a longer digest on
-    the (rare) shortage instead of streaming."""
-    xof = hashlib.shake_128(rho + bytes([j, i]))
-    need = 3 * 168                      # one squeeze block's worth
-    while True:
-        buf = np.frombuffer(xof.digest(need), dtype=np.uint8)
-        b0 = buf[0::3].astype(np.int64)
-        b1 = buf[1::3].astype(np.int64)
-        b2 = buf[2::3].astype(np.int64)
-        m = min(len(b0), len(b1), len(b2))
-        d1 = b0[:m] + 256 * (b1[:m] & 0xF)
-        d2 = (b1[:m] >> 4) + 16 * b2[:m]
-        cand = np.stack([d1, d2], axis=-1).reshape(-1)
-        acc = cand[cand < Q]
-        if len(acc) >= N:
-            return acc[:N].astype(np.uint16)
-        need *= 2
-
-
-def _cbd(eta: int, buf: bytes) -> np.ndarray:
-    """Centered binomial sample from 64*eta PRF bytes, mod q."""
-    bits = np.unpackbits(np.frombuffer(buf, dtype=np.uint8),
-                         bitorder="little").reshape(N, 2 * eta)
-    x = bits[:, :eta].sum(axis=1, dtype=np.int64)
-    y = bits[:, eta:].sum(axis=1, dtype=np.int64)
-    return ((x - y) % Q).astype(np.uint16)
-
-
-# ---------------------------------------------------------- byte codecs
-
-def byte_encode(d: int, f: np.ndarray) -> np.ndarray:
-    """FIPS 203 ByteEncode_d over leading batch dims: (..., 256) ints
-    < 2^d -> (..., 32*d) bytes, little-endian bit packing."""
-    f = np.asarray(f, dtype=np.uint32)
-    bits = ((f[..., :, None] >> np.arange(d)) & 1).astype(np.uint8)
-    return np.packbits(bits.reshape(f.shape[:-1] + (N * d,)),
-                       axis=-1, bitorder="little")
-
-
-def byte_decode(d: int, buf: np.ndarray) -> np.ndarray:
-    """FIPS 203 ByteDecode_d: (..., 32*d) bytes -> (..., 256) ints."""
-    buf = np.asarray(buf, dtype=np.uint8)
-    bits = np.unpackbits(buf, axis=-1, bitorder="little")
-    bits = bits.reshape(buf.shape[:-1] + (N, d)).astype(np.int64)
-    return (bits << np.arange(d)).sum(axis=-1)
-
-
-def compress(d: int, x: np.ndarray) -> np.ndarray:
-    """round(2^d / q * x) mod 2^d for canonical x (FIPS 203 Compress)."""
-    x = np.asarray(x, dtype=np.int64)
-    return (((x << (d + 1)) + Q) // (2 * Q)) % (1 << d)
-
-
-def decompress(d: int, y: np.ndarray) -> np.ndarray:
-    """round(q / 2^d * y); output canonical in [0, q)."""
-    y = np.asarray(y, dtype=np.int64)
-    return (Q * y + (1 << (d - 1))) >> d
-
-
-# ------------------------------------------------ host <-> device moves
-
-def _dev(x: np.ndarray, device) -> torch.Tensor:
-    """Canonical host residues (< q, any integer dtype) -> int16 tensor."""
-    return torch.from_numpy(x.astype(np.int16)).to(device)
-
-
-def _host(t: torch.Tensor) -> np.ndarray:
-    """Canonical device residues -> int64 numpy on the host."""
-    return t.cpu().numpy().astype(np.int64)
+def _count(op: str, b: int) -> None:
+    if obs.enabled():
+        obs.counter_add(f"mlkem.rows.{op}", b)
+        obs.counter_add("mlkem.keccak_perms", b * PERMS[op])
 
 
 # ------------------------------------------- kernel-routed ring algebra
@@ -208,146 +171,127 @@ def _matvec_hat(a_hat: torch.Tensor, y_hat: torch.Tensor) -> torch.Tensor:
 
     a_hat: (b, K, K, 256); y_hat: (b, K, 256).  All b*K*K basecase
     products run as one kernel launch (``ops`` copies the broadcast
-    right-hand side, and a transposed Â, to contiguous stacks first);
-    the K-term sums are int64 adds mod q on the device."""
+    right-hand side to a contiguous stack first); the K = 3 term sums
+    stay int16 (3 (q - 1) < 2^15) and reduce mod q once."""
     bsz = a_hat.shape[0]
     rhs = y_hat[:, None].expand(bsz, K, K, N)
-    prods = _basemul_rows(a_hat, rhs).long()
-    return (prods.sum(dim=2) % Q).to(torch.int16)
+    p = _basemul_rows(a_hat, rhs)
+    return (p[:, :, 0] + p[:, :, 1] + p[:, :, 2]) % Q
 
 
 def _dot_hat(t_hat: torch.Tensor, y_hat: torch.Tensor) -> torch.Tensor:
     """(t̂ᵀ ∘ ŷ) = Σ_j t̂[j] ⊛ ŷ[j]: (b, K, 256) x (b, K, 256) ->
     (b, 256), one basemul launch + device sum."""
-    prods = _basemul_rows(t_hat, y_hat).long()
-    return (prods.sum(dim=1) % Q).to(torch.int16)
+    p = _basemul_rows(t_hat, y_hat)
+    return (p[:, 0] + p[:, 1] + p[:, 2]) % Q
 
 
 # --------------------------------------------------------- K-PKE layers
 
-def _expand_a(rhos: list[bytes]) -> np.ndarray:
-    """Matrix Â per batch item, SampleNTT(ρ ‖ j ‖ i) converted to CG
-    order: (b, K, K, 256) uint16 on the host."""
-    a = np.empty((len(rhos), K, K, N), dtype=np.uint16)
-    for bi, rho in enumerate(rhos):
-        for i in range(K):
-            for j in range(K):
-                a[bi, i, j] = _sample_ntt(rho, j, i)
-    return a[..., _TO_CG]
-
-
-def _cbd_vector(eta: int, seeds: list[bytes], n0: int) -> np.ndarray:
-    """(b, K, 256) of CBD_eta(PRF(seed, n0 + i)) rows on the host."""
-    out = np.empty((len(seeds), K, N), dtype=np.uint16)
-    for bi, s in enumerate(seeds):
-        for i in range(K):
-            out[bi, i] = _cbd(eta, _prf(eta, s, n0 + i))
-    return out
-
-
-def _k_pke_encrypt(ek: np.ndarray, m: np.ndarray, r: list[bytes],
-                   device) -> np.ndarray:
-    """Batched K-PKE.Encrypt: ek (b, 1184) u8, m (b, 32) u8 messages,
-    r per-item randomness seeds.  Returns ct (b, 1088) u8."""
+def _k_pke_encrypt(ek: torch.Tensor, m: torch.Tensor, kr: torch.Tensor, *, kem: bool):
+    """Batched K-PKE.Encrypt: ek (b, 1184), m (b, 32) messages and kr (b,
+    64), G's output, whose second half is the randomness r; uint8 rows
+    (views of wider rows too).  With ``kem``, also Encaps's K = kr[:, :32]
+    and FIPS 203 §7.2's check, every row whose key fails it zeroed.
+    Returns (K or None, ct (b, 1088) uint8, ok (b,) bool)."""
     bsz = ek.shape[0]
-    t_hat = _dev((byte_decode(12, ek[:, :384 * K].reshape(bsz, K, 384))
-                  % Q)[..., _TO_CG], device)
-    a_hat = _dev(_expand_a([ek[i, 384 * K:].tobytes() for i in range(bsz)]),
-                 device)
-    y = _dev(_cbd_vector(ETA1, r, 0), device)
-    e1 = _dev(_cbd_vector(ETA2, r, K), device)
-    e2 = _dev(np.stack([_cbd(ETA2, _prf(ETA2, ri, 2 * K)) for ri in r]), device)
-    mu = _dev(decompress(1, byte_decode(1, m)), device)
-    y_hat = _ntt_rows(y)
-    # u = NTT⁻¹(Âᵀ ∘ ŷ) + e1   (Âᵀ: sum over the ROW index of Â)
-    u_hat = _matvec_hat(a_hat.transpose(1, 2), y_hat)
-    u = (_intt_rows(u_hat).long() + e1) % Q
-    # v = NTT⁻¹(t̂ᵀ ∘ ŷ) + e2 + Decompress₁(m)
-    v = (_intt_rows(_dot_hat(t_hat, y_hat)).long() + e2 + mu) % Q
-    c1 = byte_encode(DU, compress(DU, _host(u))).reshape(bsz, 32 * DU * K)
-    c2 = byte_encode(DV, compress(DV, _host(v)))
-    return np.concatenate([c1, c2], axis=1)
+    r = kr[:, 32:]
+    with obs.span("mlkem.sample", b=bsz):
+        a_t = ops.keccak_sample_ntt(ek[:, PKE_BYTES:], transpose=True)     # Âᵀ
+        y = ops.keccak_prf_cbd(r, n0=0, count=K)
+        e = ops.keccak_prf_cbd(r, n0=K, count=K + 1)                       # e1, e2
+    with obs.span("mlkem.codec", b=bsz):
+        t_hat, ok = ops.mlkem_decode_check(ek)
+    with obs.span("mlkem.ring", b=bsz):
+        y_hat = _ntt_rows(y)
+        # u = NTT⁻¹(Âᵀ ∘ ŷ) + e1,  v = NTT⁻¹(t̂ᵀ ∘ ŷ) + e2 + Decompress₁(m)
+        u = _intt_rows(_matvec_hat(a_t, y_hat))
+        v = _intt_rows(_dot_hat(t_hat, y_hat))
+    with obs.span("mlkem.codec", b=bsz):
+        key, ct = ops.mlkem_encaps_tail(u, v, e, m, kr if kem else None, ok if kem else None)
+    return key, ct, ok
 
 
-def _k_pke_decrypt(dk_pke: np.ndarray, ct: np.ndarray, device) -> np.ndarray:
-    """Batched K-PKE.Decrypt: dk_pke (b, 1152) u8, ct (b, 1088) u8.
-    Returns m (b, 32) u8."""
-    bsz = dk_pke.shape[0]
-    u = _dev(decompress(DU, byte_decode(
-        DU, ct[:, :32 * DU * K].reshape(bsz, K, 32 * DU))), device)
-    v = _dev(decompress(DV, byte_decode(DV, ct[:, 32 * DU * K:])), device)
-    s_hat = _dev((byte_decode(12, dk_pke.reshape(bsz, K, 384))
-                  % Q)[..., _TO_CG], device)
-    w_hat = _dot_hat(s_hat, _ntt_rows(u))
-    w = (v.long() - _intt_rows(w_hat).long()) % Q
-    return byte_encode(1, compress(1, _host(w)))
+def _k_pke_decrypt(dk_pke: torch.Tensor, ct: torch.Tensor) -> torch.Tensor:
+    """Batched K-PKE.Decrypt: dk_pke (b, >= 1152) rows starting with ŝ, ct
+    (b, 1088) uint8 rows.  Returns m (b, 32) uint8."""
+    bsz = ct.shape[0]
+    with obs.span("mlkem.codec", b=bsz):
+        u = decompress(DU, byte_decode(DU, ct[:, :U_BYTES].unflatten(-1, (K, 32 * DU))))
+        v = decompress(DV, byte_decode(DV, ct[:, U_BYTES:]))
+        s_hat, _ = ops.mlkem_decode_check(dk_pke)
+    with obs.span("mlkem.ring", b=bsz):
+        w = _intt_rows(_dot_hat(s_hat, _ntt_rows(u.to(torch.int16))))
+    with obs.span("mlkem.codec", b=bsz):
+        return byte_encode(1, compress(1, (v - w.int()) % Q))
 
 
 # ------------------------------------------------------ KEM entry points
 
-def keygen_batch(d: np.ndarray, z: np.ndarray, device=None):
-    """Batched ML-KEM.KeyGen from per-item seeds d, z: (b, 32) u8 each.
-    Returns (ek (b, 1184) u8, dk (b, 2400) u8)."""
-    device = resolve_device(device)
-    d = np.asarray(d, dtype=np.uint8)
-    z = np.asarray(z, dtype=np.uint8)
+def keygen_batch(d, z, device=None):
+    """Batched ML-KEM.KeyGen from per-item seeds d, z: (b, 32) uint8
+    each.  Returns (ek (b, 1184), dk (b, 2400)) uint8."""
+    device, host = _inputs(d, device)
+    d = _bytes_in(d, 32, "d", device)
+    z = _bytes_in(z, 32, "z", device)
     bsz = d.shape[0]
-    gs = [_g(d[i].tobytes() + bytes([K])) for i in range(bsz)]
-    rhos = [g[0] for g in gs]
-    sigmas = [g[1] for g in gs]
-    a_hat = _dev(_expand_a(rhos), device)
-    s = _cbd_vector(ETA1, sigmas, 0)
-    e = _cbd_vector(ETA1, sigmas, K)
-    se_hat = _ntt_rows(_dev(np.concatenate([s, e], axis=1), device))  # one launch
-    s_hat, e_hat = se_hat[:, :K], se_hat[:, K:]
-    t_hat = (_matvec_hat(a_hat, s_hat).long() + e_hat) % Q
-    rho_rows = np.stack([np.frombuffer(r, dtype=np.uint8) for r in rhos])
-    ek = np.concatenate(
-        [byte_encode(12, _host(t_hat)[..., _TO_FIPS]).reshape(bsz, 384 * K),
-         rho_rows], axis=1)
-    dk_pke = byte_encode(12, _host(s_hat)[..., _TO_FIPS]).reshape(bsz, 384 * K)
-    h_rows = np.stack([np.frombuffer(_h(ek[i].tobytes()), dtype=np.uint8)
-                       for i in range(bsz)])
-    dk = np.concatenate([dk_pke, ek, h_rows, z], axis=1)
-    return ek, dk
+    with obs.span("mlkem.keygen", b=bsz):
+        with obs.span("mlkem.hash", b=bsz):
+            g = ops.keccak_sha3_512(d, extra=K)          # (rho, sigma) = G(d || k)
+        rho, sigma = g[:, :32], g[:, 32:]
+        with obs.span("mlkem.sample", b=bsz):
+            a_hat = ops.keccak_sample_ntt(rho)
+            se = ops.keccak_prf_cbd(sigma, n0=0, count=2 * K)     # s, e
+        with obs.span("mlkem.ring", b=bsz):
+            se_hat = _ntt_rows(se)                                # one launch
+            s_hat, e_hat = se_hat[:, :K], se_hat[:, K:]
+            t_hat = (_matvec_hat(a_hat, s_hat) + e_hat) % Q
+        with obs.span("mlkem.codec", b=bsz):
+            ek = torch.cat([encode12(t_hat).flatten(1), rho], 1)
+            dk_pke = encode12(s_hat).flatten(1)
+        with obs.span("mlkem.hash", b=bsz):
+            h = ops.keccak_sha3_256(ek)
+        dk = torch.cat([dk_pke, ek, h, z], 1)
+    _count("keygen", bsz)
+    return _out(host, ek, dk)
 
 
-def encaps_batch(ek: np.ndarray, m: np.ndarray, device=None):
-    """Batched ML-KEM.Encaps with per-item message randomness m
-    ((b, 32) u8; the derandomized/KAT interface — callers supply fresh
-    randomness).  Returns (K (b, 32) u8, ct (b, 1088) u8)."""
-    device = resolve_device(device)
-    ek = np.asarray(ek, dtype=np.uint8)
-    m = np.asarray(m, dtype=np.uint8)
+def encaps_batch(ek, m, device=None):
+    """Batched ML-KEM.Encaps with per-item message randomness m ((b, 32)
+    uint8; the derandomized/KAT interface — callers supply fresh
+    randomness) and the encapsulation key check of FIPS 203 §7.2.
+    Returns (K (b, 32) uint8, ct (b, 1088) uint8, ok (b,) bool); a row
+    whose ek fails the check has ok False and zero K and ct."""
+    device, host = _inputs(ek, device)
+    ek = _bytes_in(ek, EK_BYTES, "ek", device)
+    m = _bytes_in(m, 32, "m", device)
     bsz = ek.shape[0]
-    keys, seeds = [], []
-    for i in range(bsz):
-        k_i, r_i = _g(m[i].tobytes() + _h(ek[i].tobytes()))
-        keys.append(np.frombuffer(k_i, dtype=np.uint8))
-        seeds.append(r_i)
-    ct = _k_pke_encrypt(ek, m, seeds, device)
-    return np.stack(keys), ct
+    with obs.span("mlkem.encaps", b=bsz):
+        with obs.span("mlkem.hash", b=bsz):
+            kr = ops.keccak_sha3_512(m, ops.keccak_sha3_256(ek))   # (K, r) = G(m || H(ek))
+        key, ct, ok = _k_pke_encrypt(ek, m, kr, kem=True)
+    _count("encaps", bsz)
+    return _out(host, key, ct, ok)
 
 
-def decaps_batch(dk: np.ndarray, ct: np.ndarray, device=None) -> np.ndarray:
-    """Batched ML-KEM.Decaps with implicit rejection: dk (b, 2400) u8,
-    ct (b, 1088) u8.  Returns the shared keys (b, 32) u8."""
-    device = resolve_device(device)
-    dk = np.asarray(dk, dtype=np.uint8)
-    ct = np.asarray(ct, dtype=np.uint8)
+def decaps_batch(dk, ct, device=None):
+    """Batched ML-KEM.Decaps with implicit rejection: dk (b, 2400), ct (b,
+    1088) uint8.  Returns the shared keys (b, 32) uint8."""
+    device, host = _inputs(dk, device)
+    dk = _bytes_in(dk, DK_BYTES, "dk", device)
+    ct = _bytes_in(ct, CT_BYTES, "ct", device)
     bsz = dk.shape[0]
-    dk_pke = dk[:, :384 * K]
-    ek = dk[:, 384 * K:768 * K + 32]
-    h = dk[:, 768 * K + 32:768 * K + 64]
-    z = dk[:, 768 * K + 64:]
-    m2 = _k_pke_decrypt(dk_pke, ct, device)
-    keys, rejects, seeds = [], [], []
-    for i in range(bsz):
-        k_i, r_i = _g(m2[i].tobytes() + h[i].tobytes())
-        keys.append(np.frombuffer(k_i, dtype=np.uint8))
-        rejects.append(np.frombuffer(
-            _j(z[i].tobytes() + ct[i].tobytes()), dtype=np.uint8))
-        seeds.append(r_i)
-    ct2 = _k_pke_encrypt(ek, m2, seeds, device)
-    ok = (ct2 == ct).all(axis=1)
-    return np.where(ok[:, None], np.stack(keys), np.stack(rejects))
+    ek = dk[:, PKE_BYTES:PKE_BYTES + EK_BYTES]
+    h = dk[:, PKE_BYTES + EK_BYTES:PKE_BYTES + EK_BYTES + 32]
+    z = dk[:, PKE_BYTES + EK_BYTES + 32:]
+    with obs.span("mlkem.decaps", b=bsz):
+        m2 = _k_pke_decrypt(dk, ct)
+        with obs.span("mlkem.hash", b=bsz):
+            kr = ops.keccak_sha3_512(m2, h)                # (K', r') = G(m' || h)
+            rejected = ops.keccak_shake256(z, ct, out_len=32)      # J(z || c)
+        _, ct2, _ = _k_pke_encrypt(ek, m2, kr, kem=False)
+        with obs.span("mlkem.codec", b=bsz):
+            same = (ct2 == ct).all(1, keepdim=True)
+            key = torch.where(same, kr[:, :32], rejected)
+    _count("decaps", bsz)
+    return _out(host, key)[0]

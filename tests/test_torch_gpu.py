@@ -9,6 +9,11 @@ per-batch rows, digits shared and not, the staged body at the path's
 shapes and on rows of 4, 8 and 12 words with odd row counts and indices
 outside the row, its plan() against the CPU emulation's, rows above one
 block's shared memory at 2^16 and 2^17, indices drawn from [-2n, 2n)),
+and ML-KEM's Keccak front ends (``csrc/keccak.cu``: H, G, J, SHAKE128
+and SHAKE256 across block edges, SampleNTT with a fourth block, PRF +
+CBD) and codec (``csrc/mlkem_codec.cu``: the key's decode and check with
+malformed keys, the ciphertext's encode), at b = 1, 5 and 32768; the
+three entry points against the CPU),
 and the u16 lane of ML-KEM's ring (the 7-stage transforms on n = 256 and
 the basecase product, at odd and ML-KEM-sized batches; the product on
 both its bodies at 2 .. 4096 words, one and three moduli, an unaligned
@@ -44,7 +49,8 @@ from repro_torch.core.ringspec import MLKEM_RING, ring_table_pack
 from repro_torch.fhe import batched as TB
 from repro_torch.fhe import rns
 from repro_torch.core.params import galois_eval_perm, make_ntt_params
-from repro_torch.kernels import build, dyadic_kernel, galois_kernel, ntt_kernel, ops, ref
+from repro_torch.kernels import (build, dyadic_kernel, galois_kernel, keccak_kernel,
+                                  ntt_kernel, ops, ref)
 
 import basemul_schedule
 import galois_schedule
@@ -752,6 +758,136 @@ def test_u16_ntt_and_basemul_kernels_equal_plain(cuda, b, lazy):
     assert c["ntt_fwd_banks_u16"]["launches"] == 2 and c["ntt_fwd_banks"]["launches"] == 0
     assert c["ntt_inv_banks_u16"]["launches"] == 2 and c["ntt_inv_banks"]["launches"] == 0
     assert c["dyadic_basemul_banks"]["launches"] == 1
+
+
+# ------------------------------------------------ Keccak (csrc/keccak.cu)
+
+KECCAK_BATCHES = [1, 5, 32768]      # the cell's batch: 9 x 32768 SampleNTT streams
+
+
+def _bytes(seed, b, width):
+    rng = np.random.default_rng(seed)
+    return torch.from_numpy(rng.integers(0, 256, (b, width), dtype=np.uint8)).cuda()
+
+
+@pytest.mark.parametrize("b", KECCAK_BATCHES)
+def test_keccak_hash_kernel_equals_plain(cuda, b):
+    """H over 1184-byte keys, G over m || h and over d || k, J over z || c
+    (z a strided view of dk rows), SHAKE128 and SHAKE256 at block edges
+    with multi-block squeezes, SHA3-512 one byte short of a block."""
+    ek, m, d = _bytes(1, b, 1184), _bytes(2, b, 32), _bytes(3, b, 32)
+    z, ct = _bytes(4, b, 2400)[:, 2368:], _bytes(5, b, 1088)
+    h = keccak_kernel.keccak_hash(ek, rate=136, suffix=0x06, out_len=32)
+    cases = {
+        "H(ek)": (ek, None, None, 136, 0x06, 32),
+        "G(m || h)": (m, h, None, 72, 0x06, 64),
+        "G(d || k)": (d, None, 3, 72, 0x06, 64),
+        "J(z || c)": (z, ct, None, 136, 0x1F, 32),
+        "SHAKE128 167 -> 500": (_bytes(6, b, 167), None, None, 168, 0x1F, 500),
+        "SHAKE256 136 + 1 -> 300": (_bytes(7, b, 136), _bytes(8, b, 1), None, 136, 0x1F, 300),
+        "SHA3-512 71": (_bytes(9, b, 71), None, None, 72, 0x06, 64),
+    }
+    K.reset_counts()
+    for what, (a, bb, extra, rate, suffix, out_len) in cases.items():
+        kw = dict(extra=extra, rate=rate, suffix=suffix, out_len=out_len)
+        assert torch.equal(keccak_kernel.keccak_hash(a, bb, **kw),
+                           ref.keccak_hash_ref(a, bb, **kw)), what
+    assert K.snapshot()["keccak_hash"]["launches"] == len(cases)
+
+
+@pytest.mark.parametrize("b", KECCAK_BATCHES)
+@pytest.mark.parametrize("transpose", [False, True])
+def test_sample_ntt_kernel_equals_plain(cuda, b, transpose):
+    """SampleNTT from rho read in place in key rows, the last row's rho
+    one with a stream that needs a fourth SHAKE128 block."""
+    from test_torch_keccak import four_block_rho
+    ek = _bytes(10, b, 1184)
+    rho4, _, _ = four_block_rho()
+    ek[-1, 1152:] = torch.from_numpy(rho4).cuda()
+    rho = ek[:, 1152:]
+    got = keccak_kernel.sample_ntt(rho, transpose=transpose)
+    assert torch.equal(got, ref.sample_ntt_ref(rho, transpose))
+
+
+@pytest.mark.parametrize("b", KECCAK_BATCHES)
+def test_prf_cbd_kernel_equals_plain(cuda, b):
+    """PRF_2 + CBD_2 from seeds read in place in G's output rows, at the
+    nonces encryption and key generation use."""
+    seed = _bytes(11, b, 64)[:, 32:]
+    for n0, count in ((0, 3), (3, 4), (0, 6)):
+        assert torch.equal(keccak_kernel.prf_cbd(seed, n0=n0, count=count),
+                           ref.prf_cbd_ref(seed, n0, count)), (n0, count)
+
+
+@pytest.mark.parametrize("b", KECCAK_BATCHES)
+def test_mlkem_codec_kernels_equal_plain(cuda, b):
+    """The key's decode and check (keys with a field at q and at 4095 in
+    every 37th row, and ŝ read in place from dk rows), and the end of
+    encryption with and without K and the verdicts."""
+    from repro_torch.kernels import codec_kernel
+    ek = _bytes(20, b, 1184)
+    ek[::37, 0], ek[::37, 1] = 0x01, 0x0D                 # a field at q
+    ek[5::37, 1], ek[5::37, 2] = 0xF0, 0xFF               # a field at 4095
+    for rows in (ek, _bytes(21, b, 2400)):
+        got, want = codec_kernel.decode_check(rows), ref.mlkem_decode_check_ref(rows)
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    assert not bool(codec_kernel.decode_check(ek)[1][0])
+    q = MLKEM_RING.q
+    u, e = _ring_rows(22, (b, 3, MLKEM_RING.n)), _ring_rows(23, (b, 4, MLKEM_RING.n))
+    v, m, kr = _ring_rows(24, (b, MLKEM_RING.n)), _bytes(25, b, 32), _bytes(26, b, 64)
+    ok = codec_kernel.decode_check(ek)[1]
+    for args in ((kr, ok), (None, None)):
+        got = codec_kernel.encaps_tail(u, v, e, m, *args)
+        want = ref.mlkem_encaps_tail_ref(u, v, e, m, *args)
+        assert torch.equal(got[1], want[1]) and (got[0] is None) == (want[0] is None)
+        assert got[0] is None or torch.equal(got[0], want[0])
+    assert int(v.max()) < q
+
+
+def test_mlkem_on_the_card_equals_the_cpu(cuda):
+    """The KATs from card tensors, then keygen -> encaps (3 malformed keys
+    among 64) -> decaps (a tampered ciphertext every third row) at b = 64
+    on the card equal to the CPU run byte for byte, with every kernel
+    launched and no plain version run."""
+    import json
+    import os
+
+    from repro_torch.pq import mlkem
+    path = os.path.join(os.path.dirname(__file__), "vectors", "mlkem768_kat.json")
+    with open(path) as f:
+        vs = json.load(f)["vectors"]
+    kat = {k: torch.from_numpy(np.stack([np.frombuffer(bytes.fromhex(v[k]), np.uint8)
+                                          for v in vs])).cuda() for k in vs[0]}
+    ek, dk = mlkem.keygen_batch(kat["d"], kat["z"])
+    key, ct, ok = mlkem.encaps_batch(kat["ek"], kat["m"])
+    assert ek.is_cuda and torch.equal(ek, kat["ek"]) and torch.equal(dk, kat["dk"])
+    assert torch.equal(key, kat["K"]) and torch.equal(ct, kat["ct"]) and bool(ok.all())
+    assert torch.equal(mlkem.decaps_batch(kat["dk"], kat["ct"]), kat["K"])
+    rng = np.random.default_rng(12)
+    d, z, m = (rng.integers(0, 256, (64, 32), dtype=np.uint8) for _ in range(3))
+    outs = {}
+    for dev in ("cuda", "cpu"):
+        K.reset_counts()
+        e, k_ = mlkem.keygen_batch(d, z, device=dev)
+        e[[3, 30, 63], 0] = 0xFF
+        e[[3, 30, 63], 1] |= 0x0F                       # coefficient 0 at 4095
+        kk, c, good = mlkem.encaps_batch(e, m, device=dev)
+        bad = c.copy()
+        bad[::3, 100] ^= 0x40
+        outs[dev] = (e, k_, kk, c, good, mlkem.decaps_batch(k_, bad, device=dev))
+        counts = K.snapshot()
+    assert np.flatnonzero(~outs["cuda"][4]).tolist() == [3, 30, 63]
+    for a, b in zip(outs["cuda"], outs["cpu"]):
+        assert np.array_equal(a, b)
+    K.reset_counts()
+    mlkem.encaps_batch(torch.from_numpy(outs["cuda"][0]).cuda(), torch.from_numpy(m).cuda())
+    c = K.snapshot()
+    assert all(v["plain_calls"] == 0 for v in c.values())
+    assert {k: v["launches"] for k, v in c.items() if v["launches"]} == {
+        "keccak_hash": 2, "keccak_sample_ntt": 1, "keccak_prf_cbd": 2,
+        "ntt_fwd_banks_u16": 1, "ntt_inv_banks_u16": 2, "dyadic_basemul_banks": 2,
+        "mlkem_decode_check": 1, "mlkem_encaps_tail": 1}
+    assert counts["keccak_hash"]["plain_calls"] == 6     # the CPU run's three entry points
 
 
 def _basemul_plan(k, b, n, aligned, sms):

@@ -14,7 +14,7 @@ from repro_torch.core.params import make_ntt_params
 from repro_torch.fhe import batched as TB
 from repro_torch.fhe import rns
 from repro_torch.kernels import (basis_kernel, build, dyadic_kernel, galois_kernel,
-                                 ntt_kernel)
+                                 keccak_kernel, ntt_kernel)
 from repro_torch.mesh import all_gather, make_mesh, psum
 from repro_torch.runtime import op_cost, roofline
 
@@ -223,6 +223,10 @@ def _calls(device, bad: bool, fake=None):
         "intt_fourstep_banks": lambda: ntt_kernel.intt_fourstep_banks(
             z(2, k, FOURSTEP_N + (2 if bad else 0)).transpose(0, 1), fs,
             negacyclic=True, lazy=True),
+        # two byte rows; a second part of another row count is refused
+        "keccak_hash": lambda: keccak_kernel.keccak_hash(
+            z(2, 1184, dt=torch.uint8), z(3 if bad else 2, 32, dt=torch.uint8),
+            rate=136, suffix=0x06, out_len=32),
     }
 
 

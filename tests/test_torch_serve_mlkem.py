@@ -127,7 +127,7 @@ def test_mixed_scheme_queue_sync_and_async():
 def test_mlkem_keygen_decaps_kinds():
     plan = MK_CTX.plan()
     ek, dk, m = _mlkem_material(3)
-    key, ct = mlkem.encaps_batch(ek, m, device="cpu")
+    key, ct, _ = mlkem.encaps_batch(ek, m, device="cpu")
     reqs = [FheRequest(0, "mlkem_keygen", payload={"d": np.zeros(32, np.uint8),
                                                     "z": np.ones(32, np.uint8)})]
     reqs += [FheRequest(1 + i, "mlkem_decaps", payload={"dk": dk[i], "ct": ct[i]})
@@ -157,3 +157,22 @@ def test_cross_scheme_request_fails_alone_and_mixed_batch_is_refused():
         FheRequest(1, "mlkem_keygen")
     with pytest.raises(ValueError, match="ciphertext"):
         FheRequest(2, "rescale")
+
+
+def test_malformed_key_fails_alone_through_the_engine():
+    """An encaps whose key has a coefficient at q fails alone with FIPS
+    203 §7.2's reason, sync and async; every other answer, encaps beside
+    it in its group among them, is the oracle's."""
+    plan = MK_CTX.plan()
+    reqs, expect = _mk_queue(plan, n_ckks=2, n_mlkem=3)
+    ek, _, m = _mlkem_material(1)
+    bad_ek = ek[0].copy()
+    bad_ek[0], bad_ek[1] = 0x01, (bad_ek[1] & 0xF0) | 0x0D     # 0xD01 = 3329 = q
+    bad = FheRequest(50, "mlkem_encaps", payload={"ek": bad_ek, "m": m[0]})
+    eng = CkksServeEngine(plan, batch_tile=2)
+    for drain in (eng.run, eng.run_async):
+        out = drain(reqs + [bad])
+        _mk_check(out, expect)
+        assert 50 not in out and set(eng.stats["failed"]) == {50}
+        assert "§7.2" in eng.stats["failed"][50] and "modulus check" in eng.stats["failed"][50]
+        assert eng.stats["groups"]["mlkem_encaps@mlkem"] == 3
