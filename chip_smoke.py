@@ -741,12 +741,20 @@ def phase_kernels(fs_pack, ks_primes) -> dict:
             "per-batch": torch.stack([residues(rng, sp_qs, (BATCH, N))
                                       for _ in range(k - 1)])}
     mus = FB.build_scalar_pack(ks_primes, "cuda")["mu"]
+    # a key switch's form: both key halves in one launch on the (digit,
+    # prime, B, n) transpose of the mod-up's (prime, digit, B, n) stack
+    y = residues(rng, sp_qs, (k - 1, BATCH, N)).transpose(0, 1)
     for kind, evk in keys.items():
+        pair = (evk, evk.roll(1, dims=-1))
         for lazy in (False, True):
             check("dyadic_inner_banks",
                   dyadic_kernel.dyadic_inner_banks(ext, evk, qs, mus, lazy=lazy),
                   ref.dyadic_inner_banks_ref(ext, evk, qs, mus, lazy=lazy),
                   f"ext {tuple(ext.shape)} {kind} key lazy={lazy}")
+            check("dyadic_inner_banks",
+                  torch.cat(dyadic_kernel.dyadic_inner_banks(y, pair, qs, mus, lazy=lazy)),
+                  torch.cat(ref.dyadic_inner_banks_ref(y, pair, qs, mus, lazy=lazy)),
+                  f"transposed ext {tuple(y.shape)} {kind} key pair lazy={lazy}")
     check_gathers(check, rng, [int(v) for v in qs.cpu()][:k - 1])
     for name, e in err.items():
         log(f"[kernels] {name}: bit-identical to its plain version (max abs err {e})")
@@ -3702,8 +3710,11 @@ def phase_times(ctx, cts, fs_pack, ks_pack, per_op, counts, errs, rot) -> list:
     x_f = residues(rng, qlist, (rows, n1))
     x_i = residues(rng, qlist[:k], (BATCH * (N // n1), n1), band=2)
     x_t = residues(rng, qlist, (k * BATCH, N), band=2)
-    ext = torch.stack([residues(rng, qlist, (BATCH, N)) for _ in range(k)])
-    evk = torch.stack([residues(rng, qlist, (N,)) for _ in range(k)])
+    # the digit MAC as the fig22 cell's group runs it: both key halves in
+    # one launch on the transposed view of the mod-up's (prime, digit, B, n)
+    y = residues(rng, qlist, (k, KS_GROUP, N)).transpose(0, 1)
+    pair = tuple(torch.stack([residues(rng, qlist, (N,)) for _ in range(k)])
+                 for _ in range(2))
     tw1 = (t1["qs"], t1["tw"], t1["twp"], t1["psi"], t1["psip"])
     iw1 = tuple(t1[n][:k] for n in ("qs", "ninv", "ninv_p", "itw", "itwp",
                                      "ipsin", "ipsinp"))
@@ -3732,9 +3743,9 @@ def phase_times(ctx, cts, fs_pack, ks_pack, per_op, counts, errs, rot) -> list:
             lambda: ref.twiddle_mul_banks_ref(x_t, *tw, lazy=True),
             None, tuple(x_t.shape), 2 * x_t.numel() * w + 2 * fs_pack["tw"].numel() * w + kp1 * w),
         "dyadic_inner_banks": (
-            lambda: dyadic_kernel.dyadic_inner_banks(ext, evk, *dk, lazy=True),
-            lambda: ref.dyadic_inner_banks_ref(ext, evk, *dk, lazy=True),
-            None, tuple(ext.shape), (ext.numel() + evk.numel() + ext[0].numel()) * w + 2 * kp1 * w),
+            lambda: dyadic_kernel.dyadic_inner_banks(y, pair, *dk, lazy=True),
+            lambda: ref.dyadic_inner_banks_ref(y, pair, *dk, lazy=True),
+            None, tuple(y.shape), digit_mac_bytes(y, pair) + 2 * kp1 * w),
     }
     # the rotation path's gathers: one half of a single rotate (k = 8
     # ciphertext primes), a mixed rotate_many of 8, and the hoisted R = 8
@@ -3761,6 +3772,8 @@ def phase_times(ctx, cts, fs_pack, ks_pack, per_op, counts, errs, rot) -> list:
     cases.update(basis_cases(basis_inputs(rng, qlist), rns.scalar_pack(tuple(qlist),
                                                                        torch.device("cuda"))))
     out = time_kernels(cases, counts, errs)
+    del y, pair
+    digit_mac_times(rng)
     log("[times] library: index_select / gather at the kernel's shape for the "
         "three gathers; none for the NTT banks, the Shoup weight-row multiply "
         "and the Barrett digit MAC, which no single PyTorch call computes")
@@ -3907,6 +3920,45 @@ def apply_int_bounds(records: list, mhz: float) -> None:
         ib = int_bound_ms(ops, mhz)
         log(f"[bounds] {label}: kernel {ms:.4f} ms, bytes {bound:.4f} ms, integer "
             f"{ib:.4f} ms at {mhz:.0f} MHz ({ms / max(bound, ib):.2f}x the larger)")
+
+
+def digit_mac_bytes(y, keys) -> int:
+    """The digit MAC's least traffic: y once, each key once, one output a key."""
+    return 4 * (y.numel() + sum(e.numel() for e in keys) + len(keys) * y[0].numel())
+
+
+# (digits, primes extended onto, B, n) of the key-switch cells' groups: the
+# n16 cell's hybrid key switch and fig22's
+DIGIT_MAC_SHAPES = ((4, 30, KS_GROUP, N16), (LEVELS + 1, LEVELS + 2, KS_GROUP, N))
+
+
+def digit_mac_times(rng) -> None:
+    """The digit MAC at the key-switch cells' group shapes: both key halves
+    in one launch on the transposed view of the mod-up's stack, beside its
+    byte bound and the route it replaced (a contiguous copy of the view
+    for each key, then a one-key launch on each)."""
+    from repro_torch.fhe import rns
+    from repro_torch.kernels import dyadic_kernel
+    for d, kt, b, n in DIGIT_MAC_SHAPES:
+        primes = rns.make_primes(n, kt)
+        t = rns.scalar_pack(tuple(primes), torch.device("cuda"))
+        gen = torch.Generator(device="cuda").manual_seed(SEED + kt)
+        draw = lambda shape: torch.stack([
+            torch.randint(0, int(q), shape, generator=gen, device="cuda",
+                          dtype=torch.int64).int() for q in primes])
+        y = draw((d, b, n)).transpose(0, 1)
+        keys = tuple(draw((d, n)).transpose(0, 1).contiguous() for _ in range(2))
+        pair = lambda: dyadic_kernel.dyadic_inner_banks(y, keys, t["qs"], t["mu"], lazy=True)
+        old = lambda: [dyadic_kernel.dyadic_inner_banks(y.contiguous(), e, t["qs"], t["mu"],
+                                                        lazy=True) for e in keys]
+        inner = 3 if n > N else 10
+        nbytes = digit_mac_bytes(y, keys)
+        log(f"[times] dyadic_inner_banks {tuple(y.shape)} transposed, both keys: kernel "
+            f"{graph_ms(pair, inner=inner):.6f} ms, two copies + two one-key launches "
+            f"{graph_ms(old, inner=inner):.6f} ms, bound "
+            f"{nbytes / HBM_BYTES_PER_S * 1e3:.6f} ms ({nbytes} bytes)")
+        del y, keys
+        torch.cuda.empty_cache()
 
 
 def time_kernels(cases: dict, counts: dict, errs: dict) -> list:

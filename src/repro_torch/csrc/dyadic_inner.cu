@@ -1,28 +1,46 @@
-// Key-switch digit MAC for Hopper (sm_90a):
-//   out[p, b, j] = sum_d ext[d, p, b, j] * evk[d, p, (b,) j]  mod q_p
+// Key-switch digit MAC for Hopper (sm_90a), for one key or two:
+//   out_i[p, b, j] = sum_d ext[d, p, b, j] * evk_i[d, p, (b,) j]  mod q_p
 //
 // Replaces the TPU kernel src/repro/kernels/dyadic_kernel.py
 // dyadic_inner_banks (_inner_banks_kernel): the paper's Fig 22 MM/MA
-// arrays, 32-bit Barrett products accumulated over every digit.
+// arrays, 32-bit Barrett products accumulated over every digit.  A key
+// switch runs it with both key halves (evk_b, evk_a) in one launch.
 //
 // What bounds it on an H100: device memory.  Each output word reads d
-// extension words and d key words (the shared key once per prime row,
-// reused across the batch through L2) and writes one word; the Barrett
-// products are a few integer multiplies per byte read.  The least time
-// is those bytes over the card's memory rate.
+// extension words and d key words per key and writes one word; the
+// Barrett products are a few integer multiplies per byte read.  The least
+// time is ext once, each key once and each output once over the card's
+// memory rate.
 //
-// What this simple design does about it: one thread per output word,
-// with the digit loop inside the thread, so the accumulator stays in a
-// register across all digits and the output crosses device memory once.
-// Consecutive threads read consecutive words of every digit plane, so
-// each digit's loads are coalesced.  The key is either shared (d, k, n)
-// or per batch row (d, k, B, n).  The lazy/eager accumulate order is the
-// reference's exactly: lazy keeps products and the accumulator in
-// [0, 2q) and reduces once at the end.
+// What this design does about it:
+//   * Both keys in one launch: each extension word is read once for both
+//     accumulators (two calls read the mod-up's output twice).
+//   * ext, the keys and the outputs are read and written through their
+//     (digit, prime, batch) strides; only the ring axis is unit-stride.
+//     The key switch's ext is the (digit, prime, B, n) transpose of the
+//     mod-up's (prime, digit, B, n) stack, read in place, and the outputs
+//     may be the two halves of one (k, 2R, n) stack (the hoisted
+//     rotations' mod-down input), so no copy is made on either side.
+//   * A block owns one prime and a tile of 4 * kThreads ring words, one
+//     16-byte vector a thread, and loops over a run of batch rows.  A key
+//     shared by the batch (batch stride 0) with up to kMaxRegDigits
+//     digits is loaded once into registers and reused for every row of
+//     the run; a per-row key, or more digits, is read per row.  Re-reading
+//     a shared key per row instead (from L1/L2) took 0.622-0.626 ms
+//     against 0.548-0.551 at (4, 30, 32, 2^16) and 0.0918-0.0928 against
+//     0.0757-0.0762 at (8, 9, 32, 2^14) on an H100 SXM (80 GB, 700 W).
+//   * The batch splits into runs over more blocks only where the primes'
+//     tiles would leave the SMs short (fig22's 9 primes at 2^14); the
+//     split is read from the shapes and the kernel's residency.
+//   * Block indices are decomposed once a block in 32-bit integers; no
+//     per-word division.
+// The lazy/eager accumulate order is the reference's exactly: lazy keeps
+// products and the accumulator in [0, 2q) and reduces once at the end.
 #include <cuda_runtime.h>
 
 #include <cstdint>
 
+#include "host.cuh"
 #include "modarith.cuh"
 
 using namespace modarith;
@@ -30,70 +48,254 @@ using namespace modarith;
 namespace {
 
 constexpr int kThreads = 256;
+constexpr int kMaxRegDigits = 8;  // digits of a shared key held in registers
+constexpr int kMinRun = 4;        // least batch rows a block sharing registered keys
+constexpr int kWaves = 4;         // blocks wanted: this many waves of resident blocks
 
-template <bool kLazy, bool kPerBatch>
+// A strided operand: words between digits, primes and batch rows (a key
+// shared by the batch has sb = 0; an output has no digit axis).
+struct Plane {
+  const uint32_t* p;
+  long long sd, sp, sb;
+};
+
+struct Out {
+  uint32_t* p;
+  long long sp, sb;
+};
+
+struct Args {
+  Plane ext, key[2];
+  Out out[2];
+  const uint32_t* qs;
+  const uint32_t* mus;
+  int d, n, b, tiles, splits, run;
+};
+
+template <int V>
+__device__ __forceinline__ void load(const uint32_t* p, uint32_t (&w)[V]) {
+  if constexpr (V == 4) {
+    const uint4 a = __ldg(reinterpret_cast<const uint4*>(p));
+    w[0] = a.x, w[1] = a.y, w[2] = a.z, w[3] = a.w;
+  } else {
+    w[0] = __ldg(p);
+  }
+}
+
+// ext is read once: a streaming load, so the keys keep their L2 lines
+template <int V>
+__device__ __forceinline__ void load_once(const uint32_t* p, uint32_t (&w)[V]) {
+  if constexpr (V == 4) {
+    const uint4 a = __ldcs(reinterpret_cast<const uint4*>(p));
+    w[0] = a.x, w[1] = a.y, w[2] = a.z, w[3] = a.w;
+  } else {
+    w[0] = __ldcs(p);
+  }
+}
+
+template <int V>
+__device__ __forceinline__ void store(uint32_t* p, const uint32_t (&w)[V]) {
+  if constexpr (V == 4) {
+    *reinterpret_cast<uint4*>(p) = make_uint4(w[0], w[1], w[2], w[3]);
+  } else {
+    p[0] = w[0];
+  }
+}
+
+// acc of digit 0, then acc + e * key of each further digit, in the
+// reference's order
+template <bool kLazy>
+__device__ __forceinline__ uint32_t mac_first(uint32_t e, uint32_t key, uint32_t q,
+                                              uint32_t mu) {
+  return kLazy ? barrett_lazy(e, key, q, mu) : barrett(e, key, q, mu);
+}
+
+template <bool kLazy>
+__device__ __forceinline__ uint32_t mac_next(uint32_t acc, uint32_t e, uint32_t key,
+                                             uint32_t q, uint32_t mu) {
+  return kLazy ? lazy_add(acc, barrett_lazy(e, key, q, mu), q << 1)
+               : add_mod(acc, barrett(e, key, q, mu), q);
+}
+
+template <bool kLazy>
+__device__ __forceinline__ uint32_t finish(uint32_t acc, uint32_t q) {
+  return kLazy && acc >= q ? acc - q : acc;
+}
+
+// V words a thread (4: one 16-byte vector), NK keys (1 or 2).  D > 0: the
+// keys are shared by the batch and have D digits, held in registers;
+// D == 0: a.d digits, each key read per row through its strides.
+template <int V, int NK, bool kLazy, int D>
 __global__ void __launch_bounds__(kThreads)
-dyadic_inner_banks_kernel(const uint32_t* __restrict__ ext,
-                          const uint32_t* __restrict__ evk,
-                          uint32_t* __restrict__ out,
-                          const uint32_t* __restrict__ qs,
-                          const uint32_t* __restrict__ mus, int d, int k,
-                          long long bn, int n, long long total) {
-  for (long long idx = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-       idx < total; idx += (long long)gridDim.x * blockDim.x) {
-    const long long p = idx / bn;
-    const long long rem = idx - p * bn;
-    const long long j = rem % n;
-    const uint32_t q = qs[p];
-    const uint32_t mu = mus[p];
-    const uint32_t q2 = q << 1;
-    const long long ext_stride = (long long)k * bn;
-    const long long key_stride = kPerBatch ? (long long)k * bn : (long long)k * n;
-    const long long key_off = kPerBatch ? p * bn + rem : p * n + j;
-    uint32_t acc = kLazy ? barrett_lazy(ext[idx], evk[key_off], q, mu)
-                         : barrett(ext[idx], evk[key_off], q, mu);
-    for (int dd = 1; dd < d; ++dd) {
-      const uint32_t e = ext[dd * ext_stride + idx];
-      const uint32_t key = evk[dd * key_stride + key_off];
-      if (kLazy) {
-        acc = lazy_add(acc, barrett_lazy(e, key, q, mu), q2);
-      } else {
-        acc = add_mod(acc, barrett(e, key, q, mu), q);
+dyadic_inner_banks_kernel(const Args a) {
+  unsigned bid = blockIdx.x;
+  const int split = bid % a.splits;
+  bid /= a.splits;
+  const int tile = bid % a.tiles;
+  const int p = bid / a.tiles;
+  const int j = (tile * kThreads + threadIdx.x) * V;
+  if (j >= a.n) return;
+  const uint32_t q = a.qs[p];
+  const uint32_t mu = a.mus[p];
+  const int b0 = split * a.run;
+  const int b1 = min(a.b, b0 + a.run);
+  const uint32_t* ext = a.ext.p + p * a.ext.sp + j;
+  const uint32_t* key[NK];
+  uint32_t* out[NK];
+#pragma unroll
+  for (int i = 0; i < NK; ++i) {
+    key[i] = a.key[i].p + p * a.key[i].sp + j;
+    out[i] = a.out[i].p + p * a.out[i].sp + j;
+  }
+  if constexpr (D > 0) {
+    uint32_t kw[NK][D][V];
+#pragma unroll
+    for (int i = 0; i < NK; ++i) {
+#pragma unroll
+      for (int dd = 0; dd < D; ++dd) load<V>(key[i] + dd * a.key[i].sd, kw[i][dd]);
+    }
+    for (int bb = b0; bb < b1; ++bb) {
+      const uint32_t* e = ext + bb * a.ext.sb;
+      uint32_t w[D][V];
+#pragma unroll
+      for (int dd = 0; dd < D; ++dd) load_once<V>(e + dd * a.ext.sd, w[dd]);
+#pragma unroll
+      for (int i = 0; i < NK; ++i) {
+        uint32_t acc[V];
+#pragma unroll
+        for (int v = 0; v < V; ++v) {
+          acc[v] = mac_first<kLazy>(w[0][v], kw[i][0][v], q, mu);
+#pragma unroll
+          for (int dd = 1; dd < D; ++dd) {
+            acc[v] = mac_next<kLazy>(acc[v], w[dd][v], kw[i][dd][v], q, mu);
+          }
+          acc[v] = finish<kLazy>(acc[v], q);
+        }
+        store<V>(out[i] + bb * a.out[i].sb, acc);
       }
     }
-    if (kLazy) acc = acc >= q ? acc - q : acc;
-    out[idx] = acc;
+  } else {
+    for (int bb = b0; bb < b1; ++bb) {
+      const uint32_t* e = ext + bb * a.ext.sb;
+      uint32_t acc[NK][V];
+      for (int dd = 0; dd < a.d; ++dd) {
+        uint32_t w[V];
+        load_once<V>(e + dd * a.ext.sd, w);
+#pragma unroll
+        for (int i = 0; i < NK; ++i) {
+          uint32_t kv[V];
+          load<V>(key[i] + dd * a.key[i].sd + bb * a.key[i].sb, kv);
+#pragma unroll
+          for (int v = 0; v < V; ++v) {
+            acc[i][v] = dd == 0 ? mac_first<kLazy>(w[v], kv[v], q, mu)
+                                : mac_next<kLazy>(acc[i][v], w[v], kv[v], q, mu);
+          }
+        }
+      }
+#pragma unroll
+      for (int i = 0; i < NK; ++i) {
+#pragma unroll
+        for (int v = 0; v < V; ++v) acc[i][v] = finish<kLazy>(acc[i][v], q);
+        store<V>(out[i] + bb * a.out[i].sb, acc[i]);
+      }
+    }
   }
+}
+
+// Sizes the grid of one instantiation and launches it: (prime, tile,
+// run) blocks, the batch cut into runs only while the primes' tiles
+// fall short of kWaves waves of resident blocks.
+template <int V, int NK, bool kLazy, int D>
+int launch(Args a, int k, cudaStream_t s) {
+  auto kernel = &dyadic_inner_banks_kernel<V, NK, kLazy, D>;
+  static int cached_per_sm[host::kMaxDevices] = {};  // resident blocks a SM, once a card
+  const int dev = host::current_device();
+  int per_sm = host::kept(dev) ? cached_per_sm[dev] : 0;
+  if (per_sm == 0) {
+    const cudaError_t e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                                        kThreads, 0);
+    if (e != cudaSuccess) return (int)e;
+    if (per_sm <= 0) per_sm = 1;
+    if (host::kept(dev)) cached_per_sm[dev] = per_sm;
+  }
+  a.tiles = (a.n / V + kThreads - 1) / kThreads;
+  const long long blocks = (long long)k * a.tiles;
+  const long long want = (long long)kWaves * per_sm * host::sm_count();
+  long long splits = blocks < want ? (want + blocks - 1) / blocks : 1;
+  constexpr int min_run = D > 0 ? kMinRun : 1;  // a run reuses registered keys
+  const long long most = (a.b + min_run - 1) / min_run;
+  splits = splits < most ? splits : most;
+  a.run = (int)((a.b + splits - 1) / splits);
+  a.splits = (a.b + a.run - 1) / a.run;
+  const long long grid = blocks * a.splits;
+  if (grid > 0x7FFFFFFFLL) return (int)cudaErrorInvalidValue;
+  kernel<<<(unsigned)grid, kThreads, 0, s>>>(a);
+  return (int)cudaGetLastError();
+}
+
+template <int V, int NK, bool kLazy>
+int launch_digits(const Args& a, int k, bool cached, cudaStream_t s) {
+  if constexpr (V == 4) {
+    if (cached) {
+      switch (a.d) {
+#define CASE(D) \
+  case D:       \
+    return launch<V, NK, kLazy, D>(a, k, s);
+        CASE(1) CASE(2) CASE(3) CASE(4) CASE(5) CASE(6) CASE(7) CASE(8)
+#undef CASE
+        default:
+          break;
+      }
+    }
+  }
+  return launch<V, NK, kLazy, 0>(a, k, s);
+}
+
+bool vec_ok(const void* p, long long s0, long long s1, long long s2) {
+  return host::aligned16(p) && s0 % 4 == 0 && s1 % 4 == 0 && s2 % 4 == 0;
 }
 
 }  // namespace
 
-// ext (d, k, b, n); evk (d, k, n) or, with per_batch, (d, k, b, n);
-// out (k, b, n); qs, mus (k,).  All uint32 (int32 bit patterns),
-// contiguous, checked by the Python wrapper.  Returns cudaGetLastError().
-extern "C" int dyadic_inner_banks(const void* ext, const void* evk, void* out,
-                                  const void* qs, const void* mus, int d, int k,
-                                  long long b, int n, int per_batch, int lazy,
-                                  void* stream) {
-  const long long bn = b * n;
-  const long long total = bn * k;
-  if (total <= 0 || d <= 0) return (int)cudaGetLastError();
-  const long long blocks = (total + kThreads - 1) / kThreads;
-  const unsigned grid = (unsigned)(blocks < 1048576 ? blocks : 1048576);
-  auto* s = static_cast<cudaStream_t>(stream);
-  const auto* a_ext = static_cast<const uint32_t*>(ext);
-  const auto* a_evk = static_cast<const uint32_t*>(evk);
-  auto* a_out = static_cast<uint32_t*>(out);
-  const auto* a_qs = static_cast<const uint32_t*>(qs);
-  const auto* a_mus = static_cast<const uint32_t*>(mus);
-#define LAUNCH(L, P)                                                      \
-  dyadic_inner_banks_kernel<L, P><<<grid, kThreads, 0, s>>>(              \
-      a_ext, a_evk, a_out, a_qs, a_mus, d, k, bn, n, total)
-  if (lazy) {
-    if (per_batch) LAUNCH(true, true); else LAUNCH(true, false);
-  } else {
-    if (per_batch) LAUNCH(false, true); else LAUNCH(false, false);
+// ext: (d, k, b, n) with (digit, prime, batch) strides ext_s*; key0 and
+// key1 (null for one key): (d, k, [b,] n) with strides k*_s* (batch stride
+// 0 for a key shared by the batch); out0 and out1 (null for one key):
+// (k, b, n) with (prime, batch) strides o*_s*; qs, mus (k,).  Every ring
+// axis unit-stride.  All uint32 (int32 bit patterns), checked by the
+// Python wrapper.  Returns cudaGetLastError(), or cudaErrorInvalidValue
+// for shapes past the grid.
+extern "C" int dyadic_inner_banks(
+    const void* ext, long long ext_sd, long long ext_sp, long long ext_sb,
+    const void* key0, long long k0_sd, long long k0_sp, long long k0_sb,
+    const void* key1, long long k1_sd, long long k1_sp, long long k1_sb,
+    void* out0, long long o0_sp, long long o0_sb, void* out1, long long o1_sp,
+    long long o1_sb, const void* qs, const void* mus, int d, int k, int b, int n,
+    int lazy, void* stream) {
+  if (d <= 0 || k <= 0 || b <= 0 || n <= 0) return (int)cudaGetLastError();
+  const int nk = key1 != nullptr ? 2 : 1;
+  Args a{};
+  a.ext = {static_cast<const uint32_t*>(ext), ext_sd, ext_sp, ext_sb};
+  a.key[0] = {static_cast<const uint32_t*>(key0), k0_sd, k0_sp, k0_sb};
+  a.key[1] = {static_cast<const uint32_t*>(key1), k1_sd, k1_sp, k1_sb};
+  a.out[0] = {static_cast<uint32_t*>(out0), o0_sp, o0_sb};
+  a.out[1] = {static_cast<uint32_t*>(out1), o1_sp, o1_sb};
+  a.qs = static_cast<const uint32_t*>(qs);
+  a.mus = static_cast<const uint32_t*>(mus);
+  a.d = d, a.n = n, a.b = b;
+  bool vec = n % 4 == 0 && vec_ok(ext, ext_sd, ext_sp, ext_sb);
+  bool shared = true;
+  for (int i = 0; i < nk; ++i) {
+    vec = vec && vec_ok(a.key[i].p, a.key[i].sd, a.key[i].sp, a.key[i].sb) &&
+          vec_ok(a.out[i].p, a.out[i].sp, a.out[i].sb, 0);
+    shared = shared && a.key[i].sb == 0;
   }
+  const bool cached = vec && shared && d <= kMaxRegDigits;
+  auto* s = static_cast<cudaStream_t>(stream);
+#define LAUNCH(V)                                                         \
+  (nk == 2 ? (lazy ? launch_digits<V, 2, true>(a, k, cached, s)           \
+                   : launch_digits<V, 2, false>(a, k, cached, s))         \
+           : (lazy ? launch_digits<V, 1, true>(a, k, cached, s)           \
+                   : launch_digits<V, 1, false>(a, k, cached, s)))
+  return vec ? LAUNCH(4) : LAUNCH(1);
 #undef LAUNCH
-  return (int)cudaGetLastError();
 }

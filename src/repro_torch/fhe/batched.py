@@ -379,14 +379,14 @@ def keyswitch_digits(ci, src_qs, evk_b, evk_a, t: dict, *,
                      add1=None, batch_leading: bool = False):
     """The key switch from the coefficient digits on: ``decompose_extend``
     onto t's kt primes (the last the special P, or P's K primes under a
-    hybrid pack), the two digit MACs and the mod-downs by P.  ci: (d, B, n) digits mod ``src_qs``; evk_b/evk_a:
+    hybrid pack), the two digit MACs (one launch) and the mod-downs by P.  ci: (d, B, n) digits mod ``src_qs``; evk_b/evk_a:
     (d, kt, n) or (d, kt, B, n) key digits over t's primes.  Returns
     (ks0, ks1): (kt - 1, B, n), or (B, kt - 1, n) with ``batch_leading``;
     ``add0``/``add1`` (in that layout) are added to them mod q_j inside
     the mod-downs' tails."""
     y = decompose_extend(ci, src_qs, t, fsp=fsp, lazy=lazy)    # (digit, prime, B, n)
-    acc0 = ops.dyadic_inner_banks(y, evk_b, t, lazy=lazy)       # MM/MA arrays
-    acc1 = ops.dyadic_inner_banks(y, evk_a, t, lazy=lazy)
+    # MM/MA arrays: both key halves in one launch, y read in place
+    acc0, acc1 = ops.dyadic_inner_banks(y, (evk_b, evk_a), t, lazy=lazy)
     return (mod_down_banks(acc0, t, fsp=fsp, lazy=lazy, addend=add0,
                            batch_leading=batch_leading),
             mod_down_banks(acc1, t, fsp=fsp, lazy=lazy, addend=add1,

@@ -250,11 +250,12 @@ def hoisted_back(ci, c0, idx, evk_b, evk_a, src_qs, t, fsp=None):
     # shared-mode gathers: the one decomposition (and c0, as a single
     # "digit") fan out to the R gather rows inside the kernel
     yg = ops.galois_digits_banks(y, idx)                    # (d, k+1, R, n)
-    acc0 = ops.dyadic_inner_banks(yg, evk_b, t)             # (k+1, R, n)
-    acc1 = ops.dyadic_inner_banks(yg, evk_a, t)
+    # both MACs in one launch, written as the two halves of the (k+1, 2R, n)
+    # stack that one mod-down takes; its tail adds c0g to the first R
+    acc = yg.new_empty((yg.shape[1], 2 * R, yg.shape[-1]))
+    ops.dyadic_inner_banks(yg, (evk_b, evk_a), t, out=(acc[:, :R], acc[:, R:]))
     c0g = ops.galois_digits_banks(c0[None, :, None], idx)[0]
-    # one mod-down over all 2R halves; its tail adds c0g to the first R
-    ks = mod_down_banks(torch.cat([acc0, acc1], dim=1), t, fsp=fsp, addend=c0g)
+    ks = mod_down_banks(acc, t, fsp=fsp, addend=c0g)
     return ks[:, :R], ks[:, R:]
 
 

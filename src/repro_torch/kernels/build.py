@@ -46,7 +46,10 @@ SIGNATURES = {
         "twiddle_mul_banks": [_P] * 5 + [_I, _L, _I, _I, _P],
     },
     "dyadic_inner": {
-        "dyadic_inner_banks": [_P] * 5 + [_I, _I, _L, _I, _I, _I, _P],
+        # ext, key0, key1 with their (digit, prime, batch) strides; out0, out1
+        # with their (prime, batch) strides; qs, mus; d, k, b, n, lazy
+        "dyadic_inner_banks": [_P, _L, _L, _L] * 3 + [_P, _L, _L] * 2 + [_P, _P]
+                              + [_I] * 5 + [_P],
     },
     "galois": {
         "galois_banks": [_P] * 3 + [_I] * 3 + [_P],

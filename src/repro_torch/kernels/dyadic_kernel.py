@@ -5,7 +5,9 @@
 ``dyadic_inner_banks`` replaces the TPU kernel ``dyadic_inner_banks`` of
 the reference's ``kernels/dyadic_kernel.py``:
 out[p, b] = sum_d ext[d, p, b] * evk[d, p, (b)] mod q_p with 32-bit
-Barrett products.  ``dyadic_basemul_banks`` replaces the TPU kernel of
+Barrett products, for one key or both halves of a key switch's key in
+one launch, with ext, the keys and the outputs read and written through
+their strides.  ``dyadic_basemul_banks`` replaces the TPU kernel of
 the same name: ML-KEM's degree-1 products mod (X^2 - γ_j) on the int16
 lane; its launcher takes 2 pairs a thread in 32-bit words where n/2 is
 even and every operand and gamma row is 4-byte aligned, and one pair a
@@ -30,38 +32,83 @@ from repro_torch.kernels import COUNTS, KernelRefusal, build, ref
 from repro_torch.kernels.ntt_kernel import (check_lane, check_shape,
                                             check_tensors, check_u32, meta_launch,
                                             raise_on, stream)
+from repro_torch.runtime import op_cost
 from repro_torch.runtime.roofline import BASEMUL_OPS
 
 
-def dyadic_inner_banks(ext, evk, qs, mus, *, lazy: bool):
-    """ext: (d, k, B, n) int32; evk: (d, k, n) shared by the batch or
-    (d, k, B, n) per batch row; qs/mus (k,).  Returns (k, B, n)."""
+def _strided(where: str, device, **views) -> None:
+    """int32 views on ``device`` whose ring axis (the last) is unit-stride;
+    every other axis may have any stride."""
+    for name, t in views.items():
+        if t.device != device:
+            raise KernelRefusal(f"{where}: {name} is on {t.device}, expected {device}")
+        if t.dtype != torch.int32:
+            raise KernelRefusal(f"{where}: {name} must be torch.int32 (uint32 bit "
+                                f"patterns), got {t.dtype}")
+        if t.stride(-1) != 1 and t.shape[-1] > 1:
+            raise KernelRefusal(f"{where}: {name} must be unit-stride along n, got "
+                                f"shape {tuple(t.shape)}, strides {t.stride()}")
+
+
+def dyadic_inner_banks(ext, evk, qs, mus, *, lazy: bool, out=None):
+    """ext: (d, k, B, n) int32, any strides but along n (the key switch's
+    (digit, prime, B, n) transpose of the mod-up's stack, read in place);
+    evk: one key, or a tuple of one or two keys, each (d, k, n) shared by
+    the batch or (d, k, B, n) per batch row; qs/mus (k,).  Returns a
+    (k, B, n) stack for one key, or a tuple of one a key: two keys are one
+    launch, which reads ext once for both.  ``out``, in the same form, are
+    (k, B, n) views unit-stride along n to write instead (the two halves
+    of one stack, say)."""
+    keys = evk if isinstance(evk, tuple) else (evk,)
     if ext.device.type == "cpu":
-        return ref.dyadic_inner_banks_ref(ext, evk, qs, mus, lazy=lazy)
+        got = ref.dyadic_inner_banks_ref(ext, keys, qs, mus, lazy=lazy)
+        if out is not None:
+            got = tuple(o.copy_(g) for o, g in zip(out if isinstance(out, tuple)
+                                                  else (out,), got))
+        return got if isinstance(evk, tuple) else got[0]
     where = "dyadic_inner_banks"
-    if ext.ndim != 4 or evk.ndim not in (3, 4):
-        raise KernelRefusal(f"{where}: ext (d, k, B, n) and evk (d, k, [B,] n) "
-                            f"expected, got {tuple(ext.shape)}, {tuple(evk.shape)}")
+    if ext.ndim != 4 or not 1 <= len(keys) <= 2 or any(e.ndim not in (3, 4) for e in keys):
+        raise KernelRefusal(f"{where}: ext (d, k, B, n) and one or two evk (d, k, [B,] n) "
+                            f"expected, got {tuple(ext.shape)}, "
+                            f"{[tuple(e.shape) for e in keys]}")
     d, k, b, n = ext.shape
     if d == 0:
         raise KernelRefusal(f"{where}: no digits")
-    check_tensors(where, ext.device, ext=ext, evk=evk, qs=qs, mus=mus)
-    per_batch = evk.ndim == 4
-    check_shape(where, "evk", evk, (d, k, b, n) if per_batch else (d, k, n))
+    check_tensors(where, ext.device, qs=qs, mus=mus)
+    _strided(where, ext.device, ext=ext, **{f"evk{i}": e for i, e in enumerate(keys)})
+    for i, e in enumerate(keys):
+        check_shape(where, f"evk{i}", e, (d, k, b, n) if e.ndim == 4 else (d, k, n))
     check_shape(where, "qs", qs, (k,))
     check_shape(where, "mus", mus, (k,))
+    if out is None:
+        outs = tuple(ext.new_empty((k, b, n)) for _ in keys)
+    else:
+        outs = out if isinstance(out, tuple) else (out,)
+        if len(outs) != len(keys):
+            raise KernelRefusal(f"{where}: {len(outs)} outputs for {len(keys)} keys")
+        _strided(where, ext.device, **{f"out{i}": o for i, o in enumerate(outs)})
+        for i, o in enumerate(outs):
+            check_shape(where, f"out{i}", o, (k, b, n))
+    ret = outs if isinstance(evk, tuple) else outs[0]
     if ext.device.type == "meta":
-        return meta_launch(where, ext.new_empty((k, b, n)), [ext, evk, qs, mus])
+        op_cost.record_kernel(where, [ext, *keys, qs, mus], list(outs))
+        return ret
     lib = build.load("dyadic_inner")
-    out = torch.empty((k, b, n), dtype=torch.int32, device=ext.device)
-    if out.numel() == 0:
-        return out
-    rc = lib.dyadic_inner_banks(ext.data_ptr(), evk.data_ptr(), out.data_ptr(),
-                                qs.data_ptr(), mus.data_ptr(), d, k, b, n,
-                                int(per_batch), int(lazy), stream())
+    if ext.numel() == 0:
+        return ret
+    # (digit, prime, batch) strides in words, 0 along an axis of one (a
+    # shared key has no batch axis), so any layout of it takes 16-byte loads
+    words = lambda t: [s if m > 1 else 0 for m, s in zip(t.shape[:-1], t.stride()[:-1])]
+    planes = [(e.data_ptr(), *words(e), *([] if e.ndim == 4 else [0])) for e in keys]
+    planes += [(0, 0, 0, 0)] * (2 - len(keys))
+    sinks = [(o.data_ptr(), *words(o)) for o in outs]
+    sinks += [(0, 0, 0)] * (2 - len(outs))
+    rc = lib.dyadic_inner_banks(ext.data_ptr(), *words(ext), *planes[0], *planes[1],
+                                *sinks[0], *sinks[1], qs.data_ptr(), mus.data_ptr(),
+                                d, k, b, n, int(lazy), stream())
     raise_on(where, rc)
-    COUNTS["dyadic_inner_banks"].launches += 1
-    return out
+    COUNTS[where].launches += 1
+    return ret
 
 
 def dyadic_basemul_banks(a, b, qs, mus, gamma, gammap, *, lazy: bool):

@@ -275,19 +275,31 @@ def intt_fourstep_banks(x, fp: dict, *, negacyclic: bool = True,
 
 
 @_spanned
-def dyadic_inner_banks(ext, evk, t: dict, *, lazy: bool = True):
+def dyadic_inner_banks(ext, evk, t: dict, *, lazy: bool = True, out=None):
     """Key-switch inner product out[j] = sum_i ext[i, j] * evk[i, j] mod q_j.
-    ext: (d, k, B, n) NTT-domain digit extensions; evk: (d, k, n) shared
-    or (d, k, B, n) per-batch key digits; t: pack whose rows align with
-    axis 1."""
-    if ext.ndim != 4 or evk.ndim not in (3, 4) or ext.shape[1] != t["qs"].shape[0]:
+    ext: (d, k, B, n) NTT-domain digit extensions, read in place through
+    its strides (``decompose_extend``'s (digit, prime, B, n) transpose is
+    not copied); evk: one key, or the pair (evk_b, evk_a) of a key
+    switch, each (d, k, n) shared or (d, k, B, n) per-batch key digits; t:
+    pack whose rows align with axis 1.  A pair is one launch that reads
+    ext once for both, and returns a pair of (k, B, n) stacks; ``out``, in
+    the same form, are (k, B, n) views to write instead.  Counts
+    ``ops.dyadic_inner.strided`` for each call on a non-contiguous ext,
+    the copies it avoids."""
+    keys = evk if isinstance(evk, tuple) else (evk,)
+    if ext.ndim != 4 or ext.shape[1] != t["qs"].shape[0] or any(
+            e.ndim not in (3, 4) for e in keys):
         raise ValueError(f"dyadic_inner_banks: ext {tuple(ext.shape)}, evk "
-                         f"{tuple(evk.shape)} for {t['qs'].shape[0]} primes")
-    if evk.ndim == 4 and evk.shape != ext.shape:
-        raise ValueError(f"dyadic_inner_banks: per-batch evk {tuple(evk.shape)} "
-                         f"!= ext {tuple(ext.shape)}")
-    return dyadic_kernel.dyadic_inner_banks(ext.contiguous(), evk.contiguous(),
-                                            t["qs"], t["mu"], lazy=lazy)
+                         f"{[tuple(e.shape) for e in keys]} for {t['qs'].shape[0]} "
+                         "primes")
+    for e in keys:
+        if e.ndim == 4 and e.shape != ext.shape:
+            raise ValueError(f"dyadic_inner_banks: per-batch evk {tuple(e.shape)} "
+                             f"!= ext {tuple(ext.shape)}")
+    if obs.enabled() and not ext.is_contiguous():
+        obs.counter_add("ops.dyadic_inner.strided")
+    return dyadic_kernel.dyadic_inner_banks(ext, evk, t["qs"], t["mu"], lazy=lazy,
+                                            out=out)
 
 
 @_spanned

@@ -281,23 +281,28 @@ def intt_fourstep_banks_ref(x, fp: dict, negacyclic: bool, lazy: bool = False):
 
 
 def dyadic_inner_banks_ref(ext, evk, qs, mus, lazy: bool = False):
-    """ext: (d, k, B, n); evk: (d, k, n) shared or (d, k, B, n) per-batch
-    key digits; qs/mus: (k,).  Digit products accumulated in the
-    kernel's order."""
+    """ext: (d, k, B, n), any strides; evk: a key, or a tuple of keys, each
+    (d, k, n) shared or (d, k, B, n) per-batch key digits; qs/mus: (k,).
+    Digit products accumulated in the kernel's order; one plain call for
+    every key, as the kernel is one launch.  Returns a (k, B, n) stack, or
+    a tuple of one a key."""
     COUNTS["dyadic_inner_banks"].plain_calls += 1
     q = u32(qs)[:, None, None]
     mu = u32(mus)[:, None, None]
     e = ext.long()
-    key = (evk if evk.ndim == 4 else evk[:, :, None, :]).long()
-    if lazy:
-        acc = mulmod_barrett_lazy(e[0], key[0], q, mu)
+
+    def inner(evk):
+        key = (evk if evk.ndim == 4 else evk[:, :, None, :]).long()
+        if lazy:
+            acc = mulmod_barrett_lazy(e[0], key[0], q, mu)
+            for i in range(1, e.shape[0]):
+                acc = lazy_addmod(acc, mulmod_barrett_lazy(e[i], key[i], q, mu), q)
+            return torch.where(acc >= q, acc - q, acc).int()
+        acc = mulmod_barrett(e[0], key[0], q, mu)
         for i in range(1, e.shape[0]):
-            acc = lazy_addmod(acc, mulmod_barrett_lazy(e[i], key[i], q, mu), q)
-        return torch.where(acc >= q, acc - q, acc).int()
-    acc = mulmod_barrett(e[0], key[0], q, mu)
-    for i in range(1, e.shape[0]):
-        acc = addmod(acc, mulmod_barrett(e[i], key[i], q, mu), q)
-    return acc.int()
+            acc = addmod(acc, mulmod_barrett(e[i], key[i], q, mu), q)
+        return acc.int()
+    return tuple(map(inner, evk)) if isinstance(evk, tuple) else inner(evk)
 
 
 def _take(idx: torch.Tensor, n: int):

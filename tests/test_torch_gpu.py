@@ -2,7 +2,9 @@
 card, for every ring size the NTT kernels take (the banks at 2 .. 2^17:
 one launch up to 4096, two passes through scratch above; fewer stages
 than log2 n; an unaligned view), both key layouts of the
-digit MAC, ragged batches, the weight-row multiply on its vector and
+digit MAC (one key, and both key halves in one launch on the transposed
+stack at the key-switch cells' group shapes, into two halves of one
+stack, at an odd batch and one word off), ragged batches, the weight-row multiply on its vector and
 scalar paths (the main path's shapes, an unaligned view, x over the
 whole u32 range), the Galois gathers in both bit orders (shared and
 per-batch rows, digits shared and not, the staged body at the path's
@@ -431,6 +433,78 @@ def test_dyadic_inner_kernel_equal_plain(cuda, per_batch, lazy):
     got = dyadic_kernel.dyadic_inner_banks(ext, evk, s["qs"], s["mu"], lazy=lazy)
     assert torch.equal(got, ref.dyadic_inner_banks_ref(ext, evk, s["qs"], s["mu"],
                                                        lazy=lazy))
+
+
+def _device_residues(gen, qs, shape):
+    """Residues below each q of ``qs`` drawn on the card: (len(qs), *shape)."""
+    return torch.stack([torch.randint(0, int(q), shape, generator=gen, device="cuda",
+                                      dtype=torch.int64).int() for q in qs])
+
+
+# (digits, primes extended onto, B, n): the n16 cell's hybrid group and fig22's
+DIGIT_MAC_SHAPES = [(4, 30, 32, 1 << 16), (8, 9, 32, 1 << 14)]
+
+
+@pytest.mark.parametrize("shape", DIGIT_MAC_SHAPES, ids=["n16", "fig22"])
+@pytest.mark.parametrize("per_batch", [False, True], ids=["shared", "per-row"])
+@pytest.mark.parametrize("lazy", [False, True])
+def test_digit_mac_pair_on_the_transposed_stack_equal_plain(cuda, shape, per_batch, lazy):
+    """Both key halves in one launch on the (digit, prime, B, n) transpose
+    of the mod-up's (prime, digit, B, n) stack, read in place, at the key
+    switch cells' group shapes, bit for bit against the plain version."""
+    d, kt, b, n = shape
+    primes = rns.make_primes(n, kt)
+    s = TB.build_scalar_pack(primes, cuda)
+    gen = torch.Generator(device="cuda").manual_seed(kt)
+    y = _device_residues(gen, primes, (d, b, n)).transpose(0, 1)
+    keys = tuple(_device_residues(gen, primes, (d, b, n) if per_batch else (d, n))
+                 .transpose(0, 1).contiguous() for _ in range(2))
+    K.reset_counts()
+    got = dyadic_kernel.dyadic_inner_banks(y, keys, s["qs"], s["mu"], lazy=lazy)
+    assert K.COUNTS["dyadic_inner_banks"].launches == 1
+    want = ref.dyadic_inner_banks_ref(y, keys, s["qs"], s["mu"], lazy=lazy)
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+
+
+@pytest.mark.parametrize("d", [3, 12], ids=["registers", "many-digits"])
+@pytest.mark.parametrize("per_batch", [False, True], ids=["shared", "per-row"])
+@pytest.mark.parametrize("lazy", [False, True])
+@pytest.mark.parametrize("aligned", [True, False])
+def test_digit_mac_pair_into_halves_of_one_stack_equal_plain(cuda, d, per_batch, lazy,
+                                                             aligned):
+    """An odd batch (B = 7) written as the two halves of one (k, 2B, n)
+    stack, as the hoisted rotations' mod-down takes it; shared keys in
+    registers (d <= 8) and read per row (d = 12); on the 16-byte body and,
+    with every operand one word off, on the one-word body."""
+    n, k, b = 1 << 12, 5, 7
+    primes = rns.make_primes(n, k)
+    s = TB.build_scalar_pack(primes, cuda)
+    gen = torch.Generator(device="cuda").manual_seed(d)
+    off = 0 if aligned else 1
+    y = _device_residues(gen, primes, (d, b, n + off))[..., off:].transpose(0, 1)
+    keys = tuple(_device_residues(gen, primes, (d, b, n + off) if per_batch
+                                  else (d, n + off))[..., off:].transpose(0, 1)
+                 for _ in range(2))
+    acc = torch.zeros((k, 2 * b, n + off), dtype=torch.int32, device=cuda)
+    halves = (acc[:, :b, off:], acc[:, b:, off:])
+    got = dyadic_kernel.dyadic_inner_banks(y, keys, s["qs"], s["mu"], lazy=lazy, out=halves)
+    assert got[0].data_ptr() == halves[0].data_ptr()
+    want = ref.dyadic_inner_banks_ref(y, keys, s["qs"], s["mu"], lazy=lazy)
+    assert torch.equal(acc[..., off:], torch.cat(want, dim=1))
+    assert not acc[..., :off].any()
+    one = dyadic_kernel.dyadic_inner_banks(y, keys[1], s["qs"], s["mu"], lazy=lazy)
+    assert torch.equal(one, want[1])
+
+
+def test_digit_mac_refuses_a_strided_ring_axis(cuda):
+    n, k = 1 << 10, 3
+    primes = rns.make_primes(n, k)
+    s = TB.build_scalar_pack(primes, cuda)
+    ext = _residues(1, primes, (2, 2, 2 * n)).transpose(0, 1)
+    key = _residues(2, primes, (2, n)).transpose(0, 1).contiguous()
+    with pytest.raises(K.KernelRefusal, match="unit-stride along n"):
+        dyadic_kernel.dyadic_inner_banks(ext[..., ::2], (key, key), s["qs"], s["mu"],
+                                         lazy=True)
 
 
 def test_wrong_device_table_is_refused(cuda):

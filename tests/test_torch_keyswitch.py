@@ -219,3 +219,121 @@ def test_prepare_without_relin_draws_keys_in_the_reference_order():
     z = np.linspace(-1, 1, ref.slots)
     r, p = ref.encrypt(ref.encode(z)), port.encrypt(port.encode(z))
     assert _same(r.c0.data, p.c0.data) and _same(r.c1.data, p.c1.data)
+
+
+# ---------------------------------------- the digit MAC's two-key, strided form
+
+def _t(a):
+    return u32_to_tensor(a, "cpu")
+
+
+def _old_macs(y, evk_b, evk_a, t, lazy=True):
+    """The digit MACs as two one-key calls on a contiguous copy of y."""
+    y = y.contiguous()
+    return (TO.dyadic_inner_banks(y, evk_b, t, lazy=lazy),
+            TO.dyadic_inner_banks(y, evk_a, t, lazy=lazy))
+
+
+@pytest.mark.parametrize("per_batch", [False, True])
+@pytest.mark.parametrize("lazy", [False, True])
+def test_digit_mac_pair_reads_the_transposed_stack(per_batch, lazy):
+    """Both keys in one call on the (digit, prime, B, n) transpose of a
+    (prime, digit, B, n) stack, into fresh stacks and into the two halves
+    of one (k+1, 2B, n) stack, equal two one-key calls on a copy."""
+    _, _, pt, _ = PATHS["single"]
+    stack = _t(np.stack([_residues(80 + p, (q,) * K, (B,))
+                         for p, q in enumerate(PRIMES)]))        # (k+1, K, B, n)
+    y = stack.transpose(0, 1)
+    mid = (B,) if per_batch else ()
+    evk_b, evk_a = _t(_keys(300, mid)), _t(_keys(400, mid))
+    want = _old_macs(y, evk_b, evk_a, pt, lazy)
+    got = TO.dyadic_inner_banks(y, (evk_b, evk_a), pt, lazy=lazy)
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+    acc = torch.empty((K + 1, 2 * B, N), dtype=torch.int32)
+    TO.dyadic_inner_banks(y, (evk_b, evk_a), pt, lazy=lazy, out=(acc[:, :B], acc[:, B:]))
+    assert torch.equal(acc, torch.cat(want, dim=1))
+
+
+@pytest.mark.parametrize("path", ["single", "fourstep"])
+@pytest.mark.parametrize("per_batch", [False, True])
+def test_keyswitch_digits_words_unchanged(path, per_batch):
+    """``keyswitch_digits`` gives the words of the two one-key MACs on a
+    contiguous copy of the mod-up's output, then the two mod-downs."""
+    _, _, pt, pfs = PATHS[path]
+    ci = TB.decompose_intt(_t(_residues(11, PRIMES[:K], (B,))), pt, fsp=pfs)
+    mid = (B,) if per_batch else ()
+    evk_b, evk_a = _t(_keys(500, mid)), _t(_keys(600, mid))
+    y = TB.decompose_extend(ci, pt["qs"], pt, fsp=pfs)
+    want = [TB.mod_down_banks(acc, pt, fsp=pfs) for acc in _old_macs(y, evk_b, evk_a, pt)]
+    got = TB.keyswitch_digits(ci, pt["qs"], evk_b, evk_a, pt, fsp=pfs)
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+
+
+@pytest.mark.parametrize("path", ["single", "fourstep"])
+def test_hoisted_rotations_words_unchanged(path):
+    """``hoisted_rotations_banks`` gives the words of the two one-key MACs
+    concatenated on the batch axis, then one mod-down with c0's gather."""
+    from repro_torch.fhe import evalplan as TEP
+    _, _, pt, pfs = PATHS[path]
+    R = 3
+    rng = np.random.default_rng(13)
+    c0, c1 = (_t(_residues(s, PRIMES[:K], ())) for s in (14, 15))
+    idx = torch.from_numpy(np.stack([rng.permutation(N) for _ in range(R)])
+                           .astype(np.int32))
+    evk_b, evk_a = _t(_keys(700, (R,))), _t(_keys(800, (R,)))
+    ci = TB.decompose_intt(c1[:, None], pt, fsp=pfs)
+    yg = TO.galois_digits_banks(TB.decompose_extend(ci, pt["qs"], pt, fsp=pfs), idx)
+    c0g = TO.galois_digits_banks(c0[None, :, None], idx)[0]
+    ks = TB.mod_down_banks(torch.cat(_old_macs(yg, evk_b, evk_a, pt), dim=1), pt,
+                           fsp=pfs, addend=c0g)
+    got = TEP.hoisted_rotations_banks(c0, c1, idx, evk_b, evk_a, pt, pfs)
+    assert torch.equal(got[0], ks[:, :R]) and torch.equal(got[1], ks[:, R:])
+
+
+@pytest.mark.parametrize("meta", [False, True], ids=["counted", "meta"])
+def test_keyswitch_is_one_mac_launch_on_the_strided_stack(meta):
+    """A key switch runs the digit MAC once for both key halves, reading
+    the mod-up's transposed stack in place: one plain call on the CPU, one
+    launch recorded on meta tensors, and one ``ops.dyadic_inner.strided``."""
+    from repro_torch import kernels
+    from repro_torch import obs
+    from repro_torch.runtime import op_cost
+    _, _, pt, pfs = PATHS["fourstep"]
+    to = (lambda v: v.to("meta")) if meta else (lambda v: v)
+    tree = lambda d: {k: (tree(v) if isinstance(v, dict) else to(v)) for k, v in d.items()}
+    d2 = to(_t(_residues(17, PRIMES[:K], (B,))))
+    evk_b, evk_a = to(_t(_keys(900))), to(_t(_keys(1000)))
+    kernels.reset_counts()
+    obs.enable()
+    obs.reset()
+    try:
+        with op_cost.OpCounter() as c:
+            TB.batched_keyswitch(d2, evk_b, evk_a, tree(pt), fsp=tree(pfs))
+        counters = obs.snapshot()["counters"]
+    finally:
+        obs.disable()
+        obs.reset()
+    launches = (c.kernels.get("dyadic_inner_banks", 0) if meta
+                else kernels.COUNTS["dyadic_inner_banks"].plain_calls)
+    assert launches == 1
+    assert counters.get("ops.dyadic_inner.strided") == 1
+
+
+def test_digit_mac_refuses_a_strided_ring_axis():
+    """On the kernel's branch (meta tensors pass its checks) an ext whose
+    ring axis is not unit-stride, or a key or output so, is refused."""
+    from repro_torch.kernels import KernelRefusal, dyadic_kernel
+    _, _, pt, _ = PATHS["single"]
+    qs, mu = pt["qs"].to("meta"), pt["mu"].to("meta")
+    wide = torch.empty((K, K + 1, B, 2 * N), dtype=torch.int32, device="meta")
+    key = torch.empty((K, K + 1, N), dtype=torch.int32, device="meta")
+    with pytest.raises(KernelRefusal, match="unit-stride along n"):
+        dyadic_kernel.dyadic_inner_banks(wide[..., ::2], (key, key), qs, mu, lazy=True)
+    with pytest.raises(KernelRefusal, match="unit-stride along n"):
+        dyadic_kernel.dyadic_inner_banks(wide[..., :N], wide[:, :, 0, ::2], qs, mu, lazy=True)
+    out = torch.empty((K + 1, B, 2 * N), dtype=torch.int32, device="meta")
+    with pytest.raises(KernelRefusal, match="unit-stride along n"):
+        dyadic_kernel.dyadic_inner_banks(wide[..., :N], key, qs, mu, lazy=True,
+                                         out=out[..., ::2])
+    got = dyadic_kernel.dyadic_inner_banks(wide[..., N:], (key, key), qs, mu, lazy=True)
+    assert [tuple(g.shape) for g in got] == [(K + 1, B, N)] * 2

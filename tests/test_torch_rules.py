@@ -558,7 +558,7 @@ def test_every_launcher_state_is_seen():
     found = {(f.name, name) for f in CSRC_FILES for name, _ in STATIC_STATE.findall(f.read_text())}
     assert found == {("host.cuh", "sms"), ("galois.cu", "opted_in"), ("ntt.cu", "opted_in"),
                      ("ntt.cu", "per_sm"), ("ntt.cu", "sizes"), ("ntt_banks.cu", "cached_per_sm"),
-                     ("ntt_banks.cu", "cached_smem")}
+                     ("ntt_banks.cu", "cached_smem"), ("dyadic_inner.cu", "cached_per_sm")}
 
 
 def _mixed_calls(device):

@@ -43,7 +43,7 @@ STEPS = {
     "decompose_extend": "mod-up stack and transpose",
     "ntt_fourstep_banks": "four-step forward glue",
     "intt_fourstep_banks": "four-step inverse glue",
-    "dyadic_inner_banks": "digit MAC copies (contiguous)",
+    "dyadic_inner_banks": "digit MAC glue (outputs only)",
     "mod_down_banks": "mod-down tail",
     "galois_ks_many_back": "final add of c0 and transposes",
     "galois_ks_many_front": "front: transposes",
