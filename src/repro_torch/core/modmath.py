@@ -21,7 +21,8 @@ helper returns the same representative as the device kernels
 the same residue.
 
 Contracts (all values unsigned on the lane; q < 2^30, or in
-(2^10, 2^12) for bits=16):
+(2^10, 2^12) for bits=16; the Barrett products also take bits=23, a
+u32-lane modulus in (2^21, 2^23)):
   addmod/submod             a, b in [0, q)   ->  [0, q)
   lazy_addmod/lazy_submod   a, b in [0, 2q)  ->  [0, 2q)
   mulmod_shoup_lazy(x, ...) x any lane value ->  [0, 2q), == x*w mod q
@@ -48,6 +49,18 @@ SHOUP_SHIFTS = {32: 32, 16: 16}
 BARRETT_WINDOW = BARRETT_WINDOWS[32]
 BARRETT_MU_SHIFT = BARRETT_MU_SHIFTS[32]
 SHOUP_SHIFT = SHOUP_SHIFTS[32]
+
+# A third Barrett window, a trait of the u32 lane (``bits=23``): moduli
+# of 22 and 23 bits, ML-DSA's q = 8380417 among them.  P = a*b < 2^46,
+# approx = P >> 21 < 2^25, mu = floor(2^53 / q) fits u32 for q > 2^21,
+# and qhat = (approx * mu) >> 32 is one high-word multiply; qhat lies at
+# most 2 below floor(P / q), so P - qhat*q < 3q.  Shoup products and the
+# lazy band are the u32 lane's own (``SHOUP_SHIFTS[32]``).
+BARRETT23_WINDOW = (1 << 21, 1 << 23)
+BARRETT23_MU_SHIFT = 53
+BARRETT23_APPROX_SHIFT = 21
+_BARRETT_TRAITS = {**BARRETT_WINDOWS, 23: BARRETT23_WINDOW}
+_MU_SHIFTS = {**BARRETT_MU_SHIFTS, 23: BARRETT23_MU_SHIFT}
 
 _DTYPE_BITS = {"uint32": 32, "uint16": 16}
 
@@ -158,19 +171,33 @@ def mulmod_shoup(x, w, wp, q, bits: int = 32):
 def barrett_precompute(q: int, bits: int = 32) -> int:
     """mu = floor(2^s / q) for q inside the lane's Barrett window:
     s = 60, window (2^28, 2^30) for bits=32; s = 26, window (2^10, 2^12)
-    for bits=16.
+    for bits=16; s = 53, window (2^21, 2^23) for bits=23 (the u32 lane's
+    small-modulus trait).
 
     A ``ValueError``, not an assert: under ``python -O`` an assert is
     stripped and an out-of-range q would silently yield a wrong mu."""
     q = int(q)
-    _check_bits("barrett_precompute", bits, BARRETT_WINDOWS)
-    lo, hi = BARRETT_WINDOWS[bits]
+    _check_bits("barrett_precompute", bits, _BARRETT_TRAITS)
+    lo, hi = _BARRETT_TRAITS[bits]
     if not lo < q < hi:
         raise ValueError(
             f"barrett_precompute: q={q} outside the uint{bits}-lane "
             f"Barrett range ({lo}, {hi}) exclusive — mu would be silently "
             f"wrong")
-    return (1 << BARRETT_MU_SHIFTS[bits]) // q
+    return (1 << _MU_SHIFTS[bits]) // q
+
+
+def barrett_bits(q: int, lane_bits: int) -> int:
+    """The Barrett trait of a modulus on a lane of ``lane_bits``: the
+    lane's own window (32 or 16), or 23 for a u32-lane modulus in
+    ``BARRETT23_WINDOW``; a ``ValueError`` for any other."""
+    lo, hi = BARRETT_WINDOWS[lane_bits]
+    if lo < q < hi:
+        return lane_bits
+    if lane_bits == 32 and BARRETT23_WINDOW[0] < q < BARRETT23_WINDOW[1]:
+        return 23
+    raise ValueError(f"barrett_bits: q={q} in no Barrett window of the "
+                     f"uint{lane_bits} lane")
 
 
 def _barrett16_r(a, b, q, mu):
@@ -191,9 +218,20 @@ def _barrett_r(a, b, q, mu):
     return (lo - mullo_u32(qhat, q)) & M32                  # < 3q
 
 
+def _barrett23_r(a, b, q, mu):
+    # the u32 lane's 23-bit trait: P = a*b < 2^46 is exact in int64, and
+    # so is approx * mu < 2^57; r = P - qhat*q < 3q is the u32 word
+    prod = a * b
+    qhat = ((prod >> BARRETT23_APPROX_SHIFT) * mu) >> 32
+    return (prod - qhat * q) & M32
+
+
+_BARRETT_R = {32: _barrett_r, 16: _barrett16_r, 23: _barrett23_r}
+
+
 def mulmod_barrett_lazy(a, b, q, mu, bits: int = 32):
     """Barrett product reduced to the [0, 2q) band (one subtract of 2q)."""
-    r = _barrett16_r(a, b, q, mu) if bits == 16 else _barrett_r(a, b, q, mu)
+    r = _BARRETT_R[bits](a, b, q, mu)
     q2 = q + q
     r = torch.where(r >= q2, r - q2, r)
     return r & MASK16 if bits == 16 else r
@@ -205,7 +243,7 @@ def mulmod_barrett(a, b, q, mu, bits: int = 32):
         r = _barrett16_r(a, b, q, mu)
         r = torch.where(r >= q + q, r - (q + q), r)
         return torch.where(r >= q, r - q, r) & MASK16
-    r = mulmod_barrett_lazy(a, b, q, mu)
+    r = mulmod_barrett_lazy(a, b, q, mu, bits)
     return torch.where(r >= q, r - q, r)
 
 
@@ -296,10 +334,12 @@ def mulmod_barrett_lazy_np(a, b, q, bits=32):
     datapath's single 2q-subtract leaves the high copy."""
     a64 = np.asarray(a, dtype=np.uint64)
     b64 = np.asarray(b, dtype=np.uint64)
-    mu = (1 << BARRETT_MU_SHIFTS[bits]) // int(q)
+    mu = (1 << _MU_SHIFTS[bits]) // int(q)
     prod = a64 * b64
     if bits == 16:
         qhat = ((prod >> np.uint64(10)) * np.uint64(mu)) >> np.uint64(16)
+    elif bits == 23:
+        qhat = ((prod >> np.uint64(BARRETT23_APPROX_SHIFT)) * np.uint64(mu)) >> np.uint64(32)
     else:
         qhat = ((prod >> np.uint64(29)) * np.uint64(mu)) >> np.uint64(31)
     r = (prod - qhat * np.uint64(q)) & np.uint64(M32)

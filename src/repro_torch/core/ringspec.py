@@ -5,8 +5,9 @@ about a polynomial ring R_q = Z_q[X]/(X^n + 1):
 
   * ``q`` / ``dtype``   — the modulus and the element lane width it
     rides in.  The accepted modulus window per dtype is the Barrett
-    window of ``core.modmath`` (u32: (2^28, 2^30) CKKS RNS primes;
-    u16: (2^10, 2^12), e.g. ML-KEM's q=3329).
+    window of ``core.modmath`` (u32: (2^28, 2^30) CKKS RNS primes, or
+    the 23-bit trait's (2^21, 2^23), e.g. ML-DSA's q=8380417; u16:
+    (2^10, 2^12), e.g. ML-KEM's q=3329).
   * ``block``           — the basecase block size.  ``block=1`` is the
     COMPLETE transform (log2 n butterfly stages, pointwise products in
     the NTT domain).  ``block=2`` is the INCOMPLETE transform Kyber
@@ -42,8 +43,9 @@ import functools
 
 import numpy as np
 
-from repro_torch.core.modmath import (BARRETT_WINDOWS, barrett_precompute,
-                                      dtype_bits, shoup_precompute)
+from repro_torch.core.modmath import (BARRETT_WINDOWS, barrett_bits,
+                                      barrett_precompute, dtype_bits,
+                                      shoup_precompute)
 from repro_torch.core.params import root_of_unity
 
 _NP_DTYPES = {"uint32": np.uint32, "uint16": np.uint16}
@@ -66,11 +68,13 @@ class RingSpec:
     def __post_init__(self):
         bits = dtype_bits(self.dtype)   # raises on unsupported dtype
         lo, hi = BARRETT_WINDOWS[bits]
-        if not lo < self.q < hi:
+        try:
+            barrett_bits(self.q, bits)
+        except ValueError:
             raise ValueError(
                 f"RingSpec {self.name!r}: modulus q={self.q} outside the "
                 f"{self.dtype} ring window ({lo}, {hi}) exclusive — the "
-                f"{bits}-bit Barrett/lazy band contract does not hold")
+                f"{bits}-bit Barrett/lazy band contract does not hold") from None
         if self.n < 2 or self.n & (self.n - 1):
             raise ValueError(
                 f"RingSpec {self.name!r}: ring degree n={self.n} must be "
@@ -98,6 +102,12 @@ class RingSpec:
         return dtype_bits(self.dtype)
 
     @property
+    def barrett_bits(self) -> int:
+        """The Barrett trait of the modulus (``modmath.barrett_bits``):
+        the lane's width, or 23 for a 22- or 23-bit modulus on u32."""
+        return barrett_bits(self.q, self.bits)
+
+    @property
     def stages(self) -> int:
         """Butterfly stage count: log2(n) − log2(block)."""
         return self.n.bit_length() - self.block.bit_length()
@@ -116,6 +126,12 @@ class RingSpec:
 # 128 degree-1 residues, standard root zeta=17 of order 256.
 MLKEM_RING = RingSpec(name="mlkem", n=256, q=3329, dtype="uint16",
                       block=2, zeta=17)
+
+# ML-DSA / FIPS 204: n=256, q=8380417 (23 bits, the u32 lane's third
+# Barrett window), the complete depth-8 transform, standard root
+# zeta=1753 of order 512.
+MLDSA_RING = RingSpec(name="mldsa", n=256, q=8380417, dtype="uint32",
+                      block=1, zeta=1753)
 
 
 def _tree_twiddles(spec: RingSpec, zeta: int):
@@ -143,7 +159,7 @@ def ring_table_pack(spec: RingSpec) -> dict[str, np.ndarray]:
       qs (1,)           tw/twp (1, stages, n/2)    itw/itwp likewise
       ninv/ninv_p (1,)  ninv = inverse of 2^stages (NOT n for block>1)
       psi/psip/ipsin/ipsinp (1, n)  zeros — the twist lives in the tree
-      mu (1,)           Barrett mu for the lane width
+      mu (1,)           Barrett mu of the modulus's trait (``barrett_bits``)
       gamma/gammap (1, n/2)  per-pair ζ factors of the degree-1 basecase
 
     The arrays are shared by every caller (the cache): do not write to
@@ -173,7 +189,7 @@ def ring_table_pack(spec: RingSpec) -> dict[str, np.ndarray]:
         "psip": np.zeros((1, spec.n), dtype=dt),
         "ipsin": np.zeros((1, spec.n), dtype=dt),
         "ipsinp": np.zeros((1, spec.n), dtype=dt),
-        "mu": np.array([barrett_precompute(q, bits)], dtype=dt),
+        "mu": np.array([barrett_precompute(q, spec.barrett_bits)], dtype=dt),
         "gamma": gamma.astype(dt)[None],
         "gammap": sh(gamma)[None],
     }

@@ -22,6 +22,12 @@
 //   fused with SamplePolyCBD_2, one stream a thread: coefficient i is
 //   nibble i of the stream, (bit0 + bit1) - (bit2 + bit3) mod q.
 //
+// and five for ML-DSA-65 (FIPS 204): keccak_expand_mask (ExpandMask fused
+// with its 20-bit BitUnpack, the signing loop's 5 streams a slot),
+// keccak_sample_in_ball, keccak_rej_ntt_poly (ExpandA) and
+// keccak_rej_bounded (ExpandS) for the key, and keccak_mu_rho, the
+// signing stream's refill hashes, gated by a count on the device.
+//
 // What bounds it on an H100: the integer instructions of the
 // permutation.  A round is theta (10 three-input XORs of the column sums,
 // 5 rotations, 25 three-input XORs applying them), rho (24 rotations),
@@ -38,7 +44,9 @@
 // template parameter, the rotations are unrolled constants, and the
 // SampleNTT and CBD fields are taken by constant shifts), so a round is
 // the ALU work alone.  Message bytes are gathered into lanes a byte at a
-// time (any row stride and alignment; about a fifth of H(ek)'s work).  The
+// time (any row stride and alignment; about a fifth of H(ek)'s work), a
+// lane wholly inside a or inside b at once, the padding's a byte at a
+// time.  The
 // sampler takes a candidate with one predicated 2-byte store into its
 // row in shared memory, at the CG position, and no branch; the sampler
 // and the CBD copy their block's rows out with adjacent threads on
@@ -172,6 +180,8 @@ __global__ void __launch_bounds__(kThreads)
       uint64_t w;
       if (k0 + 8 <= a_len) {
         w = load_lane(m.a + k0);       // the common case: inside a
+      } else if (k0 >= a_len && k0 + 8 <= a_len + b_len) {
+        w = load_lane(m.b + (k0 - a_len));   // inside b (ML-DSA's w1 after mu)
       } else {
         w = 0;
 #pragma unroll
@@ -323,6 +333,293 @@ __global__ void __launch_bounds__(kStage, 8)
            out);
 }
 
+// ------------------------------------------------------------ ML-DSA
+// FIPS 204's samplers (ML-DSA-65, q = 8380417) and the signing stream's
+// refill hashes.  Outputs are int32 residues mod q.
+
+constexpr uint32_t kDsaQ = 8380417;
+constexpr int kDsaK = 6, kDsaL = 5;
+constexpr int kDsaTau = 49;
+constexpr int kGamma1 = 1 << 19;
+constexpr int kMaskWords = 160;              // an ExpandMask stream: 640 bytes
+constexpr int kMaskStride = kMaskWords + 1;  // odd: threads' words on other banks
+
+// ExpandMask (FIPS 204 Alg. 34) fused with its BitUnpack: one SHAKE256
+// stream a thread for each (slot, r), rho || IntegerToBytes(kappa + r, 2),
+// squeezed to 640 bytes (5 permutations) into the thread's words in shared
+// memory; then the block unpacks its streams' 20-bit fields with adjacent
+// threads on adjacent coefficients and stores gamma1 - v mod q.
+__global__ void __launch_bounds__(kStage)
+    expand_mask_kernel(const uint8_t* rho, long long rho_stride, const int32_t* kappa,
+                       int32_t* out, long long streams) {
+  __shared__ uint32_t words[kStage * kMaskStride];
+  const long long first = static_cast<long long>(blockIdx.x) * kStage;
+  const long long stream = first + threadIdx.x;
+  if (stream < streams) {
+    const long long slot = stream / kDsaL;
+    const int r = static_cast<int>(stream - slot * kDsaL);
+    uint64_t s[25];
+#pragma unroll
+    for (int l = 0; l < 25; ++l) s[l] = 0;
+    const uint8_t* p = rho + slot * rho_stride;
+#pragma unroll
+    for (int l = 0; l < 8; ++l) s[l] = load_lane(p + 8 * l);
+    // rho || kappa + r (2 bytes), SHAKE's 0x1F at byte 66 and 0x80 at byte 135
+    const uint32_t nonce = static_cast<uint32_t>(kappa[slot] + r) & 0xFFFFu;
+    s[8] = static_cast<uint64_t>(nonce) | (0x1FULL << 16);
+    s[16] = 0x80ULL << 56;
+    uint32_t* mine = words + threadIdx.x * kMaskStride;
+#pragma unroll 1
+    for (int blk = 0; blk < 5; ++blk) {
+      keccak_f(s);
+#pragma unroll
+      for (int l = 0; l < 17; ++l) {
+        const int w = blk * 34 + 2 * l;
+        if (w < kMaskWords) {
+          mine[w] = static_cast<uint32_t>(s[l]);
+          mine[w + 1] = static_cast<uint32_t>(s[l] >> 32);
+        }
+      }
+    }
+  }
+  __syncthreads();
+  const int n = static_cast<int>(min(static_cast<long long>(kStage), streams - first));
+  for (int i = threadIdx.x; i < n * kN; i += kStage) {
+    const int t = i / kN, c = i % kN;
+    const uint32_t* mine = words + t * kMaskStride;
+    const int bit = 20 * c;   // the pad word closes the last field's pair
+    const uint64_t v = (mine[bit >> 5] | (static_cast<uint64_t>(mine[(bit >> 5) + 1]) << 32)) >>
+                       (bit & 31);
+    const int y = kGamma1 - static_cast<int>(v & 0xFFFFFu);
+    out[(first + t) * kN + c] = y < 0 ? y + static_cast<int>(kDsaQ) : y;
+  }
+}
+
+// The rate-136 lanes of a state as 34 words
+__device__ __forceinline__ void stash136(const uint64_t s[25], uint32_t* w) {
+#pragma unroll
+  for (int l = 0; l < 17; ++l) {
+    w[2 * l] = static_cast<uint32_t>(s[l]);
+    w[2 * l + 1] = static_cast<uint32_t>(s[l] >> 32);
+  }
+}
+
+// SampleInBall (FIPS 204 Alg. 29): one SHAKE256 stream of c-tilde a
+// thread; 8 sign bytes, then a byte a candidate j (taken when j <= i),
+// squeezing a further block when one runs out.  A row's 49 swaps run on
+// its own 256 bytes in shared memory (0, 1 for +1, 2 for -1), read a
+// squeezed block's bytes from shared memory too (the state's lanes must
+// stay at constant register indices), and the block copies its rows out
+// with adjacent threads on adjacent coefficients.
+constexpr int kBall = 64;
+__global__ void __launch_bounds__(kBall)
+    sample_in_ball_kernel(const uint8_t* ct, long long ct_stride, int32_t* out, int rows) {
+  __shared__ uint8_t coef[kBall][kN];
+  __shared__ uint32_t squeezed[kBall][35];
+  const int first = blockIdx.x * kBall;
+  const int row = first + threadIdx.x;
+  uint8_t* c = coef[threadIdx.x];
+#pragma unroll 8
+  for (int i = 0; i < kN; i += 4) *reinterpret_cast<uint32_t*>(c + i) = 0;
+  if (row < rows) {
+    uint64_t s[25];
+#pragma unroll
+    for (int l = 0; l < 25; ++l) s[l] = 0;
+    const uint8_t* p = ct + static_cast<long long>(row) * ct_stride;
+#pragma unroll
+    for (int l = 0; l < 6; ++l) s[l] = load_lane(p + 8 * l);
+    // c-tilde's 48 bytes, SHAKE's 0x1F at byte 48 and 0x80 at byte 135
+    s[6] = 0x1FULL;
+    s[16] = 0x80ULL << 56;
+    keccak_f(s);
+    const uint64_t signs = s[0];
+    stash136(s, squeezed[threadIdx.x]);
+    const uint8_t* bytes = reinterpret_cast<const uint8_t*>(squeezed[threadIdx.x]);
+    int pos = 8;
+    for (int i = kN - kDsaTau; i < kN; ++i) {
+      int j;
+      do {
+        if (pos == 136) {
+          keccak_f(s);
+          stash136(s, squeezed[threadIdx.x]);
+          pos = 0;
+        }
+        j = bytes[pos++];
+      } while (j > i);
+      c[i] = c[j];
+      c[j] = static_cast<uint8_t>(1 + ((signs >> (i + kDsaTau - kN)) & 1));
+    }
+  }
+  __syncthreads();
+  const int n = min(kBall, rows - first);
+  for (int i = threadIdx.x; i < n * kN; i += kBall) {
+    const int t = i / kN, col = i % kN;
+    const uint32_t v = coef[t][col];
+    out[static_cast<long long>(first + t) * kN + col] =
+        v == 0 ? 0 : (v == 1 ? 1 : static_cast<int>(kDsaQ) - 1);
+  }
+}
+
+// The 24-bit field F of a 24-byte squeeze group in lanes w0 .. w2
+// (fields 2 and 5 straddle two lanes)
+template <int F>
+__device__ __forceinline__ uint32_t field24(uint64_t w0, uint64_t w1, uint64_t w2) {
+  constexpr int bit = 24 * F;
+  if constexpr (bit + 24 <= 64) {
+    return static_cast<uint32_t>(w0 >> bit) & 0xFFFFFFu;
+  } else if constexpr (bit < 64) {
+    return static_cast<uint32_t>((w0 >> bit) | (w1 << (64 - bit))) & 0xFFFFFFu;
+  } else if constexpr (bit + 24 <= 128) {
+    return static_cast<uint32_t>(w1 >> (bit - 64)) & 0xFFFFFFu;
+  } else if constexpr (bit < 128) {
+    return static_cast<uint32_t>((w1 >> (bit - 64)) | (w2 << (128 - bit))) & 0xFFFFFFu;
+  } else {
+    return static_cast<uint32_t>(w2 >> (bit - 128)) & 0xFFFFFFu;
+  }
+}
+
+// RejNTTPoly's candidates of one group: CoeffFromThreeBytes (the top
+// bit of the third byte cleared), taken below q while fewer than 256 were
+template <int F>
+__device__ __forceinline__ void take_fields23(uint64_t w0, uint64_t w1, uint64_t w2, int& count,
+                                              int32_t* row) {
+  const uint32_t d = field24<F>(w0, w1, w2) & 0x7FFFFFu;
+  const bool ok = d < kDsaQ && count < kN;
+  if (ok) row[count] = static_cast<int32_t>(d);
+  count += ok;
+  if constexpr (F + 1 < 8) take_fields23<F + 1>(w0, w1, w2, count, row);
+}
+
+// ExpandA (FIPS 204 Alg. 32): one SHAKE128 stream a thread for each (row,
+// r, s), rho || s || r, squeezed until 256 candidates below q were taken
+// (5 blocks at least).  A key's matrix is made once (keygen, a stream's
+// set-up), so each thread stores its own row's words.
+__global__ void __launch_bounds__(kThreads)
+    rej_ntt_poly_kernel(const uint8_t* rho, long long rho_stride, int32_t* out,
+                        long long streams) {
+  const long long stream = static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x;
+  if (stream >= streams) return;
+  const long long row = stream / (kDsaK * kDsaL);
+  const int rs = static_cast<int>(stream - row * (kDsaK * kDsaL));
+  const int r = rs / kDsaL, col = rs - kDsaL * (rs / kDsaL);
+  uint64_t s[25];
+#pragma unroll
+  for (int l = 0; l < 25; ++l) s[l] = 0;
+  const uint8_t* p = rho + row * rho_stride;
+#pragma unroll
+  for (int l = 0; l < 4; ++l) s[l] = load_lane(p + 8 * l);
+  // rho || s || r, SHAKE's 0x1F at byte 34 and 0x80 at byte 167
+  s[4] = static_cast<uint64_t>(col) | (static_cast<uint64_t>(r) << 8) | (0x1FULL << 16);
+  s[20] = 0x80ULL << 56;
+  int32_t* o = out + stream * kN;
+  int count = 0;
+  while (count < kN) {
+    keccak_f(s);
+#pragma unroll
+    for (int g = 0; g < 7; ++g) take_fields23<0>(s[3 * g], s[3 * g + 1], s[3 * g + 2], count, o);
+  }
+}
+
+// RejBoundedPoly at eta = 4 (FIPS 204 Alg. 31): a half-byte h below 9 is
+// taken as 4 - h mod q, the low half of a byte first
+__device__ __forceinline__ void take_half(uint32_t h, int& count, int32_t* row) {
+  const bool ok = h < 9 && count < kN;
+  if (ok) row[count] = h <= 4 ? static_cast<int32_t>(4 - h) : static_cast<int32_t>(kDsaQ + 4 - h);
+  count += ok;
+}
+
+// ExpandS (FIPS 204 Alg. 33): one SHAKE256 stream a thread for each (row,
+// c), rho' || IntegerToBytes(n0 + c, 2), squeezed until 256 were taken
+__global__ void __launch_bounds__(kThreads)
+    rej_bounded_kernel(const uint8_t* rho, long long rho_stride, int n0, int count, int32_t* out,
+                       long long streams) {
+  const long long stream = static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x;
+  if (stream >= streams) return;
+  const long long row = stream / count;
+  const int c = static_cast<int>(stream - row * count);
+  uint64_t s[25];
+#pragma unroll
+  for (int l = 0; l < 25; ++l) s[l] = 0;
+  const uint8_t* p = rho + row * rho_stride;
+#pragma unroll
+  for (int l = 0; l < 8; ++l) s[l] = load_lane(p + 8 * l);
+  s[8] = static_cast<uint64_t>((n0 + c) & 0xFFFF) | (0x1FULL << 16);
+  s[16] = 0x80ULL << 56;
+  int32_t* o = out + stream * kN;
+  int got = 0;
+  while (got < kN) {
+    keccak_f(s);
+#pragma unroll
+    for (int l = 0; l < 17; ++l) {
+#pragma unroll
+      for (int k = 0; k < 8; ++k) {
+        const uint32_t byte = static_cast<uint32_t>(s[l] >> (8 * k)) & 0xFFu;
+        take_half(byte & 15u, got, o);
+        take_half(byte >> 4, got, o);
+      }
+    }
+  }
+}
+
+// SHAKE256 of a || b || c, out_len <= 136 bytes; message bytes gathered
+// one at a time (any alignment)
+__device__ void shake256_parts(const uint8_t* a, int la, const uint8_t* b, int lb,
+                               const uint8_t* c, int lc, uint8_t* out, int out_len) {
+  const int len = la + lb + lc;
+  const int blocks = len / 136 + 1;
+  const int padded = blocks * 136;
+  uint64_t s[25];
+#pragma unroll
+  for (int l = 0; l < 25; ++l) s[l] = 0;
+  for (int blk = 0; blk < blocks; ++blk) {
+#pragma unroll
+    for (int l = 0; l < 17; ++l) {
+      uint64_t w = 0;
+#pragma unroll
+      for (int k = 0; k < 8; ++k) {
+        const int at = blk * 136 + 8 * l + k;
+        uint32_t v = 0;
+        if (at < la) {
+          v = a[at];
+        } else if (at < la + lb) {
+          v = b[at - la];
+        } else if (at < len) {
+          v = c[at - la - lb];
+        }
+        if (at == len) v ^= 0x1Fu;
+        if (at == padded - 1) v ^= 0x80u;
+        w |= static_cast<uint64_t>(v) << (8 * k);
+      }
+      s[l] ^= w;
+    }
+    keccak_f(s);
+  }
+#pragma unroll
+  for (int l = 0; l < 17; ++l) {
+#pragma unroll
+    for (int k = 0; k < 8; ++k) {
+      if (8 * l + k < out_len) out[8 * l + k] = static_cast<uint8_t>(s[l] >> (8 * k));
+    }
+  }
+}
+
+// The signing stream's refill: entry i < *count takes request reqs[i] into
+// slot slots[i]: mu = H(tr || M', 64), then rho'' = H(K || rnd || mu, 64)
+// (FIPS 204 Alg. 7, lines 6-7).  The count lives on the device, so the
+// launch covers every slot and threads past it return at once.
+__global__ void __launch_bounds__(kThreads)
+    mu_rho_kernel(const uint8_t* tr, const uint8_t* key, const uint8_t* msg, long long msg_stride,
+                  int msg_len, const uint8_t* rnd, long long rnd_stride, const long long* slots,
+                  const long long* reqs, const long long* count, uint8_t* mu_out,
+                  uint8_t* rho_out, int rows) {
+  const int i = blockIdx.x * kThreads + threadIdx.x;
+  if (i >= rows || i >= *count) return;
+  const long long slot = slots[i], req = reqs[i];
+  uint8_t* mu = mu_out + slot * 64;
+  shake256_parts(tr, 64, msg + req * msg_stride, msg_len, nullptr, 0, mu, 64);
+  shake256_parts(key, 32, rnd + req * rnd_stride, 32, mu, 64, rho_out + slot * 64, 64);
+}
+
 int blocks_for(long long threads, int per_block) {
   return static_cast<int>((threads + per_block - 1) / per_block);
 }
@@ -382,5 +679,67 @@ extern "C" int keccak_prf_cbd(const void* seed, long long seed_stride, int n0, i
                    static_cast<cudaStream_t>(stream)>>>(static_cast<const uint8_t*>(seed),
                                                        seed_stride, n0, count,
                                                        static_cast<int16_t*>(out), rows);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// out (rows, 5, 256) int32: ExpandMask(rho[s], kappa[s]) mod q.
+extern "C" int keccak_expand_mask(const void* rho, long long rho_stride, const void* kappa,
+                                  void* out, int rows, void* stream) {
+  if (rows <= 0) return static_cast<int>(cudaGetLastError());
+  const long long streams = static_cast<long long>(kDsaL) * rows;
+  expand_mask_kernel<<<blocks_for(streams, kStage), kStage, 0,
+                       static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint8_t*>(rho), rho_stride, static_cast<const int32_t*>(kappa),
+      static_cast<int32_t*>(out), streams);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// out (rows, 256) int32: SampleInBall(ct[r]) as 0, 1 and q - 1.
+extern "C" int keccak_sample_in_ball(const void* ct, long long ct_stride, void* out, int rows,
+                                     void* stream) {
+  if (rows <= 0) return static_cast<int>(cudaGetLastError());
+  sample_in_ball_kernel<<<blocks_for(rows, kBall), kBall, 0,
+                          static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint8_t*>(ct), ct_stride, static_cast<int32_t*>(out), rows);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// out (rows, 6, 5, 256) int32: ExpandA(rho[r]).
+extern "C" int keccak_rej_ntt_poly(const void* rho, long long rho_stride, void* out, int rows,
+                                   void* stream) {
+  if (rows <= 0) return static_cast<int>(cudaGetLastError());
+  const long long streams = static_cast<long long>(kDsaK * kDsaL) * rows;
+  rej_ntt_poly_kernel<<<blocks_for(streams, kThreads), kThreads, 0,
+                        static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint8_t*>(rho), rho_stride, static_cast<int32_t*>(out), streams);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// out (rows, count, 256) int32: RejBoundedPoly(rho[r] || n0 + c) mod q.
+extern "C" int keccak_rej_bounded(const void* rho, long long rho_stride, int n0, int count,
+                                  void* out, int rows, void* stream) {
+  if (rows <= 0 || count <= 0) return static_cast<int>(cudaGetLastError());
+  const long long streams = static_cast<long long>(count) * rows;
+  rej_bounded_kernel<<<blocks_for(streams, kThreads), kThreads, 0,
+                       static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint8_t*>(rho), rho_stride, n0, count, static_cast<int32_t*>(out),
+      streams);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The refill hashes of the first *count of `rows` entries (slots, reqs,
+// count int64 on the device); mu_out and rho_out rows of 64 bytes.
+extern "C" int keccak_mu_rho(const void* tr, const void* key, const void* msg,
+                             long long msg_stride, int msg_len, const void* rnd,
+                             long long rnd_stride, const void* slots, const void* reqs,
+                             const void* count, void* mu_out, void* rho_out, int rows,
+                             void* stream) {
+  if (rows <= 0) return static_cast<int>(cudaGetLastError());
+  mu_rho_kernel<<<blocks_for(rows, kThreads), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint8_t*>(tr), static_cast<const uint8_t*>(key),
+      static_cast<const uint8_t*>(msg), msg_stride, msg_len, static_cast<const uint8_t*>(rnd),
+      rnd_stride, static_cast<const long long*>(slots), static_cast<const long long*>(reqs),
+      static_cast<const long long*>(count), static_cast<uint8_t*>(mu_out),
+      static_cast<uint8_t*>(rho_out), rows);
   return static_cast<int>(cudaGetLastError());
 }

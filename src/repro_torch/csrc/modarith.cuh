@@ -107,6 +107,51 @@ __device__ __forceinline__ uint32_t barrett16(uint32_t a, uint32_t b,
   return min(r, r - q);
 }
 
+// The u32 lane's 23-bit Barrett trait (moduli in (2^21, 2^23), ML-DSA's
+// q = 8380417; core/modmath.py BARRETT23_WINDOW): P = a*b < 2^46, approx =
+// P >> 21 < 2^25, qhat = umulhi(approx, mu) with mu = floor(2^53 / q) < 2^32;
+// qhat is at most 2 below floor(P / q), so r = P - qhat*q < 3q, and one
+// subtract of 2q gives [0, 2q).  a, b in [0, q).  Shoup products and the
+// lazy band are the u32 lane's own.
+__device__ __forceinline__ uint32_t barrett23_lazy(uint32_t a, uint32_t b,
+                                                   uint32_t q, uint32_t mu) {
+  uint32_t hi = __umulhi(a, b);
+  uint32_t lo = a * b;
+  uint32_t approx = (hi << 11) | (lo >> 21);
+  uint32_t qhat = __umulhi(approx, mu);
+  uint32_t r = lo - qhat * q;  // wraps; < 3q
+  uint32_t q2 = q << 1;
+  return r >= q2 ? r - q2 : r;
+}
+
+__device__ __forceinline__ uint32_t barrett23(uint32_t a, uint32_t b, uint32_t q,
+                                              uint32_t mu) {
+  uint32_t r = barrett23_lazy(a, b, q, mu);
+  return r >= q ? r - q : r;
+}
+
+// The u32 lane's Barrett product of trait B: 32 the RNS window's, 23 the
+// small moduli's.
+template <int B>
+__device__ __forceinline__ uint32_t lane_barrett_lazy(uint32_t a, uint32_t b, uint32_t q,
+                                                      uint32_t mu) {
+  if constexpr (B == 23) {
+    return barrett23_lazy(a, b, q, mu);
+  } else {
+    return barrett_lazy(a, b, q, mu);
+  }
+}
+
+template <int B>
+__device__ __forceinline__ uint32_t lane_barrett(uint32_t a, uint32_t b, uint32_t q,
+                                                 uint32_t mu) {
+  if constexpr (B == 23) {
+    return barrett23(a, b, q, mu);
+  } else {
+    return barrett(a, b, q, mu);
+  }
+}
+
 // The lane's Shoup product, chosen by the storage type T: uint32_t is the
 // RNS lane, uint16_t the small-ring lane.
 template <typename T>

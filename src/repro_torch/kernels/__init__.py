@@ -30,6 +30,12 @@ with CBD), which replace the reference's host ``hashlib`` calls;
 ``mlkem_decode_check`` and ``mlkem_encaps_tail`` are ML-KEM's byte codecs
 around encryption (the key's decode with FIPS 203 §7.2's check; the
 ciphertext's compress and encode), which replace its host numpy.
+``keccak_expand_mask``, ``keccak_sample_in_ball``, ``keccak_rej_ntt_poly``,
+``keccak_rej_bounded`` and ``keccak_mu_rho`` are ML-DSA's samplers
+(ExpandMask, SampleInBall, ExpandA, ExpandS) and its signing stream's
+refill hashes; ``mldsa_w1_encode``, ``mldsa_check`` and ``mldsa_emit``
+its codec around the signing loop (w1Encode, the bounds, sigEncode
+into the output ring).  None replaces a TPU kernel.
 
 Faults of the device path have classes of their own (``DeviceFault``):
 a build that fails (``build.BuildError``), a launcher that returns a CUDA
@@ -53,7 +59,9 @@ KERNELS = ("ntt_fwd_banks", "ntt_inv_banks", "twiddle_mul_banks",
            "dyadic_mac", "extend_centered", "mod_down_tail", "base_conv",
            "ntt_fourstep_banks", "intt_fourstep_banks", "keccak_hash",
            "keccak_sample_ntt", "keccak_prf_cbd", "mlkem_decode_check",
-           "mlkem_encaps_tail")
+           "mlkem_encaps_tail", "keccak_expand_mask", "keccak_sample_in_ball",
+           "keccak_rej_ntt_poly", "keccak_rej_bounded", "keccak_mu_rho",
+           "mldsa_w1_encode", "mldsa_check", "mldsa_emit")
 
 
 @dataclasses.dataclass

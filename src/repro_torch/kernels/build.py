@@ -28,7 +28,7 @@ from repro_torch.kernels import DeviceFault
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 SOURCES = ("ntt_banks", "dyadic_inner", "galois", "dyadic_basemul", "ntt",
-           "dyadic", "basis", "fourstep", "keccak", "mlkem_codec")
+           "dyadic", "basis", "fourstep", "keccak", "mlkem_codec", "mldsa_codec")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -47,9 +47,10 @@ SIGNATURES = {
     },
     "dyadic_inner": {
         # ext, key0, key1 with their (digit, prime, batch) strides; out0, out1
-        # with their (prime, batch) strides; qs, mus; d, k, b, n, lazy
+        # with their (prime, batch) strides; qs, mus; d, k, b, n, lazy, and
+        # the moduli's Barrett trait (32 or 23)
         "dyadic_inner_banks": [_P, _L, _L, _L] * 3 + [_P, _L, _L] * 2 + [_P, _P]
-                              + [_I] * 5 + [_P],
+                              + [_I] * 6 + [_P],
     },
     "galois": {
         "galois_banks": [_P] * 3 + [_I] * 3 + [_P],
@@ -93,12 +94,29 @@ SIGNATURES = {
         "keccak_hash": [_P, _L, _I, _P, _L, _I, _I, _I, _I, _P, _I, _I, _P],
         "keccak_sample_ntt": [_P, _L, _P, _I, _I, _P],
         "keccak_prf_cbd": [_P, _L, _I, _I, _P, _I, _P],
+        # rho and its stride, kappa, out, rows
+        "keccak_expand_mask": [_P, _L, _P, _P, _I, _P],
+        "keccak_sample_in_ball": [_P, _L, _P, _I, _P],
+        "keccak_rej_ntt_poly": [_P, _L, _P, _I, _P],
+        "keccak_rej_bounded": [_P, _L, _I, _I, _P, _I, _P],
+        # tr, key, msg with its stride and length, rnd and its stride,
+        # slots, reqs, count, mu_out, rho_out, rows
+        "keccak_mu_rho": [_P, _P, _P, _L, _I, _P, _L] + [_P] * 5 + [_I, _P],
     },
     "mlkem_codec": {
         # ek and its row stride, t_hat, ok, rows
         "mlkem_decode_check": [_P, _L, _P, _P, _I, _P],
         # u, v, e, m and its stride, kr and its stride, ok, key, ct, rows
         "mlkem_encaps_tail": [_P] * 4 + [_L, _P, _L] + [_P] * 3 + [_I, _P],
+    },
+    "mldsa_codec": {
+        # w, out, rows
+        "mldsa_w1_encode": [_P, _P, _I, _P],
+        # y, w, cs, active, ok, rows
+        "mldsa_check": [_P] * 5 + [_I, _P],
+        # ct and its stride, y, w, cs, dest, ids, kappa, ring, ring_ids,
+        # ring_iters, rows, ring rows
+        "mldsa_emit": [_P, _L] + [_P] * 9 + [_I, _L, _P],
     },
 }
 

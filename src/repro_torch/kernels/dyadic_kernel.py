@@ -35,6 +35,8 @@ from repro_torch.kernels.ntt_kernel import (check_lane, check_shape,
 from repro_torch.runtime import op_cost
 from repro_torch.runtime.roofline import BASEMUL_OPS
 
+CUDA_ERROR_INVALID_VALUE = 1      # cudaErrorInvalidValue: a layout the launcher does not take
+
 
 def _strided(where: str, device, **views) -> None:
     """int32 views on ``device`` whose ring axis (the last) is unit-stride;
@@ -50,7 +52,7 @@ def _strided(where: str, device, **views) -> None:
                                 f"shape {tuple(t.shape)}, strides {t.stride()}")
 
 
-def dyadic_inner_banks(ext, evk, qs, mus, *, lazy: bool, out=None):
+def dyadic_inner_banks(ext, evk, qs, mus, *, lazy: bool, out=None, bits: int = 32):
     """ext: (d, k, B, n) int32, any strides but along n (the key switch's
     (digit, prime, B, n) transpose of the mod-up's stack, read in place);
     evk: one key, or a tuple of one or two keys, each (d, k, n) shared by
@@ -58,10 +60,15 @@ def dyadic_inner_banks(ext, evk, qs, mus, *, lazy: bool, out=None):
     (k, B, n) stack for one key, or a tuple of one a key: two keys are one
     launch, which reads ext once for both.  ``out``, in the same form, are
     (k, B, n) views unit-stride along n to write instead (the two halves
-    of one stack, say)."""
+    of one stack, say).  ``bits`` is the moduli's Barrett trait: 32 (the
+    RNS window) or 23 (``modmath.BARRETT23_WINDOW``, ML-DSA's q; on the
+    card one key and 16-byte loads only, or ``KernelRefusal``)."""
     keys = evk if isinstance(evk, tuple) else (evk,)
+    if bits not in (32, 23) or (bits == 23 and len(keys) != 1):
+        raise KernelRefusal(f"dyadic_inner_banks: Barrett trait {bits} with {len(keys)} "
+                            "keys; expected 32, or 23 with one key")
     if ext.device.type == "cpu":
-        got = ref.dyadic_inner_banks_ref(ext, keys, qs, mus, lazy=lazy)
+        got = ref.dyadic_inner_banks_ref(ext, keys, qs, mus, lazy=lazy, bits=bits)
         if out is not None:
             got = tuple(o.copy_(g) for o, g in zip(out if isinstance(out, tuple)
                                                   else (out,), got))
@@ -105,7 +112,10 @@ def dyadic_inner_banks(ext, evk, qs, mus, *, lazy: bool, out=None):
     sinks += [(0, 0, 0)] * (2 - len(outs))
     rc = lib.dyadic_inner_banks(ext.data_ptr(), *words(ext), *planes[0], *planes[1],
                                 *sinks[0], *sinks[1], qs.data_ptr(), mus.data_ptr(),
-                                d, k, b, n, int(lazy), stream())
+                                d, k, b, n, int(lazy), bits, stream())
+    if bits == 23 and rc == CUDA_ERROR_INVALID_VALUE:
+        raise KernelRefusal(f"{where}: the 23-bit trait takes 16-byte aligned operands "
+                            "with word strides a multiple of 4")
     raise_on(where, rc)
     COUNTS[where].launches += 1
     return ret

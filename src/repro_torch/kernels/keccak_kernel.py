@@ -1,5 +1,7 @@
 """Wrappers of the Keccak kernels (``csrc/keccak.cu``): ML-KEM's hashes
-(H, G, J), SampleNTT and PRF fused with CBD on the card.
+(H, G, J), SampleNTT and PRF fused with CBD on the card; ML-DSA's
+ExpandMask, SampleInBall, ExpandA, ExpandS and the signing stream's
+refill hashes (mu and rho'').
 
 They replace no TPU kernel: the reference hashes on the host with
 ``hashlib``.  ``keccak_hash`` is one sponge a row over a[r] || b[r] ||
@@ -149,3 +151,145 @@ def prf_cbd(seed, *, n0: int, count: int):
     raise_on(where, rc)
     COUNTS[where].launches += 1
     return out
+
+
+# ------------------------------------------------------------ ML-DSA
+# FIPS 204's samplers and the signing stream's refill hashes.  The
+# outputs are int32 residues mod q = 8380417 (the u32 lane), in FIPS
+# 204's NTT order where they are NTT-domain (it is the port's).
+
+DSA_K, DSA_L = codec.DSA_K, codec.DSA_L
+MASK_PERMS = 5                         # an ExpandMask stream: 640 bytes at rate 136
+REJ_NTT_BLOCKS = 5                     # RejNTTPoly's least squeezes (768 bytes at 168)
+REJ_BOUNDED_BLOCKS = 2                 # RejBoundedPoly's least (256 half-bytes at 136)
+
+
+def _int_rows(where: str, name: str, t, rows: int, dtype) -> None:
+    if t.dtype != dtype or t.shape != (rows,) or not t.is_contiguous():
+        raise KernelRefusal(f"{where}: {name} must be a contiguous ({rows},) {dtype}, got "
+                            f"{t.dtype} {tuple(t.shape)}")
+
+
+def _launch(where: str, fn: str, *args) -> None:
+    rc = getattr(build.load("keccak"), fn)(*args, stream())
+    raise_on(where, rc)
+    COUNTS[where].launches += 1
+
+
+def expand_mask(rho, kappa):
+    """rho (S, 64) uint8, kappa (S,) int32.  Returns (S, 5, 256) int32:
+    ExpandMask(rho[s], kappa[s]) mod q, its 5 SHAKE256 streams fused with
+    their 20-bit BitUnpack."""
+    where = "keccak_expand_mask"
+    rows = check_byte_rows(where, rho=rho)
+    if rho.shape[1] != 64:
+        raise KernelRefusal(f"{where}: rho rows of {rho.shape[1]} bytes, expected 64")
+    _int_rows(where, "kappa", kappa, rows, torch.int32)
+    if kappa.device != rho.device:
+        raise KernelRefusal(f"{where}: kappa is on {kappa.device}, expected {rho.device}")
+    if rho.device.type == "cpu":
+        return ref.expand_mask_ref(rho, kappa)
+    out = torch.empty((rows, DSA_L, codec.N), dtype=torch.int32, device=rho.device)
+    if rho.device.type == "meta":
+        return meta_launch(where, out, [rho, kappa], rows * DSA_L * MASK_PERMS * PERM_INT_OPS)
+    check_cuda(where, rho)
+    if rows:
+        _launch(where, where, rho.data_ptr(), rho.stride(0), kappa.data_ptr(), out.data_ptr(),
+                rows)
+    return out
+
+
+def sample_in_ball(ct):
+    """ct (S, 48) uint8.  Returns (S, 256) int32: SampleInBall(ct[s]), its
+    tau = 49 coefficients +-1 as 1 and q - 1."""
+    where = "keccak_sample_in_ball"
+    rows = check_byte_rows(where, ct=ct)
+    if ct.shape[1] != codec.DSA_CT_BYTES:
+        raise KernelRefusal(f"{where}: rows of {ct.shape[1]} bytes, expected "
+                            f"{codec.DSA_CT_BYTES}")
+    if ct.device.type == "cpu":
+        return ref.sample_in_ball_ref(ct)
+    out = torch.empty((rows, codec.N), dtype=torch.int32, device=ct.device)
+    if ct.device.type == "meta":
+        return meta_launch(where, out, [ct], rows * PERM_INT_OPS)
+    check_cuda(where, ct)
+    if rows:
+        _launch(where, where, ct.data_ptr(), ct.stride(0), out.data_ptr(), rows)
+    return out
+
+
+def rej_ntt_poly(rho):
+    """rho (b, 32) uint8.  Returns (b, 6, 5, 256) int32: ExpandA(rho),
+    Â[r, s] = RejNTTPoly(rho || s || r)."""
+    where = "keccak_rej_ntt_poly"
+    rows = _check_seed(where, "rho", rho)
+    if rho.device.type == "cpu":
+        return ref.rej_ntt_poly_ref(rho)
+    out = torch.empty((rows, DSA_K, DSA_L, codec.N), dtype=torch.int32, device=rho.device)
+    if rho.device.type == "meta":
+        return meta_launch(where, out, [rho],
+                           rows * DSA_K * DSA_L * REJ_NTT_BLOCKS * PERM_INT_OPS)
+    check_cuda(where, rho)
+    if rows:
+        _launch(where, where, rho.data_ptr(), rho.stride(0), out.data_ptr(), rows)
+    return out
+
+
+def rej_bounded(rho, *, n0: int, count: int):
+    """rho (b, 64) uint8.  Returns (b, count, 256) int32 residues:
+    RejBoundedPoly(rho[r] || n0 + c) at eta = 4 (ExpandS's s1 at n0 = 0
+    and s2 at n0 = l)."""
+    where = "keccak_rej_bounded"
+    rows = check_byte_rows(where, rho=rho)
+    if rho.shape[1] != 64:
+        raise KernelRefusal(f"{where}: rho rows of {rho.shape[1]} bytes, expected 64")
+    if count < 1 or n0 < 0 or n0 + count > 1 << 16:
+        raise KernelRefusal(f"{where}: nonces {n0} .. {n0 + count - 1} are not 16-bit")
+    if rho.device.type == "cpu":
+        return ref.rej_bounded_ref(rho, n0, count)
+    out = torch.empty((rows, count, codec.N), dtype=torch.int32, device=rho.device)
+    if rho.device.type == "meta":
+        return meta_launch(where, out, [rho],
+                           rows * count * REJ_BOUNDED_BLOCKS * PERM_INT_OPS)
+    check_cuda(where, rho)
+    if rows:
+        _launch(where, where, rho.data_ptr(), rho.stride(0), n0, count, out.data_ptr(), rows)
+    return out
+
+
+def mu_rho(tr, key, msg, rnd, slots, reqs, count, mu_out, rho_out):
+    """The signing stream's refill hashes, in place: for the first
+    ``count`` (a (1,) int64 tensor on the device) entries i of slots and
+    reqs ((S,) int64), mu = SHAKE256(tr || msg[reqs[i]], 64) and rho'' =
+    SHAKE256(key || rnd[reqs[i]] || mu, 64) into rows slots[i] of mu_out
+    and rho_out ((S + 1, 64) uint8).  tr (64,), key (32,), msg (P, m) and
+    rnd (P, 32) uint8.  Entries past ``count`` do no work on the card (the
+    plain version hashes them into the last row, which takes no slot)."""
+    where = "keccak_mu_rho"
+    rows = slots.shape[0] if slots.ndim == 1 else -1
+    _int_rows(where, "slots", slots, rows, torch.int64)
+    _int_rows(where, "reqs", reqs, rows, torch.int64)
+    _int_rows(where, "count", count, 1, torch.int64)
+    check_byte_rows(where, msg=msg, rnd=rnd)
+    check_byte_rows(where, tr=tr[None], key=key[None])
+    check_byte_rows(where, mu_out=mu_out, rho_out=rho_out)
+    if (tr.numel(), key.numel(), rnd.shape[1]) != (64, 32, 32) or \
+            mu_out.shape != (rows + 1, 64) or rho_out.shape != (rows + 1, 64) or \
+            not (mu_out.is_contiguous() and rho_out.is_contiguous()):
+        raise KernelRefusal(f"{where}: tr (64,), key (32,), rnd (P, 32) and contiguous "
+                            f"({rows + 1}, 64) outputs expected")
+    devices = {t.device for t in (tr, key, msg, rnd, slots, reqs, count, mu_out)}
+    if len(devices) != 1:
+        raise KernelRefusal(f"{where}: operands on {sorted(map(str, devices))}")
+    if slots.device.type == "cpu":
+        return ref.mu_rho_ref(tr, key, msg, rnd, slots, reqs, count, mu_out, rho_out)
+    if slots.device.type == "meta":
+        perms = sponge_perms(64 + msg.shape[1], 136, 64) + sponge_perms(128, 136, 64)
+        meta_launch(where, mu_out, [slots, reqs], rows * perms * PERM_INT_OPS)
+        return None
+    check_cuda(where, slots)
+    if rows:
+        _launch(where, where, tr.data_ptr(), key.data_ptr(), msg.data_ptr(), msg.stride(0),
+                msg.shape[1], rnd.data_ptr(), rnd.stride(0), slots.data_ptr(),
+                reqs.data_ptr(), count.data_ptr(), mu_out.data_ptr(), rho_out.data_ptr(), rows)
+    return None

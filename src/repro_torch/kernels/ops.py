@@ -43,7 +43,11 @@ The ``keccak_*`` entry points are FIPS 202's sponges over rows of bytes
 built on them (``csrc/keccak.cu``): the hashes take the concatenation
 a[r] || b[r] (|| ``extra``, one byte) of each row.  ``mlkem_decode_check``
 and ``mlkem_encaps_tail`` are ML-KEM's byte codecs around encryption
-(``csrc/mlkem_codec.cu``).
+(``csrc/mlkem_codec.cu``).  ``keccak_expand_mask``,
+``keccak_sample_in_ball``, ``keccak_rej_ntt_poly``, ``keccak_rej_bounded``
+and ``keccak_mu_rho`` are ML-DSA's samplers and its signing stream's
+refill hashes, ``mldsa_*`` its codec around the signing loop
+(``csrc/mldsa_codec.cu``).
 """
 from __future__ import annotations
 
@@ -54,7 +58,7 @@ import torch
 
 from repro_torch import obs
 from repro_torch.kernels import (basis_kernel, codec_kernel, dyadic_kernel, galois_kernel,
-                                  keccak_kernel, ntt_kernel)
+                                  keccak_kernel, mldsa_kernel, ntt_kernel)
 
 FOURSTEP_MIN_N = 1 << 13
 
@@ -275,7 +279,7 @@ def intt_fourstep_banks(x, fp: dict, *, negacyclic: bool = True,
 
 
 @_spanned
-def dyadic_inner_banks(ext, evk, t: dict, *, lazy: bool = True, out=None):
+def dyadic_inner_banks(ext, evk, t: dict, *, lazy: bool = True, out=None, bits: int = 32):
     """Key-switch inner product out[j] = sum_i ext[i, j] * evk[i, j] mod q_j.
     ext: (d, k, B, n) NTT-domain digit extensions, read in place through
     its strides (``decompose_extend``'s (digit, prime, B, n) transpose is
@@ -285,7 +289,9 @@ def dyadic_inner_banks(ext, evk, t: dict, *, lazy: bool = True, out=None):
     ext once for both, and returns a pair of (k, B, n) stacks; ``out``, in
     the same form, are (k, B, n) views to write instead.  Counts
     ``ops.dyadic_inner.strided`` for each call on a non-contiguous ext,
-    the copies it avoids."""
+    the copies it avoids.  ``bits`` is the moduli's Barrett trait (23
+    for ML-DSA's q, whose Â ŷ and ĉ products run here with the k rows of
+    the matrix or the key in the prime axis)."""
     keys = evk if isinstance(evk, tuple) else (evk,)
     if ext.ndim != 4 or ext.shape[1] != t["qs"].shape[0] or any(
             e.ndim not in (3, 4) for e in keys):
@@ -299,7 +305,7 @@ def dyadic_inner_banks(ext, evk, t: dict, *, lazy: bool = True, out=None):
     if obs.enabled() and not ext.is_contiguous():
         obs.counter_add("ops.dyadic_inner.strided")
     return dyadic_kernel.dyadic_inner_banks(ext, evk, t["qs"], t["mu"], lazy=lazy,
-                                            out=out)
+                                            out=out, bits=bits)
 
 
 @_spanned
@@ -428,3 +434,62 @@ def mlkem_encaps_tail(u, v, e, m, kr=None, ok=None):
     uint8, and with kr, K = kr[:, :32]; rows where ok is False zeroed.
     Returns (K or None, ct)."""
     return codec_kernel.encaps_tail(u, v, e, m, kr, ok)
+
+
+# ------------------------------------------------------------ ML-DSA
+
+@_spanned
+def keccak_expand_mask(rho, kappa):
+    """FIPS 204 ExpandMask(rho[s], kappa[s]) of rho (S, 64) uint8 and kappa
+    (S,) int32: (S, 5, 256) int32 residues mod q."""
+    return keccak_kernel.expand_mask(rho, kappa)
+
+
+@_spanned
+def keccak_sample_in_ball(ct):
+    """FIPS 204 SampleInBall of ct (S, 48) uint8: (S, 256) int32 in {0, 1,
+    q - 1}."""
+    return keccak_kernel.sample_in_ball(ct)
+
+
+@_spanned
+def keccak_rej_ntt_poly(rho):
+    """FIPS 204 ExpandA of rho (b, 32) uint8: (b, 6, 5, 256) int32 in the
+    NTT order of ``MLDSA_RING`` (FIPS 204's own)."""
+    return keccak_kernel.rej_ntt_poly(rho)
+
+
+@_spanned
+def keccak_rej_bounded(rho, *, n0: int, count: int):
+    """FIPS 204 RejBoundedPoly(rho[r] || n0 + c), eta = 4, for c < count:
+    (b, count, 256) int32 residues mod q."""
+    return keccak_kernel.rej_bounded(rho, n0=n0, count=count)
+
+
+@_spanned
+def keccak_mu_rho(tr, key, msg, rnd, slots, reqs, count, mu_out, rho_out):
+    """The signing stream's refill hashes, mu = H(tr || M') and rho'' =
+    H(key || rnd || mu), of the first ``count`` queued requests, into
+    their slots' rows (``keccak_kernel.mu_rho``)."""
+    return keccak_kernel.mu_rho(tr, key, msg, rnd, slots, reqs, count, mu_out, rho_out)
+
+
+@_spanned
+def mldsa_w1_encode(w):
+    """w1Encode(HighBits(w)) of w (k, S, 256) int32: (S, 768) uint8."""
+    return mldsa_kernel.w1_encode(w)
+
+
+@_spanned
+def mldsa_check(y, w, cs, active):
+    """Sign_internal's bounds of every slot: (S,) bool
+    (``mldsa_kernel.sign_check``)."""
+    return mldsa_kernel.sign_check(y, w, cs, active)
+
+
+@_spanned
+def mldsa_emit(ct, y, w, cs, dest, ids, kappa, ring, ring_ids, ring_iters):
+    """sigEncode of the accepted slots into the output ring, in place
+    (``mldsa_kernel.sign_emit``)."""
+    return mldsa_kernel.sign_emit(ct, y, w, cs, dest, ids, kappa, ring, ring_ids,
+                                  ring_iters)

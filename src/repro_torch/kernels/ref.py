@@ -280,9 +280,10 @@ def intt_fourstep_banks_ref(x, fp: dict, negacyclic: bool, lazy: bool = False):
         lambda v, w, wp, reduce: _weight_mul(v, qs, w, wp, lazy and not reduce))
 
 
-def dyadic_inner_banks_ref(ext, evk, qs, mus, lazy: bool = False):
+def dyadic_inner_banks_ref(ext, evk, qs, mus, lazy: bool = False, bits: int = 32):
     """ext: (d, k, B, n), any strides; evk: a key, or a tuple of keys, each
-    (d, k, n) shared or (d, k, B, n) per-batch key digits; qs/mus: (k,).
+    (d, k, n) shared or (d, k, B, n) per-batch key digits; qs/mus: (k,);
+    ``bits`` the moduli's Barrett trait (32, or 23 for ML-DSA's q).
     Digit products accumulated in the kernel's order; one plain call for
     every key, as the kernel is one launch.  Returns a (k, B, n) stack, or
     a tuple of one a key."""
@@ -294,13 +295,13 @@ def dyadic_inner_banks_ref(ext, evk, qs, mus, lazy: bool = False):
     def inner(evk):
         key = (evk if evk.ndim == 4 else evk[:, :, None, :]).long()
         if lazy:
-            acc = mulmod_barrett_lazy(e[0], key[0], q, mu)
+            acc = mulmod_barrett_lazy(e[0], key[0], q, mu, bits)
             for i in range(1, e.shape[0]):
-                acc = lazy_addmod(acc, mulmod_barrett_lazy(e[i], key[i], q, mu), q)
+                acc = lazy_addmod(acc, mulmod_barrett_lazy(e[i], key[i], q, mu, bits), q)
             return torch.where(acc >= q, acc - q, acc).int()
-        acc = mulmod_barrett(e[0], key[0], q, mu)
+        acc = mulmod_barrett(e[0], key[0], q, mu, bits)
         for i in range(1, e.shape[0]):
-            acc = addmod(acc, mulmod_barrett(e[i], key[i], q, mu), q)
+            acc = addmod(acc, mulmod_barrett(e[i], key[i], q, mu, bits), q)
         return acc.int()
     return tuple(map(inner, evk)) if isinstance(evk, tuple) else inner(evk)
 
@@ -669,3 +670,189 @@ def mlkem_encaps_tail_ref(u, v, e, m, kr=None, ok=None):
         ct = torch.where(ok[:, None], ct, 0)
         key = None if key is None else torch.where(ok[:, None], key, 0)
     return key, ct
+
+
+# ------------------------------------------------------------ ML-DSA
+
+def _le16(v: torch.Tensor) -> torch.Tensor:
+    """(...) integers -> (..., 2) their low two bytes, little-endian."""
+    return torch.stack([v & 255, (v >> 8) & 255], -1)
+
+
+def expand_mask_ref(rho, kappa):
+    """FIPS 204 ExpandMask of every row of rho (S, 64) uint8 at its kappa
+    (S,) int32: y[s, r] = BitUnpack(SHAKE256(rho[s] || kappa[s] + r, 640),
+    gamma1 - 1, gamma1) mod q for r < l, the plain version of
+    ``keccak_expand_mask``.  Returns (S, l, 256) int32 residues."""
+    COUNTS["keccak_expand_mask"].plain_calls += 1
+    rows, dev = rho.shape[0], rho.device
+    ell = codec.DSA_L
+    nonce = kappa.long()[:, None] + torch.arange(ell, device=dev)
+    data = torch.cat([rho.long()[:, None].expand(rows, ell, rho.shape[1]), _le16(nonce)], -1)
+    buf = keccak_sponge_ref(data.reshape(rows * ell, -1), 136, 0x1F, 32 * codec.DSA_Z_BITS)
+    y = (codec.DSA_GAMMA1 - codec.unpack_bits(buf, codec.DSA_Z_BITS)) % codec.DSA_Q
+    return y.reshape(rows, ell, codec.N).int()
+
+
+def sample_in_ball_ref(ct):
+    """FIPS 204 SampleInBall of every row of ct (S, 48) uint8: the plain
+    version of ``keccak_sample_in_ball``.  Squeezes one SHAKE256 block a
+    row, and another for every row while any row runs out of bytes.
+    Returns (S, 256) int32 in {0, 1, q - 1}."""
+    COUNTS["keccak_sample_in_ball"].plain_calls += 1
+    rows, dev = ct.shape[0], ct.device
+    q, n, tau = codec.DSA_Q, codec.N, codec.DSA_TAU
+    blocks = 1
+    while True:
+        buf = keccak_sponge_ref(ct, 136, 0x1F, 136 * blocks)
+        sign = (buf[:, :8, None] >> torch.arange(8, device=dev)).flatten(1) & 1
+        stream = buf[:, 8:]
+        at = torch.arange(stream.shape[1], device=dev)
+        pos = torch.zeros(rows, dtype=torch.int64, device=dev)
+        c = torch.zeros((rows, n), dtype=torch.int64, device=dev)
+        for t, i in enumerate(range(n - tau, n)):
+            cand = (stream <= i) & (at >= pos[:, None])
+            if not bool(cand.any(1).all()):
+                break
+            first = cand.long().argmax(1)
+            j = stream.gather(1, first[:, None])
+            pos = first + 1
+            c[:, i] = c.gather(1, j)[:, 0]
+            c.scatter_(1, j, torch.where(sign[:, t:t + 1] == 1, q - 1, 1))
+        else:
+            return c.int()
+        blocks += 1
+
+
+def rej_ntt_poly_ref(rho):
+    """FIPS 204 ExpandA of every row of rho (b, 32) uint8: Â[r, s] =
+    RejNTTPoly(rho || s || r) (SHAKE128, 3-byte candidates below q), in
+    FIPS 204's NTT order, which is the port's; the plain version of
+    ``keccak_rej_ntt_poly``.  Returns (b, k, l, 256) int32."""
+    COUNTS["keccak_rej_ntt_poly"].plain_calls += 1
+    b, dev = rho.shape[0], rho.device
+    k, ell, n = codec.DSA_K, codec.DSA_L, codec.N
+    sr = torch.tensor([[s, r] for r in range(k) for s in range(ell)], device=dev)
+    data = torch.cat([rho.long().repeat_interleave(k * ell, 0), sr.repeat(b, 1)], -1)
+    blocks = 5
+    while True:
+        buf = keccak_sponge_ref(data, 168, 0x1F, 168 * blocks).reshape(b * k * ell, -1, 3)
+        cand = buf[..., 0] | (buf[..., 1] << 8) | ((buf[..., 2] & 127) << 16)
+        ok = cand < codec.DSA_Q
+        if int(ok.sum(-1).min()) >= n:
+            break
+        blocks += 1
+    return _first_taken(cand, ok).reshape(b, k, ell, n)
+
+
+def _first_taken(cand, ok):
+    """(S, m) candidates and their verdicts -> (S, 256) int32: each row's
+    first 256 candidates taken, in order."""
+    pos = ok.cumsum(-1) - 1
+    keep = ok & (pos < codec.N)
+    out = torch.zeros((cand.shape[0], codec.N), dtype=torch.int64, device=cand.device)
+    rows = torch.arange(cand.shape[0], device=cand.device)[:, None].expand_as(pos)
+    out[rows[keep], pos[keep]] = cand[keep]
+    return out.int()
+
+
+def rej_bounded_ref(rho, n0: int, count: int):
+    """FIPS 204 RejBoundedPoly(rho[r] || n0 + c) at eta = 4 (SHAKE256,
+    half-bytes below 9 taken as 4 - b) for c < count, every row of rho
+    (b, 64) uint8: the plain version of ``keccak_rej_bounded``.  Returns
+    (b, count, 256) int32 residues mod q."""
+    COUNTS["keccak_rej_bounded"].plain_calls += 1
+    b, dev = rho.shape[0], rho.device
+    nonce = _le16(torch.arange(n0, n0 + count, device=dev))
+    data = torch.cat([rho.long().repeat_interleave(count, 0), nonce.repeat(b, 1)], -1)
+    blocks = 2
+    while True:
+        buf = keccak_sponge_ref(data, 136, 0x1F, 136 * blocks)
+        half = torch.stack([buf & 15, buf >> 4], -1).flatten(-2)
+        ok = half < 9
+        if int(ok.sum(-1).min()) >= codec.N:
+            break
+        blocks += 1
+    vals = _first_taken((codec.DSA_ETA - half) % codec.DSA_Q, ok)
+    return vals.reshape(b, count, codec.N)
+
+
+def mu_rho_ref(tr, key, msg, rnd, slots, reqs, count, mu_out, rho_out):
+    """The refill hashes of the first ``count`` (a one-element tensor)
+    entries of slots / reqs (S,) int64: mu = SHAKE256(tr || msg[req], 64)
+    and rho'' = SHAKE256(key || rnd[req] || mu, 64) written to row slot
+    of mu_out and rho_out (S + 1, 64) uint8; the plain version of
+    ``keccak_mu_rho``.  It hashes every entry and sends those past
+    ``count`` to the last row, which takes no slot."""
+    COUNTS["keccak_mu_rho"].plain_calls += 1
+    s, dev = slots.shape[0], slots.device
+    valid = torch.arange(s, device=dev) < count.reshape(())
+    req = torch.where(valid, reqs, 0)
+    mu = keccak_sponge_ref(torch.cat([tr.expand(s, -1), msg.index_select(0, req)], -1),
+                           136, 0x1F, 64).to(torch.uint8)
+    rr = keccak_sponge_ref(torch.cat([key.expand(s, -1), rnd.index_select(0, req), mu], -1),
+                           136, 0x1F, 64).to(torch.uint8)
+    dst = torch.where(valid, slots, mu_out.shape[0] - 1)
+    mu_out.index_copy_(0, dst, mu)
+    rho_out.index_copy_(0, dst, rr)
+
+
+def w1_encode_ref(w):
+    """w1Encode(HighBits(w)) of w (k, S, 256) int32 residues: (S, 128 k)
+    uint8, the plain version of ``mldsa_w1_encode``."""
+    COUNTS["mldsa_w1_encode"].plain_calls += 1
+    hi = codec.decompose(w)[0].transpose(0, 1)
+    return codec.pack_bits(hi, codec.DSA_W1_BITS).flatten(1)
+
+
+def _z_r_ct0(y, w, cs):
+    """z = y + cs1 mod± q (S, l, n); r = w - cs2 mod q and ct0 (S, k, n)."""
+    q, ell, k = codec.DSA_Q, codec.DSA_L, codec.DSA_K
+    z = codec.centered((y.long() + cs[:ell].transpose(0, 1)) % q)
+    r = (w.long() - cs[ell:ell + k]).transpose(0, 1) % q
+    return z, r, cs[ell + k:].transpose(0, 1).long()
+
+
+def _hints(r, ct0):
+    """MakeHint(-ct0, r + ct0) = HighBits(r + ct0) != HighBits(r)."""
+    return codec.decompose((r + ct0) % codec.DSA_Q)[0] != codec.decompose(r)[0]
+
+
+def sign_check_ref(y, w, cs, active):
+    """FIPS 204 Sign_internal's bounds of every slot: y (S, l, 256), w (k,
+    S, 256), cs (l + 2k, S, 256) int32 residues (cs1, cs2, ct0) and
+    active (S,) bool.  A slot accepts when active with ||z|| < gamma1 -
+    beta, ||r0|| < gamma2 - beta, ||ct0|| < gamma2 and at most omega
+    hints; the plain version of ``mldsa_check``.  Returns (S,) bool."""
+    COUNTS["mldsa_check"].plain_calls += 1
+    z, r, ct0 = _z_r_ct0(y, w, cs)
+    r0 = codec.decompose(r)[1]
+    return (active & (z.abs().amax((1, 2)) < codec.DSA_GAMMA1 - codec.DSA_BETA)
+            & (r0.abs().amax((1, 2)) < codec.DSA_GAMMA2 - codec.DSA_BETA)
+            & (codec.centered(ct0).abs().amax((1, 2)) < codec.DSA_GAMMA2)
+            & (_hints(r, ct0).sum((1, 2)) <= codec.DSA_OMEGA))
+
+
+def sign_emit_ref(ct, y, w, cs, dest, ids, kappa, ring, ring_ids, ring_iters):
+    """sigEncode(c-tilde, z, h) of every slot whose dest (S,) int64 is
+    below R = ring.shape[0] - 1, written to ring[dest] (R + 1, 3309)
+    uint8 with its request id (ids, int64) and iterations (kappa / l + 1,
+    int32) at ring_ids / ring_iters[dest]; the plain version of
+    ``mldsa_emit``.  Slots at R or past it write the last row, which
+    holds no entry."""
+    COUNTS["mldsa_emit"].plain_calls += 1
+    n, k, omega = codec.N, codec.DSA_K, codec.DSA_OMEGA
+    z, r, ct0 = _z_r_ct0(y, w, cs)
+    h = _hints(r, ct0).flatten(1)
+    pos = h.long().cumsum(1) - 1
+    hint = torch.zeros((h.shape[0], omega + k), dtype=torch.int64, device=h.device)
+    rows, cols = (h & (pos < omega)).nonzero(as_tuple=True)
+    hint[rows, pos[rows, cols]] = cols % n
+    hint[:, omega:] = h.unflatten(1, (k, n)).sum(-1).cumsum(-1).clamp(max=255)
+    sig = torch.cat([ct, codec.pack_bits(codec.DSA_GAMMA1 - z, codec.DSA_Z_BITS).flatten(1),
+                     hint.to(torch.uint8)], 1)
+    trash = ring.shape[0] - 1
+    dst = torch.where(dest < trash, dest, trash)
+    ring.index_copy_(0, dst, sig)
+    ring_ids.index_copy_(0, dst, ids)
+    ring_iters.index_copy_(0, dst, (kappa // codec.DSA_L + 1).int())

@@ -78,3 +78,69 @@ def compress(d: int, x: torch.Tensor) -> torch.Tensor:
 def decompress(d: int, y: torch.Tensor) -> torch.Tensor:
     """round(q / 2^d * y); output canonical in [0, q)."""
     return (Q * y.int() + (1 << (d - 1))) >> d
+
+
+# ----------------------------------------------- FIPS 204 (ML-DSA-65)
+# ML-DSA-65's parameters (FIPS 204 Table 1) and its codecs as tensor
+# operations: the bit packings of keys and signatures, Power2Round and
+# Decompose.  Used by ``pq.mldsa`` (key generation, the key's decode)
+# and by the plain versions of the ML-DSA kernels (``kernels.ref``).
+
+DSA_Q = 8380417
+DSA_K, DSA_L = 6, 5
+DSA_D = 13
+DSA_ETA = 4
+DSA_TAU = 49
+DSA_GAMMA1 = 1 << 19
+DSA_GAMMA2 = (DSA_Q - 1) // 32
+DSA_BETA = DSA_TAU * DSA_ETA
+DSA_OMEGA = 55
+DSA_CT_BYTES = 48                      # c-tilde: lambda / 4
+DSA_Z_BITS = 20                        # bitlen(2 gamma1 - 1)
+DSA_W1_BITS = 4                        # bitlen((q - 1) / (2 gamma2) - 1)
+DSA_T1_BITS = 10                       # bitlen(q - 1) - d
+DSA_ETA_BITS = 4                       # bitlen(2 eta)
+DSA_SIG_BYTES = DSA_CT_BYTES + 32 * DSA_L * DSA_Z_BITS + DSA_OMEGA + DSA_K   # 3309
+
+
+def pack_bits(v: torch.Tensor, bits: int) -> torch.Tensor:
+    """FIPS 204 SimpleBitPack: (..., n) integers below 2^bits -> (..., n *
+    bits / 8) uint8, coefficient i in bits [bits * i, bits * (i + 1)),
+    least significant first."""
+    dev = v.device
+    b = (v.long().unsqueeze(-1) >> torch.arange(bits, device=dev)) & 1
+    b = b.flatten(-2).unflatten(-1, (-1, 8))
+    return (b << torch.arange(8, device=dev)).sum(-1).to(torch.uint8)
+
+
+def unpack_bits(buf: torch.Tensor, bits: int) -> torch.Tensor:
+    """FIPS 204 SimpleBitUnpack: (..., m) bytes -> (..., 8 m / bits) int64."""
+    dev = buf.device
+    b = (buf.long().unsqueeze(-1) >> torch.arange(8, device=dev)) & 1
+    b = b.flatten(-2).unflatten(-1, (-1, bits))
+    return (b << torch.arange(bits, device=dev)).sum(-1)
+
+
+def centered(x: torch.Tensor, q: int = DSA_Q) -> torch.Tensor:
+    """Residues in [0, q) -> x mod± q, in [-(q - 1) / 2, (q - 1) / 2]."""
+    x = x.long()
+    return torch.where(x > (q - 1) // 2, x - q, x)
+
+
+def power2round(r: torch.Tensor):
+    """FIPS 204 Alg. 35 of residues in [0, q): (r1, r0), r0 in (-2^12, 2^12]."""
+    r = r.long()
+    half = 1 << (DSA_D - 1)
+    r0 = r & ((1 << DSA_D) - 1)
+    r0 = torch.where(r0 > half, r0 - (1 << DSA_D), r0)
+    return (r - r0) >> DSA_D, r0
+
+
+def decompose(r: torch.Tensor):
+    """FIPS 204 Alg. 36 of residues in [0, q): (r1 in [0, 16), r0)."""
+    r = r.long()
+    a = 2 * DSA_GAMMA2
+    r0 = r % a
+    r0 = torch.where(r0 > DSA_GAMMA2, r0 - a, r0)
+    top = r - r0 == DSA_Q - 1
+    return torch.where(top, 0, (r - r0) // a), torch.where(top, r0 - 1, r0)

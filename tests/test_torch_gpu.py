@@ -34,7 +34,11 @@ restored on the CPU); and hybrid key switching's fast base conversion
 against the CPU; and the four-step forward's and inverse's two kernels
 each (2^10 .. 2^17, k = 1, 9 and 30, B = 1 and odd, lazy and negacyclic
 both ways, batch-leading) against the plain chains, the round trip, and
-a key-switch group's launches.  Marked
+a key-switch group's launches; and ML-DSA-65 (FIPS 204): its Keccak
+samplers, refill hashes and codec kernels against their plain versions,
+the u32 banks at q = 8380417 against the torch path, the digit MAC on
+the 23-bit Barrett trait (narrow rings' rows side by side), and a slot
+stream, keygen and sign_batch on the card against the CPU.  Marked
 ``gpu``: they skip where no CUDA device is present.  On a GPU machine:
 
     PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_gpu.py
@@ -1691,3 +1695,183 @@ def test_hybrid_plan_on_the_card_equals_the_cpu(cuda):
         outs[dev] = [(r.c0.data.cpu(), r.c1.data.cpu()) for r in res]
     for (a0, a1), (b0, b1) in zip(outs["cuda"], outs["cpu"]):
         assert torch.equal(a0, b0) and torch.equal(a1, b1)
+
+
+# ------------------------------------------------ ML-DSA-65 (FIPS 204)
+
+MLDSA_BATCHES = [1, 5, 300]
+
+
+def _dsa_rows(seed, shape, q=8380417):
+    rng = np.random.default_rng(seed)
+    return torch.from_numpy(rng.integers(0, q, shape).astype(np.int32)).cuda()
+
+
+@pytest.mark.parametrize("b", MLDSA_BATCHES)
+def test_mldsa_keccak_kernels_equal_plain(cuda, b):
+    """ExpandMask (rho read in place from wider rows, kappa near the
+    16-bit wrap), SampleInBall, ExpandA, ExpandS (s1 and s2), and the
+    refill hashes with a count below the row count and slots out of
+    order, each equal to its plain version."""
+    rho = _bytes(40, b, 96)[:, 16:80]
+    kappa = torch.from_numpy(np.random.default_rng(41).integers(0, 1 << 16, b)
+                             .astype(np.int32)).cuda()
+    kappa[0] = 65534
+    assert torch.equal(keccak_kernel.expand_mask(rho, kappa), ref.expand_mask_ref(rho, kappa))
+    ct = _bytes(42, b, 48)
+    assert torch.equal(keccak_kernel.sample_in_ball(ct), ref.sample_in_ball_ref(ct))
+    seed = _bytes(43, b, 128)
+    assert torch.equal(keccak_kernel.rej_ntt_poly(seed[:, :32]), ref.rej_ntt_poly_ref(seed[:, :32]))
+    for n0, count in ((0, 11), (5, 6)):
+        assert torch.equal(keccak_kernel.rej_bounded(seed[:, 32:96], n0=n0, count=count),
+                           ref.rej_bounded_ref(seed[:, 32:96], n0, count))
+    msg, rnd, tr, key = _bytes(44, 2 * b, 132), _bytes(45, 2 * b, 32), _bytes(46, 1, 64)[0], \
+        _bytes(47, 1, 32)[0]
+    slots = torch.randperm(b, generator=torch.Generator().manual_seed(b)).cuda()
+    reqs = torch.arange(b, device="cuda") * 2 % (2 * b)
+    count = torch.tensor([max(b - 2, 0)], device="cuda")
+    outs = []
+    for fn in (keccak_kernel.mu_rho, ref.mu_rho_ref):
+        mu = torch.zeros((b + 1, 64), dtype=torch.uint8, device="cuda")
+        rr = torch.zeros_like(mu)
+        fn(tr, key, msg, rnd, slots, reqs, count, mu, rr)
+        outs.append((mu[:b], rr[:b]))
+    assert torch.equal(outs[0][0], outs[1][0]) and torch.equal(outs[0][1], outs[1][1])
+    assert int((outs[0][0] != 0).any(1).sum()) == max(b - 2, 0)
+
+
+@pytest.mark.parametrize("b", MLDSA_BATCHES)
+def test_mldsa_codec_kernels_equal_plain(cuda, b):
+    """w1Encode, the bounds (on random rows, which fail them, and on rows
+    near zero with planted hints, which pass them or fail one bound a
+    slot) and sigEncode into a ring of the accepted slots."""
+    from repro_torch.kernels import mldsa_kernel
+    q = 8380417
+    y, w, cs = _dsa_rows(50, (b, 5, 256)), _dsa_rows(51, (6, b, 256)), _dsa_rows(52, (17, b, 256))
+    assert torch.equal(mldsa_kernel.w1_encode(w), ref.w1_encode_ref(w))
+    active = torch.ones(b, dtype=torch.bool, device="cuda")
+    assert torch.equal(mldsa_kernel.sign_check(y, w, cs, active),
+                       ref.sign_check_ref(y, w, cs, active))
+    # small rows: z, r0 and ct0 inside their bounds, 18 hints a slot
+    # (r0 just inside gamma2 - beta, ct0 = 300 past it); every third slot a
+    # z past its bound, every fourth inactive
+    rng = np.random.default_rng(53)
+    small = lambda shape, m: torch.from_numpy(rng.integers(-m, m, shape) % q).int().cuda()
+    y, cs = small((b, 5, 256), 1000), small((17, b, 256), 500)
+    w = (small((6, b, 256), 1000) + 261888 * 2 * torch.from_numpy(
+        rng.integers(0, 16, (6, b, 256))).int().cuda()) % q
+    w[:, :, :3] = 261888 - 196 - 10
+    cs[5:11, :, :3], cs[11:, :, :3] = 0, 300
+    cs[1, ::3, 7] = (1 << 19) - 100
+    active[::4] = False
+    ok = mldsa_kernel.sign_check(y, w, cs, active)
+    assert torch.equal(ok, ref.sign_check_ref(y, w, cs, active))
+    assert b == 1 or bool(ok.any())
+    ring_rows = 2 * b
+    dest = torch.where(ok, torch.cumsum(ok, 0) - 1 + b // 2, ring_rows)
+    ids, kappa = torch.arange(b, device="cuda") + 7, _dsa_rows(54, (b,), 1000)
+    ct = _bytes(55, b, 64)[:, 8:56]
+    rings = []
+    for fn in (mldsa_kernel.sign_emit, ref.sign_emit_ref):
+        ring = torch.zeros((ring_rows + 1, 3309), dtype=torch.uint8, device="cuda")
+        rid = torch.full((ring_rows + 1,), -1, dtype=torch.int64, device="cuda")
+        rit = torch.zeros((ring_rows + 1,), dtype=torch.int32, device="cuda")
+        fn(ct, y, w, cs, dest, ids, kappa, ring, rid, rit)
+        rings.append((ring[:ring_rows], rid[:ring_rows], rit[:ring_rows]))
+    for a, c in zip(*rings):
+        assert torch.equal(a, c)
+    assert int((rings[0][1] >= 0).sum()) == int(ok.sum())
+
+
+@pytest.mark.parametrize("rows", [1, 7, 5 * 4096 + 3])
+def test_mldsa_banks_ntt_equals_the_torch_path(cuda, rows):
+    """The u32 banks at (1, rows, 256) at q = 8380417 (MLDSA_RING), forward
+    and inverse, equal the plain versions, and the round trip."""
+    from repro_torch.core.ringspec import MLDSA_RING
+    t = from_reference(ring_table_pack(MLDSA_RING), "cuda")
+    x = _dsa_rows(56, (1, rows, 256))
+    K.reset_counts()
+    f = ops.ntt_banks(x, t, negacyclic=False)
+    assert torch.equal(f, ref.ntt_fwd_banks_ref(x, t["qs"], t["tw"], t["twp"], t["psi"],
+                                                t["psip"], False, True, True))
+    back = ops.intt_banks(f, t, negacyclic=False)
+    assert torch.equal(back, ref.ntt_inv_banks_ref(f, t["qs"], t["ninv"], t["ninv_p"],
+                                                   t["itw"], t["itwp"], t["ipsin"],
+                                                   t["ipsinp"], False, True, True))
+    assert torch.equal(back, x)
+    c = K.snapshot()
+    assert c["ntt_fwd_banks"]["launches"] == 1 and c["ntt_inv_banks"]["launches"] == 1
+
+
+@pytest.mark.parametrize("lazy", [False, True])
+@pytest.mark.parametrize("b", [1, 9, 4099])
+def test_mldsa_digit_mac_barrett23_equals_plain(cuda, lazy, b):
+    """The digit MAC on the 23-bit trait: Â ŷ (5 digits, the matrix's 6
+    rows on the prime axis, ext stride 0 there: the shared-ext body), ĉ
+    times 17 key rows (one digit) and per-batch keys (keygen's: the
+    per-row body); the 23-bit trait refuses two keys and a view one word
+    off (it has no scalar body)."""
+    q = 8380417
+    mu = 1074791296
+    t6 = {"qs": torch.full((6,), q, dtype=torch.int32, device="cuda"),
+          "mu": torch.full((6,), mu, dtype=torch.int32, device="cuda")}
+    t17 = {k: v[:1].expand(17).contiguous() for k, v in t6.items()}
+    y = _dsa_rows(57, (b, 5, 256))
+    ext = y.transpose(0, 1)[:, None].expand(5, 6, b, 256)
+    a = _dsa_rows(58, (5, 6, 256))
+    per = _dsa_rows(59, (5, 6, b, 256))
+    c = _dsa_rows(60, (b, 256))
+    s17 = _dsa_rows(61, (1, 17, 256))
+    words = torch.cat([y.new_zeros(1), y.reshape(-1)])[1:].view(y.shape)
+    cases = [(ext, a, t6), (c[None, None].expand(1, 17, b, 256), s17, t17),
+             (ext, per, t6)]
+    for e, key, t in cases:
+        got = ops.dyadic_inner_banks(e, key, t, lazy=lazy, bits=23)
+        want = ref.dyadic_inner_banks_ref(e, key, t["qs"], t["mu"], lazy=lazy, bits=23)
+        assert torch.equal(got, want)
+    prod = (y.long().transpose(0, 1)[:, None] * a.long()[:, :, None]).sum(0) % q
+    assert torch.equal(ops.dyadic_inner_banks(ext, a, t6, lazy=lazy, bits=23).long(), prod)
+    with pytest.raises(ValueError, match="one key"):
+        ops.dyadic_inner_banks(ext, (a, a), t6, bits=23)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        ops.dyadic_inner_banks(words.transpose(0, 1)[:, None].expand(5, 6, b, 256), a, t6,
+                               lazy=lazy, bits=23)
+
+
+def test_mldsa_stream_on_the_card_equals_the_cpu(cuda):
+    """Keygen of 3 keys, then a stream of 4 slots over a queue of 16
+    requests (refills, an idle drain, the ring's places) and sign_batch of
+    8 under another key, on the card equal to the CPU bit for bit: keys,
+    the ring, the counters; every kernel launched and no plain version
+    run on the card."""
+    from repro_torch.pq import mldsa
+    rng = np.random.default_rng(62)
+    xi = rng.integers(0, 256, (3, 32), dtype=np.uint8)
+    msg = rng.integers(0, 256, (16, 132), dtype=np.uint8)
+    rnd = rng.integers(0, 256, (16, 32), dtype=np.uint8)
+    outs = {}
+    for dev in ("cuda", "cpu"):
+        K.reset_counts()
+        pk, sk = mldsa.keygen_batch(xi, device=dev)
+        s = mldsa.SignStream(torch.from_numpy(sk[0]).to(dev), torch.from_numpy(msg).to(dev),
+                             torch.from_numpy(rnd).to(dev), 4)
+        rounds = 0
+        while s.counters()["signatures"] < 16:
+            s.advance(3)
+            rounds += 3
+        s.advance(2)                       # every slot idle: nothing changes
+        ring = [t.cpu() for t in s.results()]
+        sig, it = mldsa.sign_batch(sk[1], msg[:8], rnd[:8], device=dev)
+        outs[dev] = (pk, sk, *ring, s.counters(), sig, it, K.snapshot())
+    card, cpu = outs["cuda"], outs["cpu"]
+    for a, b in zip(card[:5], cpu[:5]):
+        assert (np.array_equal(a, b) if isinstance(a, np.ndarray) else torch.equal(a, b))
+    assert card[5] == cpu[5] and card[5]["signatures"] == 16 and card[5]["refills"] == 16
+    assert np.array_equal(card[6], cpu[6]) and np.array_equal(card[7], cpu[7])
+    assert sorted(card[2].tolist()) == list(range(16))
+    launched = {k for k, v in card[8].items() if v["launches"]}
+    assert all(v["plain_calls"] == 0 for v in card[8].values())
+    assert {"keccak_expand_mask", "keccak_sample_in_ball", "keccak_rej_ntt_poly",
+            "keccak_rej_bounded", "keccak_mu_rho", "keccak_hash", "mldsa_w1_encode",
+            "mldsa_check", "mldsa_emit", "ntt_fwd_banks", "ntt_inv_banks",
+            "dyadic_inner_banks"} <= launched

@@ -14,7 +14,7 @@ from repro_torch.core.params import make_ntt_params
 from repro_torch.fhe import batched as TB
 from repro_torch.fhe import rns
 from repro_torch.kernels import (basis_kernel, build, dyadic_kernel, galois_kernel,
-                                 keccak_kernel, ntt_kernel)
+                                 keccak_kernel, mldsa_kernel, ntt_kernel)
 from repro_torch.mesh import all_gather, make_mesh, psum
 from repro_torch.runtime import op_cost, roofline
 
@@ -227,6 +227,10 @@ def _calls(device, bad: bool, fake=None):
         "keccak_hash": lambda: keccak_kernel.keccak_hash(
             z(2, 1184, dt=torch.uint8), z(3 if bad else 2, 32, dt=torch.uint8),
             rate=136, suffix=0x06, out_len=32),
+        # ML-DSA's codec on its ring of 256 words; a wrong row length refused
+        "mldsa_w1_encode": lambda: mldsa_kernel.w1_encode(z(6, 2, 256 + (2 if bad else 0))),
+        "mldsa_check": lambda: mldsa_kernel.sign_check(
+            z(2, 5, 256 + (2 if bad else 0)), z(6, 2, 256), z(17, 2, 256), z(2, dt=torch.bool)),
     }
 
 
